@@ -3,13 +3,18 @@ for NVIDIA Hopper (sm_90a).
 
 A port of `lpcnet_tpu` (JAX/Pallas) that imports neither JAX nor the JAX
 package. Module names mirror `lpcnet_tpu` so each counterpart is easy to
-find. This slice covers vocoder synthesis: per-frame features -> the
-frame-rate network -> the 160-step autoregressive sample loop (the CUDA
-kernel in `kernels/csrc/sample_loop.cu`) -> 16-bit PCM.
+find. It covers vocoder synthesis (per-frame features -> the frame-rate
+network -> the 160-step autoregressive sample loop, the CUDA kernel in
+`kernels/csrc/sample_loop.cu` -> 16-bit PCM) and vocoder training
+(`train/train_lpcnet.py`: the teacher-forced training graph whose two GRU
+recurrences run through the CUDA kernels of `kernels/csrc/gru_train.cu`,
+forward and backward, with optional scheduled sampling through the masked
+form of the sample loop).
 
 Entry points (`api.load_model`, `api.Synthesizer`, `codec.decoder.
-LPCNetDecoder.from_fused`, `cli`) run on the GPU unless the caller passes
-`device="cpu"`; without CUDA and without that request they raise.
+LPCNetDecoder.from_fused`, `cli`, `train.train_lpcnet.Trainer` and its
+`main`, `train.data.DeviceLPCNetLoader`) run on the GPU unless the caller
+passes `device="cpu"`; without CUDA and without that request they raise.
 """
 
 __version__ = "0.1.0"

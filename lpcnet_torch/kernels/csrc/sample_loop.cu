@@ -1,7 +1,9 @@
-// K1: the LPCNet autoregressive sample loop, one frame per launch.
+// K1 and K2: the LPCNet autoregressive sample loop, one frame per launch,
+// free-running (K1) or with per-stream, per-sample control masks (K2).
 //
-// Replaces the TPU kernel lpcnet_tpu/kernels/sample_loop.py::_ar_kernel run
-// free (masked=False, sampled=True), with its helpers _gru_ab, _draw_bytes /
+// Replaces the TPU kernel lpcnet_tpu/kernels/sample_loop.py::_ar_kernel, run
+// free (masked=False, sampled=True: K1) and masked (masked=True, with or
+// without the sampler: K2), with its helpers _gru_ab, _draw_bytes /
 // _kiss99, _bit_tree (v1) and _lin2ulaw / _ulaw2lin. Each stream runs
 // n_samples dependent steps: LPC prediction, u-law codes, the three-row
 // embedding gather plus the reset-after GRU-A, GRU-B, the dual-FC node
@@ -33,6 +35,14 @@
 //   decisions are `logit - thr > 0`. Scalar float code uses explicit
 //   _rn intrinsics where the plain PyTorch version rounds each operation,
 //   so nvcc cannot contract it into FMAs with a different rounding.
+// * K2 is the same kernel body under a template flag, so K1 keeps its code:
+//   a mode word per stream and sample (bit 0 advance, bit 1 teacher-force).
+//   With advance off the stream's whole state, its KISS99 words included,
+//   stays as it is and the sample is 0. With teacher-force on, the target
+//   (in the de-emphasised domain) sets the excitation and the sample. With
+//   sampled == 0 the dual-FC and the tree are skipped; every advanced step
+//   must then be teacher-forced. A ragged last block is masked as in K1, so
+//   the TPU wrapper's padding of streams to a multiple of 256 is gone.
 // Tensor cores (wgmma, int8 MMA), TMA and weights in shared memory are
 // later work.
 
@@ -70,6 +80,10 @@ struct Args {
   float* ha_out; float* hb_out; float* sig_out;
   int* exc_out; float* de_out; long long* rng_out;
   float* pcm;               // [B, n_samples]
+  // K2 only
+  const float* preload;     // [B, n_samples] target, de-emphasised domain
+  const int* mode;          // [B, n_samples] advance | teacher_force << 1
+  int sampled;
 };
 
 // constants as float32 roundings of the Python doubles the plain version uses
@@ -135,7 +149,7 @@ __device__ __forceinline__ float gru_out(float gz, float rz, float gr, float rr,
   return __fadd_rn(__fmul_rn(z, h0), __fmul_rn(__fsub_rn(1.f, z), hc));
 }
 
-template <int FORM>
+template <int FORM, bool MASKED>
 __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
   typedef typename std::conditional<FORM == FORM_F32, float,
       typename std::conditional<FORM == FORM_BF16, __nv_bfloat16, int8_t>::type>::type W;
@@ -164,6 +178,7 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
   float* pred = de + BT;               // [BT]
   int* code = (int*)(pred + BT);       // [BT][3] sig_u, pred_u, exc
   unsigned* rng = (unsigned*)(code + 3 * BT);  // [BT][4]
+  int* mflag = (int*)(rng + 4 * BT);           // [BT] this step's mode (K2)
 
   // load the carried state; missing streams of the last block stay zero
   for (int i = tid; i < BT * na; i += NTHREADS) {
@@ -200,6 +215,7 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
       pred[s] = -acc;
       code[3 * s] = lin2ulaw(sig[s * LPC_ORDER]);
       code[3 * s + 1] = lin2ulaw(-acc);
+      mflag[s] = (MASKED && s < nact) ? p.mode[(size_t)(b0 + s) * p.n_samples + t] : 3;
     }
     for (int i = tid; i < BT * na; i += NTHREADS) hop[i] = operand<FORM>(ha[i]);
     for (int i = tid; i < BT * nb; i += NTHREADS) hbop[i] = operand<FORM>(hb[i]);
@@ -226,6 +242,7 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
 #pragma unroll
       for (int s = 0; s < BT; ++s) {
         if (s >= nact) continue;
+        if (MASKED && !(mflag[s] & 1)) continue;   // frozen: h_a stays
         const float* ca = p.cond_a + (size_t)(b0 + s) * na3;
         const int r0 = code[3 * s], r1 = 256 + code[3 * s + 1], r2 = 512 + code[3 * s + 2];
         const float h0 = ha[s * na + u];
@@ -275,6 +292,7 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
     for (int o = tid; o < BT * nb; o += NTHREADS) {
       const int s = o / nb, u = o % nb;
       if (s >= nact) continue;
+      if (MASKED && !(mflag[s] & 1)) continue;     // frozen: h_b stays
       const float* gi = gin + s * nb3;
       const float* gr = grec + s * nb3;
       hb[o] = gru_out(gi[u], gr[u], gi[nb + u], gr[nb + u], gi[2 * nb + u], gr[2 * nb + u], hb[o]);
@@ -282,6 +300,7 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
     __syncthreads();
 
     // (d) dual-FC node logits: both channels of node n from columns n, 256+n
+    if (!MASKED || p.sampled)
     for (int o = tid; o < BT * 256; o += NTHREADS) {
       const int s = o >> 8, n = o & 255;
       if (s >= nact) continue;
@@ -300,25 +319,41 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
     // (e) tree descent, excitation -> PCM, state update: one thread per stream
     if (tid < nact) {
       const int s = tid;
-      unsigned* st = rng + 4 * s;
-      const unsigned r1 = kiss99(st);
-      const unsigned r2 = kiss99(st);
-      int val = 0;
+      const int m = mflag[s];
+      if (MASKED && !(m & 1)) {
+        // advance off: state and RNG frozen, the sample is 0
+        p.pcm[(size_t)(b0 + s) * p.n_samples + t] = 0.f;
+      } else {
+        unsigned* st = rng + 4 * s;
+        const unsigned r1 = kiss99(st);
+        const unsigned r2 = kiss99(st);
+        int val = 0;
+        if (!MASKED || p.sampled) {
 #pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const unsigned byte = ((b < 4 ? r1 : r2) >> (8 * (b & 3))) & 0xFFu;
-        const float diff = __fsub_rn(logits[s * 256 + ((1 << b) | val)], p.logit_table[byte]);
-        val = (val << 1) | (diff > 0.f ? 1 : 0);
+          for (int b = 0; b < 8; ++b) {
+            const unsigned byte = ((b < 4 ? r1 : r2) >> (8 * (b & 3))) & 0xFFu;
+            const float diff = __fsub_rn(logits[s * 256 + ((1 << b) | val)], p.logit_table[byte]);
+            val = (val << 1) | (diff > 0.f ? 1 : 0);
+          }
+        }
+        float pcm;
+        if (MASKED && (m & 2)) {
+          // teacher-force: the target gives the sample and its excitation
+          pcm = __fsub_rn(p.preload[(size_t)(b0 + s) * p.n_samples + t],
+                          __fmul_rn(PREEMPH, de[s]));
+          val = lin2ulaw(__fsub_rn(pcm, pred[s]));
+        } else {
+          pcm = __fadd_rn(pred[s], ulaw2lin(val));
+        }
+        float* hist = sig + s * LPC_ORDER;
+        for (int j = LPC_ORDER - 1; j > 0; --j) hist[j] = hist[j - 1];
+        hist[0] = pcm;
+        code[3 * s + 2] = val;
+        const float out = __fadd_rn(pcm, __fmul_rn(PREEMPH, de[s]));
+        de[s] = out;
+        p.pcm[(size_t)(b0 + s) * p.n_samples + t] =
+            floorf(__fadd_rn(0.5f, fminf(fmaxf(out, -32767.f), 32767.f)));
       }
-      const float pcm = __fadd_rn(pred[s], ulaw2lin(val));
-      float* hist = sig + s * LPC_ORDER;
-      for (int j = LPC_ORDER - 1; j > 0; --j) hist[j] = hist[j - 1];
-      hist[0] = pcm;
-      code[3 * s + 2] = val;
-      const float out = __fadd_rn(pcm, __fmul_rn(PREEMPH, de[s]));
-      de[s] = out;
-      p.pcm[(size_t)(b0 + s) * p.n_samples + t] =
-          floorf(__fadd_rn(0.5f, fminf(fmaxf(out, -32767.f), 32767.f)));
     }
     __syncthreads();
   }
@@ -340,33 +375,50 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
 
 static size_t smem_bytes(int na, int nb) {
   return sizeof(float) * ((size_t)BT * (2 * na + 2 * nb + 6 * nb + 256 + 2 * LPC_ORDER + 2))
-       + sizeof(int) * 3 * BT + sizeof(unsigned) * 4 * BT;
+       + sizeof(int) * 3 * BT + sizeof(unsigned) * 4 * BT + sizeof(int) * BT;
 }
 
-template <int FORM>
+template <int FORM, bool MASKED>
 static cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.na, a.nb);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ar_kernel<FORM>,
+    cudaError_t e = cudaFuncSetAttribute(ar_kernel<FORM, MASKED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int grid = (a.batch + BT - 1) / BT;
-  ar_kernel<FORM><<<grid, NTHREADS, smem, stream>>>(a);
+  ar_kernel<FORM, MASKED><<<grid, NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-extern "C" int lpcnet_sample_loop(
-    int form, int batch, int na, int nb, int n_samples,
-    const void* emb, const void* emb_scale, const void* a_rec, const void* a_diag,
-    const void* a_bias1, const void* b_in, const void* b_rec, const void* b_bias1,
-    const void* dual_w, const void* dual_bias, const void* dual_factor,
-    const void* logit_table, const void* cond_a, const void* cond_b, const void* lpc,
-    const void* ha_in, const void* hb_in, const void* sig_in, const void* exc_in,
-    const void* de_in, const void* rng_in,
-    void* ha_out, void* hb_out, void* sig_out, void* exc_out, void* de_out,
-    void* rng_out, void* pcm, void* stream) {
-  if (batch <= 0 || n_samples <= 0) return (int)cudaErrorInvalidValue;
+template <bool MASKED>
+static int launch_form(int form, const Args& a, cudaStream_t s) {
+  switch (form) {
+    case FORM_F32: return (int)launch<FORM_F32, MASKED>(a, s);
+    case FORM_BF16: return (int)launch<FORM_BF16, MASKED>(a, s);
+    case FORM_Q8: return (int)launch<FORM_Q8, MASKED>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#define SAMPLE_LOOP_PARAMS \
+    int form, int batch, int na, int nb, int n_samples, \
+    const void* emb, const void* emb_scale, const void* a_rec, const void* a_diag, \
+    const void* a_bias1, const void* b_in, const void* b_rec, const void* b_bias1, \
+    const void* dual_w, const void* dual_bias, const void* dual_factor, \
+    const void* logit_table, const void* cond_a, const void* cond_b, const void* lpc, \
+    const void* ha_in, const void* hb_in, const void* sig_in, const void* exc_in, \
+    const void* de_in, const void* rng_in, \
+    void* ha_out, void* hb_out, void* sig_out, void* exc_out, void* de_out, \
+    void* rng_out, void* pcm
+
+#define SAMPLE_LOOP_ARGS \
+    form, batch, na, nb, n_samples, emb, emb_scale, a_rec, a_diag, a_bias1, b_in, b_rec, \
+    b_bias1, dual_w, dual_bias, dual_factor, logit_table, cond_a, cond_b, lpc, ha_in, hb_in, \
+    sig_in, exc_in, de_in, rng_in, ha_out, hb_out, sig_out, exc_out, de_out, rng_out, pcm
+
+static Args make_args(SAMPLE_LOOP_PARAMS) {
+  (void)form;
   Args a;
   a.batch = batch; a.na = na; a.nb = nb; a.n_samples = n_samples;
   a.emb = emb; a.emb_scale = (const float*)emb_scale;
@@ -381,11 +433,23 @@ extern "C" int lpcnet_sample_loop(
   a.ha_out = (float*)ha_out; a.hb_out = (float*)hb_out; a.sig_out = (float*)sig_out;
   a.exc_out = (int*)exc_out; a.de_out = (float*)de_out; a.rng_out = (long long*)rng_out;
   a.pcm = (float*)pcm;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (form) {
-    case FORM_F32: return (int)launch<FORM_F32>(a, s);
-    case FORM_BF16: return (int)launch<FORM_BF16>(a, s);
-    case FORM_Q8: return (int)launch<FORM_Q8>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  a.preload = nullptr; a.mode = nullptr; a.sampled = 1;
+  return a;
+}
+
+// K1: free-running
+extern "C" int lpcnet_sample_loop(SAMPLE_LOOP_PARAMS, void* stream) {
+  if (batch <= 0 || n_samples <= 0) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(SAMPLE_LOOP_ARGS);
+  return launch_form<false>(form, a, (cudaStream_t)stream);
+}
+
+// K2: masked. preload [B, n_samples] f32, mode [B, n_samples] int32
+// (advance | teacher_force << 1); sampled == 0 skips the sampler.
+extern "C" int lpcnet_sample_loop_masked(SAMPLE_LOOP_PARAMS, const void* preload,
+                                         const void* mode, int sampled, void* stream) {
+  if (batch <= 0 || n_samples <= 0 || !preload || !mode) return (int)cudaErrorInvalidValue;
+  Args a = make_args(SAMPLE_LOOP_ARGS);
+  a.preload = (const float*)preload; a.mode = (const int*)mode; a.sampled = sampled;
+  return launch_form<true>(form, a, (cudaStream_t)stream);
 }

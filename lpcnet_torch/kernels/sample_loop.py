@@ -1,11 +1,13 @@
-"""The autoregressive sample loop (K1): one 10 ms frame of 160 dependent
-steps per stream, as one CUDA kernel launch (`csrc/sample_loop.cu`).
+"""The autoregressive sample loop: one 10 ms frame of 160 dependent steps
+per stream, as one CUDA kernel launch (`csrc/sample_loop.cu`), free-running
+(K1) or under per-stream, per-sample control masks (K2).
 
-Port of `lpcnet_tpu/kernels/sample_loop.py::_ar_kernel` run free
-(masked=False, sampled=True). Each step: LPC prediction, u-law codes, the
-three-row embedding gather plus reset-after GRU-A, GRU-B, the dual-FC node
-logits, the 8-bit tree descent on KISS99 threshold bytes, de-emphasis, clip
-and round. The carried state is (h_a, h_b, last_sig, last_exc, deemph, rng).
+Port of `lpcnet_tpu/kernels/sample_loop.py::_ar_kernel`, run free
+(masked=False, sampled=True) and masked (masked=True). Each step: LPC
+prediction, u-law codes, the three-row embedding gather plus reset-after
+GRU-A, GRU-B, the dual-FC node logits, the 8-bit tree descent on KISS99
+threshold bytes, de-emphasis, clip and round. The carried state is (h_a,
+h_b, last_sig, last_exc, deemph, rng).
 
 * `kernel_weights` builds the kernel's weight bundle (f32/bf16 operands, or
   the q8 form with the per-column-scaled int8 embedding), as the JAX
@@ -15,6 +17,13 @@ and round. The carried state is (h_a, h_b, last_sig, last_exc, deemph, rng).
   kernel against it.
 * `synthesize_frame_kernel` is the wrapper: on a CPU tensor it runs the
   plain version; on a CUDA tensor it launches the kernel or raises.
+* `sample_loop_masked_plain` / `synthesize_frame_masked_kernel` are the same
+  pair for K2. An advance mask freezes a stream's whole state (its KISS99
+  words included) and emits 0 for the sample; a teacher-force mask takes the
+  sample and its excitation from a target in the de-emphasised domain
+  (the C preload semantics, src/lpcnet.c:256-259); `sampled=False` skips the
+  dual-FC sampler and is legal only when every advanced step is
+  teacher-forced. Users: scheduled sampling in training, batched PLC.
 """
 
 from __future__ import annotations
@@ -136,13 +145,11 @@ def _fdot(h, w32, wdt):
     return h.to(wdt).to(torch.float32) @ w32
 
 
-def sample_loop_plain(kw, state: SampleState, cond_a, cond_b, lpc,
-                      n_samples: int = 160):
-    """K1's plain PyTorch version: the kernel's arithmetic, one step at a
-    time, on whatever device the tensors are on.
-
-    Returns (new_state, pcm [B, n_samples] float, rounded, in +-32767).
-    """
+def _plain_loop(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
+                preload=None, tf=None, adv=None, sampled=True):
+    """The kernel's arithmetic, one step at a time; with masks (K2) when
+    `preload` [B, n] float, `tf` and `adv` [B, n] bool are given."""
+    masked = preload is not None
     q8 = is_q8_bundle(kw)
     na = kw["a_bias1"].shape[-1] // 3
     nb = kw["b_bias1"].shape[-1] // 3
@@ -158,7 +165,7 @@ def sample_loop_plain(kw, state: SampleState, cond_a, cond_b, lpc,
         a_rec, b_in, b_rec = (kw[k].to(torch.float32)
                               for k in ("a_rec", "b_in", "b_rec"))
     out = []
-    for _ in range(n_samples):
+    for t in range(n_samples):
         pred = -(sig * lpc).sum(-1)
         sig_u = mulaw.lin2ulaw(sig[:, 0]).long()
         pred_u = mulaw.lin2ulaw(pred).long()
@@ -170,30 +177,75 @@ def sample_loop_plain(kw, state: SampleState, cond_a, cond_b, lpc,
         else:
             gate_a = cond_a + esum
             zrec = _fdot(ha, a_rec, wdt) + kw["a_bias1"]
-        ha = _gru(ha, gate_a, zrec, na)
+        ha_new = _gru(ha, gate_a, zrec, na)
         if q8:
-            gate_b = cond_b + _qdot(ha, kw["b_in_q8"])
+            gate_b = cond_b + _qdot(ha_new, kw["b_in_q8"])
             zrec_b = _qdot(hb, kw["b_rec_q8"]) + kw["b_bias1"]
         else:
-            gate_b = cond_b + _fdot(ha, b_in, wdt)
+            gate_b = cond_b + _fdot(ha_new, b_in, wdt)
             zrec_b = _fdot(hb, b_rec, wdt) + kw["b_bias1"]
-        hb = _gru(hb, gate_b, zrec_b, nb)
+        hb_new = _gru(hb, gate_b, zrec_b, nb)
 
-        pre = hb @ kw["dual_w"] + kw["dual_bias"]
-        tpre = kw["dual_factor"] * torch.tanh(pre)
-        logits = tpre[:, :256] + tpre[:, 256:]                  # [B, 256]
-        bytes_, rng = draw_threshold_bytes(rng)
+        bytes_, rng_new = draw_threshold_bytes(rng)
         val = torch.zeros_like(exc)
-        for b in range(8):
-            node = logits.gather(1, ((1 << b) | val)[:, None])[:, 0]
-            val = (val << 1) | (node - table[bytes_[b]] > 0).long()
-        pcm = pred + mulaw.ulaw2lin(val)
-        exc = val
-        sig = torch.cat([pcm[:, None], sig[:, :LPC_ORDER - 1]], dim=1)
-        de = pcm + PREEMPHASIS * de
-        out.append(torch.floor(0.5 + torch.clamp(de, -32767.0, 32767.0)))
+        if sampled:
+            pre = hb_new @ kw["dual_w"] + kw["dual_bias"]
+            tpre = kw["dual_factor"] * torch.tanh(pre)
+            logits = tpre[:, :256] + tpre[:, 256:]              # [B, 256]
+            for b in range(8):
+                node = logits.gather(1, ((1 << b) | val)[:, None])[:, 0]
+                val = (val << 1) | (node - table[bytes_[b]] > 0).long()
+        if masked:
+            tf_t, adv_t = tf[:, t], adv[:, t]
+            pcm_tf = preload[:, t] - PREEMPHASIS * de
+            val = torch.where(tf_t, mulaw.lin2ulaw(pcm_tf - pred).long(), val)
+            pcm = torch.where(tf_t, pcm_tf, pred + mulaw.ulaw2lin(val))
+        else:
+            pcm = pred + mulaw.ulaw2lin(val)
+        sig_new = torch.cat([pcm[:, None], sig[:, :LPC_ORDER - 1]], dim=1)
+        de_new = pcm + PREEMPHASIS * de
+        o = torch.floor(0.5 + torch.clamp(de_new, -32767.0, 32767.0))
+        if masked:
+            a1 = adv_t[:, None]
+            ha = torch.where(a1, ha_new, ha)
+            hb = torch.where(a1, hb_new, hb)
+            sig = torch.where(a1, sig_new, sig)
+            exc = torch.where(adv_t, val, exc)
+            de = torch.where(adv_t, de_new, de)
+            rng = Kiss99State(*(torch.where(adv_t, n, o_)
+                                for n, o_ in zip(rng_new, rng)))
+            o = torch.where(adv_t, o, torch.zeros_like(o))
+        else:
+            ha, hb, sig, exc, de, rng = (ha_new, hb_new, sig_new, val, de_new,
+                                         rng_new)
+        out.append(o)
     new_state = SampleState(ha, hb, sig, exc.to(torch.int32), de, rng)
     return new_state, torch.stack(out, dim=1)
+
+
+def sample_loop_plain(kw, state: SampleState, cond_a, cond_b, lpc,
+                      n_samples: int = 160):
+    """K1's plain PyTorch version: the kernel's arithmetic, one step at a
+    time, on whatever device the tensors are on.
+
+    Returns (new_state, pcm [B, n_samples] float, rounded, in +-32767).
+    """
+    return _plain_loop(kw, state, cond_a, cond_b, lpc, n_samples)
+
+
+def sample_loop_masked_plain(kw, state: SampleState, cond_a, cond_b, lpc,
+                             preload, preload_mask, advance_mask,
+                             n_samples: int = 160, sampled: bool = True):
+    """K2's plain PyTorch version: `sample_loop_plain` under the masks of
+    `models.lpcnet.synthesize_frame_masked`, in the kernel's arithmetic.
+
+    preload [B, n] float target (de-emphasised domain), preload_mask and
+    advance_mask [B, n] bool. Returns (new_state, pcm [B, n_samples]).
+    """
+    return _plain_loop(kw, state, cond_a, cond_b, lpc, n_samples,
+                       preload=preload.to(torch.float32),
+                       tf=preload_mask.bool(), adv=advance_mask.bool(),
+                       sampled=sampled)
 
 
 # --------------------------------------------------------------------------
@@ -208,9 +260,12 @@ def _lib():
     if _LIB is None:
         from ._build import load_library
         lib = load_library("sample_loop")
-        fn = lib.lpcnet_sample_loop
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 29
-        fn.restype = ctypes.c_int
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.lpcnet_sample_loop.argtypes = [ci] * 5 + [vp] * 29
+        lib.lpcnet_sample_loop.restype = ci
+        lib.lpcnet_sample_loop_masked.argtypes = ([ci] * 5 + [vp] * 30
+                                                  + [ci, vp])
+        lib.lpcnet_sample_loop_masked.restype = ci
         _LIB = lib
     return _LIB
 
@@ -226,20 +281,11 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def synthesize_frame_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
-                            n_samples: int = 160):
-    """One frame of the sample loop: (new_state, pcm [B, n_samples]).
-
-    On a CPU tensor this runs `sample_loop_plain`. On a CUDA tensor it
-    launches the CUDA kernel (built on first use) and counts the launch in
-    `synthesize_frame_kernel.launches`; any other device raises. Any batch
-    size works: the kernel masks the ragged last block of streams.
-    """
+def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
+            masked=None):
+    """Check the operands, allocate the outputs and launch the kernel on the
+    current stream; `masked` is None (K1) or (preload, mode, sampled)."""
     dev = cond_a.device
-    if dev.type == "cpu":
-        return sample_loop_plain(kw, state, cond_a, cond_b, lpc, n_samples)
-    if dev.type != "cuda":
-        raise ValueError(f"sample loop kernel: unsupported device {dev}")
     q8 = is_q8_bundle(kw)
     b, na3 = cond_a.shape
     na = na3 // 3
@@ -283,6 +329,10 @@ def synthesize_frame_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
     _check("last_exc", exc_in, (b,), torch.int32, dev)
     _check("deemph", de_in, (b,), f32, dev)
     _check("rng", rng_in, (b, 4), torch.int64, dev)
+    if masked is not None:
+        preload, mode, sampled = masked
+        _check("preload", preload, (b, n_samples), f32, dev)
+        _check("mode", mode, (b, n_samples), torch.int32, dev)
 
     ha, hb, sig, de = (torch.empty_like(x) for x in (ha_in, hb_in, sig_in,
                                                      de_in))
@@ -290,10 +340,7 @@ def synthesize_frame_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
     rng = torch.empty_like(rng_in)
     pcm = torch.empty((b, n_samples), dtype=f32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().lpcnet_sample_loop(
-            form, b, na, nb, n_samples,
+    args = (form, b, na, nb, n_samples,
             ptr(emb), ptr(emb_scale), ptr(a_rec), ptr(a_diag),
             ptr(kw["a_bias1"]), ptr(b_in), ptr(b_rec), ptr(kw["b_bias1"]),
             ptr(kw["dual_w"]), ptr(kw["dual_bias"]), ptr(kw["dual_factor"]),
@@ -301,14 +348,69 @@ def synthesize_frame_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
             ptr(cond_a), ptr(cond_b), ptr(lpc),
             ptr(ha_in), ptr(hb_in), ptr(sig_in), ptr(exc_in), ptr(de_in),
             ptr(rng_in),
-            ptr(ha), ptr(hb), ptr(sig), ptr(exc), ptr(de), ptr(rng), ptr(pcm),
-            stream)
+            ptr(ha), ptr(hb), ptr(sig), ptr(exc), ptr(de), ptr(rng), ptr(pcm))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if masked is None:
+            err = _lib().lpcnet_sample_loop(*args, stream)
+        else:
+            err = _lib().lpcnet_sample_loop_masked(
+                *args, ptr(preload), ptr(mode), int(bool(sampled)), stream)
     if err != 0:
         raise RuntimeError(f"sample loop kernel launch failed: CUDA error {err}")
-    synthesize_frame_kernel.launches += 1
     new_state = SampleState(ha, hb, sig, exc, de,
                             Kiss99State(*torch.unbind(rng, dim=1)))
     return new_state, pcm
 
 
+def synthesize_frame_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
+                            n_samples: int = 160):
+    """One frame of the sample loop: (new_state, pcm [B, n_samples]).
+
+    On a CPU tensor this runs `sample_loop_plain`. On a CUDA tensor it
+    launches the CUDA kernel (built on first use) and counts the launch in
+    `synthesize_frame_kernel.launches`; any other device raises. Any batch
+    size works: the kernel masks the ragged last block of streams.
+    """
+    dev = cond_a.device
+    if dev.type == "cpu":
+        return sample_loop_plain(kw, state, cond_a, cond_b, lpc, n_samples)
+    if dev.type != "cuda":
+        raise ValueError(f"sample loop kernel: unsupported device {dev}")
+    out = _launch(kw, state, cond_a, cond_b, lpc, n_samples)
+    synthesize_frame_kernel.launches += 1
+    return out
+
+
 synthesize_frame_kernel.launches = 0
+
+
+def synthesize_frame_masked_kernel(kw, state: SampleState, cond_a, cond_b,
+                                   lpc, preload, preload_mask, advance_mask,
+                                   n_samples: int = 160, sampled: bool = True):
+    """One masked frame (K2): (new_state, pcm [B, n_samples]).
+
+    preload [B, n] float target in the de-emphasised domain; preload_mask
+    and advance_mask [B, n] bool (see `sample_loop_masked_plain`). On a CPU
+    tensor this runs the plain version; on a CUDA tensor it launches the
+    masked kernel and counts the launch in
+    `synthesize_frame_masked_kernel.launches`; any other device raises. Any
+    batch size works, with no padding of streams.
+    """
+    dev = cond_a.device
+    if dev.type == "cpu":
+        return sample_loop_masked_plain(kw, state, cond_a, cond_b, lpc,
+                                        preload, preload_mask, advance_mask,
+                                        n_samples, sampled)
+    if dev.type != "cuda":
+        raise ValueError(f"sample loop kernel: unsupported device {dev}")
+    mode = (advance_mask.to(torch.int32)
+            | (preload_mask.to(torch.int32) << 1)).contiguous()
+    preload = preload.to(torch.float32).contiguous()
+    out = _launch(kw, state, cond_a, cond_b, lpc, n_samples,
+                  masked=(preload, mode, sampled))
+    synthesize_frame_masked_kernel.launches += 1
+    return out
+
+
+synthesize_frame_masked_kernel.launches = 0

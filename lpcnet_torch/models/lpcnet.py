@@ -1,5 +1,5 @@
 """The LPCNet vocoder: frame-rate conditioning + the sample-rate AR core,
-inference only.
+for inference, and the sequence-form training graph.
 
 Parameters are nested dicts of tensors in the JAX package's layout
 (`lpcnet_tpu/models/lpcnet.py`). For inference they are *fused* as the
@@ -11,6 +11,12 @@ per-frame conditioning matrices.
 `synthesize_frame` here is the plain step-by-step reference of one frame,
 float or q8. The production path on the GPU is the CUDA sample-loop kernel
 (`kernels/sample_loop.py`).
+
+`training_forward` is the training graph (teacher-forced, whole chunks):
+the 'valid' frame network, the fractional embedding of the three u-law
+inputs, GRU-A and GRU-B over the chunk and the DualFC bit-tree outputs. On
+a card its two recurrences run through the CUDA kernel of
+`kernels/gru_train.py`.
 """
 
 from __future__ import annotations
@@ -331,3 +337,165 @@ def synthesize_frame(fused, state: SampleState, cond_a, cond_b, lpc,
         st = SampleState(h_a, h_b, sig, exc, o, rng)
         out.append(torch.clamp(o, -32767.0, 32767.0))
     return st, torch.floor(0.5 + torch.stack(out, dim=-1))
+
+
+def synthesize_frame_masked(fused, state: SampleState, cond_a, cond_b, lpc,
+                            preload, preload_mask, advance_mask):
+    """synthesize_frame with per-stream, per-sample control masks, step by
+    step in plain float32 (or q8) arithmetic.
+
+    preload [B, n] teacher waveform in the de-emphasised domain (read only
+    where preload_mask); preload_mask [B, n] bool teacher-forces the sample
+    (the C preload semantics, src/lpcnet.c:256-259); advance_mask [B, n]
+    bool: where False the stream's state, its RNG included, is frozen and
+    the output sample is 0, as if the stream had not been stepped.
+    Returns (new_state, pcm [B, n]). The CUDA kernel of this function is
+    `kernels.sample_loop.synthesize_frame_masked_kernel`.
+    """
+    st = state
+    out = []
+    preload = preload.to(torch.float32)
+    preload_mask, advance_mask = preload_mask.bool(), advance_mask.bool()
+    for t in range(preload.shape[-1]):
+        tf, adv = preload_mask[..., t], advance_mask[..., t]
+        pred = -(st.last_sig * lpc).sum(-1)
+        sig_u = mulaw.lin2ulaw(st.last_sig[..., 0])
+        pred_u = mulaw.lin2ulaw(pred)
+        h_a, h_b, exc, rng = sample_network_step(fused, st, cond_a, cond_b,
+                                                 sig_u, pred_u)
+        pcm_tf = preload[..., t] - PREEMPHASIS * st.deemph
+        exc = torch.where(tf, mulaw.lin2ulaw(pcm_tf - pred), exc)
+        pcm = torch.where(tf, pcm_tf, pred + mulaw.ulaw2lin(exc))
+        sig = torch.cat([pcm[..., None], st.last_sig[..., :-1]], dim=-1)
+        o = pcm + PREEMPHASIS * st.deemph
+        new = SampleState(h_a, h_b, sig, exc, o, rng)
+        keep = lambda n, old: torch.where(
+            adv.reshape(adv.shape + (1,) * (n.dim() - adv.dim())), n, old)
+        st = SampleState(*(keep(n, old) for n, old in zip(new[:5], st[:5])),
+                         Kiss99State(*(keep(n, old)
+                                       for n, old in zip(rng, st.rng))))
+        out.append(torch.where(adv, torch.clamp(o, -32767.0, 32767.0),
+                               torch.zeros_like(o)))
+    return st, torch.floor(0.5 + torch.stack(out, dim=-1))
+
+
+# --------------------------------------------------------------------------
+# Training graph (sequence form; training_tf2/lpcnet.py:234-313)
+# --------------------------------------------------------------------------
+
+def diff_embed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Fractional embedding lookup (training_tf2/diffembed.py:35-41): weight
+    1-alpha on row trunc(x) and alpha on row trunc(x)+1, both clamped to
+    0..255, with alpha = x - floor(x). With the input noise on, x goes below
+    0, where floor and trunc differ; the index arithmetic is the JAX
+    package's. Two row gathers and a lerp (the JAX package's soft one-hot
+    matmul computes the same value and gradient for the TPU's matrix unit).
+    """
+    alpha = (x - torch.floor(x))[..., None]
+    i0 = x.to(torch.int32).long()                  # trunc, like table[i0]
+    # embedding() and not table[idx]: its backward sums the many duplicates
+    # of each of the 256 rows by segments, not one scattered add per element
+    lo = torch.nn.functional.embedding(torch.clamp(i0, 0, 255), table)
+    hi = torch.nn.functional.embedding(torch.clamp(i0 + 1, 0, 255), table)
+    return (1.0 - alpha) * lo + alpha * hi
+
+
+def frame_network_seq(params, features, periods, cfg: LPCNetConfig):
+    """Training-mode frame-rate net with 'valid' convs: features
+    [B, Tf, 20], periods [B, Tf] int -> cfeat [B, Tf-4, cond]."""
+    pembed = nn.embedding(params["embed_pitch"], torch.clamp(periods, 0, 255))
+    x = torch.cat([features[..., :cfg.nb_used_features], pembed], dim=-1)
+    x = nn.conv1d_seq(params["feature_conv1"], x, "tanh")
+    x = nn.conv1d_seq(params["feature_conv2"], x, "tanh")
+    x = nn.dense(params["feature_dense1"], x, "tanh")
+    return nn.dense(params["feature_dense2"], x, "tanh")
+
+
+def _train_gru_impl(device: torch.device, gru_impl: str = "auto"):
+    """The GRU-sequence recurrence of the training graph: the CUDA kernel
+    (`kernels/gru_train.py`, the CuDNNGRU role of training_tf2/lpcnet.py:32,
+    bf16-operand products) on a card, the plain float32 `nn.gru_seq` on the
+    CPU. `gru_impl` = "scan" asks for the plain float32 recurrence on any
+    device, "kernel" for the kernel path's numerics on any device (on the
+    CPU that is the kernel's plain version)."""
+    if gru_impl not in ("auto", "scan", "kernel"):
+        raise ValueError(f"unknown gru_impl {gru_impl}")
+    if gru_impl == "scan" or (gru_impl == "auto" and device.type == "cpu"):
+        return nn.gru_seq
+    from ..kernels.gru_train import gru_seq_kernel
+    return gru_seq_kernel
+
+
+def _randn(shape, rng: torch.Generator, device) -> torch.Tensor:
+    """Standard normal draws from `rng`, made on the generator's device."""
+    return torch.randn(shape, generator=rng, device=rng.device,
+                       dtype=torch.float32).to(device)
+
+
+def training_forward(params, cfg: LPCNetConfig, sig_in, features, periods,
+                     lpc=None, rng: torch.Generator | None = None,
+                     training: bool = True, gru_states=None,
+                     noise_std: float = 0.3, exc_hist_override=None,
+                     gru_impl: str = "auto"):
+    """Full training graph.
+
+    sig_in [B, T] linear signal input (the target delayed by one sample);
+    features [B, Tf, 20] with Tf = T//160 + 4 (conv context); periods
+    [B, Tf] int pitch indices; lpc [B, T//160, 16] (required unless
+    cfg.e2e); rng a torch.Generator for the two Gaussian noise regularizers
+    (training only; None = no noise); gru_states optional (h_a, h_b) for
+    stateful truncated BPTT.
+
+    Returns a dict with tree_probs [B, T, 256] (the bit-tree sigmoid
+    outputs; `train.losses` reads the pdf off them), tensor_preds,
+    real_preds, cfeat, rc and the new gru states.
+    """
+    from ..train import losses as LL
+
+    b, t = sig_in.shape
+    dev = sig_in.device
+    cfeat = frame_network_seq(params, features, periods, cfg)
+    if cfg.e2e:
+        rc = cfeat[..., :LPC_ORDER]
+        lpc = lpc_mod.rc2lpc(rc)
+    else:
+        rc = None
+        if lpc is None:
+            raise ValueError("training_forward: lpc is required unless cfg.e2e")
+
+    weighting = torch.pow(
+        torch.tensor(cfg.lpc_gamma, dtype=torch.float32, device=dev),
+        torch.arange(1, LPC_ORDER + 1, dtype=torch.float32, device=dev))
+    real_preds = LL.diff_pred(sig_in, lpc, cfg.frame_size)
+    tensor_preds = LL.diff_pred(sig_in, lpc * weighting, cfg.frame_size)
+    if exc_hist_override is None:
+        # roll wraps the last prediction round to position 0, as the
+        # reference does
+        past_errors = LL.tf_l2u(sig_in - torch.roll(tensor_preds, 1, dims=-1))
+    else:
+        # scheduled sampling's "hide-exc" arm: the caller supplies the
+        # excitation-history channel (computed from the clean signal)
+        past_errors = exc_hist_override
+
+    cpcm = torch.stack([LL.tf_l2u(sig_in), LL.tf_l2u(tensor_preds),
+                        past_errors], dim=-1)                   # [B, T, 3]
+    noisy = training and rng is not None
+    if noisy:
+        cpcm = cpcm + noise_std * _randn(cpcm.shape, rng, dev)
+    emb = diff_embed(params["embed_sig"]["table"], cpcm).reshape(
+        b, t, 3 * EMBED_SIZE)
+
+    rep = torch.repeat_interleave(cfeat, cfg.frame_size, dim=-2)  # [B, T, C]
+    rnn_in = torch.cat([emb, rep], dim=-1)
+    h_a0 = gru_states[0] if gru_states is not None else None
+    h_b0 = gru_states[1] if gru_states is not None else None
+    gru_seq = _train_gru_impl(dev, gru_impl)
+    gru1, h_a = gru_seq(params["gru_a"], rnn_in, h0=h_a0)
+    if noisy:
+        gru1 = gru1 + 0.005 * _randn(gru1.shape, rng, dev)
+    gru2, h_b = gru_seq(params["gru_b"], torch.cat([gru1, rep], dim=-1),
+                        h0=h_b0)
+    p = nn.mdense(params["dual_fc"], gru2, "sigmoid")
+    return {"tree_probs": p, "tensor_preds": tensor_preds,
+            "real_preds": real_preds, "cfeat": cfeat, "rc": rc,
+            "gru_states": (h_a, h_b)}

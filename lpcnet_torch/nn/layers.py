@@ -6,6 +6,8 @@ parameter layouts:
 * embedding: {"table": [vocab, dim]}
 * reset-after GRU, gate order z, r, h: {"recurrent": [N, 3N], "bias": [2, 3N]}
 * mdense (DualFC): {"kernel": [in, out, 2], "bias": [out, 2], "factor": [out, 2]}
+* GRU with its input weights (the training graph): the reset-after GRU's
+  keys plus {"kernel": [in, 3N]}, bias[0] the input bias
 
 Matmuls are float32 (callers on CUDA disable TF32, see utils.device).
 
@@ -154,3 +156,40 @@ def mdense_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
     """
     s = torch.einsum("...i,ioc->...oc", x, params["kernel"]) + params["bias"]
     return (params["factor"] * tanh(s)).sum(-1)
+
+
+# --------------------------------------------------------------------------
+# Sequence forms (the training graph)
+# --------------------------------------------------------------------------
+
+def conv1d_seq(params: Params, x: torch.Tensor, activation: str = "tanh"):
+    """'valid' sequence conv1d over [..., T, in] -> [..., T - k + 1, out], as
+    one matmul over the unfolded windows (the training graph's convs,
+    training_tf2/lpcnet.py:243-245)."""
+    kernel = params["kernel"]                                  # [k, in, out]
+    k, cin, cout = kernel.shape
+    win = x.unfold(-2, k, 1)                                   # [..., T', in, k]
+    win = win.transpose(-1, -2).reshape(win.shape[:-2] + (k * cin,))
+    y = torch.matmul(win, kernel.reshape(k * cin, cout)) + params["bias"]
+    return activate(y, activation)
+
+
+def gru_seq(params: Params, x: torch.Tensor, h0: torch.Tensor | None = None,
+            activation: str = "tanh"):
+    """Reset-after GRU over a sequence [..., T, in] -> ([..., T, N], h_T),
+    plain float32: the input product for the whole sequence is one matmul,
+    the recurrence a step-by-step loop."""
+    n = params["recurrent"].shape[0]
+    gate_in = torch.matmul(x, params["kernel"]) + params["bias"][0]
+    h = h0 if h0 is not None else x.new_zeros(x.shape[:-2] + (n,))
+    hs = []
+    for t in range(x.shape[-2]):
+        h = gru_precomputed_step(params, h, gate_in[..., t, :], activation)
+        hs.append(h)
+    return torch.stack(hs, dim=-2), h
+
+
+def mdense(params: Params, x: torch.Tensor, activation: str = "sigmoid"):
+    """DualFC: two dense channels, tanh, per-channel factor, sum, activation
+    (training_tf2/mdense.py:64-72, compute_mdense src/nnet.c:137-161)."""
+    return activate(mdense_logits(params, x), activation)

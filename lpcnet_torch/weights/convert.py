@@ -1,4 +1,4 @@
-"""Carry weights and states from the JAX package's layouts into the port.
+"""Carry weights and states between the JAX package's layouts and the port.
 
 Everything here reads plain arrays through `numpy.asarray`, so it accepts
 numpy arrays and any array type that converts to numpy (JAX arrays do)
@@ -79,3 +79,38 @@ def sample_state_to_numpy(state) -> Dict[str, np.ndarray]:
     for f, x in zip(("z", "w", "jsr", "jcong"), state.rng):
         out[f] = n(x).astype(np.uint32)
     return out
+
+
+def train_params_to_torch(tree: Any, device="cpu") -> Dict[str, Any]:
+    """Training parameters (the JAX package's nested dict or flat
+    '/'-joined keys, as numpy-convertible arrays) -> the port's nested dict
+    of float32 leaf tensors with `requires_grad`."""
+    def leafify(t):
+        if isinstance(t, dict):
+            return {k: leafify(v) for k, v in t.items()}
+        return t.detach().clone().requires_grad_(True)
+    return leafify(params_to_torch(tree, device, torch.float32))
+
+
+def _flat_numpy(tree: Any, pick, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_numpy(v, pick, f"{prefix}{k}/"))
+    else:
+        val = pick(tree)
+        if val is not None:
+            out[prefix[:-1]] = val.detach().cpu().numpy().copy()
+    return out
+
+
+def params_to_numpy(params: Any) -> Dict[str, np.ndarray]:
+    """The port's parameters -> a flat dict of numpy arrays (copies) under
+    the JAX package's leaf names ('gru_a/kernel', ...)."""
+    return _flat_numpy(params, lambda t: t)
+
+
+def grads_to_numpy(params: Any) -> Dict[str, np.ndarray]:
+    """The gradients (`.grad`) of the port's parameters, flat like
+    `params_to_numpy`; leaves without a gradient are left out."""
+    return _flat_numpy(params, lambda t: t.grad)

@@ -1,19 +1,24 @@
-"""The CUDA sample-loop kernel (K1) vs its plain PyTorch version, on a card.
+"""The CUDA kernels (the sample loop K1, its masked form K2, the GRU training
+recurrence K5) vs their plain PyTorch versions, on a card; and, without a
+card, that the trainer refuses to start rather than train on the host.
 
 Imports neither JAX nor the JAX package, so it runs on the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Without a card every test skips.
+Without a card every test marked `cuda` skips.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from lpcnet_torch.kernels import gru_train as G
 from lpcnet_torch.kernels import sample_loop as K
 from lpcnet_torch.models import lpcnet as M
 from lpcnet_torch.nn import quantized as Q
+from lpcnet_torch.train import data as D
+from lpcnet_torch.train import train_lpcnet as T
 from lpcnet_torch.utils.device import resolve_device
 
 SMALL = dict(rnn_units1=64, rnn_units2=16, cond_size=32, pitch_embed_dim=8)
@@ -73,3 +78,192 @@ def test_cuda_kernel_matches_plain(cuda, form, width):
     same = float((pk == pp).float().mean())
     if form != "bf16":
         assert same > (0.90 if form == "q8" else 0.98), same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [True, False], ids=["sampled", "unsampled"])
+@pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
+def test_cuda_masked_kernel_matches_plain(cuda, form, sampled):
+    """K2 vs its plain version at full width and an odd batch, random
+    advance and teacher-force masks over 32 steps. RNG equal; streams with
+    advance off bit-equal with PCM 0; f32 and q8 >=98% exact PCM; with
+    every advanced step teacher-forced (`unsampled`) PCM exact, q8 state too;
+    launches counted once per call."""
+    cfg = M.LPCNetConfig()
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda),
+                                    cfg)
+    if form == "q8":
+        kw = K.kernel_weights(Q.quantize_fused(fused), cfg)
+    else:
+        kw = K.kernel_weights(fused, cfg, dtype={"f32": torch.float32,
+                                                 "bf16": torch.bfloat16}[form])
+    b, n = 37, 32
+    ca, cb, lpc, s0 = _inputs(fused, cfg, b, cuda)
+    rs = np.random.RandomState(21)
+    target = torch.from_numpy((rs.normal(size=(b, n)) * 1000
+                               ).astype(np.float32)).to(cuda)
+    adv = rs.rand(b, n) < 0.7
+    adv[:5] = False
+    tf = adv.copy() if not sampled else rs.rand(b, n) < 0.5
+    adv, tf = torch.from_numpy(adv).to(cuda), torch.from_numpy(tf).to(cuda)
+    before = K.synthesize_frame_masked_kernel.launches
+    sk, pk = K.synthesize_frame_masked_kernel(kw, s0, ca, cb, lpc, target, tf,
+                                              adv, n, sampled)
+    torch.cuda.synchronize()
+    assert K.synthesize_frame_masked_kernel.launches == before + 1
+    sp, pp = K.sample_loop_masked_plain(kw, s0, ca, cb, lpc, target, tf, adv,
+                                        n, sampled)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert torch.equal(sk.gru_a[:5], s0.gru_a[:5]) and not bool(pk[:5].any())
+    assert all(torch.equal(a[:5], c[:5]) for a, c in zip(sk.rng, s0.rng))
+    assert not bool(pk[~adv].any())
+    same = float((pk == pp).float().mean())
+    if not sampled:     # target - 0.85 deemph, whatever the network says
+        assert same == 1.0, same
+    if form == "q8" and not sampled:
+        assert torch.equal(sk.gru_a, sp.gru_a)
+        assert torch.equal(sk.last_exc, sp.last_exc)
+    elif form != "bf16":
+        assert same >= 0.98, same
+    assert bool(torch.isfinite(pk).all())
+
+
+def _gru_case(n, nin, b, t, dev, seed=5):
+    rs = np.random.RandomState(seed)
+    f = lambda *s: torch.from_numpy(rs.normal(size=s).astype(np.float32)).to(dev)
+    params = {"kernel": f(nin, 3 * n) * 0.05,
+              "recurrent": f(n, 3 * n) * float(0.8 / np.sqrt(n)),
+              "bias": f(2, 3 * n) * 0.1}
+    return params, f(b, t, nin), f(b, n) * 0.3, f(b, t, n)
+
+
+def _gru_run(fn, params, x, h0, w):
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    x, h0 = x.clone().requires_grad_(True), h0.clone().requires_grad_(True)
+    gi = G.gate_input(p, x)
+    gi.retain_grad()
+    hs, ht = fn(p["recurrent"], p["bias"][1], gi, h0)
+    ((hs * w).sum() + (ht ** 2).sum()).backward()
+    grads = {"kernel": p["kernel"].grad, "recurrent": p["recurrent"].grad,
+             "bias": p["bias"].grad, "x": x.grad, "h0": h0.grad,
+             "gate_in": gi.grad}
+    return hs.detach(), ht.detach(), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nin,b,t", [(384, 512, 37, 33), (16, 400, 37, 33),
+                                       (64, 96, 9, 17), (384, 512, 128, 1)])
+def test_cuda_gru_kernel_matches_plain(cuda, n, nin, b, t):
+    """K5 forward and backward vs the plain version (autograd) at ragged
+    batches and step counts. Every kernel step within 2e-5 of a plain step
+    from the same state; the trajectory within 5e-3 (an h one float32 bit
+    apart can round to the neighbouring bf16 operand); every gradient leaf
+    within 1e-2 of its largest entry; two backward runs bit-equal; launches
+    counted, forward and backward apart."""
+    params, x, h0, w = _gru_case(n, nin, b, t, cuda)
+    before = G.GruRecurrence.launches.copy()
+    hk, htk, gk = _gru_run(G.gru_recurrence, params, x, h0, w)
+    torch.cuda.synchronize()
+    assert G.GruRecurrence.launches - before == {("fwd", n): 1, ("bwd", n): 1}
+    hp, htp, gp = _gru_run(G.gru_recurrence_plain, params, x, h0, w)
+    with torch.no_grad():
+        gi = G.gate_input(params, x)
+        hprev = torch.cat([h0[:, None], hk[:, :-1]], dim=1)
+        step, _ = G.gru_recurrence_plain(
+            params["recurrent"], params["bias"][1],
+            gi.reshape(b * t, 1, 3 * n), hprev.reshape(b * t, n))
+    assert float((step.reshape(b, t, n) - hk).abs().max()) <= 2e-5
+    assert torch.equal(htk, hk[:, -1])
+    assert float((hk - hp).abs().max()) <= 5e-3
+    for k in gp:
+        scale = max(1e-3, float(gp[k].abs().max()))
+        assert float((gk[k] - gp[k]).abs().max()) / scale <= 1e-2, k
+    _, _, gk2 = _gru_run(G.gru_recurrence, params, x, h0, w)
+    assert all(torch.equal(gk[k], gk2[k]) for k in gk)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_kernel_skips_weight_gradients_not_asked_for(cuda):
+    params, x, h0, w = _gru_case(64, 96, 5, 9, cuda)
+    gi = G.gate_input(params, x).requires_grad_(True)
+    hs, _ = G.gru_recurrence(params["recurrent"], params["bias"][1], gi, h0)
+    (hs * w).sum().backward()
+    assert gi.grad is not None and bool(torch.isfinite(gi.grad).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["default", "ss_prob", "ss_distill", "e2e",
+                                 "quantize"])
+def test_cuda_trainer_steps_through_the_kernels(cuda, arm):
+    """A small trainer on the card, every arm: K5 launched twice a step
+    forward and twice backward (the distillation teacher, which has no
+    gradient, adds two forward launches and no backward one), K2 once per
+    frame with scheduled sampling, loss finite."""
+    kw = {"default": {}, "ss_prob": dict(ss_prob=0.25),
+          "ss_distill": dict(ss_prob=0.25, ss_distill=0.5), "e2e": {},
+          "quantize": dict(quantize=True, schedule_scale=0.00005)}[arm]
+    e2e = arm == "e2e"
+    cfg = M.LPCNetConfig(**dict(SMALL, e2e=e2e))
+    rs = np.random.RandomState(0)
+    b, frames = 8, 3
+    sig = np.cumsum(rs.randn(b, frames * 160 + 1), axis=1).astype(np.float32) * 100
+    batch = {"sig_in": sig[:, :-1].copy(), "sig_out": sig[:, 1:].copy(),
+             "features": rs.randn(b, frames + 4, 20).astype(np.float32) * 0.3,
+             "periods": rs.randint(33, 255, (b, frames + 4)).astype(np.int32)}
+    lpc = (rs.randn(b, frames, 16) * 0.05).astype(np.float32)
+    batch["rc" if e2e else "lpc"] = np.tanh(lpc) if e2e else lpc
+    tr = T.Trainer(cfg, T.TrainConfig(batch_size=b, chunk_frames=frames, **kw),
+                   device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    G.GruRecurrence.reset_launches()
+    K.synthesize_frame_masked_kernel.launches = 0
+    losses = [float(tr.train_step(batch, g)["loss"]) for _ in range(2)]
+    assert np.isfinite(losses).all()
+    fwd = 8 if arm == "ss_distill" else 4
+    assert G.GruRecurrence.launches == {
+        ("fwd", 64): fwd // 2, ("fwd", 16): fwd // 2,
+        ("bwd", 64): 2, ("bwd", 16): 2}
+    assert K.synthesize_frame_masked_kernel.launches == (
+        2 * frames if arm.startswith("ss") else 0)
+    if arm == "quantize":       # past t_end every weight sits on the grid
+        w = tr.params["gru_a"]["recurrent"].detach() * 128
+        assert float((w - w.round()).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_device_loader_matches_host_loader(cuda, tmp_path):
+    """The corpus on the card, batches gathered there: equal to the host
+    loader's, shuffled and held-out batches alike."""
+    rs = np.random.RandomState(13)
+    cf, chunks = 5, 13
+    frames = chunks * cf + 8
+    feats = (rs.randn(frames, 36) * 0.3).astype(np.float32)
+    feats[:, 18] = rs.uniform(-1.2, 1.9, frames)
+    pcm = (rs.randn(chunks * cf * 160 + 1000, 2) * 3000).astype(np.int16)
+    fpath, ppath = str(tmp_path / "features.f32"), str(tmp_path / "data.s16")
+    feats.tofile(fpath)
+    pcm.tofile(ppath)
+    kw = dict(batch_size=4, chunk_frames=cf, seed=3, holdout_batches=1)
+    host = D.LPCNetLoader(ppath, fpath, **kw)
+    card = D.DeviceLPCNetLoader(ppath, fpath, device=cuda, **kw)
+    assert len(host) == len(card) == 2
+    pairs = list(zip(host, card)) + list(zip(host.val_batches(),
+                                             card.val_batches()))
+    assert len(pairs) == 3
+    for h, c in pairs:
+        for k in h:
+            assert c[k].is_cuda and np.array_equal(c[k].cpu().numpy(), h[k]), k
+
+
+def test_trainer_without_cuda_raises_rather_than_train_on_the_host(tmp_path):
+    """No `device` means CUDA: where it is missing, the trainer and the
+    device loader raise; only `device="cpu"` runs the plain path."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.Trainer(M.LPCNetConfig(**SMALL))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        D.DeviceLPCNetLoader(str(tmp_path / "a"), str(tmp_path / "b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.main([str(tmp_path / "f"), str(tmp_path / "d"), str(tmp_path / "o")])
+    assert T.Trainer(M.LPCNetConfig(**SMALL), device="cpu").device.type == "cpu"
