@@ -1,6 +1,7 @@
 """GPU smoke check of lpcnet_torch: builds every kernel, holds each against its
-plain PyTorch version on the card, drives vocoder synthesis and vocoder
-training end to end through the public entry points, and times them.
+plain PyTorch version on the card, drives vocoder synthesis, vocoder
+training and batched packet-loss concealment end to end through the public
+entry points, and times them.
 
     python3 chip_smoke.py
 
@@ -10,8 +11,8 @@ Needs one CUDA card and nvcc. Phases:
   2. the sample-loop kernel (K1) vs its plain version on the shipped demo
      vocoder at 256 streams, 32 steps, in the f32, bf16 and q8 forms;
   3. the synthesis path: api.Synthesizer on the demo vocoder at 1024 streams
-     for 20 frames (50 before the training phases were added, to keep the
-     run about as long), float (bf16 kernel bundle) and int8 (q8); K1's
+     for 10 frames (cut from 50, then 20, as later paths were added, to keep
+     the run about as long), float (bf16 kernel bundle) and int8 (q8); K1's
      launch count must equal the frame count;
   4. K1 vs its plain version again at that path's shapes (1024 streams,
      160 steps, from the state the path left), then timings: K1 per launch
@@ -24,20 +25,35 @@ Needs one CUDA card and nvcc. Phases:
      streams, one frame, the bf16 bundle, every stream advancing);
   7. the training path: a corpus written from a seed, then
      train_lpcnet.Trainer at LPCNetConfig() / TrainConfig() (batch 128,
-     2400-sample chunks) takes 6 steps through LPCNetLoader, a second
-     trainer with ss_prob=0.25 takes 3 through DeviceLPCNetLoader; launch
+     2400-sample chunks) takes 4 steps through LPCNetLoader, a second
+     trainer with ss_prob=0.25 takes 2 through DeviceLPCNetLoader; launch
      counts of K5 and K2, falling loss, constraints and a checkpoint round
      trip are asserted; one more step runs under torch.profiler for the
      device's busy share;
   8. timings of K5 and K2 at the training path's shapes vs their plain
      versions, their bounds and, for K5, torch.nn.GRU (cuDNN) as a
-     yardstick.
+     yardstick;
+  9. the teacher-forced kernel (K3) vs its plain version at 256 streams,
+     3 blocks of 160 steps, f32, bf16 and q8, and against K2 with the
+     sampler off; the PLC-net chain kernel (K4) vs its plain version at 256
+     streams, 4 steps; a teacher-forced frame through the decoder (K2);
+ 10. the PLC path: runtime.serving.PLCStreamPool on the demo vocoder and the
+     demo PLC network at 256 streams for 200 frames of a seeded speech-like
+     signal, 10 % of the 20 ms packets lost, FEC rows queued for a quarter
+     of the streams; then 50 frames more with the chain kernel on beside a
+     pool that keeps it off; launch counts of K2, K3 and K4 are asserted;
+     one more frame runs under torch.profiler;
+ 11. K3, both K2 calls and K4 vs their plain versions on the arguments that
+     path gave them in one frame (the sample-rate section compacted to 64
+     streams), then their timings on those arguments, with their bounds, and
+     the frame's split.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -49,26 +65,34 @@ import numpy as np
 import torch
 
 from lpcnet_torch import api
+from lpcnet_torch.codec.decoder import LPCNetDecoder
 from lpcnet_torch.dsp.constants import NB_TOTAL_FEATURES
 from lpcnet_torch.kernels import _build
 from lpcnet_torch.kernels import gru_train as G
+from lpcnet_torch.kernels import plc_chain as PC
 from lpcnet_torch.kernels import sample_loop as K
 from lpcnet_torch.models import lpcnet as M
+from lpcnet_torch.models import plc as PM
 from lpcnet_torch.nn.quantized import quantize_fused
+from lpcnet_torch.plc import batched as BP
+from lpcnet_torch.runtime.serving import PLCStreamPool
 from lpcnet_torch.train import checkpointing
 from lpcnet_torch.train import train_lpcnet as T
 from lpcnet_torch.train.data import DeviceLPCNetLoader, LPCNetLoader
 
 SEED = 0
-KERNEL_SOURCES = ["sample_loop", "gru_train"]
+KERNEL_SOURCES = ["sample_loop", "gru_train", "plc_chain"]
 # H100 SXM data-sheet peaks (dense): bytes/s and operations/s by type
 HBM_BPS = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 MAIN_BATCH = 1024
-MAIN_FRAMES = 20
+MAIN_FRAMES = 10
 TRAIN_BATCH = 128
-TRAIN_STEPS = 6
-SS_STEPS = 3
+TRAIN_STEPS = 4
+SS_STEPS = 2
+PLC_STREAMS = 256
+PLC_FRAMES = 200
+PLC_CHAIN_FRAMES = 50
 CHECK_BATCH = 256
 CHECK_STEPS = 32
 
@@ -632,16 +656,16 @@ def clip_holds(params):
     return True
 
 
-def profile_step(trainer, batch, rng, smi):
-    """One more training step under torch.profiler: the device's busy share
-    of the step and the kernels that take most of it. Fails where the
-    profiler records no device time."""
+def profile_step(step, label, smi):
+    """One more step (`step()`) of a path under torch.profiler: the device's
+    busy share of the step and the kernels that take most of it. Fails where
+    the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(batch, rng)
+        step()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     dev_time = lambda e: getattr(e, "self_device_time_total",
@@ -651,15 +675,15 @@ def profile_step(trainer, batch, rng, smi):
     busy = sum(ms for ms, _ in kernels)
     assert busy > 0.0, "torch.profiler recorded no device time"
     top = "; ".join(f"{name[:48]} {ms:.2f} ms" for ms, name in kernels[:8])
-    log(f"training step under torch.profiler: {wall_ms:.1f} ms on the host's "
+    log(f"{label} under torch.profiler: {wall_ms:.1f} ms on the host's "
         f"clock (with the profiler's cost), device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f} %), idle {100 - 100 * busy / wall_ms:.1f}"
         f" %; top kernels: {top}; card: {smi}")
 
 
 def drive_training(dev, smi, workdir):
-    """The trainer at full width on the card: 6 default steps, then 3 with
-    scheduled sampling. Returns (the launch counters read after each
+    """The trainer at full width on the card: TRAIN_STEPS default steps,
+    then SS_STEPS with scheduled sampling. Returns (the launch counters read after each
     trainer's steps, summed over both: K5's keyed (direction, units), K2's
     under "k2"; {label: ms per step after the first})."""
     ppath, fpath = write_corpus(workdir, TRAIN_STEPS, SEED + 3)
@@ -718,7 +742,7 @@ def drive_training(dev, smi, workdir):
     assert losses[-1] < losses[0], losses
 
     # a checkpoint written and restored gives the same next loss
-    ck = os.path.join(workdir, "step_6")
+    ck = os.path.join(workdir, f"step_{TRAIN_STEPS}")
     checkpointing.save_train_state(ck, trainer.full_state(), cfg)
     twin = T.Trainer(cfg, tc, seed=SEED + 1, device=dev)
     twin.restore_full_state(checkpointing.restore_train_state(
@@ -735,7 +759,8 @@ def drive_training(dev, smi, workdir):
     assert lcfg == cfg and fused["embed_sig_a"].shape == (256, 3 * cfg.rnn_units1)
     rng = torch.Generator(device=dev)
     rng.manual_seed(SEED + 17)
-    profile_step(trainer, loader[1], rng, smi)
+    profile_step(lambda: trainer.train_step(loader[1], rng), "training step",
+                 smi)
     del trainer, twin
     torch.cuda.empty_cache()
 
@@ -770,6 +795,593 @@ def log_step_breakdown(entries, products_ms, step_ms, smi):
             + ", ".join(f"{k} {v:.1f} ms ({100 * v / ms:.1f} %)"
                         for k, v in parts.items())
             + f"; card: {smi}")
+
+
+# --------------------------------------------------------------------------
+# K3 and K4, and the PLC path
+# --------------------------------------------------------------------------
+
+def tf_case(fused, cfg, b, n, nblk, dev, seed):
+    """K3's inputs in the shape of the PLC drain: conditioning blocks from
+    consecutive frame-network steps, a carried signal state, targets, and
+    prefix counts: an eighth of the streams drain two and a half blocks, an
+    eighth one and a half, a quarter half a block, half stay frozen."""
+    rs = np.random.RandomState(seed)
+    r = lambda *s: torch.from_numpy(rs.normal(size=s).astype(np.float32)).to(dev)
+    fs = M.init_frame_state(b, cfg, dev)
+    cas, cbs, lpcs = [], [], []
+    for _ in range(nblk + 2):
+        fs, _, ca, cb, lpc = M.frame_network(fused, fs, r(b, 36) * 0.3, cfg)
+        cas.append(ca), cbs.append(cb), lpcs.append(lpc)
+    s0 = M.init_sample_state(b, cfg, dev)._replace(last_sig=r(b, 16) * 500,
+                                                   deemph=r(b) * 200)
+    rows = np.array([[n, n, n // 2], [n, n // 2, 0], [n // 2, 0, 0],
+                     [n // 2, 0, 0], [0, 0, 0], [0, 0, 0], [0, 0, 0],
+                     [0, 0, 0]], np.int32)[:, :nblk]
+    counts = torch.from_numpy(rows[np.arange(b) % 8]).to(dev)
+    stack = lambda xs: torch.stack(xs[-nblk:], dim=1).contiguous()
+    return (s0, stack(cas), stack(cbs), stack(lpcs), r(b, nblk * n) * 900, counts)
+
+
+def check_k3(fused, cfg, dev):
+    """K3 vs its plain version at B=256, 3 blocks of 160 steps, drain-shaped
+    counts, each form. Bars: RNG equal; a stream that runs no step bit-equal
+    in every field; the signal state equal (the closed forms are the same
+    PyTorch code on both sides); one step from a shared state within 1e-4
+    (bf16 GRU-B 1e-2: its operand is the new h_a rounded to bf16); over the
+    run f32 within 2e-2 and q8 within 5e-2 (the JAX package's bars for this
+    kernel), bf16 finite with a mean |h| error under 1e-2 (teacher forcing
+    feeds both sides the same codes, so a flipped operand does not set a
+    stream adrift as it does in K1); RNG equal to K2's with the sampler off
+    under the same prefix mask."""
+    b, n, nblk = CHECK_BATCH, 160, 3
+    s0, ca, cb, lpc, tg, counts = tf_case(fused, cfg, b, n, nblk, dev, SEED + 21)
+    bundles = {
+        "f32": K.kernel_weights(fused, cfg, dtype=torch.float32),
+        "bf16": K.kernel_weights(fused, cfg, dtype=torch.bfloat16),
+        "q8": K.kernel_weights(quantize_fused(fused), cfg),
+    }
+    one = torch.clamp(counts[:, :1], max=1)
+    first = (ca[:, :1].contiguous(), cb[:, :1].contiguous(), lpc[:, :1],
+             tg[:, :n], one, n)
+    frozen = counts.sum(1) == 0
+    for form, kw in bundles.items():
+        s1k = K.teacher_force_blocks_kernel(kw, s0, *first)
+        s1p = K.teacher_force_blocks_plain(kw, s0, *first)
+        err_a = float((s1k.gru_a - s1p.gru_a).abs().max())
+        err_b = float((s1k.gru_b - s1p.gru_b).abs().max())
+        assert err_a <= 1e-4, (form, err_a)
+        assert err_b <= (1e-2 if form == "bf16" else 1e-4), (form, err_b)
+        sk = K.teacher_force_blocks_kernel(kw, s0, ca, cb, lpc, tg, counts, n)
+        torch.cuda.synchronize()
+        sp = K.teacher_force_blocks_plain(kw, s0, ca, cb, lpc, tg, counts, n)
+        rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+        sig_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk[2:5], sp[2:5]))
+        inert = all(bool(torch.equal(a[frozen], c[frozen])) for a, c in
+                    zip(sk[:5] + tuple(sk.rng), s0[:5] + tuple(s0.rng)))
+        d = torch.cat([(sk.gru_a - sp.gru_a).abs().flatten(),
+                       (sk.gru_b - sp.gru_b).abs().flatten()])
+        finite = bool(torch.isfinite(sk.gru_a).all() and torch.isfinite(sk.gru_b).all())
+        adv = torch.arange(n, device=dev)[None, :] < counts[:, :1]
+        s2, _ = K.synthesize_frame_masked_kernel(
+            kw, s0, first[0][:, 0], first[1][:, 0], lpc[:, 0].contiguous(),
+            tg[:, :n].contiguous(), adv, adv, n, sampled=False)
+        s3 = K.teacher_force_prefix_kernel(kw, s0, ca[:, 0], cb[:, 0], lpc[:, 0],
+                                           tg[:, :n], counts[:, 0])
+        k2_eq = all(bool(torch.equal(a, c)) for a, c in zip(s2.rng, s3.rng))
+        k2_err = float((s2.gru_a - s3.gru_a).abs().max())
+        log(f"K3[{form}] vs plain, B={b}, {nblk} blocks x {n}: one step max|h_a| "
+            f"err {err_a:.3e}, max|h_b| err {err_b:.3e}; run: rng equal {rng_eq}, "
+            f"signal state equal {sig_eq}, frozen streams untouched {inert}, "
+            f"max|h| err {float(d.max()):.3e}, mean {float(d.mean()):.3e}; vs K2 "
+            f"sampled=False on block 0: rng equal {k2_eq}, max|gru_a| apart "
+            f"{k2_err:.3e}")
+        assert rng_eq and sig_eq and inert and finite and k2_eq, form
+        if form == "bf16":
+            assert float(d.mean()) <= 1e-2, (form, float(d.mean()))
+        else:
+            assert float(d.max()) <= (5e-2 if form == "q8" else 2e-2), form
+        assert k2_err <= (5e-2 if form == "q8" else 2e-2), (form, k2_err)
+    log("K3 bars: rng equal (also to K2's), frozen streams bit-equal, one step "
+        "1e-4 (bf16 h_b 1e-2), run f32 2e-2 / q8 5e-2 / bf16 mean 1e-2: pass")
+
+
+def chain_case(plc_params, b, k_steps, dev, seed):
+    rs = np.random.RandomState(seed)
+    r = lambda *s: torch.from_numpy(rs.normal(size=s).astype(np.float32)).to(dev)
+    masks = torch.from_numpy(rs.rand(b, k_steps) < 0.6).to(dev)
+    masks[: b // 8] = False
+    return (PC.plc_chain_weights(plc_params), torch.tanh(r(b, 256)),
+            torch.tanh(r(b, 256)), r(b, k_steps, PM.PLC_INPUT_SIZE) * 0.5, masks)
+
+
+def check_k4(plc_params, dev):
+    """K4 vs its plain version at B=256, K=4 on the demo PLC network: states
+    after every step within 2e-5, outputs within 2e-4 (the JAX package's
+    bars), frozen streams' states exact, two runs bit-equal."""
+    b, k = CHECK_BATCH, 4
+    cw, h1, h2, inputs, masks = chain_case(plc_params, b, k, dev, SEED + 23)
+    got = PC.plc_chain_kernel(cw, h1, h2, inputs, masks, k)
+    torch.cuda.synchronize()
+    want = PC.plc_chain_plain(cw, h1, h2, inputs, masks, k)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    fro = slice(0, b // 8)
+    inert = (bool(torch.equal(got[0][fro], h1[fro, None].expand(-1, k, -1)))
+             and bool(torch.equal(got[1][fro], h2[fro, None].expand(-1, k, -1))))
+    again = PC.plc_chain_kernel(cw, h1, h2, inputs, masks, k)
+    biteq = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
+    log(f"K4 vs plain, B={b} K={k}: max err h1 {errs[0]:.3e}, h2 {errs[1]:.3e} "
+        f"(tol 2e-5), outputs {errs[2]:.3e} (tol 2e-4); frozen streams exact "
+        f"{inert}; bit-equal twice {biteq}")
+    assert errs[0] <= 2e-5 and errs[1] <= 2e-5 and errs[2] <= 2e-4, errs
+    assert inert and biteq
+
+
+def check_decoder_preload(dev):
+    """A teacher-forced frame through the decoder goes through K2 with the
+    sampler off: PCM equal to the plain model's, RNG in lockstep."""
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
+    b = 64
+    dec = LPCNetDecoder.from_fused(fused, cfg, b, device=dev)
+    rs = np.random.RandomState(SEED + 25)
+    fs, ss = dec.frame_state, dec.sample_state
+    before = K.synthesize_frame_masked_kernel.launches
+    live = 0
+    for k in range(4):
+        feats = features(b, 1, SEED + 30 + k)[0]
+        target = (rs.normal(size=(b, 160)) * 2000).astype(np.float32)
+        pcm = dec.synthesize(feats, preload=target)
+        fs, _, ca, cb, lpc = M.frame_network(fused, fs, torch.from_numpy(feats).to(dev), cfg)
+        if k < cfg.lookahead:
+            assert not pcm.any()
+            continue
+        ss, want = M.synthesize_frame(fused, ss, ca, cb, lpc,
+                                      preload=torch.from_numpy(target).to(dev))
+        assert np.array_equal(pcm, want.cpu().numpy().astype(np.int16)), k
+        assert all(bool(torch.equal(a, c)) for a, c in zip(dec.sample_state.rng, ss.rng))
+        err = float((dec.sample_state.gru_a - ss.gru_a).abs().max())
+        assert err <= 2e-2, err
+        ss = dec.sample_state
+        live += 1
+    n = K.synthesize_frame_masked_kernel.launches - before
+    assert n == 4, n
+    log(f"decoder preload: LPCNetDecoder B={b}, 4 teacher-forced frames through "
+        f"K2 (sampled=False), {live} live: pcm equal to M.synthesize_frame("
+        f"preload=...), rng equal, max|gru_a| apart {err:.3e} (bf16 kernel vs "
+        f"f32 model, tol 2e-2); K2 launches {n}")
+
+
+def plc_traffic(streams, frames, seed):
+    """A seeded speech-like signal per stream (a harmonic source with a
+    wandering pitch under a syllable-rate envelope, plus noise; integer
+    valued), a loss pattern per stream (10 % of the 20 ms packets, the flag
+    held for both frames of a packet; the first two packets arrive; one
+    stream in 16 never loses), and FEC feature rows."""
+    rs = np.random.RandomState(seed)
+    n = frames * 160
+    t = np.arange(n) / 16000.0
+    u = lambda lo, hi: rs.uniform(lo, hi, (streams, 1))
+    f0 = u(90, 220) * (1 + 0.1 * np.sin(2 * np.pi * u(1, 3) * t + u(0, 6)))
+    phase = 2 * np.pi * np.cumsum(f0, axis=1) / 16000.0
+    sig = sum(np.sin(k * phase) / k for k in range(1, 9))
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * u(2, 5) * t + u(0, 6))
+    pcm = np.round(4000 * env * sig + 60 * rs.standard_normal((streams, n)))
+    lost = rs.rand(streams, frames // 2) < 0.10
+    lost[:, :2] = False
+    lost[np.arange(streams) % 16 == 15] = False
+    lost = np.repeat(lost, 2, axis=1)
+    fec = features(streams, frames, seed + 1)[..., :20]         # [frames, B, 20]
+    return pcm.astype(np.float32).reshape(streams, frames, 160), lost, fec
+
+
+@contextlib.contextmanager
+def capture_kernel_calls():
+    """While active, collects the arguments of every kernel call the PLC step
+    makes, {wrapper's name: [arguments, ...]}, through the step's own tap."""
+    calls = {"teacher_force_blocks_kernel": [],
+             "synthesize_frame_masked_kernel": [], "plc_chain_kernel": []}
+    BP.kernel_tap = lambda name, args: calls[name].append(args)
+    try:
+        yield calls
+    finally:
+        BP.kernel_tap = None
+
+
+def reset_plc_counts():
+    K.synthesize_frame_masked_kernel.launches = 0
+    K.teacher_force_blocks_kernel.launches = 0
+    PC.plc_chain_kernel.launches = 0
+
+
+def plc_counts():
+    return (K.synthesize_frame_masked_kernel.launches,
+            K.teacher_force_blocks_kernel.launches, PC.plc_chain_kernel.launches)
+
+
+def drive_plc(dev, smi):
+    """The PLC path at full width: PLCStreamPool over the demo vocoder and
+    the demo PLC network, 256 streams. Returns (launch counts of the 200
+    default frames and of the 50 chain frames, ms per frame of each run,
+    the kernels' captured arguments)."""
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
+    plc_params = api.load_plc_model(api.DEMO_PLC_MODEL_PATH, device=dev)
+    total = PLC_FRAMES + PLC_CHAIN_FRAMES
+    pcm, lost, fec = plc_traffic(PLC_STREAMS, total, SEED + 27)
+    sids = [f"call-{i}" for i in range(PLC_STREAMS)]
+    with_fec = [i for i in range(PLC_STREAMS) if i % 4 == 0]
+
+    def tick(pool, k):
+        if k % 2 == 0:              # a packet's redundancy: two 10 ms rows
+            for j in (k, k + 1):
+                pool.fec_add({sids[i]: fec[j, i] for i in with_fec})
+        out = pool.step({sid: (None if lost[i, k] else pcm[i, k])
+                         for i, sid in enumerate(sids)})
+        return np.stack([out[sid] for sid in sids])
+
+    def run(pool, frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [tick(pool, k) for k in frames]
+        torch.cuda.synchronize()
+        return np.stack(outs, axis=1), 1e3 * (time.perf_counter() - t0) / len(frames)
+
+    pool = PLCStreamPool(fused, cfg, plc_params, capacity=PLC_STREAMS, device=dev)
+    assert pool.plc.flags == (True, True, False, "auto") and pool.plc.use_kernel
+    assert pool.plc.kw["emb_cat"].dtype == torch.bfloat16
+    for sid in sids:
+        pool.attach(sid)
+    assert pool.n_active == PLC_STREAMS
+    reset_plc_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, frame_ms = run(pool, range(PLC_FRAMES))
+    counts = plc_counts()
+    stats = dict(pool.plc.stats)
+    clean = ~lost.any(axis=1)
+    assert out.shape == (PLC_STREAMS, PLC_FRAMES, 160) and np.isfinite(out).all()
+    assert out.min() >= -32768 and out.max() <= 32767
+    assert clean.sum() == PLC_STREAMS // 16
+    assert np.array_equal(out[clean], pcm[clean, :PLC_FRAMES]), "passthrough"
+    concealed = out[lost[:, :PLC_FRAMES]]
+    assert concealed.any() and np.array_equal(concealed, np.round(concealed))
+    assert counts == (2 * PLC_FRAMES, PLC_FRAMES, 0), counts
+    assert sum(stats.values()) == PLC_FRAMES and stats["full"] == 0, stats
+    st = pool.plc.state
+    assert all(bool(torch.isfinite(x).all()) for x in
+               (st.sstate.gru_a, st.features, st.plc_net.gru1, st.pcm_buf))
+    assert int(st.fec_read.max()) > 0
+    rms_in = float(np.sqrt(np.mean(pcm[lost] ** 2)))
+    rms_out = float(np.sqrt(np.mean(concealed ** 2)))
+    log(f"PLC path: PLCStreamPool {PLC_STREAMS} streams, {PLC_FRAMES} frames, "
+        f"{100 * lost[:, :PLC_FRAMES].mean():.2f} % of frames lost, FEC rows for "
+        f"{len(with_fec)} streams: {frame_ms:.3f} ms/frame (host clock, fec_add "
+        f"and the dicts included), {10.0 / frame_ms * PLC_STREAMS:.1f} streams x "
+        f"real time; frames compacted {stats['compacted']}, overflowed "
+        f"{stats['overflowed']} (capacity {BP._compact_capacity(PLC_STREAMS)}); "
+        f"K2 launches {counts[0]}, K3 {counts[1]}, K4 {counts[2]}; "
+        f"{int(clean.sum())} never-lost streams pass through exactly; concealed "
+        f"frames rms {rms_out:.0f} (the lost audio's {rms_in:.0f}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {smi}")
+
+    # 50 frames more, the chain kernel on beside off. Concealed audio is
+    # sampled through the bf16 bundle, where a 1e-6 difference in the
+    # features sets a stream adrift within a frame, and from then on its
+    # analysis history and features differ too. So the chain pool takes each
+    # frame from the state the default pool had before that frame (states
+    # are never written in place), and the two are compared after one frame.
+    prev = BP.set_plc_flags(fastchain=True)
+    try:
+        chain = PLCStreamPool(fused, cfg, plc_params, capacity=PLC_STREAMS, device=dev)
+    finally:
+        BP.set_plc_flags(*prev)
+    for sid in sids:
+        chain.attach(sid)
+    more = range(PLC_FRAMES, total)
+    pre, post_d, out_d = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in more:
+        pre.append(pool.plc.state)
+        out_d.append(tick(pool, k))
+        post_d.append(pool.plc.state)
+    torch.cuda.synchronize()
+    default_ms = 1e3 * (time.perf_counter() - t0) / len(more)
+    reset_plc_counts()
+    post_c, out_c = [], []
+    with capture_kernel_calls() as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, k in enumerate(more):
+            chain.plc.state = pre[i]
+            out_c.append(tick(chain, k))
+            post_c.append(chain.plc.state)
+        torch.cuda.synchronize()
+        chain_ms = 1e3 * (time.perf_counter() - t0) / len(more)
+    chain_counts = plc_counts()
+    assert chain_counts == (2 * PLC_CHAIN_FRAMES, PLC_CHAIN_FRAMES,
+                            PLC_CHAIN_FRAMES), chain_counts
+    feat_err = net_err = 0.0
+    for sd, sc in zip(post_d, post_c):
+        for f in ("pcm_fill", "skip_analysis", "loss_count", "fec_len", "fec_read",
+                  "fec_keep", "fec_skip", "blend", "feat_count"):
+            assert bool(torch.equal(getattr(sd, f), getattr(sc, f))), f
+        feat_err = max(feat_err, float((sd.features - sc.features).abs().max()))
+        net_err = max(net_err, *(float((a - c).abs().max())
+                                 for a, c in zip(sd.plc_net, sc.plc_net)))
+    assert feat_err <= 2e-4 and net_err <= 2e-5, (feat_err, net_err)
+    out_d, out_c = np.stack(out_d, axis=1), np.stack(out_c, axis=1)
+    good = ~lost[:, PLC_FRAMES:]
+    assert np.array_equal(out_c[clean], out_d[clean])
+    assert np.isfinite(out_c).all()
+    far = float((np.abs(out_c - out_d)[~good] > 2).mean())
+    log(f"PLC path, {PLC_CHAIN_FRAMES} frames more, chain kernel on vs off, each "
+        f"frame from the same state: integer state equal; features within "
+        f"{feat_err:.3e} (tol 2e-4), PLC-net state within {net_err:.3e} (tol "
+        f"2e-5); lost frames' sampled audio (bf16 bundle) more than 2 apart on "
+        f"{100 * far:.2f} % of samples; K2 launches {chain_counts[0]}, K3 "
+        f"{chain_counts[1]}, K4 {chain_counts[2]}; {chain_ms:.3f} ms/frame with "
+        f"the chain kernel, {default_ms:.3f} without (host clock); card: {smi}")
+
+    # the read of the active count that compaction needs: the same frames
+    # with compaction off, from the same state
+    prev = BP.set_plc_flags(compact="0")
+    try:
+        full = PLCStreamPool(fused, cfg, plc_params, capacity=PLC_STREAMS, device=dev)
+    finally:
+        BP.set_plc_flags(*prev)
+    for sid in sids:
+        full.attach(sid)
+    full.plc.state = pool.plc.state
+    again = range(total - PLC_CHAIN_FRAMES, total)
+    _, full_ms = run(full, again)
+    _, auto_ms = run(pool, again)
+    log(f"PLC path, compaction: {auto_ms:.3f} ms/frame with it (one read of the "
+        f"active count on the host a frame), {full_ms:.3f} ms/frame with the "
+        f"section at the full batch and no read; card: {smi}")
+    k = total - 1
+    profile_step(lambda: tick(pool, k), "PLC frame", smi)
+    reset_plc_counts()
+    return counts, chain_counts, frame_ms, calls, (fused, cfg, plc_params)
+
+
+def k3_bound_ms(kw, cfg, counts, n_blocks, blk):
+    """Least time for one K3 launch on this run's counts: the multiply-adds
+    of the steps that run (0.46 M a step and stream at full width) over the
+    peak of their type, against the bytes: the weights once, and per stream
+    the conditioning blocks, three code bytes a step, the counts and the
+    state in and out."""
+    na, nb = cfg.rnn_units1, cfg.rnn_units2
+    macs = na * 3 * na + na * 3 * nb + nb * 3 * nb
+    steps = int(counts.sum())
+    typ = ("int8" if K.is_q8_bundle(kw) else
+           "bf16" if kw["emb_cat"].dtype == torch.bfloat16 else "f32")
+    op_s = 2 * macs * steps / PEAK[typ]
+    used = [v for k_, v in kw.items() if not k_.startswith(("dual", "logit"))]
+    weight_bytes = sum(v.numel() * v.element_size() for v in used)
+    per_stream = (n_blocks * (4 * (3 * na + 3 * nb) + 3 * blk + 4)
+                  + 2 * (4 * (na + nb) + 32))
+    byte_s = (weight_bytes + counts.shape[0] * per_stream) / HBM_BPS
+    return 1e3 * max(op_s, byte_s), ("operations" if op_s >= byte_s else "bytes")
+
+
+def k4_bound_ms(cw, b, k_steps):
+    """Least time for one K4 launch: 0.70 M float32 multiply-adds a step and
+    stream (every step runs, masked or not), against the weights once and
+    each stream's inputs, masks, states and outputs."""
+    n_in, nd = cw["d1_w"].shape
+    n1, n2, n_out = cw["g1_rec"].shape[0], cw["g2_rec"].shape[0], cw["out_w"].shape[1]
+    macs = n_in * nd + nd * 3 * n1 + n1 * 3 * n1 + n1 * 3 * n2 + n2 * 3 * n2 + n2 * n_out
+    op_s = 2 * macs * b * k_steps / PEAK["f32"]
+    byts = (sum(v.numel() * 4 for v in cw.values())
+            + b * 4 * (k_steps * (n_in + 1 + n1 + n2 + n_out) + n1 + n2))
+    byte_s = byts / HBM_BPS
+    return 1e3 * max(op_s, byte_s), ("operations" if op_s >= byte_s else "bytes")
+
+
+def time_host(fn, reps=10):
+    """ms per call on the host's clock, synchronised: what an eager sequence
+    of small launches costs, whichever of host and device is slower."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def log_frame_rate_pieces(fused, cfg, plc_params, b, smi):
+    """The frame-rate pieces of a PLC frame, each alone at the pool's batch,
+    with how often the causal step calls it."""
+    from lpcnet_torch.codec import features as F
+    from lpcnet_torch.dsp.burg import burg_cepstral_analysis
+    dev = plc_params["plc_out"]["bias"].device
+    rs = np.random.RandomState(SEED + 29)
+    pcm = torch.from_numpy((rs.normal(size=(b, 160)) * 2000).astype(np.float32)).to(dev)
+    feats = torch.from_numpy(features(b, 4, SEED + 31)).to(dev)      # [4, B, 36]
+    enc = F.init_encoder_state(b, dev)
+    fs = M.init_frame_state(b, cfg, dev)
+    net = PM.init_state(b, device=dev)
+    x57 = torch.zeros(b, PM.PLC_INPUT_SIZE, device=dev)
+    count = torch.full((b,), 2, dtype=torch.int32, device=dev)
+    pieces = {
+        "burg_cepstral_analysis (1)": lambda: burg_cepstral_analysis(pcm),
+        "compute_single_frame_features (1)":
+            lambda: F.compute_single_frame_features(enc, pcm),
+        "frame_network (4)": lambda: M.frame_network(fused, fs, feats[0], cfg),
+        "frame_network_flush (1)": lambda: M.frame_network_flush(
+            fused, fs, feats.transpose(0, 1), count, cfg),
+        "compute_plc_pred (5 unchained, 1 chained)":
+            lambda: PM.compute_plc_pred(plc_params, net, x57),
+    }
+    log(f"PLC frame-rate pieces alone, B={b} (host clock, synchronised; calls a "
+        f"frame in brackets): "
+        + ", ".join(f"{k} {time_host(fn):.3f} ms" for k, fn in pieces.items())
+        + f"; card: {smi}")
+
+
+def state_equal(got, want, rows=slice(None)):
+    """Every field of two sample states bit-equal on `rows`."""
+    return all(bool(torch.equal(a[rows], c[rows])) for a, c in
+               zip(got[:5] + tuple(got.rng), want[:5] + tuple(want.rng)))
+
+
+def check_plc_captured(a3, k2_calls, a4):
+    """K3, both K2 calls and K4 against their plain versions on arguments
+    the PLC path gave them in one frame. Bars, as for the same kernels at
+    their other shapes. K3 (bf16): RNG and signal state equal, streams with
+    no step untouched, one step from the frame's state within 1e-4 (GRU-B
+    1e-2), over the drain finite with a mean |h| error within 1e-2. K2
+    (bf16, n=80, sampled): RNG equal, streams that do not advance untouched
+    with PCM 0, teacher-forced samples exact, one step within 1e-4 (GRU-B
+    1e-2), over the half-frame finite, at least 95 % of the advancing
+    streams' PCM exact and its RMS within 0.5 of the plain version's. K4:
+    states within 2e-5, outputs within 2e-4, frozen streams' states exact.
+    Returns (K3's one-step and run error, each K2 call's one-step error,
+    K4's error)."""
+    kw, s0, ca, cb, lpc, tg, cnt, n = a3
+    one = torch.clamp(cnt, max=1)
+    one[:, 1:] = 0
+    s1k = K.teacher_force_blocks_kernel(kw, s0, ca, cb, lpc, tg, one, n)
+    s1p = K.teacher_force_blocks_plain(kw, s0, ca, cb, lpc, tg, one, n)
+    err_a = float((s1k.gru_a - s1p.gru_a).abs().max())
+    err_b = float((s1k.gru_b - s1p.gru_b).abs().max())
+    sk = K.teacher_force_blocks_kernel(*a3)
+    torch.cuda.synchronize()
+    sp = K.teacher_force_blocks_plain(*a3)
+    rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+    sig_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk[2:5], sp[2:5]))
+    inert = state_equal(sk, s0, cnt.sum(1) == 0)
+    d = torch.cat([(sk.gru_a - sp.gru_a).abs().flatten(),
+                   (sk.gru_b - sp.gru_b).abs().flatten()])
+    finite = bool(torch.isfinite(sk.gru_a).all() and torch.isfinite(sk.gru_b).all())
+    log(f"K3[bf16] vs plain on the PLC path's arguments, B={cnt.shape[0]}, "
+        f"{cnt.shape[1]} blocks x {n}, {int(cnt.sum())} steps: one step max|h_a| "
+        f"err {err_a:.3e} (tol 1e-4), max|h_b| err {err_b:.3e} (tol 1e-2); "
+        f"drain: rng equal {rng_eq}, signal state equal {sig_eq}, streams with "
+        f"no step untouched {inert}, max|h| err {float(d.max()):.3e}, mean "
+        f"{float(d.mean()):.3e} (tol 1e-2)")
+    assert err_a <= 1e-4 and err_b <= 1e-2, (err_a, err_b)
+    assert rng_eq and sig_eq and inert and finite
+    assert float(d.mean()) <= 1e-2, float(d.mean())
+    k3_errs = (max(err_a, err_b), float(d.max()))
+
+    k2_errs = []
+    for which, a2 in zip(("head", "tail"), k2_calls):
+        kw, s0, ca, cb, lpc, tg, tf, adv, n = a2
+        first = (kw, s0, ca, cb, lpc, tg[:, :1].contiguous(),
+                 tf[:, :1].contiguous(), adv[:, :1].contiguous(), 1)
+        s1k, _ = K.synthesize_frame_masked_kernel(*first)
+        s1p, _ = K.sample_loop_masked_plain(*first)
+        err_a = float((s1k.gru_a - s1p.gru_a).abs().max())
+        err_b = float((s1k.gru_b - s1p.gru_b).abs().max())
+        sk, pk = K.synthesize_frame_masked_kernel(*a2)
+        torch.cuda.synchronize()
+        sp, pp = K.sample_loop_masked_plain(*a2)
+        live = adv.any(dim=1)
+        rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+        inert = state_equal(sk, s0, ~live) and not bool(pk[~adv].any())
+        tf_eq = bool(torch.equal(pk[tf], pp[tf]))
+        finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+        same = float((pk == pp)[live].float().mean())
+        rms_k, rms_p = (float(v[live].square().mean().sqrt()) for v in (pk, pp))
+        log(f"K2[bf16] vs plain on the PLC path's arguments ({which}), "
+            f"B={adv.shape[0]} n={n}, {int(live.sum())} streams advancing, "
+            f"{int(tf.any(dim=1).sum())} of them teacher-forced: one step "
+            f"max|h_a| err {err_a:.3e} (tol 1e-4), max|h_b| err {err_b:.3e} "
+            f"(tol 1e-2); half-frame: rng equal {rng_eq}, other streams "
+            f"untouched with pcm 0 {inert}, teacher-forced pcm exact {tf_eq}, "
+            f"advancing streams' exact pcm {same:.4f} (bar 0.95), rms "
+            f"{rms_k:.1f} vs {rms_p:.1f}")
+        assert err_a <= 1e-4 and err_b <= 1e-2, (which, err_a, err_b)
+        assert rng_eq and inert and tf_eq and finite, which
+        assert same >= 0.95, (which, same)
+        assert abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5, (which, rms_k, rms_p)
+        k2_errs.append(max(err_a, err_b))
+
+    cw, h1, h2, inputs, masks, k_steps = a4
+    got = PC.plc_chain_kernel(*a4)
+    torch.cuda.synchronize()
+    want = PC.plc_chain_plain(*a4)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    fro = ~masks.any(dim=1)
+    inert = (bool(torch.equal(got[0][fro], h1[fro, None].expand(-1, k_steps, -1)))
+             and bool(torch.equal(got[1][fro], h2[fro, None].expand(-1, k_steps, -1))))
+    log(f"K4 vs plain on the PLC path's arguments, B={h1.shape[0]} K={k_steps}, "
+        f"{int((~fro).sum())} streams with a step: max err h1 {errs[0]:.3e}, h2 "
+        f"{errs[1]:.3e} (tol 2e-5), outputs {errs[2]:.3e} (tol 2e-4); frozen "
+        f"streams exact {inert}")
+    assert errs[0] <= 2e-5 and errs[1] <= 2e-5 and errs[2] <= 2e-4, errs
+    assert inert
+    return k3_errs, k2_errs, max(errs)
+
+
+def time_plc_kernels(calls, models, counts, chain_counts, frame_ms, smi):
+    """K3, K4 and K2 alone, on arguments the PLC path gave them (the frame
+    of the captured 50 whose drain ran the most steps): each held against
+    its plain version there, then timed, with its bound; the unchained path
+    beside K4; the frame's split. Returns K2's times and one-step errors on
+    this path, and the kernels line's entries for K3 and K4."""
+    fused, cfg, plc_params = models
+    k3_calls = calls["teacher_force_blocks_kernel"]
+    k2_calls = calls["synthesize_frame_masked_kernel"]
+    busiest = max(range(len(k3_calls)), key=lambda i: int(k3_calls[i][6].sum()))
+    a3 = k3_calls[busiest]
+    a4 = calls["plc_chain_kernel"][busiest]
+    k2_pair = k2_calls[2 * busiest:2 * busiest + 2]
+    (k3_step_err, k3_err), k2_errs, k4_err = check_plc_captured(a3, k2_pair, a4)
+    kw, cnt = a3[0], a3[6]
+    b3, nblk = cnt.shape
+    k3_ms = time_cuda(lambda: K.teacher_force_blocks_kernel(*a3), reps=10)
+    k3_plain = time_cuda(lambda: K.teacher_force_blocks_plain(*a3), reps=1, warmup=0)
+    k3_bound, k3_by = k3_bound_ms(kw, cfg, cnt, nblk, a3[7])
+    mean_steps = float(np.mean([int(c[6].sum()) for c in k3_calls]))
+    k2_ms = [time_cuda(lambda: K.synthesize_frame_masked_kernel(*a2), reps=10)
+             for a2 in k2_pair]
+    b2, n2 = k2_pair[0][5].shape
+    cw, h1, h2, inputs, masks, k_steps = a4
+    k4_ms = time_cuda(lambda: PC.plc_chain_kernel(*a4), reps=20)
+    k4_plain = time_cuda(lambda: PC.plc_chain_plain(*a4), reps=3, warmup=1)
+    k4_bound, k4_by = k4_bound_ms(cw, h1.shape[0], k_steps)
+
+    def unchained():
+        st = PM.PLCNetState(h1, h2)
+        for k in range(k_steps):
+            new, _ = PM.compute_plc_pred(plc_params, st, inputs[:, k])
+            st = BP._bwhere(masks[:, k], new, st)
+        return st
+
+    un_ms = time_cuda(unchained, reps=20)
+    log(f"K3[bf16] B={b3} ({nblk} blocks x {a3[7]}, {int(cnt.sum())} steps to run, "
+        f"{int((cnt.sum(1) > 0).sum())} streams draining; mean of the captured "
+        f"frames {mean_steps:.0f} steps): kernel {k3_ms:.4f} ms/launch, plain "
+        f"{k3_plain:.2f} ms, bound {k3_bound:.5f} ms ({k3_by}), 1 launch per "
+        f"frame; library: no single PyTorch call computes K3; card: {smi}")
+    log(f"K4 B={h1.shape[0]} K={k_steps}: kernel {k4_ms:.4f} ms/launch, plain "
+        f"{k4_plain:.3f} ms, bound {k4_bound:.5f} ms ({k4_by}), 1 launch per "
+        f"frame with fastchain, else 0; the unchained path's {k_steps} masked "
+        f"compute_plc_pred calls {un_ms:.4f} ms; library: no single PyTorch "
+        f"call computes K4; card: {smi}")
+    kernels = k3_ms + sum(k2_ms)
+    log(f"PLC frame {frame_ms:.3f} ms = K3 {k3_ms:.3f} ms + K2 head {k2_ms[0]:.3f} "
+        f"ms + K2 tail {k2_ms[1]:.3f} ms (B={b2}, n={n2}; CUDA events, alone, on "
+        f"the busiest captured frame's arguments) + frame-rate rest and host "
+        f"{frame_ms - kernels:.3f} ms ({100 * (frame_ms - kernels) / frame_ms:.1f}"
+        f" %); card: {smi}")
+    log_frame_rate_pieces(fused, cfg, plc_params, h1.shape[0], smi)
+    src = "lpcnet_torch/kernels/csrc/"
+    return k2_ms, k2_errs, [
+        {"name": "teacher_force[bf16]", "route": "cuda",
+         "source": src + "sample_loop.cu",
+         "replaces": "lpcnet_tpu/kernels/sample_loop.py:785",
+         "launches": counts[1] + chain_counts[1], "max_abs_err": k3_err,
+         "one_step_err": k3_step_err, "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None, "pass": True},
+        {"name": "plc_chain", "route": "cuda", "source": src + "plc_chain.cu",
+         "replaces": "lpcnet_tpu/kernels/plc_chain.py:89",
+         "launches": chain_counts[2], "max_abs_err": k4_err, "ms": k4_ms,
+         "plain_ms": k4_plain, "bound_ms": k4_bound, "bound_by": k4_by,
+         "library_ms": None, "pass": True},
+    ]
 
 
 def main():
@@ -862,6 +1474,22 @@ def main():
     log_step_breakdown(entries, products_ms, step_ms, smi)
     G.GruRecurrence.reset_launches()
     K.synthesize_frame_masked_kernel.launches = 0
+
+    # 9. K3 and K4 vs plain, the decoder's teacher-forced frame
+    check_k3(fused, cfg, dev)
+    check_k4(api.load_plc_model(api.DEMO_PLC_MODEL_PATH, device=dev), dev)
+    check_decoder_preload(dev)
+
+    # 10. the PLC path, then 11. timings on its own arguments
+    counts, chain_counts, frame_ms, calls, models = drive_plc(dev, smi)
+    k2_plc_ms, k2_plc_err, plc_entries = time_plc_kernels(
+        calls, models, counts, chain_counts, frame_ms, smi)
+    entries.extend(plc_entries)
+    k2_entry = next(e for e in entries if e["name"] == "sample_loop_masked[bf16]")
+    k2_entry["launches_plc_path"] = counts[0] + chain_counts[0]
+    k2_entry["ms_plc_path"] = k2_plc_ms
+    k2_entry["max_abs_err_plc_path"] = max(k2_plc_err)
+    assert len(entries) == 9 and all(e["launches"] > 0 for e in entries), entries
 
     print(json.dumps({"kernels": entries}))
     print(smi)          # nvidia-smi: name, power limit

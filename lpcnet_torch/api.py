@@ -4,6 +4,10 @@
     synth = Synthesizer(fused=fused, cfg=cfg, batch=256)
     pcm = synth.synthesize(features)                      # [256, 160] int16
 
+    plc_params = load_plc_model(DEMO_PLC_MODEL_PATH)      # the PLC network
+    pool = PLCStreamPool(fused, cfg, plc_params, capacity=256)
+    out = pool.step({"caller-7": frame, "caller-9": None})   # None: lost
+
 Everything runs on CUDA unless `device="cpu"` is passed.
 """
 
@@ -18,12 +22,14 @@ from .codec.decoder import LPCNetDecoder
 from .dsp.constants import NB_TOTAL_FEATURES
 from .models import lpcnet as M
 from .nn.quantized import quantize_fused
+from .runtime.serving import PLCStreamPool  # noqa: F401  (public name)
 from .utils.device import resolve_device
 from .weights.checkpoint import load_checkpoint
 
 # the shipped demo vocoder, read by path from the JAX package's data folder
 DEMO_MODEL_PATH = str(Path(__file__).resolve().parent.parent / "lpcnet_tpu"
                       / "data" / "demo_model.npz")
+DEMO_PLC_MODEL_PATH = str(Path(DEMO_MODEL_PATH).parent / "demo_plc_model.npz")
 
 
 def load_model(path: Optional[str] = None, seed: int = 0, int8: bool = False,
@@ -51,6 +57,22 @@ def load_model(path: Optional[str] = None, seed: int = 0, int8: bool = False,
     if int8:
         fused = quantize_fused(fused)
     return fused, cfg
+
+
+def load_plc_model(path: Optional[str] = None, seed: int = 0, device=None):
+    """The PLC feature-prediction network's params (`models.plc`) on
+    `device`: a `.npz` checkpoint, or (path=None) a random init from numpy's
+    RandomState(seed)."""
+    from .models import plc as PM
+    dev = resolve_device(device)
+    if path is None:
+        return PM.init_params(seed, device=dev)
+    if not path.endswith(".npz"):
+        raise NotImplementedError(
+            f"{path}: only .npz checkpoints load here; DNNw weight blobs are "
+            "not ported yet")
+    params, _ = load_checkpoint(path, dev)
+    return params
 
 
 class Synthesizer:

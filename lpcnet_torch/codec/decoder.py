@@ -8,7 +8,8 @@ import numpy as np
 import torch
 
 from ..kernels.sample_loop import kernel_weights as make_kernel_weights
-from ..kernels.sample_loop import synthesize_frame_kernel
+from ..kernels.sample_loop import (synthesize_frame_kernel,
+                                    synthesize_frame_masked_kernel)
 from ..models import lpcnet as M
 from ..utils.device import resolve_device
 from ..weights.convert import tree_to
@@ -30,17 +31,24 @@ def _synthesize_one_frame(fused, cfg, fstate, sstate, feats, preload=None,
     the sample-rate state (src/lpcnet.c:239-243); both are masked here. The
     sample loop still runs every frame, so kernel launches equal frames.
 
-    With `kernel_weights` the free-running loop is the sample-loop kernel
-    (its plain version for CPU tensors). Teacher forcing (`preload`) runs the
-    plain model on the CPU; on CUDA it needs the masked kernel (K2), which is
-    not ported yet.
+    With `kernel_weights` the loop is the sample-loop kernel (its plain
+    version for CPU tensors): free-running (K1), or with `preload`
+    [B, 160], a whole teacher-forced frame, the masked kernel (K2) with
+    every step teacher-forced and the sampler off. Without `kernel_weights`
+    the plain model runs, which a CUDA tensor refuses.
     """
     fstate, _, ca, cb, lpc = M.frame_network(fused, fstate, feats, cfg)
-    if preload is not None and ca.is_cuda:
-        raise NotImplementedError(
-            "teacher-forced synthesis on CUDA needs the masked sample-loop "
-            "kernel (K2), which is not ported yet")
-    if kernel_weights is not None and preload is None:
+    if kernel_weights is None and ca.is_cuda:
+        raise ValueError("on CUDA the sample loop runs only as the kernel")
+    if kernel_weights is not None and preload is not None:
+        if preload.shape[-1] != cfg.frame_size:
+            raise ValueError(f"preload must hold {cfg.frame_size} samples, "
+                             f"got {preload.shape[-1]}")
+        on = torch.ones(preload.shape, dtype=torch.bool, device=ca.device)
+        new_sstate, pcm = synthesize_frame_masked_kernel(
+            kernel_weights, sstate, ca.contiguous(), cb.contiguous(),
+            lpc.contiguous(), preload, on, on, cfg.frame_size, sampled=False)
+    elif kernel_weights is not None:
         new_sstate, pcm = synthesize_frame_kernel(
             kernel_weights, sstate, ca.contiguous(), cb.contiguous(),
             lpc.contiguous())
@@ -90,12 +98,17 @@ class LPCNetDecoder:
         self.sample_state = M.init_sample_state(self.batch, self.cfg,
                                                 self.device)
 
-    def synthesize(self, features: np.ndarray) -> np.ndarray:
-        """features [B, 36] (one frame) -> pcm [B, 160] int16."""
+    def synthesize(self, features: np.ndarray, preload=None) -> np.ndarray:
+        """features [B, 36] (one frame) -> pcm [B, 160] int16. `preload`
+        [B, 160] teacher-forces the frame onto that waveform
+        (src/lpcnet.c:256-259)."""
         feats = torch.as_tensor(np.asarray(features, np.float32),
                                 device=self.device)
+        if preload is not None:
+            preload = torch.as_tensor(np.asarray(preload, np.float32),
+                                      device=self.device)
         with torch.no_grad():
             self.frame_state, self.sample_state, pcm = _synthesize_one_frame(
                 self.fused, self.cfg, self.frame_state, self.sample_state,
-                feats, kernel_weights=self._kw)
+                feats, preload=preload, kernel_weights=self._kw)
         return pcm.cpu().numpy().astype(np.int16)

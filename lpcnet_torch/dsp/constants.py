@@ -15,12 +15,16 @@ PREEMPHASIS = 0.85
 WINDOW_SIZE_5MS = 4
 FRAME_SIZE = 160
 OVERLAP_SIZE = 160
+TRAINING_OFFSET = 80      # half-frame alignment offset of pitch and PLC
 WINDOW_SIZE = FRAME_SIZE + OVERLAP_SIZE   # 320
 FREQ_SIZE = WINDOW_SIZE // 2 + 1          # 161 rfft bins
 
 NB_BANDS = 18
 NB_FEATURES = 20          # cepstrum(18) + pitch period + pitch corr
 NB_TOTAL_FEATURES = 36    # + 16 LPC coefficients
+
+PITCH_MIN_PERIOD = 32
+PITCH_MAX_PERIOD = 256
 
 # band edges in 5 ms bin units (src/freq.c:45-48)
 EBAND5MS = np.array(
@@ -89,3 +93,10 @@ FULL_WINDOW = _make_full_window()
 DCT_MATRIX = _make_dct_matrix()
 BAND_INTERP = _make_band_interp()
 BAND_ENERGY_MATRIX = _make_band_energy_matrix()
+
+# 3x sinc interpolation filter of the pitch correlation
+# (src/lpcnet_enc.c:557)
+PITCH_INTERP = np.array(
+    [0.026184, -0.098339, 0.369938, 0.837891, -0.184969, 0.070242, -0.020947],
+    dtype=np.float32,
+)

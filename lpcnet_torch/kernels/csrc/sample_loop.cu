@@ -1,5 +1,7 @@
-// K1 and K2: the LPCNet autoregressive sample loop, one frame per launch,
-// free-running (K1) or with per-stream, per-sample control masks (K2).
+// K1, K2 and K3: the LPCNet autoregressive sample loop, one frame per launch,
+// free-running (K1) or with per-stream, per-sample control masks (K2), and
+// the GRU-only teacher-forced run over several conditioning blocks (K3, at
+// the end of this file).
 //
 // Replaces the TPU kernel lpcnet_tpu/kernels/sample_loop.py::_ar_kernel, run
 // free (masked=False, sampled=True: K1) and masked (masked=True, with or
@@ -149,16 +151,124 @@ __device__ __forceinline__ float gru_out(float gz, float rz, float gr, float rr,
   return __fadd_rn(__fmul_rn(z, h0), __fmul_rn(__fsub_rn(1.f, z), hc));
 }
 
-template <int FORM, bool MASKED>
-__global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
+// operand and accumulator types of a numeric form
+template <int FORM> struct FormT {
   typedef typename std::conditional<FORM == FORM_F32, float,
       typename std::conditional<FORM == FORM_BF16, __nv_bfloat16, int8_t>::type>::type W;
   typedef typename std::conditional<FORM == FORM_Q8, int, float>::type Acc;
-  const W* emb = (const W*)p.emb;
-  const W* a_rec = (const W*)p.a_rec;
-  const W* b_in = (const W*)p.b_in;
-  const W* b_rec = (const W*)p.b_rec;
+};
 
+// what the two GRU steps read besides the per-stream conditioning
+struct GruWeights {
+  const void* emb; const float* emb_scale;
+  const void* a_rec; const float* a_diag; const float* a_bias1;
+  const void* b_in; const void* b_rec; const float* b_bias1;
+};
+
+// GRU-A for the block's BT streams: thread u owns unit u (gate columns u,
+// Na+u, 2Na+u). hop holds the operand copies of ha; ha is updated in place
+// for the streams whose bit is set in `live`. Stream s reads its gate
+// conditioning at ca0 + s * ca_stride and its three embedding rows from code.
+template <int FORM>
+__device__ __forceinline__ void gru_a_phase(const GruWeights& w, int na, const float* ca0,
+                                            size_t ca_stride, const float* hop, float* ha,
+                                            const int* code, unsigned live, int tid) {
+  typedef typename FormT<FORM>::W W;
+  typedef typename FormT<FORM>::Acc Acc;
+  const W* emb = (const W*)w.emb;
+  const W* a_rec = (const W*)w.a_rec;
+  const int na3 = 3 * na;
+  for (int u = tid; u < na; u += NTHREADS) {
+    Acc acc[BT][3];
+#pragma unroll
+    for (int s = 0; s < BT; ++s) acc[s][0] = acc[s][1] = acc[s][2] = 0;
+    for (int k = 0; k < na; ++k) {
+      const size_t row = (size_t)k * na3;
+      Acc w0 = wload(a_rec, row + u);
+      Acc w1 = wload(a_rec, row + na + u);
+      Acc w2 = wload(a_rec, row + 2 * na + u);
+#pragma unroll
+      for (int s = 0; s < BT; ++s) {
+        Acc x = (Acc)hop[s * na + k];
+        acc[s][0] += x * w0;
+        acc[s][1] += x * w1;
+        acc[s][2] += x * w2;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < BT; ++s) {
+      if (!((live >> s) & 1u)) continue;           // absent or frozen: h_a stays
+      const float* ca = ca0 + (size_t)s * ca_stride;
+      const int r0 = code[3 * s], r1 = 256 + code[3 * s + 1], r2 = 512 + code[3 * s + 2];
+      const float h0 = ha[s * na + u];
+      float g[3], zr[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int col = q * na + u;
+        if (FORM == FORM_Q8) {
+          int e = wload(emb, (size_t)r0 * na3 + col) + wload(emb, (size_t)r1 * na3 + col)
+                + wload(emb, (size_t)r2 * na3 + col);
+          g[q] = __fadd_rn(ca[col], __fmul_rn((float)e, w.emb_scale[col]));
+          zr[q] = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[s][q], Q8_SCALE),
+                                      __fmul_rn(w.a_diag[col], h0)),
+                            w.a_bias1[col]);
+        } else {
+          float e = __fadd_rn(__fadd_rn((float)wload(emb, (size_t)r0 * na3 + col),
+                                        (float)wload(emb, (size_t)r1 * na3 + col)),
+                              (float)wload(emb, (size_t)r2 * na3 + col));
+          g[q] = __fadd_rn(ca[col], e);
+          zr[q] = __fadd_rn((float)acc[s][q], w.a_bias1[col]);
+        }
+      }
+      ha[s * na + u] = gru_out(g[0], zr[0], g[1], zr[1], g[2], zr[2], h0);
+    }
+  }
+}
+
+// GRU-B: the gate parts, one thread per (stream, gate column) of the nact
+// present streams, then the update of hb for the `live` ones. hop and hbop
+// hold the operand copies of the new h_a and of h_b; gin and grec are
+// [BT][3nb] scratch. Every thread of the block calls it; it ends on a barrier.
+template <int FORM>
+__device__ __forceinline__ void gru_b_phase(const GruWeights& w, int na, int nb, const float* cb0,
+                                            size_t cb_stride, const float* hop,
+                                            const float* hbop, float* hb, float* gin,
+                                            float* grec, int nact, unsigned live, int tid) {
+  typedef typename FormT<FORM>::W W;
+  typedef typename FormT<FORM>::Acc Acc;
+  const W* b_in = (const W*)w.b_in;
+  const W* b_rec = (const W*)w.b_rec;
+  const int nb3 = 3 * nb;
+  for (int o = tid; o < BT * nb3; o += NTHREADS) {
+    const int s = o / nb3, c = o % nb3;
+    if (s >= nact) continue;
+    Acc ai = 0, ar = 0;
+    for (int k = 0; k < na; ++k) ai += (Acc)hop[s * na + k] * (Acc)wload(b_in, (size_t)k * nb3 + c);
+    for (int k = 0; k < nb; ++k) ar += (Acc)hbop[s * nb + k] * (Acc)wload(b_rec, (size_t)k * nb3 + c);
+    const float cb = cb0[(size_t)s * cb_stride + c];
+    if (FORM == FORM_Q8) {
+      gin[o] = __fadd_rn(cb, __fmul_rn((float)ai, Q8_SCALE));
+      grec[o] = __fadd_rn(__fmul_rn((float)ar, Q8_SCALE), w.b_bias1[c]);
+    } else {
+      gin[o] = __fadd_rn(cb, (float)ai);
+      grec[o] = __fadd_rn((float)ar, w.b_bias1[c]);
+    }
+  }
+  __syncthreads();
+  for (int o = tid; o < BT * nb; o += NTHREADS) {
+    const int s = o / nb, u = o % nb;
+    if (!((live >> s) & 1u)) continue;             // absent or frozen: h_b stays
+    const float* gi = gin + s * nb3;
+    const float* gr = grec + s * nb3;
+    hb[o] = gru_out(gi[u], gr[u], gi[nb + u], gr[nb + u], gi[2 * nb + u], gr[2 * nb + u], hb[o]);
+  }
+  __syncthreads();
+}
+
+template <int FORM, bool MASKED>
+__global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
+  const GruWeights w = {p.emb, p.emb_scale, p.a_rec, p.a_diag, p.a_bias1,
+                        p.b_in, p.b_rec, p.b_bias1};
   const int na = p.na, nb = p.nb, na3 = 3 * na, nb3 = 3 * nb;
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * BT;
@@ -221,83 +331,19 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
     for (int i = tid; i < BT * nb; i += NTHREADS) hbop[i] = operand<FORM>(hb[i]);
     __syncthreads();
 
-    // (b) GRU-A: thread u owns unit u (gate columns u, Na+u, 2Na+u)
-    for (int u = tid; u < na; u += NTHREADS) {
-      Acc acc[BT][3];
+    // the streams that move this step: present and, in K2, advancing
+    unsigned live = 0;
 #pragma unroll
-      for (int s = 0; s < BT; ++s) acc[s][0] = acc[s][1] = acc[s][2] = 0;
-      for (int k = 0; k < na; ++k) {
-        const size_t row = (size_t)k * na3;
-        Acc w0 = wload(a_rec, row + u);
-        Acc w1 = wload(a_rec, row + na + u);
-        Acc w2 = wload(a_rec, row + 2 * na + u);
-#pragma unroll
-        for (int s = 0; s < BT; ++s) {
-          Acc x = (Acc)hop[s * na + k];
-          acc[s][0] += x * w0;
-          acc[s][1] += x * w1;
-          acc[s][2] += x * w2;
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < BT; ++s) {
-        if (s >= nact) continue;
-        if (MASKED && !(mflag[s] & 1)) continue;   // frozen: h_a stays
-        const float* ca = p.cond_a + (size_t)(b0 + s) * na3;
-        const int r0 = code[3 * s], r1 = 256 + code[3 * s + 1], r2 = 512 + code[3 * s + 2];
-        const float h0 = ha[s * na + u];
-        float g[3], zr[3];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          const int col = q * na + u;
-          if (FORM == FORM_Q8) {
-            int e = wload(emb, (size_t)r0 * na3 + col) + wload(emb, (size_t)r1 * na3 + col)
-                  + wload(emb, (size_t)r2 * na3 + col);
-            g[q] = __fadd_rn(ca[col], __fmul_rn((float)e, p.emb_scale[col]));
-            zr[q] = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[s][q], Q8_SCALE),
-                                        __fmul_rn(p.a_diag[col], h0)),
-                              p.a_bias1[col]);
-          } else {
-            float e = __fadd_rn(__fadd_rn((float)wload(emb, (size_t)r0 * na3 + col),
-                                          (float)wload(emb, (size_t)r1 * na3 + col)),
-                                (float)wload(emb, (size_t)r2 * na3 + col));
-            g[q] = __fadd_rn(ca[col], e);
-            zr[q] = __fadd_rn((float)acc[s][q], p.a_bias1[col]);
-          }
-        }
-        ha[s * na + u] = gru_out(g[0], zr[0], g[1], zr[1], g[2], zr[2], h0);
-      }
-    }
+    for (int s = 0; s < BT; ++s)
+      if (s < nact && (!MASKED || (mflag[s] & 1))) live |= 1u << s;
+
+    // (b) GRU-A, (c) GRU-B
+    gru_a_phase<FORM>(w, na, p.cond_a + (size_t)b0 * na3, (size_t)na3, hop, ha, code, live, tid);
     __syncthreads();
     for (int i = tid; i < BT * na; i += NTHREADS) hop[i] = operand<FORM>(ha[i]);
     __syncthreads();
-
-    // (c) GRU-B gate parts: one thread per (stream, gate column)
-    for (int o = tid; o < BT * nb3; o += NTHREADS) {
-      const int s = o / nb3, c = o % nb3;
-      if (s >= nact) continue;
-      Acc ai = 0, ar = 0;
-      for (int k = 0; k < na; ++k) ai += (Acc)hop[s * na + k] * (Acc)wload(b_in, (size_t)k * nb3 + c);
-      for (int k = 0; k < nb; ++k) ar += (Acc)hbop[s * nb + k] * (Acc)wload(b_rec, (size_t)k * nb3 + c);
-      const float cb = p.cond_b[(size_t)(b0 + s) * nb3 + c];
-      if (FORM == FORM_Q8) {
-        gin[o] = __fadd_rn(cb, __fmul_rn((float)ai, Q8_SCALE));
-        grec[o] = __fadd_rn(__fmul_rn((float)ar, Q8_SCALE), p.b_bias1[c]);
-      } else {
-        gin[o] = __fadd_rn(cb, (float)ai);
-        grec[o] = __fadd_rn((float)ar, p.b_bias1[c]);
-      }
-    }
-    __syncthreads();
-    for (int o = tid; o < BT * nb; o += NTHREADS) {
-      const int s = o / nb, u = o % nb;
-      if (s >= nact) continue;
-      if (MASKED && !(mflag[s] & 1)) continue;     // frozen: h_b stays
-      const float* gi = gin + s * nb3;
-      const float* gr = grec + s * nb3;
-      hb[o] = gru_out(gi[u], gr[u], gi[nb + u], gr[nb + u], gi[2 * nb + u], gr[2 * nb + u], hb[o]);
-    }
-    __syncthreads();
+    gru_b_phase<FORM>(w, na, nb, p.cond_b + (size_t)b0 * nb3, (size_t)nb3, hop, hbop, hb, gin,
+                      grec, nact, live, tid);
 
     // (d) dual-FC node logits: both channels of node n from columns n, 256+n
     if (!MASKED || p.sampled)
@@ -452,4 +498,161 @@ extern "C" int lpcnet_sample_loop_masked(SAMPLE_LOOP_PARAMS, const void* preload
   Args a = make_args(SAMPLE_LOOP_ARGS);
   a.preload = (const float*)preload; a.mode = (const int*)mode; a.sampled = sampled;
   return launch_form<true>(form, a, (cudaStream_t)stream);
+}
+
+// --------------------------------------------------------------------------
+// K3: the teacher-forced run. Replaces the TPU kernel
+// lpcnet_tpu/kernels/sample_loop.py::_tf_kernel (teacher_force_blocks_pallas).
+//
+// In a fully teacher-forced segment the signal history, the prediction and
+// the three u-law codes of every step are closed forms of the target audio;
+// the wrapper computes them in PyTorch. What is left for the kernel is the
+// dependent chain: for each stream, for each of n_blocks conditioning blocks
+// k, for t < counts[k]: the three-row embedding gather plus GRU-A, GRU-B, and
+// the two KISS99 draws a K2 step makes. Steps at or beyond the count leave
+// the stream's state and RNG words as they are. No LPC filter, no u-law
+// transcendentals, no dual-FC, no PCM.
+//
+// Bound on an H100: as K1, the chain of dependent steps, each of which sweeps
+// GRU-A's recurrent matrix from L2; its arithmetic (0.46 M multiply-adds a
+// step and stream) and its bytes are far below that. The design is K1's: a
+// block owns BT streams for the whole run and thread u owns GRU-A unit u, the
+// same two device functions do the steps. Beyond K1: a block runs each
+// conditioning block only up to the largest count of its own streams, so
+// streams with nothing queued cost nothing but the launch; the codes come as
+// three bytes a step (the TPU version's packed int32 and its transposed
+// index block are gone); the RNG words, which nothing in the loop reads,
+// advance after it by twice the stream's total count.
+
+struct TfArgs {
+  int batch, na, nb, n_blocks, blk_samples;
+  GruWeights w;
+  const float* cond_a;      // [B, n_blocks, 3Na]
+  const float* cond_b;      // [B, n_blocks, 3Nb]
+  const int* counts;        // [B, n_blocks] steps to run, 0..blk_samples
+  const uint8_t* codes;     // [B, n_blocks * blk_samples, 3] sig_u, pred_u, exc
+  const float* ha_in; const float* hb_in; const long long* rng_in;
+  float* ha_out; float* hb_out; long long* rng_out;
+};
+
+template <int FORM>
+__global__ void __launch_bounds__(NTHREADS) tf_kernel(TfArgs p) {
+  const int na = p.na, nb = p.nb, na3 = 3 * na, nb3 = 3 * nb;
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * BT;
+  const int nact = min(BT, p.batch - b0);
+  const int n_total = p.n_blocks * p.blk_samples;
+
+  extern __shared__ float smem[];
+  float* ha = smem;                    // [BT][na] state
+  float* hop = ha + BT * na;           // [BT][na] GRU operand copy
+  float* hb = hop + BT * na;           // [BT][nb]
+  float* hbop = hb + BT * nb;          // [BT][nb]
+  float* gin = hbop + BT * nb;         // [BT][3nb]
+  float* grec = gin + BT * nb3;        // [BT][3nb]
+  int* code = (int*)(grec + BT * nb3); // [BT][3]
+  int* cnt = code + 3 * BT;            // [BT] this block's counts
+
+  for (int i = tid; i < BT * na; i += NTHREADS) {
+    int s = i / na;
+    ha[i] = s < nact ? p.ha_in[(size_t)(b0 + s) * na + i % na] : 0.f;
+  }
+  for (int i = tid; i < BT * nb; i += NTHREADS) {
+    int s = i / nb;
+    hb[i] = s < nact ? p.hb_in[(size_t)(b0 + s) * nb + i % nb] : 0.f;
+  }
+  int draws = 0;                       // thread s: KISS99 draws owed to stream s
+  __syncthreads();
+
+  for (int k = 0; k < p.n_blocks; ++k) {
+    if (tid < BT) {
+      int c = tid < nact ? p.counts[(size_t)(b0 + tid) * p.n_blocks + k] : 0;
+      c = min(max(c, 0), p.blk_samples);
+      cnt[tid] = c;
+      draws += 2 * c;
+    }
+    __syncthreads();
+    int cmax = 0;
+#pragma unroll
+    for (int s = 0; s < BT; ++s) cmax = max(cmax, cnt[s]);
+    const float* ca0 = p.cond_a + ((size_t)b0 * p.n_blocks + k) * na3;
+    const float* cb0 = p.cond_b + ((size_t)b0 * p.n_blocks + k) * nb3;
+
+    for (int t = 0; t < cmax; ++t) {
+      if (tid < 3 * BT) {
+        const int s = tid / 3;
+        code[tid] = s < nact
+            ? (int)p.codes[((size_t)(b0 + s) * n_total + (size_t)k * p.blk_samples + t) * 3 + tid % 3]
+            : 0;
+      }
+      for (int i = tid; i < BT * na; i += NTHREADS) hop[i] = operand<FORM>(ha[i]);
+      for (int i = tid; i < BT * nb; i += NTHREADS) hbop[i] = operand<FORM>(hb[i]);
+      __syncthreads();
+      unsigned live = 0;
+#pragma unroll
+      for (int s = 0; s < BT; ++s)
+        if (t < cnt[s]) live |= 1u << s;
+      gru_a_phase<FORM>(p.w, na, ca0, (size_t)p.n_blocks * na3, hop, ha, code, live, tid);
+      __syncthreads();
+      for (int i = tid; i < BT * na; i += NTHREADS) hop[i] = operand<FORM>(ha[i]);
+      __syncthreads();
+      gru_b_phase<FORM>(p.w, na, nb, cb0, (size_t)p.n_blocks * nb3, hop, hbop, hb, gin, grec,
+                        nact, live, tid);
+    }
+    __syncthreads();                   // cnt is rewritten by the next block
+  }
+
+  for (int i = tid; i < nact * na; i += NTHREADS)
+    p.ha_out[(size_t)(b0 + i / na) * na + i % na] = ha[i];
+  for (int i = tid; i < nact * nb; i += NTHREADS)
+    p.hb_out[(size_t)(b0 + i / nb) * nb + i % nb] = hb[i];
+  if (tid < nact) {
+    unsigned st[4];
+    for (int j = 0; j < 4; ++j) st[j] = (unsigned)p.rng_in[(size_t)(b0 + tid) * 4 + j];
+    for (int i = 0; i < draws; ++i) kiss99(st);
+    for (int j = 0; j < 4; ++j) p.rng_out[(size_t)(b0 + tid) * 4 + j] = (long long)st[j];
+  }
+}
+
+template <int FORM>
+static cudaError_t launch_tf(const TfArgs& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)BT * (2 * a.na + 2 * a.nb + 6 * a.nb))
+                    + sizeof(int) * 4 * BT;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(tf_kernel<FORM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  tf_kernel<FORM><<<(a.batch + BT - 1) / BT, NTHREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// K3. cond_a [B, n_blocks, 3Na], cond_b [B, n_blocks, 3Nb] f32; counts
+// [B, n_blocks] int32; codes [B, n_blocks * blk_samples, 3] uint8; the state
+// as in K1 (rng [B, 4] int64 words).
+extern "C" int lpcnet_teacher_force(
+    int form, int batch, int na, int nb, int n_blocks, int blk_samples,
+    const void* emb, const void* emb_scale, const void* a_rec, const void* a_diag,
+    const void* a_bias1, const void* b_in, const void* b_rec, const void* b_bias1,
+    const void* cond_a, const void* cond_b, const void* counts, const void* codes,
+    const void* ha_in, const void* hb_in, const void* rng_in,
+    void* ha_out, void* hb_out, void* rng_out, void* stream) {
+  if (batch <= 0 || n_blocks <= 0 || blk_samples <= 0) return (int)cudaErrorInvalidValue;
+  TfArgs a;
+  a.batch = batch; a.na = na; a.nb = nb; a.n_blocks = n_blocks; a.blk_samples = blk_samples;
+  a.w.emb = emb; a.w.emb_scale = (const float*)emb_scale;
+  a.w.a_rec = a_rec; a.w.a_diag = (const float*)a_diag; a.w.a_bias1 = (const float*)a_bias1;
+  a.w.b_in = b_in; a.w.b_rec = b_rec; a.w.b_bias1 = (const float*)b_bias1;
+  a.cond_a = (const float*)cond_a; a.cond_b = (const float*)cond_b;
+  a.counts = (const int*)counts; a.codes = (const uint8_t*)codes;
+  a.ha_in = (const float*)ha_in; a.hb_in = (const float*)hb_in;
+  a.rng_in = (const long long*)rng_in;
+  a.ha_out = (float*)ha_out; a.hb_out = (float*)hb_out; a.rng_out = (long long*)rng_out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (form) {
+    case FORM_F32: return (int)launch_tf<FORM_F32>(a, s);
+    case FORM_BF16: return (int)launch_tf<FORM_BF16>(a, s);
+    case FORM_Q8: return (int)launch_tf<FORM_Q8>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

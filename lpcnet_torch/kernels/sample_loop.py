@@ -24,6 +24,13 @@ h_b, last_sig, last_exc, deemph, rng).
   (the C preload semantics, src/lpcnet.c:256-259); `sampled=False` skips the
   dual-FC sampler and is legal only when every advanced step is
   teacher-forced. Users: scheduled sampling in training, batched PLC.
+* `teacher_force_blocks_plain` / `teacher_force_blocks_kernel` (K3, port of
+  `_tf_kernel` / `teacher_force_blocks_pallas`): N conditioning blocks of
+  teacher-forced steps with a step count per stream and block, GRU-A and
+  GRU-B only. `tf_precompute` gives the closed forms of everything else a
+  teacher-forced step would compute (the u-law codes of every step and the
+  signal state at the end), so the kernel carries only (h_a, h_b, rng) and
+  emits no PCM. User: the batched PLC's drain of queued audio.
 """
 
 from __future__ import annotations
@@ -145,18 +152,14 @@ def _fdot(h, w32, wdt):
     return h.to(wdt).to(torch.float32) @ w32
 
 
-def _plain_loop(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
-                preload=None, tf=None, adv=None, sampled=True):
-    """The kernel's arithmetic, one step at a time; with masks (K2) when
-    `preload` [B, n] float, `tf` and `adv` [B, n] bool are given."""
-    masked = preload is not None
+def _gru_ab_plain(kw):
+    """The kernels' GRU-A and GRU-B step, as a function (h_a, h_b, cond_a,
+    cond_b, sig_u, pred_u, exc) -> (new h_a, new h_b) on int64 codes. The
+    operands are widened once (exact); a step then gathers three embedding
+    rows and multiplies."""
     q8 = is_q8_bundle(kw)
     na = kw["a_bias1"].shape[-1] // 3
     nb = kw["b_bias1"].shape[-1] // 3
-    table = kw["logit_table"][0]
-    ha, hb, sig, exc, de, rng = state
-    exc = exc.long()
-    # widen the operands once (exact); the loop then gathers and multiplies
     if q8:
         emb = kw["emb_q8"].to(torch.int32)
     else:
@@ -164,11 +167,8 @@ def _plain_loop(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
         wdt = kw["a_rec"].dtype
         a_rec, b_in, b_rec = (kw[k].to(torch.float32)
                               for k in ("a_rec", "b_in", "b_rec"))
-    out = []
-    for t in range(n_samples):
-        pred = -(sig * lpc).sum(-1)
-        sig_u = mulaw.lin2ulaw(sig[:, 0]).long()
-        pred_u = mulaw.lin2ulaw(pred).long()
+
+    def step(ha, hb, cond_a, cond_b, sig_u, pred_u, exc):
         esum = emb[sig_u] + emb[256 + pred_u] + emb[512 + exc]
         if q8:
             gate_a = cond_a + esum.to(torch.float32) * kw["emb_scale"]
@@ -184,7 +184,26 @@ def _plain_loop(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
         else:
             gate_b = cond_b + _fdot(ha_new, b_in, wdt)
             zrec_b = _fdot(hb, b_rec, wdt) + kw["b_bias1"]
-        hb_new = _gru(hb, gate_b, zrec_b, nb)
+        return ha_new, _gru(hb, gate_b, zrec_b, nb)
+
+    return step
+
+
+def _plain_loop(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
+                preload=None, tf=None, adv=None, sampled=True):
+    """The kernel's arithmetic, one step at a time; with masks (K2) when
+    `preload` [B, n] float, `tf` and `adv` [B, n] bool are given."""
+    masked = preload is not None
+    table = kw["logit_table"][0]
+    ha, hb, sig, exc, de, rng = state
+    exc = exc.long()
+    gru_ab = _gru_ab_plain(kw)
+    out = []
+    for t in range(n_samples):
+        pred = -(sig * lpc).sum(-1)
+        sig_u = mulaw.lin2ulaw(sig[:, 0]).long()
+        pred_u = mulaw.lin2ulaw(pred).long()
+        ha_new, hb_new = gru_ab(ha, hb, cond_a, cond_b, sig_u, pred_u, exc)
 
         bytes_, rng_new = draw_threshold_bytes(rng)
         val = torch.zeros_like(exc)
@@ -266,6 +285,8 @@ def _lib():
         lib.lpcnet_sample_loop_masked.argtypes = ([ci] * 5 + [vp] * 30
                                                   + [ci, vp])
         lib.lpcnet_sample_loop_masked.restype = ci
+        lib.lpcnet_teacher_force.argtypes = [ci] * 6 + [vp] * 19
+        lib.lpcnet_teacher_force.restype = ci
         _LIB = lib
     return _LIB
 
@@ -281,23 +302,18 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
-            masked=None):
-    """Check the operands, allocate the outputs and launch the kernel on the
-    current stream; `masked` is None (K1) or (preload, mode, sampled)."""
-    dev = cond_a.device
-    q8 = is_q8_bundle(kw)
-    b, na3 = cond_a.shape
-    na = na3 // 3
-    nb = kw["b_bias1"].shape[-1] // 3
-    f32, i8 = torch.float32, torch.int8
-    if q8:
-        form, wdt = _FORM_Q8, i8
+def _gru_operands(kw, na, nb, dev):
+    """The bundle's GRU operands, checked: (form, emb, emb_scale, a_rec,
+    a_diag, b_in, b_rec); the scale and the diagonal are None in the float
+    forms. What K1, K2 and K3 all read."""
+    f32 = torch.float32
+    if is_q8_bundle(kw):
+        form, wdt = _FORM_Q8, torch.int8
         emb, a_rec, b_in, b_rec = (kw["emb_q8"], kw["a_rec_q8"],
                                    kw["b_in_q8"], kw["b_rec_q8"])
-        _check("emb_scale", kw["emb_scale"], (1, 3 * na), f32, dev)
-        _check("a_diag", kw["a_diag"], (1, 3 * na), f32, dev)
         emb_scale, a_diag = kw["emb_scale"], kw["a_diag"]
+        _check("emb_scale", emb_scale, (1, 3 * na), f32, dev)
+        _check("a_diag", a_diag, (1, 3 * na), f32, dev)
     else:
         emb, a_rec, b_in, b_rec = (kw["emb_cat"], kw["a_rec"], kw["b_in"],
                                    kw["b_rec"])
@@ -310,8 +326,23 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
     _check("a_rec", a_rec, (na, 3 * na), wdt, dev)
     _check("b_in", b_in, (na, 3 * nb), wdt, dev)
     _check("b_rec", b_rec, (nb, 3 * nb), wdt, dev)
-    for name, shape in (("a_bias1", (1, 3 * na)), ("b_bias1", (1, 3 * nb)),
-                        ("dual_w", (nb, 512)), ("dual_bias", (1, 512)),
+    _check("a_bias1", kw["a_bias1"], (1, 3 * na), f32, dev)
+    _check("b_bias1", kw["b_bias1"], (1, 3 * nb), f32, dev)
+    return form, emb, emb_scale, a_rec, a_diag, b_in, b_rec
+
+
+def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
+            masked=None):
+    """Check the operands, allocate the outputs and launch the kernel on the
+    current stream; `masked` is None (K1) or (preload, mode, sampled)."""
+    dev = cond_a.device
+    b, na3 = cond_a.shape
+    na = na3 // 3
+    nb = kw["b_bias1"].shape[-1] // 3
+    f32 = torch.float32
+    form, emb, emb_scale, a_rec, a_diag, b_in, b_rec = _gru_operands(
+        kw, na, nb, dev)
+    for name, shape in (("dual_w", (nb, 512)), ("dual_bias", (1, 512)),
                         ("dual_factor", (1, 512)), ("logit_table", (1, 256))):
         _check(name, kw[name], shape, f32, dev)
     _check("cond_a", cond_a, (b, 3 * na), f32, dev)
@@ -414,3 +445,165 @@ def synthesize_frame_masked_kernel(kw, state: SampleState, cond_a, cond_b,
 
 
 synthesize_frame_masked_kernel.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K3: the teacher-forced run (GRU-A and GRU-B only)
+# --------------------------------------------------------------------------
+
+def tf_precompute(state: SampleState, lpc, targets, count):
+    """The closed forms of a teacher-forced segment of n steps.
+
+    In such a segment everything but the GRU states and the RNG follows
+    from the target audio: pcm_t = target_t - 0.85 de_{t-1} with de_t set to
+    target_t (the step-by-step form recomputes de_t as pcm_t + 0.85 de_{t-1},
+    one rounding more), the signal history is a sliding window over
+    [carried last_sig | pcm], the prediction a 16-tap FIR of that window.
+
+    targets [B, n] (de-emphasised domain), count [B] steps each stream runs.
+    Returns (sig_u, pred_u, exc_in [B, n] int32 u-law codes that step t
+    feeds to GRU-A; new_last_sig, new_last_exc, new_deemph after count
+    steps, the old values where count is 0)."""
+    targets = targets.to(torch.float32)
+    b, n = targets.shape
+    count = count.long()
+    de_prev = torch.cat([state.deemph[:, None], targets[:, :-1]], dim=1)
+    pcm = targets - PREEMPHASIS * de_prev
+    ext = torch.cat([torch.flip(state.last_sig, (1,)), pcm], dim=1)  # [B,16+n]
+    acc = torch.zeros_like(pcm)
+    for k in range(LPC_ORDER):
+        acc = acc + lpc[:, k:k + 1] * ext[:, LPC_ORDER - 1 - k:
+                                          LPC_ORDER - 1 - k + n]
+    pred = -acc
+    sig_u = mulaw.lin2ulaw(ext[:, LPC_ORDER - 1:LPC_ORDER - 1 + n])
+    pred_u = mulaw.lin2ulaw(pred)
+    exc_tf = mulaw.lin2ulaw(pcm - pred)
+    exc_in = torch.cat([state.last_exc[:, None].to(torch.int32),
+                        exc_tf[:, :-1]], dim=1)
+
+    adv_any = count > 0
+    last = torch.clamp(count - 1, min=0)[:, None]
+    # the history after the last step: ext[last + 16 - j], newest first
+    win = ext.gather(1, last + LPC_ORDER
+                     - torch.arange(LPC_ORDER, device=ext.device)[None, :])
+    new_sig = torch.where(adv_any[:, None], win, state.last_sig)
+    new_exc = torch.where(adv_any, exc_tf.gather(1, last)[:, 0],
+                          state.last_exc.to(torch.int32))
+    new_de = torch.where(adv_any, targets.gather(1, last)[:, 0], state.deemph)
+    return sig_u, pred_u, exc_in, new_sig, new_exc, new_de
+
+
+def _tf_chain(state: SampleState, lpc_blocks, targets, counts, blk_samples):
+    """`tf_precompute` block after block, the signal state carried from one
+    to the next. Returns (codes [B, N*blk, 3] int32, the SampleState with the
+    final last_sig, last_exc and deemph)."""
+    codes = []
+    sig_state = state
+    for k in range(counts.shape[1]):
+        s_u, p_u, e_in, n_sig, n_exc, n_de = tf_precompute(
+            sig_state, lpc_blocks[:, k],
+            targets[:, k * blk_samples:(k + 1) * blk_samples], counts[:, k])
+        codes.append(torch.stack([s_u, p_u, e_in], dim=-1))
+        sig_state = sig_state._replace(last_sig=n_sig, last_exc=n_exc,
+                                       deemph=n_de)
+    return torch.cat(codes, dim=1), sig_state
+
+
+def teacher_force_blocks_plain(kw, state: SampleState, cond_a_blocks,
+                               cond_b_blocks, lpc_blocks, targets, counts,
+                               blk_samples: int) -> SampleState:
+    """K3's plain PyTorch version: the kernel's arithmetic, one step at a
+    time, on whatever device the tensors are on.
+
+    cond_a_blocks [B, N, 3Na], cond_b_blocks [B, N, 3Nb], lpc_blocks
+    [B, N, 16], targets [B, N*blk_samples], counts [B, N] int: stream i runs
+    the first counts[i, k] steps of block k on that block's conditioning. A
+    step past the count leaves the stream's state and RNG as they are."""
+    counts = counts.to(torch.int32)
+    codes, sig_state = _tf_chain(state, lpc_blocks, targets, counts,
+                                 blk_samples)
+    codes = codes.long()
+    gru_ab = _gru_ab_plain(kw)
+    ha, hb, rng = state.gru_a, state.gru_b, state.rng
+    for k in range(counts.shape[1]):
+        ca, cb = cond_a_blocks[:, k], cond_b_blocks[:, k]
+        for t in range(int(counts[:, k].max()) if counts.numel() else 0):
+            adv = t < counts[:, k]
+            c = codes[:, k * blk_samples + t]
+            ha_new, hb_new = gru_ab(ha, hb, ca, cb, c[:, 0], c[:, 1], c[:, 2])
+            _, rng_new = draw_threshold_bytes(rng)
+            ha = torch.where(adv[:, None], ha_new, ha)
+            hb = torch.where(adv[:, None], hb_new, hb)
+            rng = Kiss99State(*(torch.where(adv, n, o)
+                                for n, o in zip(rng_new, rng)))
+    return sig_state._replace(gru_a=ha, gru_b=hb, rng=rng)
+
+
+def teacher_force_blocks_kernel(kw, state: SampleState, cond_a_blocks,
+                                cond_b_blocks, lpc_blocks, targets, counts,
+                                blk_samples: int) -> SampleState:
+    """N conditioning blocks of teacher-forced steps in one launch (K3); see
+    `teacher_force_blocks_plain` for the arguments. The closed forms
+    (`tf_precompute`) run in PyTorch before the launch.
+
+    On a CPU tensor this runs the plain version. On a CUDA tensor it
+    launches the CUDA kernel and counts the launch in
+    `teacher_force_blocks_kernel.launches`; any other device raises. Any
+    batch size works, with no padding of streams."""
+    dev = cond_a_blocks.device
+    if dev.type == "cpu":
+        return teacher_force_blocks_plain(kw, state, cond_a_blocks,
+                                          cond_b_blocks, lpc_blocks, targets,
+                                          counts, blk_samples)
+    if dev.type != "cuda":
+        raise ValueError(f"teacher-force kernel: unsupported device {dev}")
+    b, n_blocks = counts.shape
+    na = kw["a_bias1"].shape[-1] // 3
+    nb = kw["b_bias1"].shape[-1] // 3
+    f32 = torch.float32
+    counts = counts.to(torch.int32).contiguous()
+    codes, sig_state = _tf_chain(state, lpc_blocks, targets, counts,
+                                 blk_samples)
+    codes = codes.to(torch.uint8).contiguous()
+    form, emb, emb_scale, a_rec, a_diag, b_in, b_rec = _gru_operands(
+        kw, na, nb, dev)
+    ca = cond_a_blocks.contiguous()
+    cb = cond_b_blocks.contiguous()
+    _check("cond_a_blocks", ca, (b, n_blocks, 3 * na), f32, dev)
+    _check("cond_b_blocks", cb, (b, n_blocks, 3 * nb), f32, dev)
+    _check("codes", codes, (b, n_blocks * blk_samples, 3), torch.uint8, dev)
+    ha_in, hb_in = state.gru_a.contiguous(), state.gru_b.contiguous()
+    rng_in = torch.stack(tuple(state.rng), dim=1).contiguous()
+    _check("gru_a", ha_in, (b, na), f32, dev)
+    _check("gru_b", hb_in, (b, nb), f32, dev)
+    _check("rng", rng_in, (b, 4), torch.int64, dev)
+    ha, hb, rng = (torch.empty_like(x) for x in (ha_in, hb_in, rng_in))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        err = _lib().lpcnet_teacher_force(
+            form, b, na, nb, n_blocks, blk_samples,
+            ptr(emb), ptr(emb_scale), ptr(a_rec), ptr(a_diag),
+            ptr(kw["a_bias1"]), ptr(b_in), ptr(b_rec), ptr(kw["b_bias1"]),
+            ptr(ca), ptr(cb), ptr(counts), ptr(codes),
+            ptr(ha_in), ptr(hb_in), ptr(rng_in), ptr(ha), ptr(hb), ptr(rng),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"teacher-force kernel launch failed: CUDA error {err}")
+    teacher_force_blocks_kernel.launches += 1
+    return sig_state._replace(gru_a=ha, gru_b=hb,
+                              rng=Kiss99State(*torch.unbind(rng, dim=1)))
+
+
+teacher_force_blocks_kernel.launches = 0
+
+
+def teacher_force_prefix_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
+                                targets, count) -> SampleState:
+    """`count[i]` teacher-forced steps of stream i on one conditioning
+    (count 0 freezes it): `teacher_force_blocks_kernel` with a single block.
+    It gives what `synthesize_frame_masked_kernel(sampled=False)` gives under
+    a prefix advance mask, less the PCM and one rounding in the de-emphasis
+    carry."""
+    return teacher_force_blocks_kernel(
+        kw, state, cond_a[:, None], cond_b[:, None], lpc[:, None], targets,
+        count[:, None], targets.shape[-1])

@@ -218,6 +218,74 @@ def frame_network(fused, state: FrameState, features: torch.Tensor,
     return new_state, cond, cond_a, cond_b, lpc
 
 
+def frame_network_flush(fused, state: FrameState, ring: torch.Tensor,
+                        count: torch.Tensor, cfg: LPCNetConfig):
+    """`count[i]` consecutive frame_network steps of stream i over known
+    inputs, as one batched call (count 0 freezes a stream): the batched
+    PLC's flush of deferred frames.
+
+    ring [B, T, 36] inputs in flush order; count [B] int in [0, T].
+    Returns (new_state, cond_a, cond_b, lpc) of the last active step
+    (undefined where count is 0; the caller masks). The convs run once over
+    all T windows, the dense stack once on the last active position; the
+    per-stream selections are gathers.
+    """
+    b, T = ring.shape[0], ring.shape[1]
+    k = cfg.conv_kernel
+    count = count.long()
+    rows = torch.arange(b, device=ring.device)
+    pembed = nn.embedding(fused["embed_pitch"], pitch_index(ring))
+    x = torch.cat([ring[..., :cfg.nb_used_features], pembed], dim=-1)
+
+    def conv_seq(params, mem, seq, zero_before):
+        ext = torch.cat([mem, seq], dim=1)               # [B, k-1+T, cin]
+        win = ext.unfold(1, k, 1).transpose(-1, -2)      # [B, T, k, cin]
+        kernel = params["kernel"]
+        y = torch.matmul(win.reshape(b, T, -1),
+                         kernel.reshape(-1, kernel.shape[-1])) + params["bias"]
+        y = nn.activate(y, "tanh")
+        fc_t = state.frame_count[:, None] + torch.arange(T, device=ring.device)
+        y = torch.where((fc_t < zero_before)[..., None], 0.0, y)
+        # new_mem[:, j] = ext[:, count + j]
+        new_mem = torch.stack([ext[rows, count + j] for j in range(k - 1)],
+                              dim=1)
+        return y, new_mem
+
+    c1, mem1 = conv_seq(fused["feature_conv1"], state.conv1_mem, x,
+                        (cfg.conv_kernel - 1) // 2)
+    c2, mem2 = conv_seq(fused["feature_conv2"], state.conv2_mem, c1,
+                        cfg.lookahead)
+    last1 = torch.clamp(count - 1, min=0)
+    d1 = nn.dense(fused["feature_dense1"], c2[rows, last1], "tanh")
+    cond = nn.dense(fused["feature_dense2"], d1, "tanh")
+    cond_a = nn.dense(fused["cond_to_a"], cond)
+    cond_b = nn.dense(fused["cond_to_b"], cond)
+
+    if cfg.e2e:
+        lpc = lpc_mod.rc2lpc(cond[..., :LPC_ORDER])
+        new_old = state.old_lpc
+    else:
+        lpc_now = lpc_mod.lpc_from_cepstrum(ring[..., :18])   # [B, T, 16]
+        if cfg.lookahead > 0:
+            # the FIFO pushed `count` times: the emitted lpc and the final
+            # FIFO rows are rows of [reversed old FIFO | lpc_now]
+            la = cfg.lookahead
+            ext2 = torch.cat([torch.flip(state.old_lpc, (1,)), lpc_now], dim=1)
+            lpc = ext2[rows, last1]
+            top = la + last1 - torch.where(count > 0, 0, 1)
+            new_old = torch.stack([ext2[rows, top - j] for j in range(la)],
+                                  dim=1)
+        else:
+            lpc = lpc_now[rows, last1]
+            new_old = state.old_lpc
+    if cfg.lpc_gamma != 1.0:
+        lpc = lpc_mod.lpc_weighting(lpc, cfg.lpc_gamma)
+    new_state = FrameState(
+        mem1, mem2, new_old,
+        torch.clamp(state.frame_count + count.to(torch.int32), max=1000))
+    return new_state, cond_a, cond_b, lpc
+
+
 # --------------------------------------------------------------------------
 # Sample-rate network (plain reference)
 # --------------------------------------------------------------------------

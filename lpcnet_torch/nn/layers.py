@@ -138,6 +138,14 @@ def _gru_gates(h, gate_in, zrec, activation):
     return z * h + (1.0 - z) * hcand
 
 
+def gru_step(params: Params, h: torch.Tensor, x: torch.Tensor,
+             activation: str = "tanh"):
+    """One reset-after GRU step with its input weights (compute_gru2,
+    src/nnet.c:281-322): h [..., N] state, x [..., in] input."""
+    gate_in = torch.matmul(x, params["kernel"]) + params["bias"][0]
+    return gru_precomputed_step(params, h, gate_in, activation)
+
+
 def gru_precomputed_step(params: Params, h: torch.Tensor,
                          gate_in: torch.Tensor, activation: str = "tanh"):
     """Reset-after GRU step whose input contribution (x@kernel + bias[0]) is

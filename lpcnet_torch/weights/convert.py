@@ -81,6 +81,49 @@ def sample_state_to_numpy(state) -> Dict[str, np.ndarray]:
     return out
 
 
+def _fields_to_torch(state, cls, nested, device):
+    """A NamedTuple of the JAX package, field by field -> `cls`; `nested`
+    maps the fields that are NamedTuples themselves to their converters."""
+    return cls(*(nested[f](getattr(state, f), device) if f in nested
+                 else array_to_torch(getattr(state, f), device)
+                 for f in cls._fields))
+
+
+def encoder_state_to_torch(state, device="cpu"):
+    """A JAX EncoderState -> the port's (`codec.features`)."""
+    from ..codec.features import EncoderState
+    from ..dsp.pitch import ViterbiCarry
+    vit = lambda v, dev: _fields_to_torch(v, ViterbiCarry, {}, dev)
+    return _fields_to_torch(state, EncoderState, {"viterbi": vit}, device)
+
+
+def plc_state_to_torch(state, device="cpu"):
+    """A JAX BatchedPLCState (`lpcnet_tpu/plc/batched.py`) -> the port's,
+    every leaf: frame and sample state, conditioning, rings, analysis state,
+    PLC-net states, queues and counters."""
+    from ..models.lpcnet import FrameState
+    from ..models.plc import PLCNetState
+    from ..plc.batched import BatchedPLCState
+    plain = lambda cls: (lambda v, dev: _fields_to_torch(v, cls, {}, dev))
+    return _fields_to_torch(state, BatchedPLCState, {
+        "fstate": plain(FrameState), "sstate": sample_state_to_torch,
+        "enc": encoder_state_to_torch, "plc_net": plain(PLCNetState),
+        "plc_ring": plain(PLCNetState)}, device)
+
+
+def state_to_numpy(state) -> Any:
+    """Any of the port's states (nested NamedTuples of tensors) -> nested
+    dicts of numpy arrays keyed by field name, KISS99 words as uint32: what
+    the JAX package's NamedTuples of the same names are built from."""
+    from ..utils.rng import Kiss99State
+    if isinstance(state, Kiss99State):
+        return {f: x.detach().cpu().numpy().astype(np.uint32)
+                for f, x in zip(state._fields, state)}
+    if isinstance(state, tuple):
+        return {f: state_to_numpy(x) for f, x in zip(state._fields, state)}
+    return state.detach().cpu().numpy()
+
+
 def train_params_to_torch(tree: Any, device="cpu") -> Dict[str, Any]:
     """Training parameters (the JAX package's nested dict or flat
     '/'-joined keys, as numpy-convertible arrays) -> the port's nested dict

@@ -1,6 +1,7 @@
-"""The CUDA kernels (the sample loop K1, its masked form K2, the GRU training
-recurrence K5) vs their plain PyTorch versions, on a card; and, without a
-card, that the trainer refuses to start rather than train on the host.
+"""The CUDA kernels (the sample loop K1, its masked form K2, the teacher-forced
+run K3, the PLC-net chain K4, the GRU training recurrence K5) vs their plain
+PyTorch versions, on a card; and, without a card, that the trainer and the
+PLC entry points refuse to start rather than run on the host.
 
 Imports neither JAX nor the JAX package, so it runs on the GPU machine:
 
@@ -13,10 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from lpcnet_torch import api
+from lpcnet_torch.codec.decoder import LPCNetDecoder
 from lpcnet_torch.kernels import gru_train as G
+from lpcnet_torch.kernels import plc_chain as PC
 from lpcnet_torch.kernels import sample_loop as K
 from lpcnet_torch.models import lpcnet as M
+from lpcnet_torch.models import plc as PM
 from lpcnet_torch.nn import quantized as Q
+from lpcnet_torch.plc.batched import BatchedPLC
+from lpcnet_torch.runtime.serving import PLCStreamPool
 from lpcnet_torch.train import data as D
 from lpcnet_torch.train import train_lpcnet as T
 from lpcnet_torch.utils.device import resolve_device
@@ -126,6 +133,181 @@ def test_cuda_masked_kernel_matches_plain(cuda, form, sampled):
     elif form != "bf16":
         assert same >= 0.98, same
     assert bool(torch.isfinite(pk).all())
+
+
+def _tf_case(fused, cfg, b, n, nblk, dev, seed=40):
+    """Drain-shaped inputs of K3: conditioning blocks from consecutive
+    frame-network steps, a carried signal state, targets, prefix counts with
+    full, partial, empty and late-starting streams."""
+    rs = np.random.RandomState(seed)
+    r = lambda *s: torch.from_numpy(rs.normal(size=s).astype(np.float32)).to(dev)
+    fs = M.init_frame_state(b, cfg, dev)
+    cas, cbs, lpcs = [], [], []
+    for _ in range(nblk + 2):
+        fs, _, ca, cb, lpc = M.frame_network(fused, fs, r(b, 36) * 0.3, cfg)
+        cas.append(ca), cbs.append(cb), lpcs.append(lpc)
+    s0 = M.init_sample_state(b, cfg, dev)._replace(last_sig=r(b, 16) * 500,
+                                                   deemph=r(b) * 200)
+    counts = np.zeros((b, nblk), np.int32)
+    counts[: b // 2] = [n] * (nblk - 1) + [n // 2]
+    counts[b // 2: 3 * b // 4, 0] = n
+    counts[3 * b // 4 + 2:, 1:] = n            # rows between stay frozen
+    stack = lambda xs: torch.stack(xs[-nblk:], dim=1).contiguous()
+    return (s0, stack(cas), stack(cbs), stack(lpcs), r(b, nblk * n) * 900,
+            torch.from_numpy(counts).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
+def test_cuda_teacher_force_kernel_matches_plain(cuda, form):
+    """K3 vs its plain version at full width and an odd batch, 3 blocks of
+    32 steps. RNG equal; streams that run no step bit-equal; the signal state
+    (closed forms, the same PyTorch code on both sides) equal; one step from
+    a shared state within 1e-4 (bf16 GRU-B 1e-2, see K1); over the run f32
+    within 2e-2 and q8 within 5e-2 (the JAX package's bars for this kernel),
+    bf16 finite; RNG equal to K2's with the sampler off under the same
+    prefix mask; one launch counted per call."""
+    cfg = M.LPCNetConfig()
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda), cfg)
+    if form == "q8":
+        kw = K.kernel_weights(Q.quantize_fused(fused), cfg)
+    else:
+        kw = K.kernel_weights(fused, cfg, dtype={"f32": torch.float32,
+                                                 "bf16": torch.bfloat16}[form])
+    b, n, nblk = 37, 32, 3
+    s0, ca, cb, lpc, tg, counts = _tf_case(fused, cfg, b, n, nblk, cuda)
+    one = torch.clamp(counts, max=1)
+    first = (ca[:, :1].contiguous(), cb[:, :1].contiguous(), lpc[:, :1],
+             tg[:, :n], one[:, :1], n)
+    s1k = K.teacher_force_blocks_kernel(kw, s0, *first)
+    s1p = K.teacher_force_blocks_plain(kw, s0, *first)
+    assert float((s1k.gru_a - s1p.gru_a).abs().max()) <= 1e-4
+    assert float((s1k.gru_b - s1p.gru_b).abs().max()) <= (
+        1e-2 if form == "bf16" else 1e-4)
+    before = K.teacher_force_blocks_kernel.launches
+    sk = K.teacher_force_blocks_kernel(kw, s0, ca, cb, lpc, tg, counts, n)
+    torch.cuda.synchronize()
+    assert K.teacher_force_blocks_kernel.launches == before + 1
+    sp = K.teacher_force_blocks_plain(kw, s0, ca, cb, lpc, tg, counts, n)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert all(torch.equal(a, c) for a, c in zip(sk[2:5], sp[2:5]))
+    frozen = counts.sum(1) == 0
+    assert bool(frozen.any())
+    assert all(torch.equal(a[frozen], c[frozen]) for a, c in
+               zip(sk[:5] + tuple(sk.rng), s0[:5] + tuple(s0.rng)))
+    assert bool(torch.isfinite(sk.gru_a).all() and torch.isfinite(sk.gru_b).all())
+    if form != "bf16":
+        tol = 5e-2 if form == "q8" else 2e-2
+        assert float((sk.gru_a - sp.gru_a).abs().max()) <= tol
+        assert float((sk.gru_b - sp.gru_b).abs().max()) <= tol
+    adv = torch.arange(n, device=cuda)[None, :] < counts[:, :1]
+    s2, _ = K.synthesize_frame_masked_kernel(
+        kw, s0, ca[:, 0].contiguous(), cb[:, 0].contiguous(),
+        lpc[:, 0].contiguous(), tg[:, :n].contiguous(), adv, adv, n,
+        sampled=False)
+    s3 = K.teacher_force_prefix_kernel(kw, s0, ca[:, 0], cb[:, 0], lpc[:, 0],
+                                       tg[:, :n], counts[:, 0])
+    assert all(torch.equal(a, c) for a, c in zip(s2.rng, s3.rng))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k_steps", [(37, 4), (256, 4), (3, 1)])
+def test_cuda_plc_chain_kernel_matches_plain(cuda, b, k_steps):
+    """K4 vs its plain version: states after every step within 2e-5, outputs
+    within 2e-4, frozen streams' states exact, two runs bit-equal, one
+    launch counted per call."""
+    rs = np.random.RandomState(0)
+    r = lambda *s: torch.from_numpy(rs.normal(size=s).astype(np.float32)).to(cuda)
+    params = PM.init_params(seed=3, device=cuda)
+    for layer in params.values():
+        layer["bias"] = r(*layer["bias"].shape) * 0.1
+    cw = PC.plc_chain_weights(params)
+    h1, h2 = torch.tanh(r(b, 256)), torch.tanh(r(b, 256))
+    inputs = r(b, k_steps, PM.PLC_INPUT_SIZE) * 0.5
+    masks = torch.from_numpy(rs.rand(b, k_steps) < 0.6).to(cuda)
+    masks[0] = False
+    before = PC.plc_chain_kernel.launches
+    got = PC.plc_chain_kernel(cw, h1, h2, inputs, masks, k_steps)
+    torch.cuda.synchronize()
+    assert PC.plc_chain_kernel.launches == before + 1
+    want = PC.plc_chain_plain(cw, h1, h2, inputs, masks, k_steps)
+    for g, w, tol in zip(got, want, (2e-5, 2e-5, 2e-4)):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= tol
+    assert torch.equal(got[0][0], h1[0].expand(k_steps, -1))
+    assert torch.equal(got[1][0], h2[0].expand(k_steps, -1))
+    again = PC.plc_chain_kernel(cw, h1, h2, inputs, masks, k_steps)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_cuda_decoder_preload_runs_the_masked_kernel(cuda, int8):
+    """A teacher-forced frame through the decoder on the card goes through
+    K2 with the sampler off: PCM equal to `M.synthesize_frame(preload=...)`
+    (it is the target less 0.85 times the de-emphasis memory, whatever the
+    network says), the RNG in lockstep, GRU-A within 2e-2 (int8: 5e-2)."""
+    fused, cfg = api.load_model(None, seed=3, int8=int8, device=cuda)
+    b = 5
+    dec = LPCNetDecoder.from_fused(fused, cfg, b, device=cuda)
+    rs = np.random.RandomState(2)
+    fs, ss = dec.frame_state, dec.sample_state
+    before = K.synthesize_frame_masked_kernel.launches
+    for k in range(4):
+        feats = (rs.normal(size=(b, 36)) * 0.3).astype(np.float32)
+        target = (rs.normal(size=(b, 160)) * 2000).astype(np.float32)
+        pcm = dec.synthesize(feats, preload=target)
+        fs, _, ca, cb, lpc = M.frame_network(
+            fused, fs, torch.from_numpy(feats).to(cuda), cfg)
+        if k < cfg.lookahead:
+            assert not pcm.any()
+            continue
+        ss, want = M.synthesize_frame(fused, ss, ca, cb, lpc,
+                                      preload=torch.from_numpy(target).to(cuda))
+        assert np.array_equal(pcm, want.cpu().numpy().astype(np.int16))
+        assert all(torch.equal(a, c) for a, c in
+                   zip(dec.sample_state.rng, ss.rng))
+        assert float((dec.sample_state.gru_a - ss.gru_a).abs().max()) <= (
+            5e-2 if int8 else 2e-2)
+        ss = dec.sample_state
+    assert K.synthesize_frame_masked_kernel.launches == before + 4
+    with pytest.raises(ValueError, match="160"):
+        dec.synthesize(feats, preload=target[:, :80])
+
+
+@pytest.mark.cuda
+def test_cuda_plc_pool_counts_its_launches(cuda):
+    """A small pool on the card, blending on: K2 twice and K3 once a frame,
+    K4 once a frame with `fastchain` and never without; good streams pass
+    through; a slot reset leaves the other slots' state alone."""
+    from lpcnet_torch.plc import batched as BP
+    cfg = M.LPCNetConfig(**SMALL)
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=1, device=cuda), cfg)
+    plc_params = api.load_plc_model(None, seed=2, device=cuda)
+    rs = np.random.RandomState(3)
+    frames = (rs.normal(size=(8, 5, 160)) * 2000).round().astype(np.float32)
+    for chain in (False, True):
+        prev = BP.set_plc_flags(fastchain=chain)
+        try:
+            pool = PLCStreamPool(fused, cfg, plc_params, capacity=5)
+        finally:
+            BP.set_plc_flags(*prev)
+        K.synthesize_frame_masked_kernel.launches = 0
+        K.teacher_force_blocks_kernel.launches = 0
+        PC.plc_chain_kernel.launches = 0
+        for k in range(8):
+            lost = k in (4, 5)
+            out = pool.step({f"s{i}": (None if lost and i < 2 else frames[k, i])
+                             for i in range(5)})
+            assert np.array_equal(out["s4"], frames[k, 4])
+        assert K.synthesize_frame_masked_kernel.launches == 16
+        assert K.teacher_force_blocks_kernel.launches == 8
+        assert PC.plc_chain_kernel.launches == (8 if chain else 0)
+        keep = pool.plc.state.sstate.gru_a[1].clone()
+        pool.detach("s0")
+        pool.attach("again")
+        assert torch.equal(pool.plc.state.sstate.gru_a[1], keep)
+        assert not bool(pool.plc.state.sstate.gru_a[0].any())
 
 
 def _gru_case(n, nin, b, t, dev, seed=5):
@@ -266,4 +448,11 @@ def test_trainer_without_cuda_raises_rather_than_train_on_the_host(tmp_path):
         D.DeviceLPCNetLoader(str(tmp_path / "a"), str(tmp_path / "b"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         T.main([str(tmp_path / "f"), str(tmp_path / "d"), str(tmp_path / "o")])
+    cfg = M.LPCNetConfig(**SMALL)
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=0), cfg)
+    for entry in (BatchedPLC, PLCStreamPool):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(fused, cfg, PM.init_params(1), 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.load_plc_model(api.DEMO_PLC_MODEL_PATH)
     assert T.Trainer(M.LPCNetConfig(**SMALL), device="cpu").device.type == "cpu"
