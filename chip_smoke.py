@@ -1,7 +1,8 @@
 """GPU smoke check of lpcnet_torch: builds every kernel, holds each against its
 plain PyTorch version on the card, drives vocoder synthesis, vocoder
-training and batched packet-loss concealment end to end through the public
-entry points, and times them.
+training, batched packet-loss concealment and the 1.6 kb/s codec (encode,
+packet decode through StreamPool) end to end through the public entry
+points, and times them.
 
     python3 chip_smoke.py
 
@@ -46,7 +47,18 @@ Needs one CUDA card and nvcc. Phases:
  11. K3, both K2 calls and K4 vs their plain versions on the arguments that
      path gave them in one frame (the sample-rate section compacted to 64
      streams), then their timings on those arguments, with their bounds, and
-     the frame's split.
+     the frame's split;
+ 12. the merged sample-loop kernel (K6) vs its plain version at 256 streams,
+     32 steps, f32 and bf16, and one step against K1's kernel;
+ 13. the codec path: api.LPCNetEncoder on 1024 streams of a seeded
+     speech-like signal for 10 superframes, the card's decode of its packets
+     against its quantized features, then runtime.serving.StreamPool at 1024
+     streams decoding those packets for 10 ticks of 40 ms on the demo
+     vocoder, the merged flag off (K1) and on (K6): 4 launches a tick of the
+     selected kernel, none of the other; K6 and K1 vs the plain version at
+     the main shapes from the K6 pool's state, their timings, bounds and the
+     tick's split; the C fixture's speech encoded on the card (packets
+     bit-exact against C counted) and one `cli encode` -> `cli decode`.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
@@ -65,6 +77,7 @@ import numpy as np
 import torch
 
 from lpcnet_torch import api
+from lpcnet_torch.codec import packet as P
 from lpcnet_torch.codec.decoder import LPCNetDecoder
 from lpcnet_torch.dsp.constants import NB_TOTAL_FEATURES
 from lpcnet_torch.kernels import _build
@@ -95,6 +108,8 @@ PLC_FRAMES = 200
 PLC_CHAIN_FRAMES = 50
 CHECK_BATCH = 256
 CHECK_STEPS = 32
+CODEC_STREAMS = 1024
+CODEC_SUPERFRAMES = 10
 
 
 def log(msg):
@@ -1384,6 +1399,300 @@ def time_plc_kernels(calls, models, counts, chain_counts, frame_ms, smi):
     ]
 
 
+# --------------------------------------------------------------------------
+# K6 and the codec path
+# --------------------------------------------------------------------------
+
+def k6_bound_ms(mw, cfg, batch, n):
+    """Least time for one K6 launch: K1's multiply-adds (the merged layout
+    adds only zeros) over the peak of their type, against the bytes of K6's
+    own operands (the merged matrices, zero blocks included, and the
+    sampler's tensors) and, per stream, the 4N conditioning, the LPC, the
+    state in and out and the PCM."""
+    na, nb = cfg.rnn_units1, cfg.rnn_units2
+    gru_macs = na * 3 * na + na * 3 * nb + nb * 3 * nb
+    steps = batch * n
+    typ = "bf16" if mw["a_merged"].dtype == torch.bfloat16 else "f32"
+    op_s = (2 * gru_macs * steps / PEAK[typ]
+            + 2 * nb * 512 * steps / PEAK["f32"])
+    weight_bytes = sum(mw[k].numel() * mw[k].element_size() for k in (
+        "a_merged", "b_merged", "dual_w", "dual_bias", "dual_factor",
+        "logit_table"))
+    per_stream = 4 * (4 * na + 4 * nb + 16 + 2 * (na + nb + 16 + 1 + 1)
+                      + n) + 2 * (4 * 8 + 4)
+    byte_s = (weight_bytes + batch * per_stream) / HBM_BPS
+    return 1e3 * max(op_s, byte_s), ("operations" if op_s >= byte_s else "bytes")
+
+
+def k6_bundles(fused, cfg):
+    """{form: (K1 bundle, K6 operands)} for f32 and bf16."""
+    out = {}
+    for form, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        kw = K.kernel_weights(fused, cfg, dtype=dt)
+        out[form] = (kw, K.merged_kernel_weights(kw))
+    return out
+
+
+def check_k6(fused, cfg, dev):
+    """K6 vs its plain version at 256 streams, 32 steps, f32 and bf16, at
+    K1's bars; after one step also against K1's kernel on the same inputs."""
+    ca, cb, lpc = conditioning(fused, cfg, CHECK_BATCH, dev)
+    s0 = M.init_sample_state(CHECK_BATCH, cfg, dev)
+    res = {}
+    for form, (kw, mw) in k6_bundles(fused, cfg).items():
+        s1k, _ = K.synthesize_frame_merged_kernel(mw, s0, ca, cb, lpc, 1)
+        s1p, _ = K.sample_loop_merged_plain(mw, s0, ca, cb, lpc, 1)
+        s11, _ = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, 1)
+        tol_b = 1e-2 if form == "bf16" else 1e-4
+        errs = {}
+        for name, other in (("plain", s1p), ("K1", s11)):
+            ea = float((s1k.gru_a - other.gru_a).abs().max())
+            eb = float((s1k.gru_b - other.gru_b).abs().max())
+            assert ea <= 1e-4 and eb <= tol_b, (form, name, ea, eb)
+            errs[name] = (ea, eb)
+        sk, pk = K.synthesize_frame_merged_kernel(mw, s0, ca, cb, lpc, CHECK_STEPS)
+        torch.cuda.synchronize()
+        sp, pp = K.sample_loop_merged_plain(mw, s0, ca, cb, lpc, CHECK_STEPS)
+        same = float((pk == pp).float().mean())
+        rng_eq = all(bool(torch.equal(a, b)) for a, b in zip(sk.rng, sp.rng))
+        err = float((sk.gru_a - sp.gru_a).abs().max())
+        finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+        rms_k, rms_p = (float(x.square().mean().sqrt()) for x in (pk, pp))
+        res[form] = dict(same=same, rng=rng_eq, err=err, finite=finite)
+        log(f"K6[{form}] vs plain, B={CHECK_BATCH}: one step max|h_a|, max|h_b| "
+            f"err {errs['plain'][0]:.3e}, {errs['plain'][1]:.3e} (against K1's "
+            f"kernel {errs['K1'][0]:.3e}, {errs['K1'][1]:.3e}; tol 1e-4, bf16 "
+            f"h_b 1e-2); n={CHECK_STEPS}: exact pcm {same:.4f}, rng equal "
+            f"{rng_eq}, max|gru_a| err {err:.3e}, finite {finite}, rms "
+            f"{rms_k:.1f} vs {rms_p:.1f}")
+        assert rng_eq and finite, form
+        if form == "f32":
+            assert same >= 0.98 and err <= 2e-2, res[form]
+        else:
+            assert abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5, (rms_k, rms_p)
+    log("K6 bars: f32 >=98% exact & err<=2e-2, bf16 rms within 0.5, rng equal, "
+        "finite: pass")
+
+
+def check_k6_main_shape(kw, mw, st, ca, cb, lpc, form):
+    """K6 vs its plain version at the main shapes (B=1024, n=160) from the
+    live state the codec path left, and one step against K1's kernel, at
+    K1's main-shape bars (`check_k1_main_shape`). Returns the largest
+    one-step error against the plain version."""
+    s1k, _ = K.synthesize_frame_merged_kernel(mw, st, ca, cb, lpc, 1)
+    s1p, _ = K.sample_loop_merged_plain(mw, st, ca, cb, lpc, 1)
+    s11, _ = K.synthesize_frame_kernel(kw, st, ca, cb, lpc, 1)
+    err_a = float((s1k.gru_a - s1p.gru_a).abs().max())
+    err_b = float((s1k.gru_b - s1p.gru_b).abs().max())
+    k1_a = float((s1k.gru_a - s11.gru_a).abs().max())
+    k1_b = float((s1k.gru_b - s11.gru_b).abs().max())
+    sk, pk = K.synthesize_frame_merged_kernel(mw, st, ca, cb, lpc)
+    torch.cuda.synchronize()
+    sp, pp = K.sample_loop_merged_plain(mw, st, ca, cb, lpc)
+    same = float((pk == pp).float().mean())
+    apart = int((pk != pp).any(dim=1).sum())
+    rms_k, rms_p = (float(x.square().mean().sqrt()) for x in (pk, pp))
+    rng_eq = all(bool(torch.equal(a, b)) for a, b in zip(sk.rng, sp.rng))
+    finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+    log(f"K6[{form}] vs plain, B={ca.shape[0]} n={pk.shape[1]}, live state: "
+        f"one step max|h_a| err {err_a:.3e}, max|h_b| err {err_b:.3e} (against "
+        f"K1's kernel {k1_a:.3e}, {k1_b:.3e}); frame: exact pcm {same:.4f}, "
+        f"streams apart {apart}, rms {rms_k:.1f} vs {rms_p:.1f}, rng equal "
+        f"{rng_eq}, finite {finite}")
+    tol_b = 1e-2 if form == "bf16" else 1e-4
+    assert err_a <= 1e-4 and k1_a <= 1e-4 and rng_eq and finite, form
+    assert err_b <= tol_b and k1_b <= tol_b, form
+    assert abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5, form
+    return max(err_a, err_b)
+
+
+def codec_pcm(streams, superframes):
+    """The PLC path's seeded speech-like signal, int16-valued: [B, T*640]."""
+    pcm, _, _ = plc_traffic(streams, 4 * superframes, SEED + 41)
+    return np.clip(pcm.reshape(streams, -1), -32768, 32767)
+
+
+def drive_codec(dev, smi):
+    """The codec path at full width: LPCNetEncoder on 1024 streams of the
+    seeded signal for 10 superframes, then the packets through
+    StreamPool(capacity=1024).step_packets on the demo vocoder, 10 ticks with
+    the merged flag off (K1) and 10 with it on (K6). Returns ({"K1"|"K6":
+    the run's pcm, ms per tick, pool and launches}, the timed parts)."""
+    from lpcnet_torch.codec import decoder as CD
+    b, n_sf = CODEC_STREAMS, CODEC_SUPERFRAMES
+    pcm = codec_pcm(b, n_sf)
+    # one superframe on a throwaway encoder first: the first calls at these
+    # shapes set up cuFFT plans and cuBLAS workspaces
+    api.lpcnet_encode(api.lpcnet_encoder_create(batch=b), pcm[:, :640])
+    enc = api.lpcnet_encoder_create(batch=b)
+    packets, quantized = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n_sf):
+        packets.append(api.lpcnet_encode(enc, pcm[:, t * 640:(t + 1) * 640]))
+        quantized.append(enc.quantized)
+    enc_ms = 1e3 * (time.perf_counter() - t0) / n_sf
+    log(f"codec encode: LPCNetEncoder B={b}, {n_sf} superframes: {enc_ms:.3f} "
+        f"ms/superframe ({b * 40.0 / enc_ms:.1f} streams x real time); card: {smi}")
+
+    # the card's decode of the card's packets reproduces the quantized
+    # cepstrum and pitch (the JAX round-trip bar, 1e-5)
+    cbs = enc.cbs
+    vq = torch.zeros(b, 18, device=dev)
+    err = 0.0
+    for t in range(n_sf):
+        fields = {k: torch.as_tensor(v, device=dev)
+                  for k, v in P.unpack_fields(packets[t]).items()}
+        feats, vq = CD.decode_packet_features(fields, vq, cbs)
+        err = max(err, float((feats[..., :20] - quantized[t][..., :20]).abs().max()))
+    log(f"codec round trip on the card: decoded features vs the encoder's "
+        f"quantized ones, max err {err:.3e} (tol 1e-5)")
+    assert err <= 1e-5, err
+
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
+    sids = [f"call-{i}" for i in range(b)]
+    runs = {}
+    for flag in (False, True):
+        prev = K.set_merged(flag)
+        try:
+            pool = api.StreamPool(fused, cfg, capacity=b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for sid in sids:                 # a call's set-up, not a tick
+                pool.attach(sid)
+            torch.cuda.synchronize()
+            attach_ms = 1e3 * (time.perf_counter() - t0)
+            K.synthesize_frame_kernel.launches = 0
+            K.synthesize_frame_merged_kernel.launches = 0
+            K.synthesize_frame_masked_kernel.launches = 0
+            out, ticks = [], []
+            for t in range(n_sf):
+                t0 = time.perf_counter()
+                got = pool.step_packets({sid: packets[t][i] for i, sid in enumerate(sids)})
+                out.append(np.stack([got[sid] for sid in sids]))
+                ticks.append(1e3 * (time.perf_counter() - t0))
+            k1, k6 = K.synthesize_frame_kernel.launches, K.synthesize_frame_merged_kernel.launches
+            k2 = K.synthesize_frame_masked_kernel.launches
+        finally:
+            K.set_merged(prev)
+        name = "K6" if flag else "K1"
+        assert (k1, k6, k2) == ((0, 4 * n_sf, 0) if flag else (4 * n_sf, 0, 0)), (k1, k6, k2)
+        pcm_out = np.stack(out)                       # [ticks, B, 640]
+        assert pcm_out.dtype == np.int16 and pcm_out.shape == (n_sf, b, 640)
+        la = cfg.lookahead
+        assert not pcm_out[0, :, :la * 160].any(), f"{name}: warmup not silent"
+        assert pcm_out[1:].any(axis=(0, 2)).all(), f"{name}: a stream stayed silent"
+        # the tick's own time: the mean of ticks 2-10 (the first also sets
+        # up the frame network's and the decode's first calls on this pool)
+        tick_ms = float(np.mean(ticks[1:]))
+        runs[name] = dict(pcm=pcm_out, tick_ms=tick_ms, pool=pool, launches=k1 + k6)
+        log(f"codec decode [{name}, flag {'on' if flag else 'off'}]: StreamPool "
+            f"B={b}, {n_sf} ticks of 40 ms: {tick_ms:.3f} ms/tick (ticks 2-{n_sf}, "
+            f"host clock, PCM on the host; range {min(ticks[1:]):.3f}-"
+            f"{max(ticks[1:]):.3f}; first tick {ticks[0]:.3f}), "
+            f"{40.0 / tick_ms * b:.1f} streams x real time; {b} attaches before "
+            f"the first tick {attach_ms:.1f} ms; launches K1 {k1}, K6 {k6}, K2 "
+            f"{k2}; warmup silent, int16, non-zero after; card: {smi}")
+    rms = {k: float(np.sqrt(np.mean(v["pcm"][1:].astype(np.float64) ** 2)))
+           for k, v in runs.items()}
+    rel = abs(rms["K6"] - rms["K1"]) / max(rms["K1"], 1.0)
+    log(f"codec decode flag on vs off: rms {rms['K6']:.1f} vs {rms['K1']:.1f} "
+        f"(rel {rel:.4f}, bf16 bar 0.5)")
+    assert rel < 0.5, rms
+
+    # a tick's parts, each alone at the pool's batch (CUDA events)
+    pool = runs["K6"]["pool"]
+    dec = pool.dec
+    fields = {k: torch.as_tensor(v, device=dev)
+              for k, v in P.unpack_fields(packets[-1]).items()}
+    dpf_ms = time_cuda(lambda: CD.decode_packet_features(fields, dec.vq_mem, cbs),
+                       reps=20)
+    f0 = torch.from_numpy(features(b, 1, SEED + 43)[0]).to(dev)
+    fn_ms = time_cuda(lambda: M.frame_network(dec.fused, dec.frame_state, f0, cfg),
+                      reps=20)
+    host_parts = time_host(lambda: P.unpack_fields(packets[-1]), reps=20)
+    return runs, dict(enc_ms=enc_ms, dpf_ms=dpf_ms, fn_ms=fn_ms,
+                      unpack_ms=host_parts, round_trip_err=err)
+
+
+def codec_fixture_on_card(smi):
+    """The C fixture's speech through LPCNetEncoder on the card (one
+    stream): how many of its 50 packets are bit-exact; then one `cli encode`
+    -> `cli decode` of that file on the card."""
+    from lpcnet_torch import cli
+    fix = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "fixtures", "codec.npz"))
+    want = fix["packets"]
+    enc = api.lpcnet_encoder_create()
+    got = np.stack([api.lpcnet_encode(enc, fix["pcm"][t * 640:(t + 1) * 640])
+                    for t in range(want.shape[0])])
+    match = np.all(got == want, axis=1)
+    log(f"codec fixture on the card: {int(match.sum())}/{len(match)} packets "
+        f"bit-exact against the C encoder; rows apart {np.where(~match)[0].tolist()}")
+    with tempfile.TemporaryDirectory() as d:
+        pin, bits, pout = (os.path.join(d, f) for f in ("in.pcm", "x.lpcnet", "o.pcm"))
+        fix["pcm"].astype(np.int16).tofile(pin)
+        t0 = time.perf_counter()
+        cli.main(["encode", pin, bits])
+        cli.main(["decode", bits, pout])
+        secs = time.perf_counter() - t0
+        pk = np.fromfile(bits, np.uint8).reshape(-1, 8)
+        out = np.fromfile(pout, np.int16)
+    assert np.array_equal(pk, got), "cli encode differs from the API's packets"
+    assert out.shape == (len(pk) * 640,) and not out[:320].any() and out[320:].any()
+    log(f"cli encode -> decode on the card: {len(pk)} packets, {out.size} "
+        f"samples, {secs:.2f} s; card: {smi}")
+    return int(match.sum())
+
+
+def time_k6(runs, parts, dev, smi):
+    """K6 and K1 at the main shapes (B=1024, n=160) from the live state of
+    the K6 pool, f32 and bf16 on the same inputs: held against the plain
+    version, then timed with their bounds; then the decode tick's split.
+    Returns the kernels line's entry for K6 (bf16)."""
+    pool = runs["K6"]["pool"]
+    dec = pool.dec
+    cfg = dec.cfg
+    st = dec.sample_state
+    ca, cb, lpc = conditioning(dec.fused, cfg, CODEC_STREAMS, dev)
+    bundles = k6_bundles(dec.fused, cfg)
+    res = {}
+    for form, (kw, mw) in bundles.items():
+        err = check_k6_main_shape(kw, mw, st, ca, cb, lpc, form)
+        k6_ms = time_cuda(lambda: K.synthesize_frame_merged_kernel(mw, st, ca, cb, lpc),
+                          reps=10)
+        k1_ms = time_cuda(lambda: K.synthesize_frame_kernel(kw, st, ca, cb, lpc),
+                          reps=10)
+        p_ms = time_cuda(lambda: K.sample_loop_merged_plain(mw, st, ca, cb, lpc),
+                         reps=1, warmup=1)
+        bound, by = k6_bound_ms(mw, cfg, CODEC_STREAMS, 160)
+        k1_bound, _ = k1_bound_ms(kw, cfg, CODEC_STREAMS, 160)
+        res[form] = dict(err=err, ms=k6_ms, k1_ms=k1_ms, plain=p_ms, bound=bound, by=by)
+        log(f"K6[{form}] B={CODEC_STREAMS} n=160: kernel {k6_ms:.4f} ms/launch, K1 "
+            f"on the same inputs {k1_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+            f"{bound:.4f} ms ({by}; K1's {k1_bound:.4f}), 1 launch per 10 ms frame "
+            f"with the flag on; library: no single PyTorch call computes K6; "
+            f"card: {smi}")
+    for name in ("K1", "K6"):
+        kern = res["bf16"]["k1_ms" if name == "K1" else "ms"]
+        tick = runs[name]["tick_ms"]
+        rest = tick - parts["dpf_ms"] - 4 * (parts["fn_ms"] + kern)
+        log(f"codec tick [{name}] {tick:.3f} ms = decode_packet_features "
+            f"{parts['dpf_ms']:.3f} ms + 4 x frame network {parts['fn_ms']:.3f} ms "
+            f"+ 4 x {name} {kern:.3f} ms (CUDA events, alone, B={CODEC_STREAMS}) + "
+            f"host rest {rest:.3f} ms ({100 * rest / tick:.1f} %; unpack_fields "
+            f"{parts['unpack_ms']:.3f} ms on the host clock); card: {smi}")
+    r = res["bf16"]
+    return {"name": "sample_loop_merged[bf16]", "route": "cuda",
+            "source": "lpcnet_torch/kernels/csrc/sample_loop.cu",
+            "replaces": "lpcnet_tpu/kernels/sample_loop.py:554",
+            "launches": runs["K6"]["launches"], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"],
+            "bound_by": r["by"], "library_ms": None, "pass": True,
+            "f32_ms": res["f32"]["ms"], "k1_ms_same_inputs": r["k1_ms"],
+            "k1_f32_ms_same_inputs": res["f32"]["k1_ms"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1489,7 +1798,14 @@ def main():
     k2_entry["launches_plc_path"] = counts[0] + chain_counts[0]
     k2_entry["ms_plc_path"] = k2_plc_ms
     k2_entry["max_abs_err_plc_path"] = max(k2_plc_err)
-    assert len(entries) == 9 and all(e["launches"] > 0 for e in entries), entries
+
+    # 12. K6 vs plain, 13. the codec path, then K6's timings on its state
+    check_k6(fused, cfg, dev)
+    runs, parts = drive_codec(dev, smi)
+    k6_entry = time_k6(runs, parts, dev, smi)
+    k6_entry["codec_fixture_bit_exact"] = codec_fixture_on_card(smi)
+    entries.append(k6_entry)
+    assert len(entries) == 10 and all(e["launches"] > 0 for e in entries), entries
 
     print(json.dumps({"kernels": entries}))
     print(smi)          # nvidia-smi: name, power limit

@@ -9,12 +9,17 @@ network -> the 160-step autoregressive sample loop, the CUDA kernel in
 (`train/train_lpcnet.py`: the teacher-forced training graph whose two GRU
 recurrences run through the CUDA kernels of `kernels/csrc/gru_train.cu`,
 forward and backward, with optional scheduled sampling through the masked
-form of the sample loop).
+form of the sample loop), batched packet-loss concealment
+(`runtime.serving.PLCStreamPool`) and the 1.6 kb/s codec (`codec.encoder`,
+packet decode through `runtime.serving.StreamPool`, whose sample loop can be
+the merged-product kernel).
 
-Entry points (`api.load_model`, `api.Synthesizer`, `codec.decoder.
-LPCNetDecoder.from_fused`, `cli`, `train.train_lpcnet.Trainer` and its
-`main`, `train.data.DeviceLPCNetLoader`) run on the GPU unless the caller
-passes `device="cpu"`; without CUDA and without that request they raise.
+Entry points (`api.load_model`, `api.Synthesizer`, `api.StreamPool`,
+`api.PLCStreamPool`, `api.lpcnet_encoder_create`,
+`api.lpcnet_decoder_create`, `codec.decoder.LPCNetDecoder.from_fused`,
+`cli`, `train.train_lpcnet.Trainer` and its `main`,
+`train.data.DeviceLPCNetLoader`) run on the GPU unless the caller passes
+`device="cpu"`; without CUDA and without that request they raise.
 """
 
 __version__ = "0.1.0"

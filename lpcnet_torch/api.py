@@ -1,8 +1,15 @@
-"""Public API: model loading and the batched vocoder.
+"""Public API: model loading, the batched vocoder, the 1.6 kb/s codec and
+the serving pools, with the C API's shape where the reference has one
+(include/lpcnet.h).
 
     fused, cfg = load_model("model.npz", int8=True)       # on the GPU
     synth = Synthesizer(fused=fused, cfg=cfg, batch=256)
     pcm = synth.synthesize(features)                      # [256, 160] int16
+
+    enc = lpcnet_encoder_create(batch=256)
+    pkts = lpcnet_encode(enc, pcm640)                     # [256, 8] uint8
+    pool = StreamPool(fused, cfg, capacity=1024)          # packet decode
+    out = pool.step_packets({"call-3": pkt, ...})         # [640] int16 each
 
     plc_params = load_plc_model(DEMO_PLC_MODEL_PATH)      # the PLC network
     pool = PLCStreamPool(fused, cfg, plc_params, capacity=256)
@@ -18,11 +25,15 @@ from typing import Optional
 
 import numpy as np
 
+import torch
+
 from .codec.decoder import LPCNetDecoder
-from .dsp.constants import NB_TOTAL_FEATURES
+from .codec.encoder import LPCNetEncoder
+from .dsp.constants import NB_BANDS, NB_TOTAL_FEATURES
+from .dsp.lpc import lpc_from_cepstrum
 from .models import lpcnet as M
 from .nn.quantized import quantize_fused
-from .runtime.serving import PLCStreamPool  # noqa: F401  (public name)
+from .runtime.serving import PLCStreamPool, StreamPool  # noqa: F401 (public)
 from .utils.device import resolve_device
 from .weights.checkpoint import load_checkpoint
 
@@ -97,3 +108,60 @@ class Synthesizer:
 
     def reset(self):
         self._dec.reset()
+
+
+# ---- C-shaped wrappers (include/lpcnet.h) ----------------------------------
+
+def _one_or_many(fn, x, dtype):
+    """Run fn on [B, ...]; a single unbatched item in gives one out."""
+    x = np.asarray(x, dtype)
+    single = x.ndim == 1
+    out = fn(x[None] if single else x)
+    return out[0] if single else out
+
+
+def lpcnet_encoder_create(batch: int = 1, device=None) -> LPCNetEncoder:
+    return LPCNetEncoder(batch=batch, device=device)
+
+
+def lpcnet_encode(enc: LPCNetEncoder, pcm: np.ndarray) -> np.ndarray:
+    """pcm [640] or [B, 640] -> packet(s) uint8 [8] / [B, 8]."""
+    return _one_or_many(enc.encode, pcm, np.float32)
+
+
+def lpcnet_compute_features(enc: LPCNetEncoder, pcm: np.ndarray
+                            ) -> np.ndarray:
+    """pcm [T*640] or [B, T*640] -> unquantized features [T, 4, 36] /
+    [B, T, 4, 36]."""
+    return _one_or_many(enc.compute_features, pcm, np.float32)
+
+
+def lpcnet_compute_single_frame_features(enc: LPCNetEncoder, pcm: np.ndarray
+                                         ) -> np.ndarray:
+    """pcm [160] or [B, 160] -> features [36] / [B, 36]."""
+    return _one_or_many(enc.compute_single_frame_features, pcm, np.float32)
+
+
+def lpcnet_decoder_create(model_path: Optional[str] = None, batch: int = 1,
+                          device=None) -> LPCNetDecoder:
+    """A packet decoder on the model at `model_path` (None: a seeded random
+    init, as `load_model`)."""
+    dev = resolve_device(device)
+    fused, cfg = load_model(model_path, device=dev)
+    return LPCNetDecoder.from_fused(fused, cfg, batch, with_codebooks=True,
+                                    device=dev)
+
+
+def lpcnet_decode(dec: LPCNetDecoder, packet: np.ndarray) -> np.ndarray:
+    """packet [8] or [B, 8] uint8 -> pcm [640] / [B, 640] int16."""
+    return _one_or_many(dec.decode, packet, np.uint8)
+
+
+def add_lpc_to_features(features: np.ndarray, device=None) -> np.ndarray:
+    """-addlpc mode: columns 20:36 from the cepstrum's LPC
+    (src/lpcnet_demo.c:250-259)."""
+    features = np.array(features, np.float32, copy=True)
+    ceps = torch.as_tensor(features[..., :NB_BANDS],
+                           device=resolve_device(device))
+    features[..., 20:36] = lpc_from_cepstrum(ceps).cpu().numpy()
+    return features

@@ -1,12 +1,19 @@
-"""Command-line vocoder, as the reference's `lpcnet_demo -synthesis`
+"""Command-line codec and vocoder, as the reference's `lpcnet_demo`
 (src/lpcnet_demo.c):
 
+    python -m lpcnet_torch.cli encode    <input.pcm> <compressed.lpcnet>
+    python -m lpcnet_torch.cli decode    <compressed.lpcnet> <output.pcm>
+    python -m lpcnet_torch.cli features  <input.pcm> <features.f32>
     python -m lpcnet_torch.cli synthesis <features.f32> <output.pcm>
+    python -m lpcnet_torch.cli addlpc    <features.f32> <features_lpc.f32>
         [--model model.npz|random] [--device cuda|cpu]
 
-features.f32 holds raw float32 rows of 36; output.pcm is raw 16 kHz s16le
-mono. Sampling is the C bit tree. The model defaults to the shipped demo
-vocoder (lpcnet_tpu/data/demo_model.npz, read as a file).
+File formats are the C demo's: .pcm raw 16 kHz s16le mono, .f32 raw float32
+feature rows of 36, .lpcnet 8-byte packets (40 ms each). Sampling is the C
+bit tree. The model (decode, synthesis) defaults to the shipped demo
+vocoder (lpcnet_tpu/data/demo_model.npz, read as a file). Every mode runs on
+the GPU unless `--device cpu` is passed; LPCNET_KERNEL_MERGED=1 selects the
+merged sample-loop kernel for float models.
 """
 
 from __future__ import annotations
@@ -16,12 +23,20 @@ import argparse
 import numpy as np
 
 from . import api
-from .dsp.constants import FRAME_SIZE, NB_TOTAL_FEATURES
+from .dsp.constants import (FRAME_SIZE, LPCNET_COMPRESSED_SIZE,
+                            LPCNET_PACKET_SAMPLES, NB_TOTAL_FEATURES)
+
+
+def _read_features(path):
+    feats = np.fromfile(path, dtype=np.float32)
+    n = len(feats) // NB_TOTAL_FEATURES
+    return feats[:n * NB_TOTAL_FEATURES].reshape(n, NB_TOTAL_FEATURES)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="lpcnet_torch")
-    ap.add_argument("mode", choices=["synthesis"])
+    ap.add_argument("mode", choices=["encode", "decode", "features",
+                                     "synthesis", "addlpc"])
     ap.add_argument("args", nargs=2, metavar="FILE")
     ap.add_argument("--model", default=api.DEMO_MODEL_PATH,
                     help="model weights (.npz checkpoint); default = the "
@@ -29,17 +44,53 @@ def main(argv=None):
                          "random init")
     ap.add_argument("--device", default="cuda")
     ns = ap.parse_args(argv)
-
-    feats = np.fromfile(ns.args[0], dtype=np.float32)
-    n = len(feats) // NB_TOTAL_FEATURES
-    feats = feats[:n * NB_TOTAL_FEATURES].reshape(n, NB_TOTAL_FEATURES)
     model = None if ns.model == "random" else ns.model
-    synth = api.Synthesizer(model, batch=1, device=ns.device)
-    out = [np.zeros(0, np.int16)]
-    for t in range(n):
-        out.append(synth.synthesize(feats[t][None])[0])
-    np.concatenate(out).astype(np.int16).tofile(ns.args[1])
-    print(f"synthesized {n} frames ({n * FRAME_SIZE} samples)")
+    src, dst = ns.args
+
+    if ns.mode == "encode":
+        pcm = np.fromfile(src, dtype=np.int16)
+        enc = api.lpcnet_encoder_create(device=ns.device)
+        n = len(pcm) // LPCNET_PACKET_SAMPLES
+        pkts = [api.lpcnet_encode(enc, pcm[t * LPCNET_PACKET_SAMPLES:
+                                           (t + 1) * LPCNET_PACKET_SAMPLES])
+                for t in range(n)]
+        np.array(pkts, np.uint8).reshape(-1).tofile(dst)
+        print(f"encoded {n} packets ({n * LPCNET_COMPRESSED_SIZE} bytes, "
+              f"{n * 40} ms)")
+
+    elif ns.mode == "decode":
+        data = np.fromfile(src, dtype=np.uint8)
+        n = len(data) // LPCNET_COMPRESSED_SIZE
+        dec = api.lpcnet_decoder_create(model, device=ns.device)
+        out = [np.zeros(0, np.int16)] + [
+            api.lpcnet_decode(dec, data[t * LPCNET_COMPRESSED_SIZE:
+                                        (t + 1) * LPCNET_COMPRESSED_SIZE])
+            for t in range(n)]
+        np.concatenate(out).astype(np.int16).tofile(dst)
+        print(f"decoded {n} packets -> {n * LPCNET_PACKET_SAMPLES} samples")
+
+    elif ns.mode == "features":
+        pcm = np.fromfile(src, dtype=np.int16)
+        enc = api.lpcnet_encoder_create(device=ns.device)
+        n = len(pcm) // FRAME_SIZE
+        rows = [api.lpcnet_compute_single_frame_features(
+            enc, pcm[t * FRAME_SIZE:(t + 1) * FRAME_SIZE]) for t in range(n)]
+        np.array(rows, np.float32).reshape(-1).tofile(dst)
+        print(f"wrote {n} feature frames")
+
+    elif ns.mode == "synthesis":
+        feats = _read_features(src)
+        synth = api.Synthesizer(model, batch=1, device=ns.device)
+        out = [np.zeros(0, np.int16)] + [
+            synth.synthesize(f[None])[0] for f in feats]
+        np.concatenate(out).astype(np.int16).tofile(dst)
+        print(f"synthesized {len(feats)} frames "
+              f"({len(feats) * FRAME_SIZE} samples)")
+
+    else:                                   # addlpc
+        feats = _read_features(src)
+        api.add_lpc_to_features(feats, device=ns.device).tofile(dst)
+        print(f"added LPC to {len(feats)} frames")
 
 
 if __name__ == "__main__":

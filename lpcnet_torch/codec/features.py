@@ -1,12 +1,15 @@
-"""Streaming feature extraction, the per-frame path
-(lpcnet_compute_single_frame_features, src/lpcnet_enc.c:498-600, 814-870):
-the analysis that packet-loss concealment runs on every frame. The 40 ms
-superframe path of the encoder is not ported yet.
+"""Streaming feature extraction: the per-frame path
+(lpcnet_compute_single_frame_features, src/lpcnet_enc.c:498-600, 814-870),
+which packet-loss concealment runs on every frame, and the 40 ms superframe
+path of the encoder (process_superframe, lpcnet_compute_features,
+:602-700, 895-909).
 
 All state lives in an `EncoderState` of tensors with a leading stream axis.
 The excitation filter chain is an FIR over the frame plus a 16-sample
 history, written as one windowed product; the pitch correlation is one
-[256, 80] product per half-frame (`dsp.pitch`).
+[256, 80] product per half-frame (`dsp.pitch`). `superframe_analysis` does
+a superframe's four frames in batched operations, with the same state
+evolution as four `frame_features_step` calls.
 """
 
 from __future__ import annotations
@@ -140,3 +143,101 @@ def compute_single_frame_features_seq(state: EncoderState, pcm: torch.Tensor):
             state, pcm[..., k * FRAME_SIZE:(k + 1) * FRAME_SIZE])
         rows.append(f)
     return state, torch.stack(rows, dim=1)
+
+
+def superframe_pitch(state: EncoderState):
+    """The pitch half of process_superframe, unquantised
+    (src/lpcnet_enc.c:602-700): (new_state, period_feat [B, 4], frame_corr
+    [B]). Rotates the correlation ring and carries the Viterbi state."""
+    w = normalized_frame_weights(state.frame_weight, 2, 8)      # [B, 8]
+    xcs = pitch_mod.octave_suppress(state.xc[:, 2:10])
+    carry, periods, corr = pitch_mod.viterbi_track(state.viterbi, xcs, w)
+    # a frame's period is its two half-frames' sum, clamped (:693)
+    psum = periods[..., 0::2] + periods[..., 1::2]              # [B, 4]
+    period_feat = 0.01 * (torch.clamp(psum, 66, 510).to(torch.float32)
+                          - 200.0)
+    return state._replace(xc=rotate_xc(state.xc, xcs),
+                          viterbi=carry), period_feat, corr
+
+
+def rotate_xc(xc, xcs):
+    """The ring after a superframe: slots 2..9 the suppressed correlations,
+    slots 0, 1 the last two of them."""
+    xc = xc.clone()
+    xc[:, 2:10] = xcs
+    xc[:, 0:2] = xcs[:, 6:8]
+    return xc
+
+
+def compute_features_superframe(state: EncoderState, pcm: torch.Tensor
+                                ) -> Tuple[EncoderState, torch.Tensor]:
+    """Unquantised features of one 40 ms superframe: pcm [B, 640] ->
+    (state, features [B, 4, 36]), as lpcnet_compute_features
+    (src/lpcnet_enc.c:895-909)."""
+    state, feats = superframe_analysis(state, pcm)
+    state, period_feat, corr = superframe_pitch(state)
+    feats[..., NB_BANDS] = period_feat
+    feats[..., NB_BANDS + 1] = corr[:, None] - 0.5
+    return state._replace(vq_mem=feats[:, 3, :NB_BANDS]), feats
+
+
+def compute_features(state: EncoderState, pcm: torch.Tensor):
+    """pcm [B, T*640] -> (state, features [B, T, 4, 36]), superframe by
+    superframe."""
+    t = pcm.shape[-1] // (4 * FRAME_SIZE)
+    out = []
+    for k in range(t):
+        state, f = compute_features_superframe(
+            state, pcm[..., k * 4 * FRAME_SIZE:(k + 1) * 4 * FRAME_SIZE])
+        out.append(f)
+    return state, torch.stack(out, dim=1)
+
+
+def superframe_analysis(state: EncoderState, pcm: torch.Tensor):
+    """A superframe's four 10 ms frames in batched operations: one FFT
+    batch, one Levinson batch, one excitation product over 640 samples, one
+    correlation product per half-frame of all four frames.
+
+    pcm [B, 640] raw float PCM. Returns (new_state, feats [B, 4, 36]) with
+    the pitch columns zero."""
+    b = pcm.shape[0]
+    x, new_preemph = preemphasis(pcm.to(torch.float32), state.mem_preemph)
+    # 4 overlapping 320-sample windows of [analysis_mem | x]
+    ext = torch.cat([state.analysis_mem, x], dim=-1)            # [B, 800]
+    wins = ext.unfold(-1, 2 * FRAME_SIZE, FRAME_SIZE)           # [B, 4, 320]
+    spec = spectrum.forward_transform(spectrum.apply_window(wins))
+    ceps = spectrum.cepstrum_from_band_energy(
+        spectrum.compute_band_energy(spec))                     # [B, 4, 18]
+    lpc = lpc_from_cepstrum(ceps)                               # [B, 4, 16]
+
+    # the half-frame-aligned signal: frame k's is ext2[k*160 : k*160+160]
+    ext2 = torch.cat([state.analysis_mem[..., OVERLAP_SIZE - TRAINING_OFFSET:],
+                      x[..., :4 * FRAME_SIZE - TRAINING_OFFSET]], dim=-1)
+    hist = torch.cat([torch.flip(state.pitch_mem, (-1,)), ext2], dim=-1)
+    # excitation FIR per frame, as `_excitation`: [B, 4, 160, 17] windows
+    awins = hist.unfold(-1, LPC_ORDER + 1, 1)[:, :4 * FRAME_SIZE].reshape(
+        b, 4, FRAME_SIZE, LPC_ORDER + 1)
+    coeffs = torch.cat([torch.flip(lpc, (-1,)),
+                        torch.ones_like(lpc[..., :1])], dim=-1)  # [B, 4, 17]
+    s = torch.matmul(awins, coeffs[..., None])[..., 0].reshape(b, -1)
+    s_prev = torch.cat([state.pitch_filt[..., None], s[..., :-1]], dim=-1)
+    exc = s + 0.7 * s_prev                                      # [B, 640]
+
+    full_exc = torch.cat([state.exc_buf, exc], dim=-1)          # [B, 1056]
+    # each frame's live excitation buffer: 416 samples ending at its end
+    views = full_exc.unfold(-1, EXC_BUF_SIZE, FRAME_SIZE)[:, 1:]  # [B, 4, 416]
+    views = views.reshape(b * 4, EXC_BUF_SIZE)
+    xc0, w0 = pitch_mod.half_frame_xcorr(views, 0)
+    xc1, w1 = pitch_mod.half_frame_xcorr(views, TRAINING_OFFSET)
+    xc, fw = state.xc.clone(), state.frame_weight.clone()
+    xc[:, 2:10] = torch.stack([xc0, xc1], dim=1).reshape(b, 8, -1)
+    fw[:, 2:10] = torch.stack([w0, w1], dim=1).reshape(b, 8)
+
+    feats = pcm.new_zeros((b, 4, NB_TOTAL_FEATURES), dtype=torch.float32)
+    feats[..., :NB_BANDS] = ceps
+    feats[..., NB_BANDS + 2:] = lpc
+    return state._replace(
+        analysis_mem=x[..., -OVERLAP_SIZE:], mem_preemph=new_preemph,
+        pitch_mem=torch.flip(ext2[..., -LPC_ORDER:], (-1,)),
+        pitch_filt=s[..., -1], exc_buf=full_exc[..., -EXC_BUF_SIZE:],
+        xc=xc, frame_weight=fw), feats

@@ -26,6 +26,14 @@ NB_TOTAL_FEATURES = 36    # + 16 LPC coefficients
 PITCH_MIN_PERIOD = 32
 PITCH_MAX_PERIOD = 256
 
+# codec packet layout (reference include/lpcnet.h:48-53)
+LPCNET_COMPRESSED_SIZE = 8
+LPCNET_PACKET_SAMPLES = 4 * FRAME_SIZE
+
+# interpolation coding: the diff codebook's predictor groups
+MULTI = 4
+MULTI_MASK = MULTI - 1
+
 # band edges in 5 ms bin units (src/freq.c:45-48)
 EBAND5MS = np.array(
     [0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 16, 20, 24, 28, 34, 40],

@@ -31,11 +31,20 @@ h_b, last_sig, last_exc, deemph, rng).
   teacher-forced step would compute (the u-law codes of every step and the
   signal state at the end), so the kernel carries only (h_a, h_b, rng) and
   emits no PCM. User: the batched PLC's drain of queued audio.
+* `merged_kernel_weights` / `sample_loop_merged_plain` /
+  `synthesize_frame_merged_kernel` (K6, port of `_sample_kernel_merged` /
+  `_synthesize_frame_pallas_merged`): float K1 with each GRU's input and
+  recurrent products merged into one product over a `[k_in+k_rec, 4N]`
+  matrix, the conditioning remapped to that layout with the recurrent bias
+  folded in (`cond4`). `synthesize_frame_auto` picks K6 when
+  `LPCNET_KERNEL_MERGED` is set (read at import, `set_merged` at run time)
+  and the bundle is float, K1 otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -190,14 +199,15 @@ def _gru_ab_plain(kw):
 
 
 def _plain_loop(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
-                preload=None, tf=None, adv=None, sampled=True):
+                preload=None, tf=None, adv=None, sampled=True, gru_ab=None):
     """The kernel's arithmetic, one step at a time; with masks (K2) when
-    `preload` [B, n] float, `tf` and `adv` [B, n] bool are given."""
+    `preload` [B, n] float, `tf` and `adv` [B, n] bool are given. `gru_ab`
+    is the GRU step (`_gru_ab_plain(kw)` unless given)."""
     masked = preload is not None
     table = kw["logit_table"][0]
     ha, hb, sig, exc, de, rng = state
     exc = exc.long()
-    gru_ab = _gru_ab_plain(kw)
+    gru_ab = gru_ab or _gru_ab_plain(kw)
     out = []
     for t in range(n_samples):
         pred = -(sig * lpc).sum(-1)
@@ -287,6 +297,8 @@ def _lib():
         lib.lpcnet_sample_loop_masked.restype = ci
         lib.lpcnet_teacher_force.argtypes = [ci] * 6 + [vp] * 19
         lib.lpcnet_teacher_force.restype = ci
+        lib.lpcnet_sample_loop_merged.argtypes = [ci] * 5 + [vp] * 23
+        lib.lpcnet_sample_loop_merged.restype = ci
         _LIB = lib
     return _LIB
 
@@ -332,21 +344,31 @@ def _gru_operands(kw, na, nb, dev):
 
 
 def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
-            masked=None):
+            masked=None, merged=None):
     """Check the operands, allocate the outputs and launch the kernel on the
-    current stream; `masked` is None (K1) or (preload, mode, sampled)."""
+    current stream; `masked` is None (K1) or (preload, mode, sampled) (K2);
+    `merged` is (form, a_merged, b_merged) for K6, whose cond_a and cond_b
+    come in the 4N layout."""
     dev = cond_a.device
-    b, na3 = cond_a.shape
-    na = na3 // 3
+    b = cond_a.shape[0]
+    na = kw["a_bias1"].shape[-1] // 3
     nb = kw["b_bias1"].shape[-1] // 3
     f32 = torch.float32
-    form, emb, emb_scale, a_rec, a_diag, b_in, b_rec = _gru_operands(
-        kw, na, nb, dev)
+    if merged is None:
+        form, emb, emb_scale, a_rec, a_diag, b_in, b_rec = _gru_operands(
+            kw, na, nb, dev)
+        weights = (emb, emb_scale, a_rec, a_diag, kw["a_bias1"], b_in, b_rec,
+                   kw["b_bias1"])
+        ncond = 3
+    else:
+        form, a_merged, b_merged = merged
+        weights = (a_merged, b_merged)
+        ncond = 4
     for name, shape in (("dual_w", (nb, 512)), ("dual_bias", (1, 512)),
                         ("dual_factor", (1, 512)), ("logit_table", (1, 256))):
         _check(name, kw[name], shape, f32, dev)
-    _check("cond_a", cond_a, (b, 3 * na), f32, dev)
-    _check("cond_b", cond_b, (b, 3 * nb), f32, dev)
+    _check("cond_a", cond_a, (b, ncond * na), f32, dev)
+    _check("cond_b", cond_b, (b, ncond * nb), f32, dev)
     _check("lpc", lpc, (b, LPC_ORDER), f32, dev)
     ha_in = state.gru_a.contiguous()
     hb_in = state.gru_b.contiguous()
@@ -371,18 +393,15 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
     rng = torch.empty_like(rng_in)
     pcm = torch.empty((b, n_samples), dtype=f32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    args = (form, b, na, nb, n_samples,
-            ptr(emb), ptr(emb_scale), ptr(a_rec), ptr(a_diag),
-            ptr(kw["a_bias1"]), ptr(b_in), ptr(b_rec), ptr(kw["b_bias1"]),
-            ptr(kw["dual_w"]), ptr(kw["dual_bias"]), ptr(kw["dual_factor"]),
-            ptr(kw["logit_table"]),
-            ptr(cond_a), ptr(cond_b), ptr(lpc),
-            ptr(ha_in), ptr(hb_in), ptr(sig_in), ptr(exc_in), ptr(de_in),
-            ptr(rng_in),
-            ptr(ha), ptr(hb), ptr(sig), ptr(exc), ptr(de), ptr(rng), ptr(pcm))
+    args = (form, b, na, nb, n_samples) + tuple(ptr(t) for t in weights + (
+        kw["dual_w"], kw["dual_bias"], kw["dual_factor"], kw["logit_table"],
+        cond_a, cond_b, lpc, ha_in, hb_in, sig_in, exc_in, de_in, rng_in,
+        ha, hb, sig, exc, de, rng, pcm))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if masked is None:
+        if merged is not None:
+            err = _lib().lpcnet_sample_loop_merged(*args, stream)
+        elif masked is None:
             err = _lib().lpcnet_sample_loop(*args, stream)
         else:
             err = _lib().lpcnet_sample_loop_masked(
@@ -607,3 +626,158 @@ def teacher_force_prefix_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
     return teacher_force_blocks_kernel(
         kw, state, cond_a[:, None], cond_b[:, None], lpc[:, None], targets,
         count[:, None], targets.shape[-1])
+
+
+# --------------------------------------------------------------------------
+# K6: the merged-product form of K1, and the dispatch between the two
+# --------------------------------------------------------------------------
+
+_MERGED = os.environ.get("LPCNET_KERNEL_MERGED", "0") != "0"
+
+
+def set_merged(on: bool) -> bool:
+    """Select K6 (True) or K1 (False) for float bundles in
+    `synthesize_frame_auto`; returns the previous setting. The default comes
+    from LPCNET_KERNEL_MERGED at import (off unless set to other than 0)."""
+    global _MERGED
+    prev, _MERGED = _MERGED, bool(on)
+    return prev
+
+
+def uses_merged(kw) -> bool:
+    """Whether `synthesize_frame_auto` runs K6 on the bundle `kw`: the flag
+    is on and the bundle is float (the merged layout has no q8 form)."""
+    return _MERGED and not is_q8_bundle(kw)
+
+
+def _merge(w_in, w_rec, n):
+    """[k_in+k_rec, 4n]: columns [z | r | h input side | h recurrent side],
+    each operand's rows zero in the column block it does not feed."""
+    z = lambda r: w_in.new_zeros((r, n))
+    top = torch.cat([w_in[:, :2 * n], w_in[:, 2 * n:], z(w_in.shape[0])], 1)
+    bot = torch.cat([w_rec[:, :2 * n], z(w_rec.shape[0]), w_rec[:, 2 * n:]], 1)
+    return torch.cat([top, bot], 0).contiguous()
+
+
+def merged_kernel_weights(kw):
+    """K6's operands from a float K1 bundle (`kernel_weights`), as the JAX
+    package's `_merged_weights`: `a_merged` [768+Na, 4Na] (embedding rows,
+    then GRU-A's recurrent rows), `b_merged` [Na+Nb, 4Nb] (GRU-B's input
+    rows, then its recurrent rows), in the bundle's operand type; the biases
+    (for `cond4`) and the sampler's tensors are shared with `kw`. Built
+    only where K6 runs, so K1's bundle stays as it is."""
+    if is_q8_bundle(kw):
+        raise TypeError("K6 takes float bundles only (f32 or bf16 operands)")
+    na = kw["a_bias1"].shape[-1] // 3
+    nb = kw["b_bias1"].shape[-1] // 3
+    mw = {k: kw[k] for k in ("a_bias1", "b_bias1", "dual_w", "dual_bias",
+                             "dual_factor", "logit_table")}
+    mw["a_merged"] = _merge(kw["emb_cat"], kw["a_rec"], na)
+    mw["b_merged"] = _merge(kw["b_in"], kw["b_rec"], nb)
+    return mw
+
+
+def cond4(cond, bias1):
+    """Per-frame conditioning [..., 3N] in the merged 4N column layout with
+    the recurrent bias folded in: [cond_zr + bias_zr | cond_h | bias_h]
+    (the JAX package's `_cond4`)."""
+    n = cond.shape[-1] // 3
+    z = cond.new_zeros(cond.shape[:-1] + (n,))
+    c4 = torch.cat([cond[..., :2 * n], cond[..., 2 * n:], z], dim=-1)
+    b4 = torch.cat([bias1[..., :2 * n], torch.zeros_like(bias1[..., :n]),
+                    bias1[..., 2 * n:]], dim=-1)
+    return c4 + b4
+
+
+def _gru4(h0, m, n):
+    z = _sigmoid(m[:, :n])
+    r = _sigmoid(m[:, n:2 * n])
+    hc = torch.tanh(m[:, 2 * n:3 * n] + r * m[:, 3 * n:])
+    return z * h0 + (1.0 - z) * hc
+
+
+def _gru_ab_merged_plain(mw):
+    """K6's GRU-A and GRU-B step, in the signature of `_gru_ab_plain`'s: the
+    merged products m = x @ merged + cond4 (the three one-hot rows as a
+    gather), then the reset-after update on m's four column blocks."""
+    a_m = mw["a_merged"]
+    wdt = a_m.dtype
+    na = a_m.shape[1] // 4
+    emb = a_m[:768].to(torch.float32)
+    a_rec = a_m[768:].to(torch.float32)
+    b_m = mw["b_merged"].to(torch.float32)
+    nb = b_m.shape[1] // 4
+    a_b4 = mw["a_bias1"]
+    b_b4 = mw["b_bias1"]
+
+    def step(ha, hb, cond_a, cond_b, sig_u, pred_u, exc):
+        ma = (emb[sig_u] + emb[256 + pred_u] + emb[512 + exc]
+              + _fdot(ha, a_rec, wdt) + cond4(cond_a, a_b4))
+        ha_new = _gru4(ha, ma, na)
+        xb = torch.cat([ha_new, hb], dim=1)
+        mb = _fdot(xb, b_m, wdt) + cond4(cond_b, b_b4)
+        return ha_new, _gru4(hb, mb, nb)
+
+    return step
+
+
+def sample_loop_merged_plain(mw, state: SampleState, cond_a, cond_b, lpc,
+                             n_samples: int = 160):
+    """K6's plain PyTorch version: K1's step with the merged GRU products,
+    one step at a time, on whatever device the tensors are on. `mw` is
+    `merged_kernel_weights(kw)`; cond_a [B, 3Na], cond_b [B, 3Nb] in K1's
+    layout. Returns (new_state, pcm [B, n_samples])."""
+    return _plain_loop(mw, state, cond_a, cond_b, lpc, n_samples,
+                       gru_ab=_gru_ab_merged_plain(mw))
+
+
+def synthesize_frame_merged_kernel(mw, state: SampleState, cond_a, cond_b,
+                                   lpc, n_samples: int = 160):
+    """One frame of K6: (new_state, pcm [B, n_samples]); `mw` is
+    `merged_kernel_weights(kw)`, cond_a and cond_b in K1's 3N layout (the
+    4N layout is formed here, before the launch).
+
+    On a CPU tensor this runs `sample_loop_merged_plain`. On a CUDA tensor
+    it launches the kernel and counts the launch in
+    `synthesize_frame_merged_kernel.launches`; any other device raises. Any
+    batch size works, with no padding of streams."""
+    dev = cond_a.device
+    if dev.type == "cpu":
+        return sample_loop_merged_plain(mw, state, cond_a, cond_b, lpc,
+                                        n_samples)
+    if dev.type != "cuda":
+        raise ValueError(f"sample loop kernel: unsupported device {dev}")
+    a_m, b_m = mw["a_merged"], mw["b_merged"]
+    if a_m.dtype not in _FORMS:
+        raise TypeError(f"merged sample loop kernel: operand dtype {a_m.dtype}")
+    b, na3 = cond_a.shape
+    na = na3 // 3
+    nb = mw["b_bias1"].shape[-1] // 3
+    f32 = torch.float32
+    _check("a_merged", a_m, (768 + na, 4 * na), a_m.dtype, dev)
+    _check("b_merged", b_m, (na + nb, 4 * nb), a_m.dtype, dev)
+    _check("cond_b", cond_b, (b, 3 * nb), f32, dev)
+    ca4 = cond4(cond_a, mw["a_bias1"][0]).contiguous()
+    cb4 = cond4(cond_b, mw["b_bias1"][0]).contiguous()
+    out = _launch(mw, state, ca4, cb4, lpc, n_samples,
+                  merged=(_FORMS[a_m.dtype], a_m, b_m))
+    synthesize_frame_merged_kernel.launches += 1
+    return out
+
+
+synthesize_frame_merged_kernel.launches = 0
+
+
+def synthesize_frame_auto(kw, state: SampleState, cond_a, cond_b, lpc,
+                          n_samples: int = 160, merged=None):
+    """One free-running frame through K6 when `uses_merged(kw)`, else K1:
+    the counterpart of the JAX package's `synthesize_frame_auto` /
+    `_synth_pallas`. `merged` is K6's operand set for `kw` when the caller
+    keeps one (`merged_kernel_weights`); otherwise it is built for this call.
+    The TPU wrapper's batch-tile probe and its padding of streams to a
+    multiple of 256 have no counterpart: both kernels take any batch."""
+    if uses_merged(kw):
+        mw = merged if merged is not None else merged_kernel_weights(kw)
+        return synthesize_frame_merged_kernel(mw, state, cond_a, cond_b, lpc,
+                                              n_samples)
+    return synthesize_frame_kernel(kw, state, cond_a, cond_b, lpc, n_samples)

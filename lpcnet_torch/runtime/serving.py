@@ -1,13 +1,11 @@
-"""Multi-stream concealment serving: slot management over a fixed device
-batch.
+"""Multi-stream serving: slot management over a fixed device batch.
 
-A `PLCStreamPool` owns a fixed-capacity batch of PLC state on the device.
-Streams attach to and detach from slots; every 10 ms tick the pool gathers
-each stream's frame (or its loss) into batch order, runs one frame step for
-all slots and hands the concealed audio back per stream. Idle slots step
-too (as lost frames) and their output is dropped; a slot's state is reset
-when a stream attaches. The synthesis pool with packet decoding
-(`StreamPool`) is not ported yet.
+A `StreamPool` owns a fixed-capacity batch of decoder state on the device;
+a `PLCStreamPool` one of PLC state. Streams attach to and detach from
+slots; every tick the pool gathers each stream's input (a feature frame, a
+packet, or a frame or its loss) into batch order, runs one step for all
+slots and hands the audio back per stream. Idle slots step too and their
+output is dropped; a slot's state is reset when a stream attaches.
 """
 
 from __future__ import annotations
@@ -16,8 +14,88 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..codec.decoder import LPCNetDecoder
+from ..dsp.constants import LPCNET_COMPRESSED_SIZE, NB_TOTAL_FEATURES
 from ..models import lpcnet as M
 from ..plc.batched import BatchedPLC, tree_map
+
+
+class StreamPool:
+    """Synthesis and packet-decode pool over one `LPCNetDecoder` of batch
+    `capacity`: `step_features` is a 10 ms tick of feature frames,
+    `step_packets` a 40 ms tick of 8-byte packets (4 sample-loop launches).
+    Runs on CUDA unless `device="cpu"` is passed."""
+
+    def __init__(self, fused, cfg: M.LPCNetConfig, capacity: int = 256,
+                 device=None):
+        self.cfg = cfg
+        self.capacity = capacity
+        self.dec = LPCNetDecoder.from_fused(fused, cfg, batch=capacity,
+                                            with_codebooks=True, device=device)
+        self.free = list(range(capacity))[::-1]
+        self.slot_of: Dict[str, int] = {}
+        self._feat_buf = np.zeros((capacity, NB_TOTAL_FEATURES), np.float32)
+
+    def attach(self, stream_id: str) -> int:
+        if stream_id in self.slot_of:
+            return self.slot_of[stream_id]
+        if not self.free:
+            raise RuntimeError("stream pool full")
+        slot = self.free.pop()
+        self.slot_of[stream_id] = slot
+        self._reset_slot(slot)
+        return slot
+
+    def detach(self, stream_id: str) -> None:
+        slot = self.slot_of.pop(stream_id, None)
+        if slot is not None:
+            self.free.append(slot)
+
+    def _reset_slot(self, slot: int):
+        """One slot back to a one-stream decoder's initial state (its KISS99
+        words those of stream 0, as a fresh single-stream decoder's), its
+        vq_mem and its last feature frame zeroed; the others untouched."""
+        dev, dec = self.dec.device, self.dec
+
+        def put(cur, one):
+            if isinstance(cur, tuple):
+                return type(cur)(*(put(c, o) for c, o in zip(cur, one)))
+            cur = cur.clone()
+            cur[slot] = one[0]
+            return cur
+
+        dec.frame_state = put(dec.frame_state,
+                              M.init_frame_state(1, self.cfg, dev))
+        dec.sample_state = put(dec.sample_state,
+                               M.init_sample_state(1, self.cfg, dev))
+        dec.vq_mem = dec.vq_mem.clone()
+        dec.vq_mem[slot] = 0.0
+        self._feat_buf[slot] = 0.0
+
+    def step_features(self, features: Dict[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+        """One 10 ms tick: {stream_id: [>=20] features} -> {stream_id: [160]
+        int16}. An attached stream without a frame this tick repeats its
+        last one (concealment belongs to `PLCStreamPool`)."""
+        for sid, feat in features.items():
+            slot = self.attach(sid)
+            self._feat_buf[slot, :len(feat)] = feat
+        pcm = self.dec.synthesize(self._feat_buf)
+        return {sid: pcm[slot] for sid, slot in self.slot_of.items()}
+
+    def step_packets(self, packets: Dict[str, np.ndarray]
+                     ) -> Dict[str, np.ndarray]:
+        """One 40 ms tick: {stream_id: [8] uint8} -> {stream_id: [640]
+        int16}. An attached stream without a packet decodes zero bytes."""
+        buf = np.zeros((self.capacity, LPCNET_COMPRESSED_SIZE), np.uint8)
+        for sid, pkt in packets.items():
+            buf[self.attach(sid)] = pkt
+        pcm = self.dec.decode(buf)
+        return {sid: pcm[slot] for sid, slot in self.slot_of.items()}
+
+    @property
+    def n_active(self) -> int:
+        return len(self.slot_of)
 
 
 class PLCStreamPool:

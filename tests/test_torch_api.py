@@ -18,6 +18,7 @@ from lpcnet_torch import api, cli
 from lpcnet_torch.codec.decoder import LPCNetDecoder
 from lpcnet_torch.kernels import sample_loop as K
 from lpcnet_torch.models import lpcnet as M
+from lpcnet_torch.plc.batched import BatchedPLC
 from lpcnet_torch.utils.device import resolve_device
 
 # the plain path is many small ops: one intra-op thread per process keeps
@@ -169,13 +170,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         LPCNetDecoder.from_fused(fused, cfg, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["synthesis", os.devnull, os.devnull])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.lpcnet_encoder_create()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.StreamPool(fused, cfg, capacity=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["decode", os.devnull, os.devnull])
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_unported_paths_raise():
     fused, cfg = api.load_model(DEMO, device="cpu")
     with pytest.raises(NotImplementedError):
-        LPCNetDecoder.from_fused(fused, cfg, 1, device="cpu",
-                                 with_codebooks=True)
+        BatchedPLC(fused, cfg, api.load_plc_model(None, device="cpu"),
+                   batch=1, non_causal=True, device="cpu")
     with pytest.raises(NotImplementedError):
         api.load_model("model.bin", device="cpu")

@@ -1,7 +1,8 @@
-"""The CUDA kernels (the sample loop K1, its masked form K2, the teacher-forced
-run K3, the PLC-net chain K4, the GRU training recurrence K5) vs their plain
-PyTorch versions, on a card; and, without a card, that the trainer and the
-PLC entry points refuse to start rather than run on the host.
+"""The CUDA kernels (the sample loop K1, its masked form K2, its merged form
+K6, the teacher-forced run K3, the PLC-net chain K4, the GRU training
+recurrence K5) vs their plain PyTorch versions, on a card, and the packet
+decode pool's launches; and, without a card, that the trainer and the PLC
+entry points refuse to start rather than run on the host.
 
 Imports neither JAX nor the JAX package, so it runs on the GPU machine:
 
@@ -23,7 +24,7 @@ from lpcnet_torch.models import lpcnet as M
 from lpcnet_torch.models import plc as PM
 from lpcnet_torch.nn import quantized as Q
 from lpcnet_torch.plc.batched import BatchedPLC
-from lpcnet_torch.runtime.serving import PLCStreamPool
+from lpcnet_torch.runtime.serving import PLCStreamPool, StreamPool
 from lpcnet_torch.train import data as D
 from lpcnet_torch.train import train_lpcnet as T
 from lpcnet_torch.utils.device import resolve_device
@@ -85,6 +86,72 @@ def test_cuda_kernel_matches_plain(cuda, form, width):
     same = float((pk == pp).float().mean())
     if form != "bf16":
         assert same > (0.90 if form == "q8" else 0.98), same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["small", "full"])
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+def test_cuda_merged_kernel_matches_plain(cuda, form, width):
+    """K6 vs its plain version at an odd batch, K1's bars: one-step GRU
+    states within 1e-4 (bf16 GRU-B 1e-2), also against K1's kernel; over 32
+    steps RNG equal, f32 >=98% exact PCM and gru_a within 2e-2, bf16 finite
+    with an RMS within 0.5 of the plain version's; one launch counted a
+    call."""
+    cfg = M.LPCNetConfig(**SMALL) if width == "small" else M.LPCNetConfig()
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda),
+                                    cfg)
+    kw = K.kernel_weights(fused, cfg, dtype={"f32": torch.float32,
+                                             "bf16": torch.bfloat16}[form])
+    mw = K.merged_kernel_weights(kw)
+    ca, cb, lpc, s0 = _inputs(fused, cfg, 37, cuda)
+    before = K.synthesize_frame_merged_kernel.launches
+    s1k, _ = K.synthesize_frame_merged_kernel(mw, s0, ca, cb, lpc, 1)
+    s1p, _ = K.sample_loop_merged_plain(mw, s0, ca, cb, lpc, 1)
+    s11, _ = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, 1)
+    tol_b = 1e-2 if form == "bf16" else 1e-4
+    for other in (s1p, s11):
+        assert float((s1k.gru_a - other.gru_a).abs().max()) <= 1e-4
+        assert float((s1k.gru_b - other.gru_b).abs().max()) <= tol_b
+    sk, pk = K.synthesize_frame_merged_kernel(mw, s0, ca, cb, lpc, 32)
+    torch.cuda.synchronize()
+    assert K.synthesize_frame_merged_kernel.launches == before + 2
+    sp, pp = K.sample_loop_merged_plain(mw, s0, ca, cb, lpc, 32)
+    assert pk.shape == (37, 32)
+    assert all(torch.equal(a, b) for a, b in zip(sk.rng, sp.rng))
+    assert bool(torch.isfinite(pk).all()) and bool(torch.isfinite(sk.gru_a).all())
+    if form == "f32":
+        assert float((pk == pp).float().mean()) >= 0.98
+        assert float((sk.gru_a - sp.gru_a).abs().max()) <= 2e-2
+    else:
+        rms_k, rms_p = (float(x.square().mean().sqrt()) for x in (pk, pp))
+        assert abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["float-off", "float-on", "int8-on"])
+def test_cuda_stream_pool_decodes_through_the_selected_kernel(cuda, case):
+    """StreamPool.step_packets on the card: 4 sample-loop launches a 40 ms
+    tick, all K1 with the merged flag off or a q8 model, all K6 with it on
+    and a float model; warmup silent, then int16 audio; vq_mem carried."""
+    int8, flag = case.startswith("int8"), case.endswith("on")
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, int8=int8, device=cuda)
+    pkts = np.random.RandomState(5).randint(0, 256, (3, 6, 8)).astype(np.uint8)
+    prev = K.set_merged(flag)
+    try:
+        pool = StreamPool(fused, cfg, capacity=6)
+        K.synthesize_frame_kernel.launches = 0
+        K.synthesize_frame_merged_kernel.launches = 0
+        out = [pool.step_packets({f"s{i}": pkts[t, i] for i in range(5)})
+               for t in range(3)]
+    finally:
+        K.set_merged(prev)
+    k6 = flag and not int8
+    assert K.synthesize_frame_merged_kernel.launches == (12 if k6 else 0)
+    assert K.synthesize_frame_kernel.launches == (0 if k6 else 12)
+    pcm = np.stack([np.stack([o[f"s{i}"] for i in range(5)]) for o in out])
+    assert pcm.dtype == np.int16 and pcm.shape == (3, 5, 640)
+    assert not pcm[0, :, :2 * 160].any() and pcm[1:].any(axis=(0, 2)).all()
+    assert bool(pool.dec.vq_mem[:5].abs().amax(dim=1).gt(0).all())
 
 
 @pytest.mark.cuda

@@ -1,0 +1,233 @@
+"""K6, the merged-product form of the sample loop, on the CPU: its operands
+and its plain version against the JAX package's `_merged_weights`, `_cond4`
+and the TPU kernel `_sample_kernel_merged` run by the Pallas interpreter;
+the flag and the dispatch between K1 and K6, alone and under the decoder.
+The CUDA kernel itself is held against its plain version in
+test_torch_cuda.py."""
+
+import os
+
+os.environ["LPCNET_PALLAS_INTERPRET"] = "1"  # before the JAX kernels import
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lpcnet_tpu.kernels import sample_loop as JK
+from lpcnet_tpu.models import lpcnet as JM
+from lpcnet_tpu.utils.rng import Kiss99State as JKiss
+
+from lpcnet_torch.codec import decoder as D
+from lpcnet_torch.kernels import sample_loop as K
+from lpcnet_torch.models import lpcnet as M
+from lpcnet_torch.nn import quantized as Q
+from lpcnet_torch.weights.convert import params_to_torch, sample_state_to_numpy
+
+torch.set_num_threads(1)
+
+SMALL = dict(rnn_units1=32, rnn_units2=16, cond_size=32, pitch_embed_dim=8)
+JCFG, TCFG = JM.LPCNetConfig(**SMALL), M.LPCNetConfig(**SMALL)
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _numpy_tree(t):
+    if isinstance(t, dict):
+        return {k: _numpy_tree(v) for k, v in t.items()}
+    return t.numpy()
+
+
+@pytest.fixture(scope="module")
+def fused():
+    """(JAX fused, port fused) from one numpy-seeded init."""
+    p = _numpy_tree(M.init_params(TCFG, seed=6))
+    return (JM.fuse_inference_params(jax.tree.map(jnp.asarray, p), JCFG),
+            M.fuse_inference_params(params_to_torch(p), TCFG))
+
+
+def _inputs(tf, b, seed=13):
+    """Live-LPC conditioning (3 frame-net steps) and a fresh sample state."""
+    rs = np.random.RandomState(seed)
+    fs = M.init_frame_state(b, TCFG)
+    for _ in range(3):
+        f = torch.from_numpy((rs.normal(size=(b, 36)) * 0.3).astype(np.float32))
+        fs, _, ca, cb, lpc = M.frame_network(tf, fs, f, TCFG)
+    return (ca.contiguous(), cb.contiguous(), lpc.contiguous(),
+            M.init_sample_state(b, TCFG))
+
+
+def _jax_state(ts):
+    s = sample_state_to_numpy(ts)
+    return JM.SampleState(
+        *(jnp.asarray(s[k]) for k in ("gru_a", "gru_b", "last_sig",
+                                      "last_exc", "deemph")),
+        JKiss(*(jnp.asarray(s[k]) for k in ("z", "w", "jsr", "jcong"))))
+
+
+def _bits(x):
+    """Exact comparison form: float32 values (bf16 widens exactly)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+def test_merged_operands_bit_equal_to_jax(fused, form):
+    """`merged_kernel_weights` and `cond4` against the JAX package's
+    `_merged_weights` and `_cond4` on the same K1 bundle, bit for bit: the
+    bias sits in the z, r and h-recurrent blocks once, the conditioning's h
+    part in 2N:3N. Against the JAX package's own float bundle within 1e-6
+    in f32 and one bf16 step (2^-7 relative) in bf16: the two packages'
+    fused embeddings differ in the last f32 bit, which can round to the
+    neighbouring bf16 value (12 of 102,400 entries here)."""
+    jf, tf = fused
+    na, nb = TCFG.rnn_units1, TCFG.rnn_units2
+    kw = K.kernel_weights(tf, TCFG, dtype=DTYPES[form][1])
+    mw = K.merged_kernel_weights(kw)
+    j = lambda t: jnp.asarray(t.to(torch.float32).numpy()).astype(
+        DTYPES[form][0])
+    want = JK._merged_weights({k: j(kw[k]) for k in
+                               ("emb_cat", "a_rec", "b_in", "b_rec")},
+                              na, nb, DTYPES[form][0])
+    jkw = JK.kernel_weights(jf, JCFG, dtype=DTYPES[form][0])
+    for k, shape in (("a_merged", (768 + na, 4 * na)),
+                     ("b_merged", (na + nb, 4 * nb))):
+        assert mw[k].dtype == DTYPES[form][1] and mw[k].shape == shape
+        assert np.array_equal(_bits(mw[k]), _bits(want[k])), k
+        np.testing.assert_allclose(
+            _bits(mw[k]), _bits(jkw[k]), atol=1e-6,
+            rtol=1e-6 if form == "f32" else 2.0 ** -7, err_msg=k)
+    ca, cb, _, _ = _inputs(tf, 8)
+    for cond, bias, n in ((ca, "a_bias1", na), (cb, "b_bias1", nb)):
+        got = K.cond4(cond, mw[bias][0])
+        want4 = JK._cond4(jnp.asarray(cond.numpy()),
+                          jnp.asarray(mw[bias][0].numpy()), n)
+        assert got.shape == (8, 4 * n)
+        assert np.array_equal(got.numpy(), np.asarray(want4)), bias
+
+
+def test_merged_weights_refuse_q8(fused):
+    _, tf = fused
+    with pytest.raises(TypeError):
+        K.merged_kernel_weights(K.kernel_weights(Q.quantize_fused(tf), TCFG))
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+def test_plain_k6_matches_pallas_interpret(fused, monkeypatch, form):
+    """K6's plain version vs the TPU kernel `_sample_kernel_merged` run by
+    the Pallas interpreter: B=8, 32 steps, live LPC. Bars: >=98% exact PCM,
+    RNG and excitation equal, GRU states within 1e-4 after 32 steps
+    (measured: 100% PCM, h within 9.3e-8 in f32 and 5.4e-7 in bf16); in f32
+    one step within 1e-4 of the JAX package's step-by-step model (measured
+    7.5e-8; the interpreted kernel runs in octaves of 8 steps)."""
+    monkeypatch.setattr(JK, "_INTERPRET", True)
+    jf, tf = fused
+    jkw = JK.kernel_weights(jf, JCFG, dtype=DTYPES[form][0])
+    mw = K.merged_kernel_weights(K.kernel_weights(tf, TCFG,
+                                                  dtype=DTYPES[form][1]))
+    ca, cb, lpc, s0 = _inputs(tf, 8)
+    args = (jkw, _jax_state(s0), ca.numpy(), cb.numpy(), lpc.numpy(), JCFG)
+    if form == "f32":
+        t1, _ = K.sample_loop_merged_plain(mw, s0, ca, cb, lpc, 1)
+        jm1, _ = jax.jit(JM.synthesize_frame, static_argnames=("n_samples",))(
+            jf, _jax_state(s0), ca.numpy(), cb.numpy(), lpc.numpy(),
+            n_samples=1)
+        np.testing.assert_allclose(t1.gru_a.numpy(), np.asarray(jm1.gru_a),
+                                   atol=1e-4)
+        np.testing.assert_allclose(t1.gru_b.numpy(), np.asarray(jm1.gru_b),
+                                   atol=1e-4)
+    n = 32
+    js, jp = JK._synthesize_frame_pallas_merged(*args, n_samples=n, bt=8)
+    st, pt = K.sample_loop_merged_plain(mw, s0, ca, cb, lpc, n)
+    same = np.mean(pt.numpy() == np.asarray(jp))
+    assert same >= 0.98, same
+    t = sample_state_to_numpy(st)
+    for f, x in zip(("z", "w", "jsr", "jcong"), js.rng):
+        assert np.array_equal(t[f], np.asarray(x)), f
+    assert np.array_equal(t["last_exc"], np.asarray(js.last_exc))
+    np.testing.assert_allclose(t["gru_a"], np.asarray(js.gru_a), atol=1e-4)
+    np.testing.assert_allclose(t["gru_b"], np.asarray(js.gru_b), atol=1e-4)
+
+
+def test_plain_k6_agrees_with_plain_k1(fused):
+    """The merged layout adds only zeros: over 32 f32 steps K6's and K1's
+    plain versions give >=98% equal PCM, equal RNG and gru_a within 1e-4."""
+    _, tf = fused
+    kw = K.kernel_weights(tf, TCFG, dtype=torch.float32)
+    ca, cb, lpc, s0 = _inputs(tf, 16, seed=14)
+    s6, p6 = K.sample_loop_merged_plain(K.merged_kernel_weights(kw), s0, ca,
+                                        cb, lpc, 32)
+    s1, p1 = K.sample_loop_plain(kw, s0, ca, cb, lpc, 32)
+    assert float((p6 == p1).float().mean()) >= 0.98
+    assert all(torch.equal(a, b) for a, b in zip(s6.rng, s1.rng))
+    assert float((s6.gru_a - s1.gru_a).abs().max()) <= 1e-4
+
+
+def test_set_merged_returns_previous():
+    start = K._MERGED
+    try:
+        assert K.set_merged(True) == start
+        assert K.set_merged(False) is True
+        assert K.set_merged(start) is False
+    finally:
+        K.set_merged(start)
+
+
+@pytest.fixture
+def spies(monkeypatch):
+    """Counts each kernel wrapper's calls through the dispatch (on the CPU
+    the wrappers run their plain versions and count no launches)."""
+    calls = {"k1": 0, "k6": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(K, "synthesize_frame_kernel",
+                        spy("k1", K.synthesize_frame_kernel))
+    monkeypatch.setattr(K, "synthesize_frame_merged_kernel",
+                        spy("k6", K.synthesize_frame_merged_kernel))
+    return calls
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["off", "on"])
+@pytest.mark.parametrize("form", ["bf16", "q8"])
+def test_dispatch_picks_k6_for_float_bundles_under_the_flag(
+        fused, spies, monkeypatch, flag, form):
+    """Flag on: a float bundle runs K6 (with the caller's operands or its
+    own), a q8 bundle K1; flag off: both run K1. The K6 frame equals the
+    plain K6 frame."""
+    _, tf = fused
+    monkeypatch.setattr(K, "_MERGED", flag)
+    kw = (K.kernel_weights(Q.quantize_fused(tf), TCFG) if form == "q8"
+          else K.kernel_weights(tf, TCFG))
+    ca, cb, lpc, s0 = _inputs(tf, 4)
+    st, pcm = K.synthesize_frame_auto(kw, s0, ca, cb, lpc, 8)
+    k6 = flag and form != "q8"
+    assert spies == {"k1": 0 if k6 else 1, "k6": 1 if k6 else 0}
+    assert K.uses_merged(kw) == k6
+    if k6:
+        _, want = K.sample_loop_merged_plain(K.merged_kernel_weights(kw), s0,
+                                             ca, cb, lpc, 8)
+        assert torch.equal(pcm, want)
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["off", "on"])
+def test_decoder_frames_dispatch_through_the_flag(fused, spies, monkeypatch,
+                                                  flag):
+    """`LPCNetDecoder.synthesize` on the kernel path: one sample-loop call a
+    frame, K6 with the flag on (its operands built once and kept), K1 with
+    it off; the K6 decoder's audio is the plain K6 loop's."""
+    _, tf = fused
+    monkeypatch.setattr(K, "_MERGED", flag)
+    dec = D.LPCNetDecoder.from_fused(tf, TCFG, 3, device="cpu",
+                                     use_kernel=True)
+    rs = np.random.RandomState(15)
+    for _ in range(4):
+        dec.synthesize((rs.normal(size=(3, 36)) * 0.3).astype(np.float32))
+    assert spies == ({"k1": 0, "k6": 4} if flag else {"k1": 4, "k6": 0})
+    assert (dec._kw_merged is not None) == flag
