@@ -19,11 +19,16 @@ Needs one CUDA card and nvcc. Phases:
      160 steps, from the state the path left), then timings: K1 per launch
      (CUDA events) vs its plain version and its bound;
   5. the GRU training kernel (K5, forward and backward) vs its plain version
-     at 384 and 16 units, B=128, at T=320 and at the training path's T=2400;
-  6. the masked sample-loop kernel (K2) vs its plain version at 256
-     streams, 32 steps and one full frame, f32, bf16 and q8, with and
-     without the sampler, and again at the training path's shapes (128
-     streams, one frame, the bf16 bundle, every stream advancing);
+     at 384 and 16 units, B=128, at T=320 and at the training path's T=2400,
+     and the 16-unit forward (warp-synchronous) again at B=37, T=2400;
+  6. the masked sample-loop kernel (K2, the cluster kernel of
+     csrc/masked_loop.cu) vs its plain version at 256 streams, 32 steps and
+     one full frame, f32, bf16 and q8, with and without the sampler; at the
+     ragged batches 1, 37 and 130, 32 steps, each form, with and without the
+     sampler; free-running (every step advancing) vs K1's plain version; at
+     Na=640 and at Na=100, Nb=10 on random weights; and at the training
+     path's shapes (128 streams, one frame, the bf16 bundle, every stream
+     advancing);
   7. the training path: a corpus written from a seed, then
      train_lpcnet.Trainer at LPCNetConfig() / TrainConfig() (batch 128,
      2400-sample chunks) takes 4 steps through LPCNetLoader, a second
@@ -33,7 +38,9 @@ Needs one CUDA card and nvcc. Phases:
      device's busy share;
   8. timings of K5 and K2 at the training path's shapes vs their plain
      versions, their bounds and, for K5, torch.nn.GRU (cuDNN) as a
-     yardstick;
+     yardstick, with the layer's input product alone; K2 in all three forms
+     on the same inputs, and K1 (the first design's kernel, unchanged) on
+     them as the control; K2 in bf16 at 256 and 1024 streams;
   9. the teacher-forced kernel (K3) vs its plain version at 256 streams,
      3 blocks of 160 steps, f32, bf16 and q8, and against K2 with the
      sampler off; the PLC-net chain kernel (K4) vs its plain version at 256
@@ -94,7 +101,7 @@ from lpcnet_torch.train import train_lpcnet as T
 from lpcnet_torch.train.data import DeviceLPCNetLoader, LPCNetLoader
 
 SEED = 0
-KERNEL_SOURCES = ["sample_loop", "gru_train", "plc_chain"]
+KERNEL_SOURCES = ["sample_loop", "masked_loop", "gru_train", "plc_chain"]
 # H100 SXM data-sheet peaks (dense): bytes/s and operations/s by type
 HBM_BPS = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -162,7 +169,8 @@ def k1_bound_ms(kw, cfg, batch, n, masked=False):
                 "bf16" if kw["emb_cat"].dtype == torch.bfloat16 else "f32")
     op_s = (2 * gru_macs * steps / PEAK[gru_type]
             + 2 * dual_macs * steps / PEAK["f32"])
-    weight_bytes = sum(v.numel() * v.element_size() for v in kw.values())
+    weight_bytes = sum(v.numel() * v.element_size() for k, v in kw.items()
+                       if not k.startswith("k2_"))     # K2's packs: the same bytes
     per_stream = 4 * (3 * na + 3 * nb + 16          # cond_a, cond_b, lpc
                       + 2 * (na + nb + 16 + 1 + 1)  # state in and out
                       + n) + 2 * (4 * 8 + 4)        # rng, exc in/out
@@ -307,9 +315,9 @@ def gru_grads(fn, params, x, h0, w):
         "dbr": p["bias"].grad[1], "dkernel": p["kernel"].grad}
 
 
-def check_k5(n, t, dev):
-    """K5 vs its plain version at B=128. Returns (largest per-step forward
-    error, largest scaled gradient error).
+def check_k5(n, t, dev, b=TRAIN_BATCH):
+    """K5 vs its plain version at B=b (128 unless given). Returns (largest
+    per-step forward error, largest scaled gradient error).
 
     Bars: every kernel step within 2e-5 of a plain step from the same state
     (hs, and hT = hs[:, -1]); the whole trajectory within 5e-3 of the plain
@@ -318,7 +326,6 @@ def check_k5(n, t, dev):
     neighbouring bf16 value, which moves later states by ~1e-3; dgate_in,
     dh0, dWr, dbr and the input kernel's gradient within 1e-2 of each leaf's
     largest entry; two backward runs bit-equal."""
-    b = TRAIN_BATCH
     params, x, h0, w = gru_case(n, b, t, dev, SEED + 5)
     hk, htk, gk = gru_grads(G.gru_recurrence, params, x, h0, w)
     torch.cuda.synchronize()
@@ -417,6 +424,7 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
     with torch.no_grad():
         lib_f = time_cuda(lambda: gru(x, h0c), reps=3, warmup=1)
         our_f = time_cuda(whole_fwd, reps=3, warmup=1)
+        gate_ms = time_cuda(lambda: G.gate_input(pk, xg), reps=3, warmup=1)
         diff = float((gru(x, h0c)[0] - whole_fwd()[0]).abs().max())
     out, _ = gru(xg, h0c)
     lib_b = time_cuda(lambda: torch.autograd.grad(
@@ -437,8 +445,10 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
         f"{bby}); whole layer with the input product: gru_seq_kernel forward "
         f"{our_f:.3f} ms, backward {our_b:.3f} ms; torch.nn.GRU (cuDNN, f32) "
         f"forward {lib_f:.3f} ms, backward {lib_b:.3f} ms, max|hs| apart "
-        f"{diff:.3e} (bf16 vs f32 operands); 2 launches per training step "
-        f"each way; card: {smi}")
+        f"{diff:.3e} (bf16 vs f32 operands); the layer's input product "
+        f"gate_input alone {gate_ms:.3f} ms; the forward kernel "
+        f"{'warp-synchronous' if G.forward_uses_warp(n) else 'on clusters'}; "
+        f"1 launch per training step each way; card: {smi}")
     src = "lpcnet_torch/kernels/csrc/gru_train.cu"
     products_ms = (our_f - f_ms) + (our_b - b_ms)
     return products_ms, [
@@ -458,6 +468,25 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
 # --------------------------------------------------------------------------
 # K2: the masked sample loop
 # --------------------------------------------------------------------------
+
+def k2_bundles(fused, cfg):
+    """K2's weight bundles (`masked_kernel_weights`: the packs built once)
+    in the three forms."""
+    return {
+        "f32": K.masked_kernel_weights(K.kernel_weights(fused, cfg, dtype=torch.float32)),
+        "bf16": K.masked_kernel_weights(K.kernel_weights(fused, cfg, dtype=torch.bfloat16)),
+        "q8": K.masked_kernel_weights(K.kernel_weights(quantize_fused(fused), cfg)),
+    }
+
+
+def k2_launch_shape(b, na, nb, form, dev):
+    cfg2 = K.ML.masked_launch_config(b, na, nb, form, K._max_clusters(dev, form, na))
+    res = "+".join(k for k, on in (("GRU-A", cfg2["res_a"]), ("GRU-B", cfg2["res_b"])) if on)
+    return (f"clusters of {cfg2['cluster']} blocks x {cfg2['units']} units, "
+            f"{cfg2['streams']} streams each, {cfg2['clusters']} clusters in "
+            f"{cfg2['waves']} wave(s), {cfg2['smem']} bytes of shared memory a block, "
+            f"weights in shared memory: {res or 'none'}")
+
 
 def k2_masks(b, n, dev, seed, all_tf):
     rs = np.random.RandomState(seed)
@@ -482,11 +511,7 @@ def check_k2(fused, cfg, dev):
     b = CHECK_BATCH
     ca, cb, lpc = conditioning(fused, cfg, b, dev)
     s0 = M.init_sample_state(b, cfg, dev)
-    bundles = {
-        "f32": K.kernel_weights(fused, cfg, dtype=torch.float32),
-        "bf16": K.kernel_weights(fused, cfg, dtype=torch.bfloat16),
-        "q8": K.kernel_weights(quantize_fused(fused), cfg),
-    }
+    bundles = k2_bundles(fused, cfg)
     fro = slice(0, b // 4)
     for form, kw in bundles.items():
         for n in (CHECK_STEPS, 160):
@@ -531,12 +556,133 @@ def check_k2(fused, cfg, dev):
         "bf16 >=95% exact pcm, bf16 rms within 0.5: pass")
 
 
-def k2_train_case(fused, cfg, dev):
+def check_k2_ragged(fused, cfg, dev):
+    """K2 vs its plain version at the ragged batches 1, 37 and 130 (one
+    cluster with one stream, clusters of 8 streams with a ragged last one,
+    clusters of 16), 32 steps, each form, random masks, the sampler on and
+    off. Bars per call: RNG equal; streams that never advance bit-equal
+    with PCM 0; teacher-forced samples exact; one step from the start
+    within 1e-4 (bf16 h_b 1e-2); with the sampler off PCM exact, q8 state
+    too. Over the three batches (168 streams) with the sampler on: f32
+    >=98 % exact PCM, q8 >90 %, bf16 >=95 %."""
+    bundles = k2_bundles(fused, cfg)
+    n = CHECK_STEPS
+    same = collections.defaultdict(list)
+    for b in (1, 37, 130):
+        ca, cb, lpc = conditioning(fused, cfg, b, dev)
+        s0 = M.init_sample_state(b, cfg, dev)
+        fro = slice(0, b // 4)                  # k2_masks: these never advance
+        for form, kw in bundles.items():
+            for sampled in (True, False):
+                tg, tf, adv = k2_masks(b, n, dev, SEED + 50 + b, all_tf=not sampled)
+                args = (kw, s0, ca, cb, lpc, tg, tf, adv, n, sampled)
+                one = (kw, s0, ca, cb, lpc, tg[:, :1].contiguous(), tf[:, :1].contiguous(),
+                       adv[:, :1].contiguous(), 1, sampled)
+                s1k, _ = K.synthesize_frame_masked_kernel(*one)
+                s1p, _ = K.sample_loop_masked_plain(*one)
+                ea = float((s1k.gru_a - s1p.gru_a).abs().max())
+                eb = float((s1k.gru_b - s1p.gru_b).abs().max())
+                sk, pk = K.synthesize_frame_masked_kernel(*args)
+                torch.cuda.synchronize()
+                sp, pp = K.sample_loop_masked_plain(*args)
+                rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+                frozen = state_equal(sk, s0, fro) and not bool(pk[~adv].any())
+                tf_eq = bool(torch.equal(pk[tf], pp[tf]))
+                finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+                eq = (pk == pp).float()
+                log(f"K2[{form}] ragged B={b} n={n} sampled={sampled}: one step "
+                    f"max|h_a| err {ea:.3e}, max|h_b| err {eb:.3e}; rng equal {rng_eq}, "
+                    f"frozen streams untouched {frozen}, teacher-forced pcm exact "
+                    f"{tf_eq}, exact pcm {float(eq.mean()):.4f}")
+                assert ea <= 1e-4 and eb <= (1e-2 if form == "bf16" else 1e-4), (form, b)
+                assert rng_eq and frozen and tf_eq and finite, (form, b, sampled)
+                if sampled:
+                    same[form].append(eq.flatten())
+                else:
+                    assert float(eq.mean()) == 1.0, (form, b)
+                    if form == "q8":
+                        assert state_equal(sk, sp), (form, b)
+    share = {f: float(torch.cat(v).mean()) for f, v in same.items()}
+    log(f"K2 ragged bars: per call rng, frozen streams, teacher-forced pcm and "
+        f"one step; sampler off exact (q8 state too); sampled pcm exact over the "
+        f"three batches: f32 {share['f32']:.4f} (>=0.98), q8 {share['q8']:.4f} "
+        f"(>0.90), bf16 {share['bf16']:.4f} (>=0.95)")
+    assert share["f32"] >= 0.98 and share["q8"] > 0.90 and share["bf16"] >= 0.95, share
+
+
+def check_k2_free(fused, cfg, dev):
+    """K2 with every step advancing and none teacher-forced, the sampler on,
+    vs K1's plain version (the free-running loop, K1's function) at B=130,
+    32 steps, each form: RNG equal, finite, K1's bars on exact PCM (f32
+    >=98 %, q8 >90 %, bf16 >=95 %)."""
+    b, n = 130, CHECK_STEPS
+    ca, cb, lpc = conditioning(fused, cfg, b, dev)
+    s0 = M.init_sample_state(b, cfg, dev)
+    on = torch.ones((b, n), dtype=torch.bool, device=dev)
+    for form, kw in k2_bundles(fused, cfg).items():
+        sk, pk = K.synthesize_frame_masked_kernel(kw, s0, ca, cb, lpc, on.float(), ~on, on, n)
+        torch.cuda.synchronize()
+        sp, pp = K.sample_loop_plain(kw, s0, ca, cb, lpc, n)
+        rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+        same = float((pk == pp).float().mean())
+        log(f"K2[{form}] free-running (every step advancing, none teacher-forced) vs "
+            f"K1's plain version, B={b} n={n}: rng equal {rng_eq}, exact pcm {same:.4f}")
+        assert rng_eq and bool(torch.isfinite(pk).all()), form
+        assert same >= {"f32": 0.98, "q8": 0.9, "bf16": 0.95}[form], (form, same)
+
+
+def check_k2_widths(dev):
+    """K2 at widths other than the default's, on random weights from a seed:
+    the LPCNet paper's 640-unit GRU-A (the bf16 slice, 307 KB, does not fit
+    a block's shared memory and is read from L2) and Na=100, Nb=10 (no
+    multiple of 16: padded units), B=37, 32 steps, each form, the sampler on
+    and off, at the ragged batches' bars per call."""
+    for na, nb in ((640, 16), (100, 10)):
+        cfg = M.LPCNetConfig(rnn_units1=na, rnn_units2=nb)
+        fused = M.fuse_inference_params(M.init_params(cfg, seed=SEED + na, device=dev), cfg)
+        b, n = 37, CHECK_STEPS
+        ca, cb, lpc = conditioning(fused, cfg, b, dev)
+        s0 = M.init_sample_state(b, cfg, dev)
+        fro = slice(0, b // 4)
+        for form, kw in k2_bundles(fused, cfg).items():
+            log(f"K2[{form}] Na={na} Nb={nb} B={b}: "
+                + k2_launch_shape(b, na, nb, K.ML.FORMS[form], dev))
+            for sampled in (True, False):
+                tg, tf, adv = k2_masks(b, n, dev, SEED + 70 + na, all_tf=not sampled)
+                one = (kw, s0, ca, cb, lpc, tg[:, :1].contiguous(), tf[:, :1].contiguous(),
+                       adv[:, :1].contiguous(), 1, sampled)
+                s1k, _ = K.synthesize_frame_masked_kernel(*one)
+                s1p, _ = K.sample_loop_masked_plain(*one)
+                ea = float((s1k.gru_a - s1p.gru_a).abs().max())
+                eb = float((s1k.gru_b - s1p.gru_b).abs().max())
+                args = (kw, s0, ca, cb, lpc, tg, tf, adv, n, sampled)
+                sk, pk = K.synthesize_frame_masked_kernel(*args)
+                torch.cuda.synchronize()
+                sp, pp = K.sample_loop_masked_plain(*args)
+                rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+                frozen = state_equal(sk, s0, fro) and not bool(pk[~adv].any())
+                tf_eq = bool(torch.equal(pk[tf], pp[tf]))
+                finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+                same = float((pk == pp).float().mean())
+                log(f"K2[{form}] Na={na} Nb={nb} B={b} n={n} sampled={sampled}: one step "
+                    f"max|h_a| err {ea:.3e}, max|h_b| err {eb:.3e}; rng equal {rng_eq}, "
+                    f"frozen streams untouched {frozen}, teacher-forced pcm exact "
+                    f"{tf_eq}, exact pcm {same:.4f}")
+                assert ea <= 1e-4 and eb <= (1e-2 if form == "bf16" else 1e-4), (form, na)
+                assert rng_eq and frozen and tf_eq and finite, (form, na, sampled)
+                if sampled:
+                    assert same >= {"f32": 0.98, "q8": 0.9, "bf16": 0.95}[form], (form, na)
+                else:
+                    assert same == 1.0, (form, na)
+                    if form == "q8":
+                        assert state_equal(sk, sp), (form, na)
+
+
+def k2_train_case(fused, cfg, dev, b=TRAIN_BATCH, kw=None):
     """K2's inputs as the training path gives them: B=128, one frame, the
     bf16 bundle, every stream advancing, three quarters of the samples
     teacher-forced in runs of 16."""
-    b = TRAIN_BATCH
-    kw = K.kernel_weights(fused, cfg)
+    kw = kw or K.masked_kernel_weights(K.kernel_weights(fused, cfg))
     ca, cb, lpc = conditioning(fused, cfg, b, dev)
     s0 = M.init_sample_state(b, cfg, dev)
     rs = np.random.RandomState(SEED + 9)
@@ -597,26 +743,60 @@ def check_k2_train_shape(case):
     return max(err_a, err_b)
 
 
-def time_k2(case, cfg, launches, step_err, smi):
+def time_k2(case, fused, cfg, launches, step_err, smi):
     """K2 per launch on `k2_train_case`'s inputs, the ones
-    `check_k2_train_shape` took `step_err` from."""
+    `check_k2_train_shape` took `step_err` from, in the bf16 form the
+    training path runs and in f32 and q8 (each first held one step against
+    its plain version there, at K1's one-step bars); K1, the first design's
+    kernel, on the same inputs (free-running) as the control."""
     kw, s0, ca, cb, lpc, tg, tf, adv = case
     b = tg.shape[0]
-    k_ms = time_cuda(lambda: K.synthesize_frame_masked_kernel(
-        kw, s0, ca, cb, lpc, tg, tf, adv), reps=10)
+    bundles = dict(k2_bundles(fused, cfg), bf16=kw)
+    ms, errs = {}, {}
+    for form, kf in bundles.items():
+        one = (kf, s0, ca, cb, lpc, tg[:, :1].contiguous(), tf[:, :1].contiguous(),
+               adv[:, :1].contiguous(), 1)
+        s1k, _ = K.synthesize_frame_masked_kernel(*one)
+        s1p, _ = K.sample_loop_masked_plain(*one)
+        ea = float((s1k.gru_a - s1p.gru_a).abs().max())
+        eb = float((s1k.gru_b - s1p.gru_b).abs().max())
+        assert ea <= 1e-4 and eb <= (1e-2 if form == "bf16" else 1e-4), (form, ea, eb)
+        errs[form] = max(ea, eb)
+        ms[form] = time_cuda(lambda: K.synthesize_frame_masked_kernel(
+            kf, s0, ca, cb, lpc, tg, tf, adv), reps=20)
+    k1_ms = {form: time_cuda(lambda: K.synthesize_frame_kernel(kf, s0, ca, cb, lpc),
+                             reps=10)
+             for form, kf in bundles.items()}
     p_ms = time_cuda(lambda: K.sample_loop_masked_plain(
         kw, s0, ca, cb, lpc, tg, tf, adv), reps=1, warmup=1)
     bound, bound_by = k1_bound_ms(kw, cfg, b, 160, masked=True)
-    log(f"K2[bf16] B={b} n=160: kernel {k_ms:.4f} ms/launch, plain "
-        f"{p_ms:.2f} ms, bound {bound:.4f} ms ({bound_by}), 15 launches per "
+    na, nb, dev = cfg.rnn_units1, cfg.rnn_units2, tg.device
+    wide = {}
+    for bw in (256, 1024):          # the checks' batch, and one that takes waves
+        kw_, s0_, ca_, cb_, lpc_, tg_, tf_, adv_ = k2_train_case(fused, cfg, dev, bw, kw)
+        wide[bw] = time_cuda(lambda: K.synthesize_frame_masked_kernel(
+            kw_, s0_, ca_, cb_, lpc_, tg_, tf_, adv_), reps=10)
+        log(f"K2[bf16] B={bw} n=160: {wide[bw]:.4f} ms/launch "
+            f"({k2_launch_shape(bw, na, nb, 1, dev)}); bound "
+            f"{k1_bound_ms(kw, cfg, bw, 160, masked=True)[0]:.4f} ms; card: {smi}")
+    log(f"K2 B={b} n=160 ({k2_launch_shape(b, na, nb, 1, dev)}; q8: "
+        f"{k2_launch_shape(b, na, nb, 2, dev)}; f32: {k2_launch_shape(b, na, nb, 0, dev)}): "
+        f"bf16 {ms['bf16']:.4f} ms/launch, f32 {ms['f32']:.4f}, q8 "
+        f"{ms['q8']:.4f} (one step against the plain version: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"); K1 on the same inputs, free-running (the first design, unchanged): "
+        f"bf16 {k1_ms['bf16']:.4f}, f32 {k1_ms['f32']:.4f}, q8 {k1_ms['q8']:.4f}; "
+        f"plain {p_ms:.2f} ms, bound {bound:.4f} ms ({bound_by}), 15 launches per "
         f"training step with ss_prob > 0; library: no single PyTorch call "
         f"computes K2; card: {smi}")
     return {"name": "sample_loop_masked[bf16]", "route": "cuda",
-            "source": "lpcnet_torch/kernels/csrc/sample_loop.cu",
+            "source": "lpcnet_torch/kernels/csrc/masked_loop.cu",
             "replaces": "lpcnet_tpu/kernels/sample_loop.py:461",
-            "launches": launches, "max_abs_err": step_err, "ms": k_ms,
+            "launches": launches, "max_abs_err": step_err, "ms": ms["bf16"],
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None, "pass": True}
+            "library_ms": None, "pass": True, "f32_ms": ms["f32"], "q8_ms": ms["q8"],
+            "k1_ms_same_inputs": k1_ms, "bf16_ms_b256": wide[256],
+            "bf16_ms_b1024": wide[1024]}
 
 
 # --------------------------------------------------------------------------
@@ -1170,7 +1350,7 @@ def k3_bound_ms(kw, cfg, counts, n_blocks, blk):
     typ = ("int8" if K.is_q8_bundle(kw) else
            "bf16" if kw["emb_cat"].dtype == torch.bfloat16 else "f32")
     op_s = 2 * macs * steps / PEAK[typ]
-    used = [v for k_, v in kw.items() if not k_.startswith(("dual", "logit"))]
+    used = [v for k_, v in kw.items() if not k_.startswith(("dual", "logit", "k2_"))]
     weight_bytes = sum(v.numel() * v.element_size() for v in used)
     per_stream = (n_blocks * (4 * (3 * na + 3 * nb) + 3 * blk + 4)
                   + 2 * (4 * (na + nb) + 32))
@@ -1767,14 +1947,18 @@ def main():
         short, full = check_k5(n, 320, dev), check_k5(n, 2400, dev)
         k5_err[n] = tuple(max(a, c) for a, c in zip(short, full))
         torch.cuda.empty_cache()
+    check_k5(cfg.rnn_units2, 2400, dev, b=37)
     check_k2(fused, cfg, dev)
+    check_k2_ragged(fused, cfg, dev)
+    check_k2_free(fused, cfg, dev)
+    check_k2_widths(dev)
     k2_case = k2_train_case(fused, cfg, dev)
     k2_err = check_k2_train_shape(k2_case)
 
     # 7. the training path, then 8. timings at its shapes
     with tempfile.TemporaryDirectory() as workdir:
         launches, step_ms = drive_training(dev, smi, workdir)
-    entries.append(time_k2(k2_case, cfg, launches["k2"], k2_err, smi))
+    entries.append(time_k2(k2_case, fused, cfg, launches["k2"], k2_err, smi))
     products_ms = 0.0
     for n in (cfg.rnn_units1, cfg.rnn_units2):
         prod, k5_entries = time_k5(n, launches, *k5_err[n], dev, smi)

@@ -137,7 +137,8 @@ class LPCNetDecoder:
         self.batch = batch
         self.device = dev
         self.fused = tree_to(fused, dev)
-        self._kw = K.kernel_weights(self.fused, cfg) if use_kernel else None
+        self._kw = (K.masked_kernel_weights(K.kernel_weights(self.fused, cfg))
+                    if use_kernel else None)
         self._kw_merged = None
         self.cbs = None
         if with_codebooks:

@@ -2,9 +2,9 @@
 interface and load them with ctypes.
 
 Each source `csrc/<name>.cu` compiles with nvcc for sm_90a into
-`build/lib<name>-<hash>.so` (the hash covers the source and the flags), on
-first use; `build/` is not committed. `build_all` starts one nvcc per source
-at once and waits for all of them.
+`build/lib<name>-<hash>.so` (the hash covers the source, the shared headers
+`csrc/*.cuh` and the flags), on first use; `build/` is not committed.
+`build_all` starts one nvcc per source at once and waits for all of them.
 """
 
 from __future__ import annotations
@@ -32,8 +32,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

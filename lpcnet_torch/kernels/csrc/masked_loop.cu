@@ -1,0 +1,745 @@
+// K2: the LPCNet sample loop under per-stream, per-sample control masks, one
+// frame per launch, redesigned for Hopper.
+//
+// Replaces the TPU kernel lpcnet_tpu/kernels/sample_loop.py::_ar_kernel run
+// with masked=True (synthesize_frame_masked_pallas, with or without the
+// sampler). Each stream runs n_samples dependent steps: LPC prediction,
+// u-law codes, the three-row embedding gather plus the reset-after GRU-A,
+// GRU-B, the dual-FC node logits, the 8-bit tree descent on KISS99
+// threshold bytes, de-emphasis, clip and round. A mode word per stream and
+// sample (bit 0 advance, bit 1 teacher-force) masks it: with advance off the
+// stream's whole state, its KISS99 words included, stays as it is and the
+// sample is 0; with teacher-force on, the target (de-emphasised domain) sets
+// the excitation and the sample. With sampled == 0 the dual-FC and the tree
+// are skipped; every advanced step must then be teacher-forced.
+//
+// What bounds it on an H100: the chain of dependent steps. The operations
+// (0.46 M multiply-adds a stream and step) and the bytes are a few hundredths
+// of a millisecond a frame. The first design (a block of 4 streams sweeping
+// GRU-A's whole recurrent matrix, 0.88 MB in bf16, from L2 every step on the
+// CUDA cores; 32 of 132 SMs busy at 128 streams) took ~57 us a step; this
+// one ~8.6 us at 128 streams (bf16), most of it the serial per-stream work
+// (tree, u-law codes), the embedding gathers from L2 and two barriers.
+//
+// What this design does about it:
+// * A cluster of C blocks owns S streams for the whole frame. Block rank r
+//   owns U units of GRU-A (C = 8, U = 48 at Na = 384) and their 3U gate
+//   columns [z | r | h]; U is a multiple of 16, and the C U - Na units past
+//   Na (any Na runs) are padding whose weights are zero and whose state
+//   stays 0. GRU-B's width is padded to a multiple of 16 the same way. The
+//   block's slice of the recurrent matrix is copied into shared memory once
+//   per launch (bf16 110.6 KB, q8 55.3 KB at Na = 384) and read from there
+//   for all n steps, and so are GRU-B's packed weights (38.4 KB in bf16).
+//   Where they do not fit beside the rest (GRU-B's at 32 streams; GRU-A's in
+//   bf16 at Na = 640, 307 KB a slice) the block reads them from L2 in place.
+//   The f32 form (221 KB a slice at Na = 384) always reads its weights from
+//   L2 and runs on the CUDA cores with K1's arithmetic: the tensor cores
+//   would change its numerics.
+// * S is 8, 16 or 32, the smallest that fits the card in one wave of
+//   clusters (kernels/masked_loop.py::masked_launch_config, from the card's
+//   cluster occupancy). An H100 holds 15 clusters of 8 such blocks, so 128
+//   streams run as 8 clusters of 16, 64 (a PLC frame) as 8 of 8, and 256 as
+//   8 of 32. A ragged last cluster masks its missing streams.
+// * GRU-A's product runs on the tensor cores as out^T = W^T h^T: the weight
+//   slice is the A operand (16 gate columns a tile), the streams are N (8 a
+//   tile). bf16: mma.sync m16n8k16, f32 sums; q8: m16n8k32 s8 x s8 -> s32,
+//   exact, so q8 stays bit-equal to its plain version. The wrapper packs the
+//   weights in the A fragments' register order, so a lane's fragment is one
+//   16-byte shared-memory load. Each warp takes whole (column tile, stream
+//   tile) tasks.
+// * The gate phase: thread (stream, unit) gathers its three embedding rows
+//   for its three columns (from L2), adds the conditioning and the bias, and
+//   forms the new h_a itself. The block's slice of the new operand copy
+//   (bf16, int8 or f32) then goes into every other block's shared memory
+//   through distributed shared memory, 16 bytes a store, double-buffered,
+//   behind one cluster barrier a step. After it every block holds the whole
+//   new h_a.
+// * GRU-B, the dual-FC logits, the tree descent with KISS99, the LPC
+//   prediction and the PCM then run redundantly in every block on identical
+//   inputs with identical RNG words, so no second cluster barrier is needed;
+//   only rank 0 writes the PCM and the carried state (each rank writes its
+//   own h_a units). GRU-B's two products ([S, Na] x [Na, 3Nb] and
+//   [S, Nb] x [Nb, 3Nb]) take the tensor cores too (its weights packed the
+//   same way, 38.4 KB in bf16). Of the dual-FC's 256 node logits a stream
+//   needs only the 8 its descent visits: the block computes the 15 nodes of
+//   levels 0-3, warp 0 descends them, then the 15 under the node reached
+//   (30 of 256, two rounds over all threads). A stream that is
+//   teacher-forced or frozen at a step computes none; the RNG advances as
+//   before.
+// * Warp 0 owns the streams' scalar state in registers (signal history, LPC,
+//   de-emphasis, prediction, KISS99 words, the next step's mode and target,
+//   loaded a step ahead) and runs the tree's last four levels and the next
+//   step's u-law codes while the warps on the other three schedulers run
+//   the next step's GRU-A product.
+// * With every mode word 1 (advance, no teacher-forcing) and the sampler on,
+//   the kernel computes the free-running sample loop, K1's function
+//   (chip_smoke.py holds it so against K1's plain version).
+
+#include <cooperative_groups.h>
+
+#include "sample_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+#define K2_THREADS 384
+#define K2_WARPS (K2_THREADS / 32)
+
+typedef __nv_bfloat16 bf16;
+
+
+struct K2Args {
+  int batch, na, nb, n_samples, sampled, cluster;
+  int res_a, res_b;         // GRU-A's slice, GRU-B's weights in shared memory
+  const void* emb;          // [768, 3Na] f32 / bf16 / int8
+  const float* emb_scale;   // [3Na] (q8)
+  const void* a_w;          // bf16 / q8: packed slices [C][3U/16][ceil(Na/KS)][32][16 bytes]; f32: a_rec [Na, 3Na]
+  const float* a_diag;      // [3Na] (q8)
+  const float* a_bias1;     // [3Na]
+  const void* b_w;          // bf16 / q8: packed [3Nbp/16][ceil(Na/KS) + ceil(Nb/KS)][32][16 bytes]
+  const float* b_in;        // f32 form: [Na, 3Nb]
+  const float* b_rec;       // f32 form: [Nb, 3Nb]
+  const float* b_bias1;     // [3Nb]
+  const float* dual_w;      // [Nb, 512]
+  const float* dual_bias;   // [512]
+  const float* dual_factor; // [512]
+  const float* logit_table; // [256]
+  const float* cond_a;      // [B, 3Na]
+  const float* cond_b;      // [B, 3Nb]
+  const float* lpc;         // [B, 16]
+  const float* ha_in; const float* hb_in; const float* sig_in;
+  const int* exc_in; const float* de_in; const long long* rng_in;
+  float* ha_out; float* hb_out; float* sig_out;
+  int* exc_out; float* de_out; long long* rng_out;
+  float* pcm;               // [B, n_samples]
+  const float* preload;     // [B, n_samples] target, de-emphasised domain
+  const int* mode;          // [B, n_samples] advance | teacher_force << 1
+};
+
+// Per-form constants: KS the k depth of one MMA, XPAD the padding of the
+// operand rows in shared memory (conflict-free fragment loads), ESZ the
+// operand's bytes.
+__host__ __device__ constexpr int form_ks(int form) { return form == FORM_Q8 ? 32 : 16; }
+__host__ __device__ constexpr int form_esz(int form) {
+  return form == FORM_F32 ? 4 : (form == FORM_BF16 ? 2 : 1);
+}
+__host__ __device__ constexpr int form_xpad(int form) {
+  return form == FORM_F32 ? 4 : (form == FORM_BF16 ? 8 : 16);
+}
+template <int FORM> struct K2Form {
+  static constexpr int KS = form_ks(FORM);
+  static constexpr int ESZ = form_esz(FORM);
+  static constexpr bool MMA = FORM != FORM_F32;
+};
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The shared-memory layout of one block, in bytes; the Python side
+// (masked_loop.py::masked_smem_bytes) computes the same total. U, the units
+// of a rank: 16 ceil(Na / (16 C)); Nbp = 16 ceil(Nb / 16).
+struct K2Layout {
+  int u, nbp, ksa, ksbr, ldx, ldb, ldz, ldg;
+  size_t wa, wb, hop, hbop, zacc, gacc, haown, hbf, logits, code, table, flags, total;
+};
+
+__host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int cluster, int s,
+                                              bool res_a, bool res_b) {
+  const int ks = form_ks(form), esz = form_esz(form);
+  const bool mma = form != FORM_F32;
+  K2Layout L;
+  L.u = round_up((na + cluster - 1) / cluster, 16);
+  L.nbp = round_up(nb, 16);
+  L.ksa = (na + ks - 1) / ks;
+  L.ksbr = (nb + ks - 1) / ks;
+  L.ldx = round_up(cluster * L.u, 128 / esz) + form_xpad(form);
+  L.ldb = mma ? L.ksbr * ks + form_xpad(form) : nb + form_xpad(form);
+  L.ldz = 3 * L.u + 4;
+  L.ldg = 3 * L.nbp + 4;
+  const size_t wslice = mma && res_a ? (size_t)3 * L.u * L.ksa * ks * esz : 0;
+  const size_t wbytes = mma && res_b ? (size_t)3 * L.nbp * (L.ksa + L.ksbr) * ks * esz : 0;
+  size_t off = 0;
+  L.wa = off; off += align16(wslice);
+  L.wb = off; off += align16(wbytes);
+  L.hop = off; off += align16((size_t)2 * s * L.ldx * esz);
+  L.hbop = off; off += align16((size_t)s * L.ldb * esz);
+  L.zacc = off; off += align16((size_t)s * L.ldz * 4);
+  L.gacc = off; off += align16((size_t)2 * s * L.ldg * 4);
+  L.haown = off; off += align16((size_t)s * L.u * 4);
+  L.hbf = off; off += align16((size_t)s * nb * 4);
+  L.logits = off; off += align16((size_t)s * 32 * 4);
+  L.code = off; off += align16((size_t)4 * s * 4);
+  L.table = off; off += 256 * 4;
+  L.flags = off; off += 16;
+  L.total = off;
+  return L;
+}
+
+// the GRU operand copy in the operand's own type
+template <int FORM> struct OpT;
+template <> struct OpT<FORM_F32> {
+  typedef float T;
+  static __device__ __forceinline__ float of(float h) { return h; }
+};
+template <> struct OpT<FORM_BF16> {
+  typedef bf16 T;
+  static __device__ __forceinline__ bf16 of(float h) { return __float2bfloat16_rn(h); }
+};
+template <> struct OpT<FORM_Q8> {
+  typedef int8_t T;
+  static __device__ __forceinline__ int8_t of(float h) { return (int8_t)operand<FORM_Q8>(h); }
+};
+
+// a weight through the read-only path, widened as wload does
+__device__ __forceinline__ float ldw(const float* p, size_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float ldw(const bf16* p, size_t i) { return __bfloat162float(__ldg(p + i)); }
+__device__ __forceinline__ int ldw(const int8_t* p, size_t i) { return (int)__ldg(p + i); }
+
+// the logit of tree node nd from h_b (both channels: dual-FC columns nd and
+// 256 + nd), in K1's arithmetic
+__device__ __forceinline__ float node_logit(const K2Args& p, const float* h, int nb, int nd) {
+  float p0 = 0.f, p1 = 0.f;
+#pragma unroll 16
+  for (int k = 0; k < nb; ++k) {           // all the weight reads in flight at once
+    p0 += h[k] * __ldg(p.dual_w + k * 512 + nd);
+    p1 += h[k] * __ldg(p.dual_w + k * 512 + 256 + nd);
+  }
+  const float t0 = __fmul_rn(__ldg(p.dual_factor + nd), tanhf(__fadd_rn(p0, __ldg(p.dual_bias + nd))));
+  const float t1 = __fmul_rn(__ldg(p.dual_factor + 256 + nd),
+                             tanhf(__fadd_rn(p1, __ldg(p.dual_bias + 256 + nd))));
+  return __fadd_rn(t0, t1);
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma16832(int (&d)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// One (column tile, stream tile) of out[n][m] = sum_k x[n][k] W^T[m][k] over
+// `ksteps` k steps on the tensor cores, by one warp, k in order. wf: the
+// tile's packed A fragments, [ksteps][32] 16-byte words; x: the tile's first
+// operand row, `ldx` elements a row; out: the tile's first output, `ldo` a
+// row.
+template <int FORM>
+__device__ __forceinline__ void tile_mma(const uint4* wf, int ksteps,
+                                         const typename OpT<FORM>::T* x, int ldx,
+                                         typename FormT<FORM>::Acc* out, int ldo, int lane) {
+  typedef typename FormT<FORM>::Acc Acc;
+  constexpr int KS = K2Form<FORM>::KS;
+  constexpr int E = 4 / K2Form<FORM>::ESZ;      // operand elements a 32-bit word
+  const int g = lane >> 2, t = lane & 3;
+  const typename OpT<FORM>::T* xr = x + g * ldx + t * E;
+  Acc acc[4] = {0, 0, 0, 0};
+#pragma unroll 4
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const uint4 a = wf[ks * 32 + lane];
+    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr + ks * KS);
+    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + ks * KS + KS / 2);
+    if constexpr (FORM == FORM_Q8) {
+      mma16832(acc, a, b0, b1);       // int32 sums: exact in any order
+    } else {
+      // each k step's 16 products summed by the tensor core from zero, the
+      // running sum kept in IEEE float32 adds: the tensor core's own
+      // accumulation does not round to nearest, and an error of a few
+      // float32 units in h_a flips the bf16 operand of later steps
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma16816(d, a, b0, b1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] += d[i];
+    }
+  }
+  // D fragment: c0, c1 at (column g, streams 2t, 2t+1); c2, c3 at column g+8
+  out[(2 * t) * ldo + g] = acc[0];
+  out[(2 * t + 1) * ldo + g] = acc[1];
+  out[(2 * t) * ldo + g + 8] = acc[2];
+  out[(2 * t + 1) * ldo + g + 8] = acc[3];
+}
+
+template <int FORM, int NT>
+__global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
+  typedef typename FormT<FORM>::W W;
+  typedef typename FormT<FORM>::Acc Acc;
+  typedef typename OpT<FORM>::T OT;
+  typedef K2Form<FORM> F;
+  constexpr int S = 8 * NT;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = p.cluster;
+  const int rank = (int)cluster.block_rank();
+  const int na = p.na, nb = p.nb, na3 = 3 * na, nb3 = 3 * nb;
+  const K2Layout L = k2_layout(FORM, na, nb, C, S, p.res_a, p.res_b);
+  const int U = L.u, u0 = rank * U, n = p.n_samples, nbp = L.nbp;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = (blockIdx.x / C) * S;
+  const int nact = min(S, p.batch - b0);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the packed weights: this rank's GRU-A slice and GRU-B's, in shared
+  // memory (wa_s, wb_s) where they fit, else read from L2 in place (wa_g,
+  // wb_g). The products take one or the other in separate calls, so that
+  // the resident case keeps its shared-memory loads.
+  const size_t na_words = (size_t)3 * U * L.ksa * F::KS * F::ESZ / 16;
+  const size_t nb_words = (size_t)3 * nbp * (L.ksa + L.ksbr) * F::KS * F::ESZ / 16;
+  const uint4* wa_g = reinterpret_cast<const uint4*>(p.a_w) + (size_t)rank * na_words;
+  const uint4* wb_g = reinterpret_cast<const uint4*>(p.b_w);
+  uint4* wa_s = reinterpret_cast<uint4*>(smem + L.wa);
+  uint4* wb_s = reinterpret_cast<uint4*>(smem + L.wb);
+  OT* hop = reinterpret_cast<OT*>(smem + L.hop);          // [2][S][ldx] operand of h_a
+  OT* hbop = reinterpret_cast<OT*>(smem + L.hbop);        // [S][ldb] operand of h_b
+  Acc* zacc = reinterpret_cast<Acc*>(smem + L.zacc);      // [S][ldz] GRU-A products
+  Acc* gin = reinterpret_cast<Acc*>(smem + L.gacc);       // [S][ldg] GRU-B input part
+  Acc* grec = gin + S * L.ldg;                            // [S][ldg] GRU-B recurrent part
+  float* haown = reinterpret_cast<float*>(smem + L.haown); // [S][U] this rank's h_a
+  float* hbf = reinterpret_cast<float*>(smem + L.hbf);     // [S][nb] h_b
+  float* logits = reinterpret_cast<float*>(smem + L.logits); // [S][32] visited nodes
+  int* code = reinterpret_cast<int*>(smem + L.code);       // [S][3] sig_u, pred_u, exc
+  int* top = code + 3 * S;                                 // [S] the tree's first 4 bits
+  unsigned* flags = reinterpret_cast<unsigned*>(smem + L.flags); // live, sampler needed
+  float* table = reinterpret_cast<float*>(smem + L.table); // [256] threshold logits
+
+  // ---- set-up: weights into shared memory, the carried state
+  if (F::MMA && p.res_a)
+    for (size_t i = tid; i < na_words; i += K2_THREADS) wa_s[i] = wa_g[i];
+  if (F::MMA && p.res_b)
+    for (size_t i = tid; i < nb_words; i += K2_THREADS) wb_s[i] = wb_g[i];
+  for (int i = tid; i < S * L.ldx; i += K2_THREADS) {
+    const int s = i / L.ldx, k = i % L.ldx;
+    const float h = (s < nact && k < na) ? p.ha_in[(size_t)(b0 + s) * na + k] : 0.f;
+    hop[i] = OpT<FORM>::of(h);
+    hop[S * L.ldx + i] = OpT<FORM>::of(0.f);
+  }
+  for (int i = tid; i < S * U; i += K2_THREADS) {
+    const int s = i / U, u = u0 + i % U;
+    haown[i] = s < nact && u < na ? p.ha_in[(size_t)(b0 + s) * na + u] : 0.f;
+  }
+  for (int i = tid; i < S * L.ldb; i += K2_THREADS) {
+    const int s = i / L.ldb, k = i % L.ldb;
+    const float h = (s < nact && k < nb) ? p.hb_in[(size_t)(b0 + s) * nb + k] : 0.f;
+    hbop[i] = OpT<FORM>::of(h);
+    if (k < nb) hbf[s * nb + k] = h;
+  }
+
+  // warp 0, lane s: stream s's scalar state, in registers
+  const int s_own = lane;
+  const bool own_on = warp == 0 && s_own < nact;
+  float sig[LPC_ORDER], lpc[LPC_ORDER];
+  unsigned st[4] = {1u, 1u, 1u, 1u};
+  float de = 0.f, pred = 0.f, pl_cur = 0.f, pl_next = 0.f;
+  int m_cur = 0, m_next = 0, exc = 0;
+  unsigned r2_keep = 0;                     // the second KISS99 word of a sampled step
+#pragma unroll
+  for (int j = 0; j < LPC_ORDER; ++j) sig[j] = lpc[j] = 0.f;
+  if (own_on) {
+    const size_t g = (size_t)(b0 + s_own);
+#pragma unroll
+    for (int j = 0; j < LPC_ORDER; ++j) {
+      sig[j] = p.sig_in[g * LPC_ORDER + j];
+      lpc[j] = p.lpc[g * LPC_ORDER + j];
+    }
+    de = p.de_in[g];
+    exc = p.exc_in[g];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) st[k] = (unsigned)p.rng_in[g * 4 + k];
+    m_next = p.mode[g * n];
+    pl_next = p.preload[g * n];
+  }
+  if (warp == 0 && s_own < S) code[3 * s_own + 2] = exc;
+  for (int i = tid; i < 256; i += K2_THREADS) table[i] = p.logit_table[i];
+  cluster.sync();   // every block runs and is set up before remote stores
+
+  for (int t = 0; t <= n; ++t) {
+    // ---- warp 0: the tree and the PCM of step t-1, the codes of step t
+    if (warp == 0) {
+      if (t > 0 && own_on) {
+        const size_t po = (size_t)(b0 + s_own) * n + (t - 1);
+        if (!(m_cur & 1)) {
+          if (rank == 0) p.pcm[po] = 0.f;      // advance off: frozen, sample 0
+        } else {
+          int val = 0;
+          if (p.sampled && !(m_cur & 2)) {
+            // levels 4-7; the words were drawn and levels 0-3 descended
+            // mid-step. At level 4 + lb the node is (1 << (4 + lb)) | val.
+            val = top[s_own];
+            const float* lg = logits + s_own * 32 + 16;
+#pragma unroll
+            for (int lb = 0; lb < 4; ++lb) {
+              const unsigned byte = (r2_keep >> (8 * lb)) & 0xFFu;
+              const float diff = __fsub_rn(lg[(1 << lb) - 1 + (val & ((1 << lb) - 1))],
+                                           table[byte]);
+              val = (val << 1) | (diff > 0.f ? 1 : 0);
+            }
+          } else {
+            kiss99(st);                         // the step's two draws, unused
+            kiss99(st);
+          }
+          float pcm;
+          if (m_cur & 2) {
+            // teacher-force: the target gives the sample and its excitation
+            pcm = __fsub_rn(pl_cur, __fmul_rn(PREEMPH, de));
+            val = lin2ulaw(__fsub_rn(pcm, pred));
+          } else {
+            pcm = __fadd_rn(pred, ulaw2lin(val));
+          }
+#pragma unroll
+          for (int j = LPC_ORDER - 1; j > 0; --j) sig[j] = sig[j - 1];
+          sig[0] = pcm;
+          exc = val;
+          code[3 * s_own + 2] = val;
+          de = __fadd_rn(pcm, __fmul_rn(PREEMPH, de));
+          if (rank == 0) p.pcm[po] = floorf(__fadd_rn(0.5f, fminf(fmaxf(de, -32767.f), 32767.f)));
+        }
+      }
+      if (t == n) break;
+      int m = 0;
+      if (own_on) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < LPC_ORDER; ++j) acc = __fadd_rn(acc, __fmul_rn(sig[j], lpc[j]));
+        pred = -acc;
+        code[3 * s_own] = lin2ulaw(sig[0]);
+        code[3 * s_own + 1] = lin2ulaw(-acc);
+        m = m_cur = m_next;
+        pl_cur = pl_next;
+        if (t + 1 < n) {                    // next step's words, a step ahead
+          const size_t g = (size_t)(b0 + s_own) * n + t + 1;
+          m_next = p.mode[g];
+          pl_next = p.preload[g];
+        }
+      }
+      const unsigned live = __ballot_sync(0xffffffffu, own_on && (m & 1));
+      const unsigned need = __ballot_sync(0xffffffffu, own_on && (m & 1) && !(m & 2));
+      if (lane == 0) {
+        flags[0] = live;
+        flags[1] = p.sampled ? need : 0u;
+      }
+    } else if (t < n) {
+      // ---- warps 1..: GRU-A's product of step t on the operand of h_a
+      const OT* cur = hop + (t & 1) * S * L.ldx;
+      if constexpr (F::MMA) {
+        // warps 4 and 8 share warp 0's scheduler, whose tree and codes are
+        // the step's critical path: the other nine take the tiles
+        const int mta = 3 * U / 16;
+        for (int task = warp - 1 - warp / 4; (warp & 3) && task < mta * NT;
+             task += K2_WARPS - K2_WARPS / 4) {
+          const int mt = task % mta, nt = task / mta;
+          const size_t w0 = (size_t)mt * L.ksa * 32;
+          if (p.res_a)
+            tile_mma<FORM>(wa_s + w0, L.ksa, cur + nt * 8 * L.ldx, L.ldx,
+                           zacc + nt * 8 * L.ldz + mt * 16, L.ldz, lane);
+          else
+            tile_mma<FORM>(wa_g + w0, L.ksa, cur + nt * 8 * L.ldx, L.ldx,
+                           zacc + nt * 8 * L.ldz + mt * 16, L.ldz, lane);
+        }
+      } else {
+        // f32: thread (local column, stream tile), weights from L2, K1's sums
+        const float* a_rec = (const float*)p.a_w;
+        for (int task = tid - 32; task < 3 * U * NT; task += K2_THREADS - 32) {
+          const int lc = task % (3 * U), nt = task / (3 * U);
+          if (u0 + lc % U >= na) continue;            // padding: never read
+          const int col = (lc / U) * na + u0 + lc % U;
+          float acc[8];
+#pragma unroll
+          for (int s = 0; s < 8; ++s) acc[s] = 0.f;
+          const float* x = cur + nt * 8 * L.ldx;
+#pragma unroll 16
+          for (int k = 0; k < na; ++k) {
+            const float w = __ldg(a_rec + (size_t)k * na3 + col);
+#pragma unroll
+            for (int s = 0; s < 8; ++s) acc[s] += x[s * L.ldx + k] * w;
+          }
+#pragma unroll
+          for (int s = 0; s < 8; ++s) zacc[(nt * 8 + s) * L.ldz + lc] = acc[s];
+        }
+      }
+    }
+    if (t == n) break;
+    __syncthreads();
+    const unsigned live = flags[0];
+    const unsigned need = flags[1];
+
+    // ---- gate phase: thread (stream, unit) forms its new h_a and its operand
+    // copy, then the block sends its slice to every block of the cluster
+    OT* nxt = hop + ((t + 1) & 1) * S * L.ldx;
+    for (int i0 = tid; i0 < S * U; i0 += NT * K2_THREADS) {
+      // this thread's pairs' reads from L2 first, all in flight together
+      float g[NT][3], bias[NT][3], diag[NT][3];
+#pragma unroll
+      for (int pp = 0; pp < NT; ++pp) {
+        const int i = i0 + pp * K2_THREADS;
+        const int s = i / U, u = u0 + i % U;
+        if (i >= S * U || !((live >> s) & 1u) || u >= na) continue;
+        const float* ca = p.cond_a + (size_t)(b0 + s) * na3;
+        const size_t r0 = (size_t)code[3 * s] * na3, r1 = (size_t)(256 + code[3 * s + 1]) * na3,
+                     r2 = (size_t)(512 + code[3 * s + 2]) * na3;
+        const W* emb = (const W*)p.emb;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const int col = q * na + u;
+          if (FORM == FORM_Q8) {
+            const int e = ldw(emb, r0 + col) + ldw(emb, r1 + col) + ldw(emb, r2 + col);
+            g[pp][q] = __fadd_rn(__ldg(ca + col), __fmul_rn((float)e, __ldg(p.emb_scale + col)));
+            diag[pp][q] = __ldg(p.a_diag + col);
+          } else {
+            const float e = __fadd_rn(__fadd_rn((float)ldw(emb, r0 + col), (float)ldw(emb, r1 + col)),
+                                      (float)ldw(emb, r2 + col));
+            g[pp][q] = __fadd_rn(__ldg(ca + col), e);
+          }
+          bias[pp][q] = __ldg(p.a_bias1 + col);
+        }
+      }
+#pragma unroll
+      for (int pp = 0; pp < NT; ++pp) {
+        const int i = i0 + pp * K2_THREADS;
+        if (i >= S * U) break;
+        const int s = i / U, j = i % U, u = u0 + j;
+        float h = haown[i];
+        if (((live >> s) & 1u) && u < na) {
+          float zr[3];
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const Acc acc = zacc[s * L.ldz + q * U + j];
+            if (FORM == FORM_Q8)
+              zr[q] = __fadd_rn(__fadd_rn(__fmul_rn((float)acc, Q8_SCALE), __fmul_rn(diag[pp][q], h)),
+                                bias[pp][q]);
+            else
+              zr[q] = __fadd_rn((float)acc, bias[pp][q]);
+          }
+          h = gru_out(g[pp][0], zr[0], g[pp][1], zr[1], g[pp][2], zr[2], h);
+          haown[i] = h;
+        }
+        nxt[s * L.ldx + u] = OpT<FORM>::of(h);
+      }
+    }
+    __syncthreads();
+    // this rank's slice of the new operand to the other blocks, 16 bytes a store
+    {
+      constexpr int EPW = 16 / F::ESZ;                 // operand elements a word
+      const int wps = U / EPW;                         // words a stream's slice
+      for (int i = tid; i < (C - 1) * S * wps; i += K2_THREADS) {
+        const int c = (rank + 1 + i / (S * wps)) % C, s = (i / wps) % S, w = i % wps;
+        const int off = s * L.ldx + u0 + w * EPW;
+        *reinterpret_cast<uint4*>(cluster.map_shared_rank(nxt, c) + off) =
+            *reinterpret_cast<const uint4*>(nxt + off);
+      }
+    }
+    // the new operand copy is complete in every block; nobody still reads the
+    // buffer the next step overwrites
+    cluster.sync();
+
+    // ---- GRU-B's products on the new h_a and the old h_b
+    if constexpr (F::MMA) {
+      const int mtb = 3 * nbp / 16;
+      const int ksb = L.ksa + L.ksbr;
+      for (int task = warp; task < 2 * mtb * NT; task += K2_WARPS) {
+        const int part = task / (mtb * NT), mt = task % mtb, nt = (task / mtb) % NT;
+        auto gru_b_tile = [&](const uint4* wb) {
+          if (part == 0)
+            tile_mma<FORM>(wb + (size_t)mt * ksb * 32, L.ksa, nxt + nt * 8 * L.ldx, L.ldx,
+                           gin + nt * 8 * L.ldg + mt * 16, L.ldg, lane);
+          else
+            tile_mma<FORM>(wb + ((size_t)mt * ksb + L.ksa) * 32, L.ksbr, hbop + nt * 8 * L.ldb,
+                           L.ldb, grec + nt * 8 * L.ldg + mt * 16, L.ldg, lane);
+        };
+        if (p.res_b) gru_b_tile(wb_s); else gru_b_tile(wb_g);
+      }
+    } else {
+      for (int o = tid; o < S * nb3; o += K2_THREADS) {
+        const int s = o / nb3, c = o % nb3;
+        float ai = 0.f, ar = 0.f;
+#pragma unroll 16
+        for (int k = 0; k < na; ++k) ai += nxt[s * L.ldx + k] * __ldg(p.b_in + (size_t)k * nb3 + c);
+        for (int k = 0; k < nb; ++k) ar += hbop[s * L.ldb + k] * __ldg(p.b_rec + (size_t)k * nb3 + c);
+        const int pc = (c / nb) * nbp + c % nb;       // the padded layout's column
+        gin[s * L.ldg + pc] = ai;
+        grec[s * L.ldg + pc] = ar;
+      }
+    }
+    __syncthreads();
+
+    // ---- GRU-B's update, thread (stream, unit)
+    for (int i = tid; i < S * nb; i += K2_THREADS) {
+      const int s = i / nb, u = i % nb;
+      float h = hbf[i];
+      if ((live >> s) & 1u) {
+        const float* cb = p.cond_b + (size_t)(b0 + s) * nb3;
+        float gi[3], gr[3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const int c = q * nb + u;
+          const Acc ai = gin[s * L.ldg + q * nbp + u], ar = grec[s * L.ldg + q * nbp + u];
+          if (FORM == FORM_Q8) {
+            gi[q] = __fadd_rn(cb[c], __fmul_rn((float)ai, Q8_SCALE));
+            gr[q] = __fadd_rn(__fmul_rn((float)ar, Q8_SCALE), p.b_bias1[c]);
+          } else {
+            gi[q] = __fadd_rn(cb[c], (float)ai);
+            gr[q] = __fadd_rn((float)ar, p.b_bias1[c]);
+          }
+        }
+        h = gru_out(gi[0], gr[0], gi[1], gr[1], gi[2], gr[2], h);
+        hbf[i] = h;
+        hbop[s * L.ldb + u] = OpT<FORM>::of(h);
+      }
+    }
+    __syncthreads();
+
+    // ---- the dual-FC logits of the nodes the tree visits, for the streams
+    // that sample: the 15 nodes of levels 0-3; warp 0 draws the step's two
+    // KISS99 words and descends levels 0-3; then the 15 nodes of levels 4-7
+    // under the node reached. Levels 4-7 are descended in the next step's
+    // first phase.
+    if (need) {
+      for (int o = tid; o < S * 15; o += K2_THREADS) {
+        const int s = o / 15, j = o % 15;
+        if ((need >> s) & 1u) logits[s * 32 + j] = node_logit(p, hbf + s * nb, nb, j + 1);
+      }
+      __syncthreads();
+      if (warp == 0 && ((need >> lane) & 1u)) {
+        const unsigned r1 = kiss99(st);
+        r2_keep = kiss99(st);
+        int val = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const unsigned byte = (r1 >> (8 * b)) & 0xFFu;
+          const float diff = __fsub_rn(logits[lane * 32 + (1 << b) - 1 + val], table[byte]);
+          val = (val << 1) | (diff > 0.f ? 1 : 0);
+        }
+        top[lane] = val;
+      }
+      __syncthreads();
+      for (int o = tid; o < S * 15; o += K2_THREADS) {
+        const int s = o / 15, j = o % 15;
+        if (!((need >> s) & 1u)) continue;
+        const int lb = j >= 7 ? 3 : (j >= 3 ? 2 : (j >= 1 ? 1 : 0));
+        const int nd = (1 << (4 + lb)) | (top[s] << lb) | (j + 1 - (1 << lb));
+        logits[s * 32 + 16 + j] = node_logit(p, hbf + s * nb, nb, nd);
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- the carried state: each rank its own h_a units, rank 0 the rest
+  __syncthreads();
+  for (int i = tid; i < nact * U; i += K2_THREADS)
+    if (u0 + i % U < na) p.ha_out[(size_t)(b0 + i / U) * na + u0 + i % U] = haown[i];
+  if (rank != 0) return;
+  for (int i = tid; i < nact * nb; i += K2_THREADS)
+    p.hb_out[(size_t)(b0 + i / nb) * nb + i % nb] = hbf[i];
+  if (own_on) {
+    const size_t g = (size_t)(b0 + s_own);
+#pragma unroll
+    for (int j = 0; j < LPC_ORDER; ++j) p.sig_out[g * LPC_ORDER + j] = sig[j];
+    p.de_out[g] = de;
+    p.exc_out[g] = exc;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p.rng_out[g * 4 + k] = (long long)st[k];
+  }
+}
+
+typedef void (*K2Kernel)(K2Args);
+
+// the kernel of a form and a stream tiling (S = 8 nt), null if there is none
+K2Kernel kernel_for(int form, int nt) {
+  switch (form * 8 + nt) {
+    case FORM_F32 * 8 + 1: return masked_loop_kernel<FORM_F32, 1>;
+    case FORM_F32 * 8 + 2: return masked_loop_kernel<FORM_F32, 2>;
+    case FORM_F32 * 8 + 4: return masked_loop_kernel<FORM_F32, 4>;
+    case FORM_BF16 * 8 + 1: return masked_loop_kernel<FORM_BF16, 1>;
+    case FORM_BF16 * 8 + 2: return masked_loop_kernel<FORM_BF16, 2>;
+    case FORM_BF16 * 8 + 4: return masked_loop_kernel<FORM_BF16, 4>;
+    case FORM_Q8 * 8 + 1: return masked_loop_kernel<FORM_Q8, 1>;
+    case FORM_Q8 * 8 + 2: return masked_loop_kernel<FORM_Q8, 2>;
+    case FORM_Q8 * 8 + 4: return masked_loop_kernel<FORM_Q8, 4>;
+    default: return nullptr;
+  }
+}
+
+cudaLaunchConfig_t k2_config(int grid, int cluster, int smem, cudaStream_t stream,
+                             cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(K2_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+}  // namespace
+
+// The most clusters of `cluster` blocks with `smem` bytes each that the card
+// holds at once for form `form` (0 f32, 1 bf16, 2 q8) and nt stream tiles
+// (S = 8 nt); a negative CUDA error code on failure.
+extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int cluster, int smem) {
+  const K2Kernel k = kernel_for(form, nt);
+  if (!k) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = k2_config(cluster * 64, cluster, smem, 0, &attr);
+  int count = 0;
+  e = cudaOccupancyMaxActiveClusters(&count, k, &cfg);
+  return e == cudaSuccess ? count : -(int)e;
+}
+
+// K2. a_w: bf16 / q8 packed GRU-A slices, f32 a_rec [Na, 3Na]; b_w: bf16 /
+// q8 packed GRU-B weights (null in f32); b_in, b_rec: f32 only; res_a,
+// res_b: keep the packed weights in shared memory; smem: the layout's total
+// (masked_loop.py::masked_smem_bytes); preload [B, n] f32, mode [B, n] int32
+// (advance | teacher_force << 1); the rest as K1's lpcnet_sample_loop.
+extern "C" int lpcnet_masked_loop(
+    int form, int nt, int cluster, int smem, int res_a, int res_b, int batch, int na, int nb,
+    int n_samples, int sampled, const void* emb, const void* emb_scale, const void* a_w,
+    const void* a_diag, const void* a_bias1, const void* b_w, const void* b_in,
+    const void* b_rec, const void* b_bias1, const void* dual_w, const void* dual_bias,
+    const void* dual_factor, const void* logit_table, const void* cond_a, const void* cond_b,
+    const void* lpc, const void* ha_in, const void* hb_in, const void* sig_in,
+    const void* exc_in, const void* de_in, const void* rng_in, void* ha_out, void* hb_out,
+    void* sig_out, void* exc_out, void* de_out, void* rng_out, void* pcm, const void* preload,
+    const void* mode, void* stream) {
+  const K2Kernel k = kernel_for(form, nt);
+  if (!k || batch <= 0 || n_samples <= 0 || !preload || !mode || cluster < 1 || cluster > 8 ||
+      na <= 0 || nb <= 0 || (form == FORM_F32 && (res_a || res_b)))
+    return (int)cudaErrorInvalidValue;
+  if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b).total)
+    return (int)cudaErrorInvalidValue;
+  K2Args a;
+  a.batch = batch; a.na = na; a.nb = nb; a.n_samples = n_samples; a.sampled = sampled;
+  a.cluster = cluster; a.res_a = res_a; a.res_b = res_b;
+  a.emb = emb; a.emb_scale = (const float*)emb_scale;
+  a.a_w = a_w; a.a_diag = (const float*)a_diag; a.a_bias1 = (const float*)a_bias1;
+  a.b_w = b_w; a.b_in = (const float*)b_in; a.b_rec = (const float*)b_rec;
+  a.b_bias1 = (const float*)b_bias1;
+  a.dual_w = (const float*)dual_w; a.dual_bias = (const float*)dual_bias;
+  a.dual_factor = (const float*)dual_factor; a.logit_table = (const float*)logit_table;
+  a.cond_a = (const float*)cond_a; a.cond_b = (const float*)cond_b; a.lpc = (const float*)lpc;
+  a.ha_in = (const float*)ha_in; a.hb_in = (const float*)hb_in; a.sig_in = (const float*)sig_in;
+  a.exc_in = (const int*)exc_in; a.de_in = (const float*)de_in;
+  a.rng_in = (const long long*)rng_in;
+  a.ha_out = (float*)ha_out; a.hb_out = (float*)hb_out; a.sig_out = (float*)sig_out;
+  a.exc_out = (int*)exc_out; a.de_out = (float*)de_out; a.rng_out = (long long*)rng_out;
+  a.pcm = (float*)pcm; a.preload = (const float*)preload; a.mode = (const int*)mode;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int clusters = (batch + 8 * nt - 1) / (8 * nt);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = k2_config(clusters * cluster, cluster, smem, (cudaStream_t)stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, k, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

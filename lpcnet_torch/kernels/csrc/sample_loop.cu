@@ -1,14 +1,13 @@
-// K1, K2, K6 and K3: the LPCNet autoregressive sample loop, one frame per
-// launch, free-running (K1), with per-stream, per-sample control masks (K2),
-// or free-running with each GRU's products merged into one (K6); and the
-// GRU-only teacher-forced run over several conditioning blocks (K3, at the
-// end of this file).
+// K1, K6 and K3: the LPCNet autoregressive sample loop, one frame per
+// launch, free-running (K1) or free-running with each GRU's products merged
+// into one (K6); and the GRU-only teacher-forced run over several
+// conditioning blocks (K3, at the end of this file). The masked form (K2)
+// has a kernel of its own, redesigned for Hopper: masked_loop.cu.
 //
 // Replaces the TPU kernel lpcnet_tpu/kernels/sample_loop.py::_ar_kernel, run
-// free (masked=False, sampled=True: K1) and masked (masked=True, with or
-// without the sampler: K2), with its helpers _gru_ab, _draw_bytes /
-// _kiss99, _bit_tree (v1) and _lin2ulaw / _ulaw2lin. Each stream runs
-// n_samples dependent steps: LPC prediction, u-law codes, the three-row
+// free (masked=False, sampled=True: K1), with its helpers _gru_ab,
+// _draw_bytes / _kiss99, _bit_tree (v1) and _lin2ulaw / _ulaw2lin. Each
+// stream runs n_samples dependent steps: LPC prediction, u-law codes, the three-row
 // embedding gather plus the reset-after GRU-A, GRU-B, the dual-FC node
 // logits, the 8-bit tree descent on KISS99 threshold bytes, de-emphasis,
 // clip and round.
@@ -35,19 +34,10 @@
 //   here: three rows per stream (q8: their int8 values summed in int32, then
 //   scaled per column).
 // * KISS99 runs in uint32 registers, bit-exact with the C decoder; bit
-//   decisions are `logit - thr > 0`. Scalar float code uses explicit
-//   _rn intrinsics where the plain PyTorch version rounds each operation,
-//   so nvcc cannot contract it into FMAs with a different rounding.
-// * K2 is the same kernel body under a template flag, so K1 keeps its code:
-//   a mode word per stream and sample (bit 0 advance, bit 1 teacher-force).
-//   With advance off the stream's whole state, its KISS99 words included,
-//   stays as it is and the sample is 0. With teacher-force on, the target
-//   (in the de-emphasised domain) sets the excitation and the sample. With
-//   sampled == 0 the dual-FC and the tree are skipped; every advanced step
-//   must then be teacher-forced. A ragged last block is masked as in K1, so
-//   the TPU wrapper's padding of streams to a multiple of 256 is gone.
+//   decisions are `logit - thr > 0`. The scalar helpers live in
+//   sample_common.cuh, shared with K2.
 // * K6 (replaces lpcnet_tpu/kernels/sample_loop.py::_sample_kernel_merged)
-//   is a third template flag of the same kernel, float forms only: each GRU
+//   is a template flag of the same kernel, float forms only: each GRU
 //   reads one merged matrix, [768+Na, 4Na] for GRU-A and [Na+Nb, 4Nb] for
 //   GRU-B, with columns [z | r | h input side | h recurrent side] and zero
 //   blocks where an operand does not feed a column block, and one f32 sum
@@ -57,20 +47,13 @@
 //   m[2N:3N] + r * m[3N:4N]. It reads the zero blocks as the TPU kernel
 //   does: a third more weight bytes per step than K1 for the same
 //   multiply-adds. Its sampler, LPC filter, KISS99 and de-emphasis are K1's.
-// Tensor cores (wgmma, int8 MMA), TMA and weights in shared memory are
-// later work.
+// Tensor cores, weights in shared memory across a cluster (as K2 now has
+// them) and TMA are later work here.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sample_common.cuh"
 
-#include <type_traits>
-
-#define LPC_ORDER 16
 #define BT 4            // streams per block
 #define NTHREADS 384
-
-enum { FORM_F32 = 0, FORM_BF16 = 1, FORM_Q8 = 2 };
 
 struct Args {
   int batch, na, nb, n_samples;
@@ -94,78 +77,11 @@ struct Args {
   float* ha_out; float* hb_out; float* sig_out;
   int* exc_out; float* de_out; long long* rng_out;
   float* pcm;               // [B, n_samples]
-  // K2 only
-  const float* preload;     // [B, n_samples] target, de-emphasised domain
-  const int* mode;          // [B, n_samples] advance | teacher_force << 1
-  int sampled;
   // K6 only: the merged matrices; cond_a and cond_b are then [B, 4Na] and
   // [B, 4Nb] with the recurrent bias folded in
   const void* a_merged;     // [768 + Na, 4Na] f32 / bf16
   const void* b_merged;     // [Na + Nb, 4Nb]
 };
-
-// constants as float32 roundings of the Python doubles the plain version uses
-#define LOG256 ((float)5.5451774445)
-#define ULAW_SCALE ((float)(255.0 / 32768.0))
-#define ULAW_SCALE_1 ((float)(32768.0 / 255.0))
-#define LN2_APPROX ((float)0.69315)
-#define PREEMPH ((float)0.85)
-#define Q8_SCALE ((float)(1.0 / (128.0 * 127.0)))
-
-__device__ __forceinline__ float wload(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float wload(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ int wload(const int8_t* p, size_t i) { return (int)p[i]; }
-
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ int lin2ulaw(float x) {
-  float s = x >= 0.f ? 1.f : -1.f;
-  float logv = __fmul_rn(LN2_APPROX, log2f(__fadd_rn(1.f, __fmul_rn(ULAW_SCALE, fabsf(x)))));
-  float u = __fadd_rn(128.f, __fmul_rn(s, __fdiv_rn(__fmul_rn(128.f, logv), LOG256)));
-  u = fminf(fmaxf(u, 0.f), 255.f);
-  return (int)floorf(__fadd_rn(0.5f, u));
-}
-
-__device__ __forceinline__ float ulaw2lin(int code) {
-  float u = (float)code - 128.f;
-  float s = u >= 0.f ? 1.f : -1.f;
-  float e = expf(__fmul_rn(__fdiv_rn(fabsf(u), 128.f), LOG256));
-  return __fmul_rn(__fmul_rn(s, ULAW_SCALE_1), __fsub_rn(e, 1.f));
-}
-
-__device__ __forceinline__ unsigned kiss99(unsigned* st) {
-  unsigned z = st[0], w = st[1], jsr = st[2], jcong = st[3];
-  z = 36969u * (z & 0xFFFFu) + (z >> 16);
-  w = 18000u * (w & 0xFFFFu) + (w >> 16);
-  unsigned mwc = (z << 16) + w;
-  jsr ^= jsr << 13;
-  jsr ^= jsr >> 17;
-  jsr ^= jsr << 5;
-  jcong = 69069u * jcong + 1234567u;
-  st[0] = z; st[1] = w; st[2] = jsr; st[3] = jcong;
-  return (mwc ^ jcong) + jsr;
-}
-
-// the GRU operand copy of a state value: bf16-rounded, quantized, or as is
-template <int FORM>
-__device__ __forceinline__ float operand(float h) {
-  if (FORM == FORM_BF16) return __bfloat162float(__float2bfloat16_rn(h));
-  if (FORM == FORM_Q8) {
-    float q = floorf(__fadd_rn(0.5f, __fmul_rn(127.f, h)));
-    return fminf(fmaxf(q, -128.f), 127.f);
-  }
-  return h;
-}
-
-__device__ __forceinline__ float gru_out(float gz, float rz, float gr, float rr,
-                                         float gh, float rh, float h0) {
-  float z = sigmoidf_(__fadd_rn(gz, rz));
-  float r = sigmoidf_(__fadd_rn(gr, rr));
-  float hc = tanhf(__fadd_rn(gh, __fmul_rn(r, rh)));
-  return __fadd_rn(__fmul_rn(z, h0), __fmul_rn(__fsub_rn(1.f, z), hc));
-}
 
 // K6's update from the four merged column blocks of one unit
 __device__ __forceinline__ float gru_out4(float mz, float mr, float mhi, float mhr, float h0) {
@@ -174,13 +90,6 @@ __device__ __forceinline__ float gru_out4(float mz, float mr, float mhi, float m
   float hc = tanhf(__fadd_rn(mhi, __fmul_rn(r, mhr)));
   return __fadd_rn(__fmul_rn(z, h0), __fmul_rn(__fsub_rn(1.f, z), hc));
 }
-
-// operand and accumulator types of a numeric form
-template <int FORM> struct FormT {
-  typedef typename std::conditional<FORM == FORM_F32, float,
-      typename std::conditional<FORM == FORM_BF16, __nv_bfloat16, int8_t>::type>::type W;
-  typedef typename std::conditional<FORM == FORM_Q8, int, float>::type Acc;
-};
 
 // what the two GRU steps read besides the per-stream conditioning
 struct GruWeights {
@@ -367,7 +276,7 @@ __device__ __forceinline__ void gru_b_merged_phase(const void* b_merged, int na,
   __syncthreads();
 }
 
-template <int FORM, bool MASKED, bool MERGED>
+template <int FORM, bool MERGED>
 __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
   const GruWeights w = {p.emb, p.emb_scale, p.a_rec, p.a_diag, p.a_bias1,
                         p.b_in, p.b_rec, p.b_bias1};
@@ -390,7 +299,6 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
   float* pred = de + BT;               // [BT]
   int* code = (int*)(pred + BT);       // [BT][3] sig_u, pred_u, exc
   unsigned* rng = (unsigned*)(code + 3 * BT);  // [BT][4]
-  int* mflag = (int*)(rng + 4 * BT);           // [BT] this step's mode (K2)
 
   // load the carried state; missing streams of the last block stay zero
   for (int i = tid; i < BT * na; i += NTHREADS) {
@@ -427,17 +335,13 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
       pred[s] = -acc;
       code[3 * s] = lin2ulaw(sig[s * LPC_ORDER]);
       code[3 * s + 1] = lin2ulaw(-acc);
-      mflag[s] = (MASKED && s < nact) ? p.mode[(size_t)(b0 + s) * p.n_samples + t] : 3;
     }
     for (int i = tid; i < BT * na; i += NTHREADS) hop[i] = operand<FORM>(ha[i]);
     for (int i = tid; i < BT * nb; i += NTHREADS) hbop[i] = operand<FORM>(hb[i]);
     __syncthreads();
 
-    // the streams that move this step: present and, in K2, advancing
-    unsigned live = 0;
-#pragma unroll
-    for (int s = 0; s < BT; ++s)
-      if (s < nact && (!MASKED || (mflag[s] & 1))) live |= 1u << s;
+    // the streams that move this step: the present ones
+    const unsigned live = (1u << nact) - 1u;
 
     // (b) GRU-A, (c) GRU-B
     if constexpr (MERGED)
@@ -457,7 +361,6 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
                         grec, nact, live, tid);
 
     // (d) dual-FC node logits: both channels of node n from columns n, 256+n
-    if (!MASKED || p.sampled)
     for (int o = tid; o < BT * 256; o += NTHREADS) {
       const int s = o >> 8, n = o & 255;
       if (s >= nact) continue;
@@ -476,41 +379,25 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
     // (e) tree descent, excitation -> PCM, state update: one thread per stream
     if (tid < nact) {
       const int s = tid;
-      const int m = mflag[s];
-      if (MASKED && !(m & 1)) {
-        // advance off: state and RNG frozen, the sample is 0
-        p.pcm[(size_t)(b0 + s) * p.n_samples + t] = 0.f;
-      } else {
-        unsigned* st = rng + 4 * s;
-        const unsigned r1 = kiss99(st);
-        const unsigned r2 = kiss99(st);
-        int val = 0;
-        if (!MASKED || p.sampled) {
+      unsigned* st = rng + 4 * s;
+      const unsigned r1 = kiss99(st);
+      const unsigned r2 = kiss99(st);
+      int val = 0;
 #pragma unroll
-          for (int b = 0; b < 8; ++b) {
-            const unsigned byte = ((b < 4 ? r1 : r2) >> (8 * (b & 3))) & 0xFFu;
-            const float diff = __fsub_rn(logits[s * 256 + ((1 << b) | val)], p.logit_table[byte]);
-            val = (val << 1) | (diff > 0.f ? 1 : 0);
-          }
-        }
-        float pcm;
-        if (MASKED && (m & 2)) {
-          // teacher-force: the target gives the sample and its excitation
-          pcm = __fsub_rn(p.preload[(size_t)(b0 + s) * p.n_samples + t],
-                          __fmul_rn(PREEMPH, de[s]));
-          val = lin2ulaw(__fsub_rn(pcm, pred[s]));
-        } else {
-          pcm = __fadd_rn(pred[s], ulaw2lin(val));
-        }
-        float* hist = sig + s * LPC_ORDER;
-        for (int j = LPC_ORDER - 1; j > 0; --j) hist[j] = hist[j - 1];
-        hist[0] = pcm;
-        code[3 * s + 2] = val;
-        const float out = __fadd_rn(pcm, __fmul_rn(PREEMPH, de[s]));
-        de[s] = out;
-        p.pcm[(size_t)(b0 + s) * p.n_samples + t] =
-            floorf(__fadd_rn(0.5f, fminf(fmaxf(out, -32767.f), 32767.f)));
+      for (int b = 0; b < 8; ++b) {
+        const unsigned byte = ((b < 4 ? r1 : r2) >> (8 * (b & 3))) & 0xFFu;
+        const float diff = __fsub_rn(logits[s * 256 + ((1 << b) | val)], p.logit_table[byte]);
+        val = (val << 1) | (diff > 0.f ? 1 : 0);
       }
+      const float pcm = __fadd_rn(pred[s], ulaw2lin(val));
+      float* hist = sig + s * LPC_ORDER;
+      for (int j = LPC_ORDER - 1; j > 0; --j) hist[j] = hist[j - 1];
+      hist[0] = pcm;
+      code[3 * s + 2] = val;
+      const float out = __fadd_rn(pcm, __fmul_rn(PREEMPH, de[s]));
+      de[s] = out;
+      p.pcm[(size_t)(b0 + s) * p.n_samples + t] =
+          floorf(__fadd_rn(0.5f, fminf(fmaxf(out, -32767.f), 32767.f)));
     }
     __syncthreads();
   }
@@ -532,28 +419,27 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
 
 static size_t smem_bytes(int na, int nb) {
   return sizeof(float) * ((size_t)BT * (2 * na + 2 * nb + 6 * nb + 256 + 2 * LPC_ORDER + 2))
-       + sizeof(int) * 3 * BT + sizeof(unsigned) * 4 * BT + sizeof(int) * BT;
+       + sizeof(int) * 3 * BT + sizeof(unsigned) * 4 * BT;
 }
 
-template <int FORM, bool MASKED, bool MERGED = false>
+template <int FORM, bool MERGED = false>
 static cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.na, a.nb);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ar_kernel<FORM, MASKED, MERGED>,
+    cudaError_t e = cudaFuncSetAttribute(ar_kernel<FORM, MERGED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int grid = (a.batch + BT - 1) / BT;
-  ar_kernel<FORM, MASKED, MERGED><<<grid, NTHREADS, smem, stream>>>(a);
+  ar_kernel<FORM, MERGED><<<grid, NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool MASKED>
 static int launch_form(int form, const Args& a, cudaStream_t s) {
   switch (form) {
-    case FORM_F32: return (int)launch<FORM_F32, MASKED>(a, s);
-    case FORM_BF16: return (int)launch<FORM_BF16, MASKED>(a, s);
-    case FORM_Q8: return (int)launch<FORM_Q8, MASKED>(a, s);
+    case FORM_F32: return (int)launch<FORM_F32>(a, s);
+    case FORM_BF16: return (int)launch<FORM_BF16>(a, s);
+    case FORM_Q8: return (int)launch<FORM_Q8>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -590,7 +476,6 @@ static Args make_args(SAMPLE_LOOP_PARAMS) {
   a.ha_out = (float*)ha_out; a.hb_out = (float*)hb_out; a.sig_out = (float*)sig_out;
   a.exc_out = (int*)exc_out; a.de_out = (float*)de_out; a.rng_out = (long long*)rng_out;
   a.pcm = (float*)pcm;
-  a.preload = nullptr; a.mode = nullptr; a.sampled = 1;
   a.a_merged = nullptr; a.b_merged = nullptr;
   return a;
 }
@@ -599,17 +484,7 @@ static Args make_args(SAMPLE_LOOP_PARAMS) {
 extern "C" int lpcnet_sample_loop(SAMPLE_LOOP_PARAMS, void* stream) {
   if (batch <= 0 || n_samples <= 0) return (int)cudaErrorInvalidValue;
   const Args a = make_args(SAMPLE_LOOP_ARGS);
-  return launch_form<false>(form, a, (cudaStream_t)stream);
-}
-
-// K2: masked. preload [B, n_samples] f32, mode [B, n_samples] int32
-// (advance | teacher_force << 1); sampled == 0 skips the sampler.
-extern "C" int lpcnet_sample_loop_masked(SAMPLE_LOOP_PARAMS, const void* preload,
-                                         const void* mode, int sampled, void* stream) {
-  if (batch <= 0 || n_samples <= 0 || !preload || !mode) return (int)cudaErrorInvalidValue;
-  Args a = make_args(SAMPLE_LOOP_ARGS);
-  a.preload = (const float*)preload; a.mode = (const int*)mode; a.sampled = sampled;
-  return launch_form<true>(form, a, (cudaStream_t)stream);
+  return launch_form(form, a, (cudaStream_t)stream);
 }
 
 // K6: free-running, merged products. a_merged [768+Na, 4Na] and b_merged
@@ -631,8 +506,8 @@ extern "C" int lpcnet_sample_loop_merged(
   a.a_merged = a_merged; a.b_merged = b_merged;
   cudaStream_t s = (cudaStream_t)stream;
   switch (form) {
-    case FORM_F32: return (int)launch<FORM_F32, false, true>(a, s);
-    case FORM_BF16: return (int)launch<FORM_BF16, false, true>(a, s);
+    case FORM_F32: return (int)launch<FORM_F32, true>(a, s);
+    case FORM_BF16: return (int)launch<FORM_BF16, true>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

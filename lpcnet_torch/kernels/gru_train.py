@@ -26,7 +26,9 @@ package leaves it to XLA.
 
 Unlike the TPU kernel, any batch size and any number of steps work, and a
 small GRU (16 units) runs at its own width; the unit count must be a
-multiple of 16 and at most 1024.
+multiple of 16 and at most 1024. At N <= 32 (`WARP_MAX_UNITS`) the forward
+is a warp-synchronous kernel: a stream is N lanes of a warp, lane u owns
+unit u and keeps its 3N columns of Wr in registers.
 """
 
 from __future__ import annotations
@@ -95,6 +97,8 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.lpcnet_gru_train_fwd.argtypes = [ci] * 5 + [vp] * 7
         lib.lpcnet_gru_train_fwd.restype = ci
+        lib.lpcnet_gru_train_fwd_warp.argtypes = [ci] * 3 + [vp] * 7
+        lib.lpcnet_gru_train_fwd_warp.restype = ci
         lib.lpcnet_gru_train_bwd.argtypes = ([ci] * 5 + [vp] * 12 + [ci, ci]
                                              + [vp] * 4)
         lib.lpcnet_gru_train_bwd.restype = ci
@@ -116,6 +120,18 @@ def launch_config(n: int):
             f"GRU training kernel: {n} units (needs a multiple of 16, <= 1024)")
     cluster = 4 if n >= 256 else 1
     return cluster, 4 * (n // cluster)
+
+
+# the widest GRU whose forward runs warp-synchronously: a stream's units fit
+# in one warp's lanes, and a lane's 3N weights in its registers
+WARP_MAX_UNITS = 32
+
+
+def forward_uses_warp(n: int) -> bool:
+    """Whether the forward of an N-unit GRU runs the warp-synchronous
+    kernel (N <= 32) rather than the cluster kernel."""
+    launch_config(n)
+    return n <= WARP_MAX_UNITS
 
 
 def pack_recurrent(wr: torch.Tensor) -> torch.Tensor:
@@ -180,11 +196,15 @@ class GruRecurrence(torch.autograd.Function):
         wp = pack_recurrent(wr)
         hs = torch.empty((b, t, n), dtype=torch.float32, device=dev)
         ht = torch.empty((b, n), dtype=torch.float32, device=dev)
+        ptrs = (wp.data_ptr(), br.data_ptr(), gate_in.data_ptr(),
+                h0.data_ptr(), hs.data_ptr(), ht.data_ptr())
         with torch.cuda.device(dev):
-            err = _lib().lpcnet_gru_train_fwd(
-                b, t, n, cluster, threads, wp.data_ptr(), br.data_ptr(),
-                gate_in.data_ptr(), h0.data_ptr(), hs.data_ptr(),
-                ht.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if forward_uses_warp(n):
+                err = _lib().lpcnet_gru_train_fwd_warp(b, t, n, *ptrs, stream)
+            else:
+                err = _lib().lpcnet_gru_train_fwd(b, t, n, cluster, threads,
+                                                  *ptrs, stream)
         if err != 0:
             raise RuntimeError(
                 f"GRU training kernel (forward) launch failed: CUDA error {err}")

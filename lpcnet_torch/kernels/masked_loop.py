@@ -1,0 +1,211 @@
+"""K2's launch configuration and weight packing (`csrc/masked_loop.cu`).
+
+The masked sample loop runs on clusters of C thread blocks, each cluster
+owning S streams (8, 16 or 32) for the whole frame; block rank r owns U of
+GRU-A's units, [r U, (r+1) U), and their 3U gate columns, ordered
+[z | r | h]. U is a multiple of 16, so C U may exceed Na: the units past Na
+are padding (zero weights, a state that stays 0). GRU-B's width is padded to
+a multiple of 16 the same way. In the bf16 and q8 forms the weights are
+packed in the register order of the tensor cores' A fragments (`mma.sync`
+m16n8k16 for bf16, m16n8k32 s8 for q8): the product is out^T = W^T h^T, so
+the A operand is a 16-column by KS-deep tile of W^T (KS = 16 in bf16, 32 in
+q8, the depth zero-padded to a multiple of KS), and lane l's fragment is the
+16 bytes at [.., tile, k step, l, :]. The f32 form reads the weights as
+they are.
+
+* `cluster_shape(na)`, `masked_smem_bytes`, `masked_launch_config`: the
+  launch's shape. A block keeps its GRU-A slice and GRU-B's packed weights
+  in shared memory where they fit and reads them from L2 where they do not
+  (the widest GRUs); `masked_launch_config` picks the smallest S that fits
+  the card in one wave of clusters.
+* `fragment_index(ks)`: which element of a tile each lane's fragment holds.
+* `pack_gru_a`, `pack_gru_b`: the packed operands, built once per weight
+  bundle by `sample_loop.masked_kernel_weights`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MAX_CLUSTER = 8              # blocks a cluster (the portable limit)
+SMEM_LIMIT = 232448          # shared memory a block can have on an H100
+FORMS = {"f32": 0, "bf16": 1, "q8": 2}
+STREAM_TILES = (1, 2, 4)     # S / 8: warp 0 holds a cluster's streams in its lanes
+_KS = {0: 16, 1: 16, 2: 32}          # k depth of one MMA
+_ESZ = {0: 4, 1: 2, 2: 1}            # operand bytes
+_XPAD = {0: 4, 1: 8, 2: 16}          # row padding of the operands
+
+
+def check_widths(na: int, nb: int) -> None:
+    if na <= 0 or nb <= 0:
+        raise ValueError(f"masked sample loop kernel: Na={na}, Nb={nb}")
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def cluster_shape(na: int) -> tuple[int, int]:
+    """(C, U): 8 blocks of U = 16 ceil(Na / 128) units each (U = 48 at
+    Na = 384), or at Na < 128 one block per 16 units."""
+    c = min(MAX_CLUSTER, -(-na // 16))
+    return c, _up(-(-na // c), 16)
+
+
+def padded_nb(nb: int) -> int:
+    return _up(nb, 16)
+
+
+def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
+                      res_a: bool = True, res_b: bool = True) -> int:
+    """Shared memory of one block, bytes: the csrc K2Layout's total. `res_a`
+    and `res_b` keep GRU-A's slice and GRU-B's weights in shared memory
+    (bf16 and q8 only)."""
+    s = 8 * nt
+    ks, esz, pad = _KS[form], _ESZ[form], _XPAD[form]
+    mma = form != 0
+    c, u = cluster_shape(na)
+    nbp = padded_nb(nb)
+    ksa, ksbr = -(-na // ks), -(-nb // ks)
+    ldx = _up(c * u, 128 // esz) + pad
+    ldb = ksbr * ks + pad if mma else nb + pad
+    ldz, ldg = 3 * u + 4, 3 * nbp + 4
+    regions = [
+        3 * u * ksa * ks * esz if mma and res_a else 0,       # GRU-A slice
+        3 * nbp * (ksa + ksbr) * ks * esz if mma and res_b else 0,  # GRU-B weights
+        2 * s * ldx * esz,                               # h_a operand, two buffers
+        s * ldb * esz,                                   # h_b operand
+        s * ldz * 4,                                     # GRU-A products
+        2 * s * ldg * 4,                                 # GRU-B products
+        s * u * 4,                                       # the rank's h_a
+        s * nb * 4,                                      # h_b
+        s * 32 * 4,                                      # visited node logits
+        4 * s * 4,                                       # codes, tree's top bits
+        256 * 4,                                         # threshold logits
+        16,                                              # flags
+    ]
+    return sum(_up(r, 16) for r in regions)
+
+
+def _layout(form: int, na: int, nb: int, nt: int):
+    """(smem, res_a, res_b) of the first of: both weight sets resident,
+    GRU-A's slice only, neither, that fits a block; None if none does."""
+    for res_a, res_b in ((True, True), (True, False), (False, False)):
+        smem = masked_smem_bytes(form, na, nb, nt, res_a, res_b)
+        if smem <= SMEM_LIMIT:
+            return smem, res_a and form != 0, res_b and form != 0
+    return None
+
+
+def masked_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
+    """The launch for `batch` streams: {"cluster": C, "units": U, "nt": S / 8,
+    "streams": S, "clusters": ceil(batch / S), "smem": bytes a block,
+    "res_a", "res_b": weights resident in shared memory, "waves"}.
+
+    `max_clusters(nt, smem)` is the number of clusters the card holds at
+    once in that shape (the card's answer on CUDA; 15 clusters of 8 blocks
+    with over 116 KB each on an H100). S is the smallest of 8, 16 and 32
+    whose ceil(batch / S) clusters fit in one wave; where none does, S = 32
+    and the launch runs in waves (3 at 1024 streams on an H100)."""
+    check_widths(na, nb)
+    if batch <= 0:
+        raise ValueError(f"masked sample loop kernel: batch {batch}")
+    cluster, units = cluster_shape(na)
+    fits = [(nt, lay) for nt in STREAM_TILES
+            if (lay := _layout(form, na, nb, nt)) is not None]
+    if not fits:
+        raise ValueError(f"masked sample loop kernel: Na={na}, Nb={nb} needs "
+                         f"{masked_smem_bytes(form, na, nb, 1, False, False)} "
+                         f"bytes of shared memory a block")
+    for nt, lay in fits:
+        s = 8 * nt
+        held = max_clusters(nt, lay[0])
+        if -(-batch // s) <= held or nt == fits[-1][0]:
+            break
+    smem, res_a, res_b = lay
+    clusters = -(-batch // s)
+    return {"cluster": cluster, "units": units, "nt": nt, "streams": s,
+            "clusters": clusters, "smem": smem, "res_a": res_a, "res_b": res_b,
+            "waves": -(-clusters // held)}
+
+
+def fragment_index(ks: int):
+    """(m, k) [32, E] int64: lane l's fragment of a 16 x ks tile A (rows m,
+    depth k) holds A[m[l, e], k[l, e]] at element e, in the order of the
+    PTX ISA's A fragment (four 32-bit registers, low half first).
+
+    ks 16, bf16 (E = 8): register i holds rows g + 8 (i & 1), depth
+    2t + 8 (i >> 1) + {0, 1}; ks 32, s8 (E = 16): register i holds row
+    g + 8 (i & 1), depth 4t + 16 (i >> 1) + {0..3}; g = l // 4, t = l % 4."""
+    lane = torch.arange(32)
+    g, t = (lane // 4)[:, None], (lane % 4)[:, None]
+    if ks == 16:
+        e = torch.arange(8)[None, :]
+        reg, part = e // 2, e % 2
+        return g + 8 * (reg & 1), 2 * t + 8 * (reg >> 1) + part
+    e = torch.arange(16)[None, :]
+    reg, part = e // 4, e % 4
+    return g + 8 * (reg & 1), 4 * t + 16 * (reg >> 1) + part
+
+
+def pack_tiles(at: torch.Tensor, ks: int) -> torch.Tensor:
+    """A operand at [..., M, K] (M a multiple of 16; K padded with zeros to
+    a multiple of ks) -> [..., M / 16, K / ks, 32, E] in fragment order."""
+    *lead, m, k = at.shape
+    kp = _up(k, ks)
+    if kp != k:
+        at = torch.cat([at, at.new_zeros(*lead, m, kp - k)], dim=-1)
+    tiles = at.reshape(*lead, m // 16, 16, kp // ks, ks).transpose(-3, -2)
+    mi, ki = fragment_index(ks)
+    return tiles[..., mi.to(at.device), ki.to(at.device)].contiguous()
+
+
+def packed_shapes(form: int, na: int, nb: int):
+    """The shapes of `pack_gru_a` and `pack_gru_b` in form 1 (bf16) or 2
+    (q8)."""
+    ks, e = _KS[form], 16 // _ESZ[form]
+    c, u = cluster_shape(na)
+    ksa, ksbr = -(-na // ks), -(-nb // ks)
+    return ((c, 3 * u // 16, ksa, 32, e),
+            (3 * padded_nb(nb) // 16, ksa + ksbr, 32, e))
+
+
+def _pad_units(w: torch.Tensor, n: int, npad: int) -> torch.Tensor:
+    """[K, 3n] gate columns [z | r | h] -> [K, 3 npad], zero columns for the
+    padding units of each gate."""
+    k = w.shape[0]
+    out = w.new_zeros(k, 3, npad)
+    out[:, :, :n] = w.reshape(k, 3, n)
+    return out.reshape(k, 3 * npad)
+
+
+def rank_columns(na: int) -> torch.Tensor:
+    """[C, 3U]: the column of GRU-A's unit-padded matrix [Na, 3 C U] that
+    rank r's local column q U + j holds (gate q, unit r U + j)."""
+    c, u = cluster_shape(na)
+    lc = torch.arange(3 * u)[None, :]
+    r = torch.arange(c)[:, None]
+    return (lc // u) * (c * u) + r * u + lc % u
+
+
+def pack_gru_a(a_rec: torch.Tensor) -> torch.Tensor:
+    """GRU-A's recurrent matrix [Na, 3Na] (bf16, or q8's int8 off-diagonal
+    part) -> [C, 3U / 16, ceil(Na / KS), 32, E], rank r's slice contiguous."""
+    na = a_rec.shape[0]
+    c, u = cluster_shape(na)
+    ks = 32 if a_rec.dtype == torch.int8 else 16
+    cols = rank_columns(na).to(a_rec.device)
+    return pack_tiles(_pad_units(a_rec, na, c * u).t()[cols], ks)
+
+
+def pack_gru_b(b_in: torch.Tensor, b_rec: torch.Tensor) -> torch.Tensor:
+    """GRU-B's input [Na, 3Nb] and recurrent [Nb, 3Nb] matrices, their
+    units padded to Nbp = 16 ceil(Nb / 16) ->
+    [3Nbp / 16, ceil(Na / KS) + ceil(Nb / KS), 32, E]: per column tile, the
+    input part's k steps, then the recurrent part's."""
+    nb = b_rec.shape[0]
+    nbp = padded_nb(nb)
+    ks = 32 if b_in.dtype == torch.int8 else 16
+    return torch.cat([pack_tiles(_pad_units(b_in, nb, nbp).t(), ks),
+                      pack_tiles(_pad_units(b_rec, nb, nbp).t(), ks)],
+                     dim=1).contiguous()

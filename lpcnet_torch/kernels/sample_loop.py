@@ -1,6 +1,8 @@
 """The autoregressive sample loop: one 10 ms frame of 160 dependent steps
 per stream, as one CUDA kernel launch (`csrc/sample_loop.cu`), free-running
-(K1) or under per-stream, per-sample control masks (K2).
+(K1) or under per-stream, per-sample control masks (K2, its own kernel,
+`csrc/masked_loop.cu`, redesigned for Hopper; launch shape and weight
+packing in `masked_loop.py`).
 
 Port of `lpcnet_tpu/kernels/sample_loop.py::_ar_kernel`, run free
 (masked=False, sampled=True) and masked (masked=True). Each step: LPC
@@ -18,7 +20,8 @@ h_b, last_sig, last_exc, deemph, rng).
 * `synthesize_frame_kernel` is the wrapper: on a CPU tensor it runs the
   plain version; on a CUDA tensor it launches the kernel or raises.
 * `sample_loop_masked_plain` / `synthesize_frame_masked_kernel` are the same
-  pair for K2. An advance mask freezes a stream's whole state (its KISS99
+  pair for K2; `masked_kernel_weights` adds K2's packed operands to a
+  bundle, once, for the callers that launch it many times. An advance mask freezes a stream's whole state (its KISS99
   words included) and emits 0 for the sample; a teacher-force mask takes the
   sample and its excitation from a target in the de-emphasised domain
   (the C preload semantics, src/lpcnet.c:256-259); `sampled=False` skips the
@@ -54,6 +57,7 @@ from ..models.lpcnet import (LPCNetConfig, SampleState, draw_threshold_bytes,
                              sampling_logit_table)
 from ..nn import quantized as Q
 from ..utils.rng import Kiss99State
+from . import masked_loop as ML
 
 _FORMS = {torch.float32: 0, torch.bfloat16: 1}
 _FORM_Q8 = 2
@@ -292,15 +296,51 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.lpcnet_sample_loop.argtypes = [ci] * 5 + [vp] * 29
         lib.lpcnet_sample_loop.restype = ci
-        lib.lpcnet_sample_loop_masked.argtypes = ([ci] * 5 + [vp] * 30
-                                                  + [ci, vp])
-        lib.lpcnet_sample_loop_masked.restype = ci
         lib.lpcnet_teacher_force.argtypes = [ci] * 6 + [vp] * 19
         lib.lpcnet_teacher_force.restype = ci
         lib.lpcnet_sample_loop_merged.argtypes = [ci] * 5 + [vp] * 23
         lib.lpcnet_sample_loop_merged.restype = ci
         _LIB = lib
     return _LIB
+
+
+_MASKED_LIB = None
+_MAX_CLUSTERS: dict = {}
+
+
+def _masked_lib():
+    global _MASKED_LIB
+    if _MASKED_LIB is None:
+        from ._build import load_library
+        lib = load_library("masked_loop")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.lpcnet_masked_loop.argtypes = [ci] * 11 + [vp] * 31 + [vp]
+        lib.lpcnet_masked_loop.restype = ci
+        lib.lpcnet_masked_loop_max_clusters.argtypes = [ci] * 4
+        lib.lpcnet_masked_loop_max_clusters.restype = ci
+        _MASKED_LIB = lib
+    return _MASKED_LIB
+
+
+def _max_clusters(dev, form, na):
+    """K2's `max_clusters(nt, smem)` on the card `dev`: how many clusters
+    of that shape the card holds at once (the CUDA occupancy query,
+    remembered per card and shape)."""
+    cluster = ML.cluster_shape(na)[0]
+
+    def ask(nt, smem):
+        key = (dev.index, form, nt, cluster, smem)
+        if key not in _MAX_CLUSTERS:
+            with torch.cuda.device(dev):
+                got = _masked_lib().lpcnet_masked_loop_max_clusters(form, nt, cluster, smem)
+            if got <= 0:
+                raise RuntimeError(
+                    f"masked sample loop kernel: no cluster of {cluster} blocks with "
+                    f"{smem} bytes fits the card (CUDA {-got})")
+            _MAX_CLUSTERS[key] = got
+        return _MAX_CLUSTERS[key]
+
+    return ask
 
 
 def _check(name, t, shape, dtype, device):
@@ -346,9 +386,9 @@ def _gru_operands(kw, na, nb, dev):
 def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
             masked=None, merged=None):
     """Check the operands, allocate the outputs and launch the kernel on the
-    current stream; `masked` is None (K1) or (preload, mode, sampled) (K2);
-    `merged` is (form, a_merged, b_merged) for K6, whose cond_a and cond_b
-    come in the 4N layout."""
+    current stream; `masked` is None (K1, K6) or (preload, mode, sampled)
+    (K2); `merged` is (form, a_merged, b_merged) for K6, whose cond_a and
+    cond_b come in the 4N layout."""
     dev = cond_a.device
     b = cond_a.shape[0]
     na = kw["a_bias1"].shape[-1] // 3
@@ -393,10 +433,11 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
     rng = torch.empty_like(rng_in)
     pcm = torch.empty((b, n_samples), dtype=f32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    args = (form, b, na, nb, n_samples) + tuple(ptr(t) for t in weights + (
+    tail = tuple(ptr(t) for t in (
         kw["dual_w"], kw["dual_bias"], kw["dual_factor"], kw["logit_table"],
         cond_a, cond_b, lpc, ha_in, hb_in, sig_in, exc_in, de_in, rng_in,
         ha, hb, sig, exc, de, rng, pcm))
+    args = (form, b, na, nb, n_samples) + tuple(ptr(t) for t in weights) + tail
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if merged is not None:
@@ -404,8 +445,21 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
         elif masked is None:
             err = _lib().lpcnet_sample_loop(*args, stream)
         else:
-            err = _lib().lpcnet_sample_loop_masked(
-                *args, ptr(preload), ptr(mode), int(bool(sampled)), stream)
+            emb, emb_scale, a_rec, a_diag, a_bias1, b_in, b_rec, b_bias1 = weights
+            cfg = ML.masked_launch_config(b, na, nb, form, _max_clusters(dev, form, na))
+            if form == 0:           # f32: the matrices as they are
+                a_w, b_w = a_rec, None
+            else:
+                a_w, b_w = kw["k2_a"], kw["k2_b"]
+                shape_a, shape_b = ML.packed_shapes(form, na, nb)
+                _check("k2_a", a_w, shape_a, a_rec.dtype, dev)
+                _check("k2_b", b_w, shape_b, a_rec.dtype, dev)
+            err = _masked_lib().lpcnet_masked_loop(
+                form, cfg["nt"], cfg["cluster"], cfg["smem"], int(cfg["res_a"]),
+                int(cfg["res_b"]), b, na, nb, n_samples,
+                int(bool(sampled)), *(ptr(t) for t in (
+                    emb, emb_scale, a_w, a_diag, a_bias1, b_w, b_in, b_rec, b_bias1)),
+                *tail, ptr(preload), ptr(mode), stream)
     if err != 0:
         raise RuntimeError(f"sample loop kernel launch failed: CUDA error {err}")
     new_state = SampleState(ha, hb, sig, exc, de,
@@ -435,17 +489,35 @@ def synthesize_frame_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
 synthesize_frame_kernel.launches = 0
 
 
+def masked_kernel_weights(kw):
+    """K2's bundle: `kw` (`kernel_weights`) with GRU-A's and GRU-B's
+    matrices packed in the tensor cores' fragment order
+    (`masked_loop.pack_gru_a` as `k2_a`, `pack_gru_b` as `k2_b`; None in
+    the f32 form, which reads the matrices as they are). Every other kernel
+    and plain version takes it as it takes `kw`. Build it once per weight
+    bundle: the trainer once per step, the PLC pool and the decoder once."""
+    if is_q8_bundle(kw):
+        a_rec, b_in, b_rec = kw["a_rec_q8"], kw["b_in_q8"], kw["b_rec_q8"]
+    elif kw["a_rec"].dtype == torch.float32:
+        return dict(kw, k2_a=None, k2_b=None)
+    else:
+        a_rec, b_in, b_rec = kw["a_rec"], kw["b_in"], kw["b_rec"]
+    return dict(kw, k2_a=ML.pack_gru_a(a_rec), k2_b=ML.pack_gru_b(b_in, b_rec))
+
+
 def synthesize_frame_masked_kernel(kw, state: SampleState, cond_a, cond_b,
                                    lpc, preload, preload_mask, advance_mask,
                                    n_samples: int = 160, sampled: bool = True):
     """One masked frame (K2): (new_state, pcm [B, n_samples]).
 
     preload [B, n] float target in the de-emphasised domain; preload_mask
-    and advance_mask [B, n] bool (see `sample_loop_masked_plain`). On a CPU
-    tensor this runs the plain version; on a CUDA tensor it launches the
-    masked kernel and counts the launch in
-    `synthesize_frame_masked_kernel.launches`; any other device raises. Any
-    batch size works, with no padding of streams.
+    and advance_mask [B, n] bool (see `sample_loop_masked_plain`). `kw` is
+    `masked_kernel_weights(...)`, or a `kernel_weights` bundle whose packed
+    operands are then built for this call. On a CPU tensor this runs the
+    plain version; on a CUDA tensor it launches the masked kernel and counts
+    the launch in `synthesize_frame_masked_kernel.launches`; any other
+    device raises. Any batch size and any GRU widths work, with no padding
+    of streams.
     """
     dev = cond_a.device
     if dev.type == "cpu":
@@ -454,6 +526,8 @@ def synthesize_frame_masked_kernel(kw, state: SampleState, cond_a, cond_b,
                                         n_samples, sampled)
     if dev.type != "cuda":
         raise ValueError(f"sample loop kernel: unsupported device {dev}")
+    if "k2_a" not in kw:
+        kw = masked_kernel_weights(kw)
     mode = (advance_mask.to(torch.int32)
             | (preload_mask.to(torch.int32) << 1)).contiguous()
     preload = preload.to(torch.float32).contiguous()

@@ -216,7 +216,8 @@ class BatchedPLC:
         self.plc_buf_size = self.delay * FRAME_SIZE + _TO
         self.fec_q = fec_q
         self.use_kernel = use_kernel
-        self.kw = K.kernel_weights(self.fused, cfg) if use_kernel else None
+        self.kw = (K.masked_kernel_weights(K.kernel_weights(self.fused, cfg))
+                   if use_kernel else None)
         self.remove_dc = remove_dc
         self.flags = current_flags()
         self._cw = (PC.plc_chain_weights(self.plc_params)

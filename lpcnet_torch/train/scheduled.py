@@ -27,7 +27,7 @@ import torch
 
 from ..dsp import lpc as lpc_mod
 from ..dsp.constants import LPC_ORDER, PREEMPHASIS
-from ..kernels.sample_loop import (kernel_weights,
+from ..kernels.sample_loop import (kernel_weights, masked_kernel_weights,
                                    synthesize_frame_masked_kernel)
 from ..models import lpcnet as M
 from ..nn import layers as nn
@@ -119,7 +119,7 @@ def sampled_signal(params, cfg: M.LPCNetConfig, batch, tf_mask,
         deemph=z(b),
         rng=_kiss_seeds(b, rng, dev),
     )
-    kw = kernel_weights(fused, cfg)
+    kw = masked_kernel_weights(kernel_weights(fused, cfg))
     adv = torch.ones((b, fs), dtype=torch.bool, device=dev)
     out = []
     for f in range(n_frames):

@@ -163,7 +163,59 @@ def test_cuda_masked_kernel_matches_plain(cuda, form, sampled):
     advance off bit-equal with PCM 0; f32 and q8 >=98% exact PCM; with
     every advanced step teacher-forced (`unsampled`) PCM exact, q8 state too;
     launches counted once per call."""
+    _masked_case(cuda, form, sampled, 37)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 130])
+@pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
+def test_cuda_masked_kernel_ragged_batches(cuda, form, b):
+    """K2 at a batch of one stream (one cluster, 7 of its 8 stream slots
+    empty) and at 130 (clusters of 16 streams, the last ragged), with every
+    advanced step teacher-forced: the bars of the unsampled case."""
+    _masked_case(cuda, form, False, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [True, False], ids=["sampled", "unsampled"])
+@pytest.mark.parametrize("na,nb", [(640, 16), (100, 10)])
+@pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
+def test_cuda_masked_kernel_at_other_widths(cuda, form, na, nb, sampled):
+    """K2 at the LPCNet paper's 640-unit GRU-A (bf16 reads its GRU-A slice
+    from L2: it does not fit a block's shared memory) and at widths that are
+    no multiple of 16 (padded units), the bars of the full-width case."""
+    _masked_case(cuda, form, sampled, 37, rnn_units1=na, rnn_units2=nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
+def test_cuda_masked_kernel_free_running_is_k1(cuda, form):
+    """With every step advancing and none teacher-forced, K2 computes the
+    free-running loop: K1's plain version's RNG, and its PCM at K1's bars."""
     cfg = M.LPCNetConfig()
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda), cfg)
+    kw = _bundle(fused, cfg, form)
+    b, n = 37, 32
+    ca, cb, lpc, s0 = _inputs(fused, cfg, b, cuda)
+    on = torch.ones((b, n), dtype=torch.bool, device=cuda)
+    sk, pk = K.synthesize_frame_masked_kernel(kw, s0, ca, cb, lpc, on.float(), ~on, on, n)
+    torch.cuda.synchronize()
+    sp, pp = K.sample_loop_plain(kw, s0, ca, cb, lpc, n)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert bool(torch.isfinite(pk).all())
+    if form != "bf16":
+        assert float((pk == pp).float().mean()) > (0.90 if form == "q8" else 0.98)
+
+
+def _bundle(fused, cfg, form):
+    if form == "q8":
+        return K.kernel_weights(Q.quantize_fused(fused), cfg)
+    return K.kernel_weights(fused, cfg, dtype={"f32": torch.float32,
+                                               "bf16": torch.bfloat16}[form])
+
+
+def _masked_case(cuda, form, sampled, b, **widths):
+    cfg = M.LPCNetConfig(**widths)
     fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda),
                                     cfg)
     if form == "q8":
@@ -171,13 +223,14 @@ def test_cuda_masked_kernel_matches_plain(cuda, form, sampled):
     else:
         kw = K.kernel_weights(fused, cfg, dtype={"f32": torch.float32,
                                                  "bf16": torch.bfloat16}[form])
-    b, n = 37, 32
+    n = 32
     ca, cb, lpc, s0 = _inputs(fused, cfg, b, cuda)
     rs = np.random.RandomState(21)
     target = torch.from_numpy((rs.normal(size=(b, n)) * 1000
                                ).astype(np.float32)).to(cuda)
     adv = rs.rand(b, n) < 0.7
-    adv[:5] = False
+    fro = 5 if b > 5 else 0          # streams that never advance
+    adv[:fro] = False
     tf = adv.copy() if not sampled else rs.rand(b, n) < 0.5
     adv, tf = torch.from_numpy(adv).to(cuda), torch.from_numpy(tf).to(cuda)
     before = K.synthesize_frame_masked_kernel.launches
@@ -188,8 +241,8 @@ def test_cuda_masked_kernel_matches_plain(cuda, form, sampled):
     sp, pp = K.sample_loop_masked_plain(kw, s0, ca, cb, lpc, target, tf, adv,
                                         n, sampled)
     assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
-    assert torch.equal(sk.gru_a[:5], s0.gru_a[:5]) and not bool(pk[:5].any())
-    assert all(torch.equal(a[:5], c[:5]) for a, c in zip(sk.rng, s0.rng))
+    assert torch.equal(sk.gru_a[:fro], s0.gru_a[:fro]) and not bool(pk[:fro].any())
+    assert all(torch.equal(a[:fro], c[:fro]) for a, c in zip(sk.rng, s0.rng))
     assert not bool(pk[~adv].any())
     same = float((pk == pp).float().mean())
     if not sampled:     # target - 0.85 deemph, whatever the network says
@@ -401,7 +454,8 @@ def _gru_run(fn, params, x, h0, w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,nin,b,t", [(384, 512, 37, 33), (16, 400, 37, 33),
-                                       (64, 96, 9, 17), (384, 512, 128, 1)])
+                                       (64, 96, 9, 17), (384, 512, 128, 1),
+                                       (32, 64, 5, 21)])
 def test_cuda_gru_kernel_matches_plain(cuda, n, nin, b, t):
     """K5 forward and backward vs the plain version (autograd) at ragged
     batches and step counts. Every kernel step within 2e-5 of a plain step
