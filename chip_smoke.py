@@ -9,8 +9,12 @@ points, and times them.
 Needs one CUDA card and nvcc. Phases:
   1. build every kernel from lpcnet_torch/kernels/csrc (one nvcc per source,
      all at once);
-  2. the sample-loop kernel (K1) vs its plain version on the shipped demo
-     vocoder at 256 streams, 32 steps, in the f32, bf16 and q8 forms;
+  2. the free-running sample loop (K1: in bf16 and q8 the free-running form
+     of csrc/masked_loop.cu's cluster kernel, in f32 the first design of
+     csrc/sample_loop.cu) vs its plain version on the shipped demo vocoder
+     at 256 streams, 32 steps, in the f32, bf16 and q8 forms, then at the
+     ragged batches 1, 130, 1024 and 4097 (one cluster of one stream, one
+     wave, two waves, seven);
   3. the synthesis path: api.Synthesizer on the demo vocoder at 1024 streams
      for 10 frames (cut from 50, then 20, as later paths were added, to keep
      the run about as long), float (bf16 kernel bundle) and int8 (q8); K1's
@@ -20,7 +24,9 @@ Needs one CUDA card and nvcc. Phases:
      (CUDA events) vs its plain version and its bound;
   5. the GRU training kernel (K5, forward and backward) vs its plain version
      at 384 and 16 units, B=128, at T=320 and at the training path's T=2400,
-     and the 16-unit forward (warp-synchronous) again at B=37, T=2400;
+     and the 16-unit forward (warp-synchronous) again at B=37, T=2400; the
+     backward's gate pass alone vs its plain version, and the backward at
+     16, 384, 640 and 1024 units, B=37, T=48;
   6. the masked sample-loop kernel (K2, the cluster kernel of
      csrc/masked_loop.cu) vs its plain version at 256 streams, 32 steps and
      one full frame, f32, bf16 and q8, with and without the sampler; at the
@@ -38,9 +44,9 @@ Needs one CUDA card and nvcc. Phases:
      device's busy share;
   8. timings of K5 and K2 at the training path's shapes vs their plain
      versions, their bounds and, for K5, torch.nn.GRU (cuDNN) as a
-     yardstick, with the layer's input product alone; K2 in all three forms
-     on the same inputs, and K1 (the first design's kernel, unchanged) on
-     them as the control; K2 in bf16 at 256 and 1024 streams;
+     yardstick, with the layer's input product alone, and the backward's
+     three phases apart (gate pass, chain, dWr); K2 in all three forms on
+     the same inputs, and K1 on them; K2 in bf16 at 256 and 1024 streams;
   9. the teacher-forced kernel (K3) vs its plain version at 256 streams,
      3 blocks of 160 steps, f32, bf16 and q8, and against K2 with the
      sampler off; the PLC-net chain kernel (K4) vs its plain version at 256
@@ -225,6 +231,63 @@ def check_k1(fused, cfg, dev):
         f"bf16 finite & rms within 0.5 of f32 ({rel:.3f}): pass")
 
 
+def check_k1_batches(fused, cfg, dev):
+    """K1 vs its plain version at the ragged batches 1, 130, 1024 and 4097
+    (bf16 and q8: one cluster with one stream, one wave of clusters of 16,
+    two waves of clusters of 40, seven waves with a ragged last cluster;
+    f32 on the first design's blocks of 4), 32 steps, each form from the
+    bundle with its packs built once. Bars per call: one step from the
+    start within 1e-4 (bf16 h_b 1e-2, see check_k1_main_shape), RNG equal,
+    finite; over the frame check_k1's bars (f32 >=98 % exact PCM, q8
+    >90 %, bf16 RMS within 0.5 of the plain version's)."""
+    bundles = {
+        "f32": K.kernel_weights(fused, cfg, dtype=torch.float32),
+        "bf16": K.masked_kernel_weights(K.kernel_weights(fused, cfg)),
+        "q8": K.masked_kernel_weights(K.kernel_weights(quantize_fused(fused), cfg)),
+    }
+    na, nb = cfg.rnn_units1, cfg.rnn_units2
+    for b in (1, 130, 1024, 4097):
+        ca, cb, lpc = conditioning(fused, cfg, b, dev)
+        s0 = M.init_sample_state(b, cfg, dev)
+        for form, kw in bundles.items():
+            s1k, _ = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, 1)
+            s1p, _ = K.sample_loop_plain(kw, s0, ca, cb, lpc, 1)
+            ea = float((s1k.gru_a - s1p.gru_a).abs().max())
+            eb = float((s1k.gru_b - s1p.gru_b).abs().max())
+            sk, pk = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, CHECK_STEPS)
+            torch.cuda.synchronize()
+            sp, pp = K.sample_loop_plain(kw, s0, ca, cb, lpc, CHECK_STEPS)
+            same = float((pk == pp).float().mean())
+            rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+            finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+            rms_k, rms_p = (float(x.square().mean().sqrt()) for x in (pk, pp))
+            shape = ("first design, blocks of 4 streams" if form == "f32" else
+                     k1_launch_shape(b, na, nb, K.ML.FORMS[form], dev))
+            log(f"K1[{form}] vs plain, B={b} n={CHECK_STEPS} ({shape}): one step "
+                f"max|h_a| err {ea:.3e}, max|h_b| err {eb:.3e}; exact pcm {same:.4f}, "
+                f"rng equal {rng_eq}, rms {rms_k:.1f} vs {rms_p:.1f}")
+            assert ea <= 1e-4 and eb <= (1e-2 if form == "bf16" else 1e-4), (form, b)
+            assert rng_eq and finite, (form, b)
+            if form == "f32":
+                assert same >= 0.98, (form, b, same)
+            elif form == "q8":
+                assert same > 0.90, (form, b, same)
+            else:
+                assert abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5, (form, b)
+    log("K1 ragged bars: one step, rng, finite, f32 >=98% / q8 >90% exact pcm, "
+        "bf16 rms within 0.5: pass")
+
+
+def k1_launch_shape(b, na, nb, form, dev):
+    """K1's free-running cluster launch at b streams, in words."""
+    c = K.ML.free_launch_config(b, na, nb, form, K._max_clusters(dev, form, na, True))
+    res = "+".join(k for k, on in (("GRU-A", c["res_a"]), ("GRU-B", c["res_b"])) if on)
+    return (f"clusters of {c['cluster']} blocks, {c['streams']} streams each "
+            f"({-(-c['streams'] // c['cluster'])} a rank's tail), {c['clusters']} clusters "
+            f"in {c['waves']} wave(s), {c['smem']} bytes of shared memory a block, "
+            f"weights in shared memory: {res or 'none'}")
+
+
 def check_k1_main_shape(kw, st, ca, cb, lpc, form):
     """K1 vs its plain version at the main path's shapes (B=1024, n=160),
     from the live state the main path left. Returns the largest one-step
@@ -355,6 +418,54 @@ def check_k5(n, t, dev, b=TRAIN_BATCH):
     return step_err, max(gerr.values())
 
 
+def check_gate_pass(n, dev, b=TRAIN_BATCH, t=320):
+    """The backward's gate pass alone (z and the four factors of every row
+    and unit) vs `gate_pass_plain` on the same forward output, B=128,
+    T=320. Bar: each field within 1e-5 of its plain value (the fields are
+    O(1): zrec's float32 sums run in another order on the tensor cores,
+    ~1e-7 relative, and sigmoid and tanh do not amplify it). Returns the
+    largest error."""
+    params, x, h0, _ = gru_case(n, b, t, dev, SEED + 5)
+    with torch.no_grad():
+        gi = G.gate_input(params, x)
+        hs, _ = G.gru_recurrence(params["recurrent"], params["bias"][1], gi, h0)
+        got = G.gate_pass_kernel(params["recurrent"], params["bias"][1], gi, h0, hs)
+        torch.cuda.synchronize()
+        want = G.gate_pass_plain(params["recurrent"], params["bias"][1], gi, h0, hs)
+    errs = {k: float((a - c).abs().max()) for k, a, c in
+            zip(("z", "fz", "fr", "fh", "fzh"), got, want)}
+    log(f"K5 backward gate pass [{n}] vs plain, B={b} T={t}: max err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (tol 1e-5)")
+    assert max(errs.values()) <= 1e-5, (n, errs)
+    return max(errs.values())
+
+
+def check_k5_widths(dev):
+    """The backward at 16, 384, 640 and 1024 units (clusters of 1, 8, 8 and
+    8 blocks; Wr's rows resident in shared memory at 16 and 384, read from
+    L2 at 640 and 1024), B=37 (a ragged last cluster), T=48, through
+    autograd from the kernel forward, at check_k5's gradient bars (each
+    leaf within 1e-2 of its largest entry; two runs bit-equal)."""
+    b, t = 37, 48
+    for n in (16, 384, 640, 1024):
+        params, x, h0, w = gru_case(n, b, t, dev, SEED + 11)
+        cfg = G.bwd_launch_config(b, n, G._bwd_max_clusters(dev, n))
+        _, _, gk = gru_grads(G.gru_recurrence, params, x, h0, w)
+        torch.cuda.synchronize()
+        _, _, gp = gru_grads(G.gru_recurrence_plain, params, x, h0, w)
+        _, _, gk2 = gru_grads(G.gru_recurrence, params, x, h0, w)
+        gerr = {k: float((gk[k] - gp[k]).abs().max())
+                / max(1e-3, float(gp[k].abs().max())) for k in gp}
+        biteq = all(bool(torch.equal(gk[k], gk2[k])) for k in gk)
+        log(f"K5 backward [{n}] B={b} T={t} (clusters of {cfg['cluster']} x "
+            f"{cfg['units']} units, {cfg['streams']} streams, Wr "
+            f"{'resident' if cfg['resident'] else 'from L2'}, {cfg['smem']} bytes): "
+            "scaled gradient errs " + ", ".join(f"{k} {v:.3e}" for k, v in gerr.items())
+            + f" (tol 1e-2); bit-equal twice: {biteq}")
+        assert max(gerr.values()) <= 1e-2 and biteq, (n, gerr, biteq)
+        torch.cuda.empty_cache()
+
+
 def k5_bound_ms(n, b, t, backward):
     """Least time: bytes over HBM bandwidth (forward reads gate_in, h0 and
     Wr in bf16, writes hs and hT; backward reads gate_in, hs, dhs and both
@@ -404,6 +515,19 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
     dht = torch.zeros_like(ht)
     b_ms = time_cuda(lambda: torch.autograd.grad(
         (hs, ht), (wr, br, gi), (w, dht), retain_graph=True), reps=3, warmup=1)
+    # the backward's phases: the gate pass alone, then the backward of a
+    # graph whose weights ask for no gradient (gate pass and chain, no dWr
+    # or dbr); the rest is dWr and the reductions
+    with torch.no_grad():
+        gate_ms = time_cuda(lambda: G.gate_pass_kernel(wr, br, gi, h0, hs), reps=3,
+                            warmup=1)
+    hs_nw, ht_nw = G.gru_recurrence(wr.detach(), br.detach(), gi, h0)
+    nw_ms = time_cuda(lambda: torch.autograd.grad(
+        (hs_nw, ht_nw), (gi,), (w, dht), retain_graph=True), reps=3, warmup=1)
+    del hs_nw, ht_nw
+    phases = {"gate_pass_ms": gate_ms, "chain_ms": nw_ms - gate_ms,
+              "dwr_ms": b_ms - nw_ms}
+    bcfg = G.bwd_launch_config(b, n, G._bwd_max_clusters(dev, n))
     del hs, ht
     hs, ht = G.gru_recurrence_plain(wr, br, gi, h0)
     pb_ms = time_cuda(lambda: torch.autograd.grad(
@@ -424,7 +548,7 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
     with torch.no_grad():
         lib_f = time_cuda(lambda: gru(x, h0c), reps=3, warmup=1)
         our_f = time_cuda(whole_fwd, reps=3, warmup=1)
-        gate_ms = time_cuda(lambda: G.gate_input(pk, xg), reps=3, warmup=1)
+        in_ms = time_cuda(lambda: G.gate_input(pk, xg), reps=3, warmup=1)
         diff = float((gru(x, h0c)[0] - whole_fwd()[0]).abs().max())
     out, _ = gru(xg, h0c)
     lib_b = time_cuda(lambda: torch.autograd.grad(
@@ -446,7 +570,12 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
         f"{our_f:.3f} ms, backward {our_b:.3f} ms; torch.nn.GRU (cuDNN, f32) "
         f"forward {lib_f:.3f} ms, backward {lib_b:.3f} ms, max|hs| apart "
         f"{diff:.3e} (bf16 vs f32 operands); the layer's input product "
-        f"gate_input alone {gate_ms:.3f} ms; the forward kernel "
+        f"gate_input alone {in_ms:.3f} ms; the backward's phases: gate pass "
+        f"{gate_ms:.3f} ms, chain {phases['chain_ms']:.3f} ms (clusters of "
+        f"{bcfg['cluster']} x {bcfg['units']} units, {bcfg['streams']} streams, "
+        f"{bcfg['clusters']} clusters in {bcfg['waves']} wave(s), Wr "
+        f"{'resident' if bcfg['resident'] else 'from L2'}), dWr and reductions "
+        f"{phases['dwr_ms']:.3f} ms; the forward kernel "
         f"{'warp-synchronous' if G.forward_uses_warp(n) else 'on clusters'}; "
         f"1 launch per training step each way; card: {smi}")
     src = "lpcnet_torch/kernels/csrc/gru_train.cu"
@@ -461,7 +590,11 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
          "replaces": "lpcnet_tpu/kernels/gru_train.py:141",
          "launches": launches[("bwd", n)], "max_abs_err": grad_err,
          "ms": b_ms, "plain_ms": pb_ms, "bound_ms": bb, "bound_by": bby,
-         "library_ms": lib_b, "pass": True},
+         "library_ms": lib_b, "pass": True,
+         "phases": "gate_pass_kernel (tensor-core gate pass, off the chain) + "
+                   "gru_bwd_chain_kernel (clusters, Wr resident, dh on the tensor "
+                   "cores) + dwr_kernel + reduce_parts_kernel",
+         **phases},
     ]
 
 
@@ -747,8 +880,9 @@ def time_k2(case, fused, cfg, launches, step_err, smi):
     """K2 per launch on `k2_train_case`'s inputs, the ones
     `check_k2_train_shape` took `step_err` from, in the bf16 form the
     training path runs and in f32 and q8 (each first held one step against
-    its plain version there, at K1's one-step bars); K1, the first design's
-    kernel, on the same inputs (free-running) as the control."""
+    its plain version there, at K1's one-step bars); K1 on the same inputs
+    (free-running: in bf16 and q8 K2's kernel in its free-running form, in
+    f32 the first design)."""
     kw, s0, ca, cb, lpc, tg, tf, adv = case
     b = tg.shape[0]
     bundles = dict(k2_bundles(fused, cfg), bf16=kw)
@@ -784,7 +918,8 @@ def time_k2(case, fused, cfg, launches, step_err, smi):
         f"bf16 {ms['bf16']:.4f} ms/launch, f32 {ms['f32']:.4f}, q8 "
         f"{ms['q8']:.4f} (one step against the plain version: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-        + f"); K1 on the same inputs, free-running (the first design, unchanged): "
+        + f"); K1 on the same inputs, free-running (bf16, q8: the cluster kernel's "
+        f"free-running form; f32: the first design): "
         f"bf16 {k1_ms['bf16']:.4f}, f32 {k1_ms['f32']:.4f}, q8 {k1_ms['q8']:.4f}; "
         f"plain {p_ms:.2f} ms, bound {bound:.4f} ms ({bound_by}), 15 launches per "
         f"training step with ss_prob > 0; library: no single PyTorch call "
@@ -1605,11 +1740,11 @@ def k6_bound_ms(mw, cfg, batch, n):
 
 
 def k6_bundles(fused, cfg):
-    """{form: (K1 bundle, K6 operands)} for f32 and bf16."""
+    """{form: (K1 bundle with its packs, K6 operands)} for f32 and bf16."""
     out = {}
     for form, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         kw = K.kernel_weights(fused, cfg, dtype=dt)
-        out[form] = (kw, K.merged_kernel_weights(kw))
+        out[form] = (K.masked_kernel_weights(kw), K.merged_kernel_weights(kw))
     return out
 
 
@@ -1898,6 +2033,7 @@ def main():
     # 2. K1 vs plain
     fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
     check_k1(fused, cfg, dev)
+    check_k1_batches(fused, cfg, dev)
 
     # 3. the main path, then 4. timings on its own inputs
     feats = features(MAIN_BATCH, MAIN_FRAMES, SEED)
@@ -1932,12 +2068,16 @@ def main():
             f"computes K1; card: {smi}")
         entries.append({
             "name": f"sample_loop[{form}]", "route": "cuda",
-            "source": "lpcnet_torch/kernels/csrc/sample_loop.cu",
+            "source": "lpcnet_torch/kernels/csrc/masked_loop.cu",
             "replaces": "lpcnet_tpu/kernels/sample_loop.py:461",
             "launches": launches, "max_abs_err": step_err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None,
             "pass": True,
+            "design": "masked_loop_kernel<FORM, NT, FREE=true>: K2's clusters in "
+                      "the free-running form, the tail split over the ranks; "
+                      + k1_launch_shape(MAIN_BATCH, cfg.rnn_units1, cfg.rnn_units2,
+                                        K.ML.FORMS[form], dev),
         })
     K.synthesize_frame_kernel.launches = 0
 
@@ -1948,6 +2088,8 @@ def main():
         k5_err[n] = tuple(max(a, c) for a, c in zip(short, full))
         torch.cuda.empty_cache()
     check_k5(cfg.rnn_units2, 2400, dev, b=37)
+    gate_err = {n: check_gate_pass(n, dev) for n in (cfg.rnn_units1, cfg.rnn_units2)}
+    check_k5_widths(dev)
     check_k2(fused, cfg, dev)
     check_k2_ragged(fused, cfg, dev)
     check_k2_free(fused, cfg, dev)
@@ -1963,6 +2105,7 @@ def main():
     for n in (cfg.rnn_units1, cfg.rnn_units2):
         prod, k5_entries = time_k5(n, launches, *k5_err[n], dev, smi)
         products_ms += prod
+        k5_entries[1]["gate_pass_max_abs_err"] = gate_err[n]
         entries.extend(k5_entries)
     log_step_breakdown(entries, products_ms, step_ms, smi)
     G.GruRecurrence.reset_launches()

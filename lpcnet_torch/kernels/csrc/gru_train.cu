@@ -7,48 +7,49 @@
 //   z = sigmoid(g_z + zrec_z), r = sigmoid(g_r + zrec_r)
 //   hcand = tanh(g_h + r * zrec_h),  h' = z*h + (1-z)*hcand
 // with g = gate_in[:, t] = x.kernel + bias[0], computed outside as in the JAX
-// package. The backward runs in reverse time, recomputes the gates from
-// hprev = [h0, hs[:-1]], emits dgate_in and dh0, carries
-// dh = d*z + bf16(dzrec) . bf16(Wr^T), and accumulates
-// dWr = sum bf16(hprev)^T . bf16(dzrec) and dbr = sum dzrec.
+// package. The backward runs in reverse time from hprev = [h0, hs[:-1]],
+// emits dgate_in and dh0, carries dh = d*z + bf16(dzrec) . bf16(Wr^T), and
+// accumulates dWr = sum bf16(hprev)^T . bf16(dzrec) and dbr = sum dzrec.
 //
 // What bounds it on an H100: the chain of T dependent steps. The bytes
 // (gate_in read, hs written: 1.9 GB at B=128, T=2400, N=384) and the bf16
-// operations are each under a millisecond of the card; a step, though, is a
-// full sweep of Wr (0.88 MB in bf16 at N=384, twice in the backward with
-// Wr^T) from L2 for every group of streams, plus barriers.
+// operations are each under a millisecond or two of the card; a step,
+// though, is a product with the whole of Wr (0.88 MB in bf16 at N=384) for
+// every group of streams, plus barriers.
 //
-// What the design does about it:
+// The forward:
 // * Streams are independent: a cluster of thread blocks owns 4 streams for
 //   all T steps, with no grid sync. The TPU kernel's time blocks, its batch
 //   tiles and the padding of small GRUs to 128 lanes are gone: any B, any T,
 //   any N that is a multiple of 16 (up to 1024).
 // * At N >= 256 the cluster has 4 blocks (4 SMs), each owning a quarter of
-//   the units: it sweeps only its quarter of Wr's columns a step, so four
-//   SMs' L2 bandwidth serve one group of streams. The new h (rounded to
-//   bf16, the operand of the next step) goes to all four blocks through
-//   distributed shared memory, double-buffered, behind one cluster barrier
-//   a step. A small GRU runs as a cluster of one block.
-// * Inside a block the k range of a product is split over 4 thread groups
+//   the units: it sweeps only its quarter of Wr's columns from L2 a step.
+//   The new h (rounded to bf16, the operand of the next step) goes to all
+//   four blocks through distributed shared memory, double-buffered, behind
+//   one cluster barrier a step. A small GRU runs as a cluster of one block.
+// * Inside a block the k range of the product is split over 4 thread groups
 //   (more loads in flight); the partial sums meet in shared memory, and
 //   thread (stream s, unit u) then does the gate arithmetic of its one
-//   stream and unit. That thread keeps h (forward) or dh and its dbr sums
-//   (backward) in registers for the whole sequence, and loads next step's
-//   gate inputs a step ahead.
-// * Wr is repacked by the wrapper to [N/4][3][N][4] bf16 (and Wr^T to
-//   [3N/4][N][4]): one 8-byte load brings four k of one gate column, and a
-//   warp's loads are contiguous. The weights stay in L2.
-// * dWr is not accumulated inside the time loop (a cluster has 4 streams,
-//   and a [N, 3N] f32 accumulator does not fit on chip). The recurrence
-//   writes dzrec's candidate part (dg holds the rest), and a second kernel
-//   here forms hprev^T . dzrec on the tensor cores (WMMA, bf16 operands
-//   rounded on load, f32 sums), split over rows into partial results. A
-//   third kernel adds the partials, and the streams' dbr partials, in a
-//   fixed order: no float atomics, so two runs give the same bits.
+//   stream and unit, keeps h in a register and loads the next step's gate
+//   inputs a step ahead. Wr is repacked by the wrapper to [N/4][3][N][4]
+//   bf16: one 8-byte load brings four k of one gate column.
 // * At N <= 32 the forward is a warp-synchronous kernel of its own (below
 //   gru_fwd_kernel): no shared memory and no barrier a step.
-// Wr resident in shared memory across a larger cluster, and tensor cores in
-// the recurrence, are later work.
+//
+// The backward, in three phases (below the forward):
+// 1. The gates depend on hprev alone, not on dh, so they come off the
+//    chain: one tensor-core product over all B T rows (gate_pass_kernel),
+//    whose epilogue stores z and the four factors that turn d = dh + dhs
+//    into dgate_in and dzrec (20 bytes a row and unit, in place of the
+//    gradients they become).
+// 2. The chain (gru_bwd_chain_kernel): clusters of 8 blocks, Wr's rows of a
+//    rank's units resident in shared memory (110.6 KB at N=384), dzrec
+//    exchanged through distributed shared memory, the dh product on the
+//    tensor cores, one cluster barrier a step.
+// 3. dWr is not accumulated inside the time loop: a WMMA kernel forms
+//    hprev^T . dzrec over row parts, and a fixed-order reduction adds the
+//    parts, and the streams' dbr partials: no float atomics, so two runs
+//    give the same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -70,6 +71,11 @@ __device__ __forceinline__ float bf16r(float x) {
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+
+__device__ __forceinline__ void store4_bf16(bf16* dst, float4 v) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v.x, v.y);
+  *reinterpret_cast<__nv_bfloat162*>(dst + 2) = __floats2bfloat162_rn(v.z, v.w);
+}
 
 // four consecutive bf16 values (8-byte aligned) as floats
 __device__ __forceinline__ void load4(const bf16* p, float (&w)[4]) {
@@ -111,7 +117,7 @@ __device__ __forceinline__ void step_barrier(cg::cluster_group& cluster, int csi
   if (csize == 1) __syncthreads(); else cluster.sync();
 }
 
-// Thread roles in a block of KG * nu threads that owns units
+// Thread roles in a forward block of KG * nu threads that owns units
 // [rank * nu, (rank + 1) * nu) of its cluster's BT streams:
 //   product role  (kg = tid / nu, ul = tid % nu): the kg-th part of the k
 //                  range for unit ul, all BT streams;
@@ -121,7 +127,10 @@ __device__ __forceinline__ void step_barrier(cg::cluster_group& cluster, int csi
 // forward
 // ---------------------------------------------------------------------------
 
-__global__ void gru_fwd_kernel(int batch, int T, int n, int nu,
+// WIDE: blocks of more than 512 threads (N > 512), whose registers the
+// compiler must keep within 64 a thread
+template <bool WIDE>
+__global__ void __launch_bounds__(WIDE ? 1024 : 512) gru_fwd_kernel(int batch, int T, int n, int nu,
                                const bf16* __restrict__ wp, const float* __restrict__ br,
                                const float* __restrict__ gate_in,
                                const float* __restrict__ h0,
@@ -307,156 +316,7 @@ __global__ void __launch_bounds__(32) gru_fwd_warp_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// backward: the reverse-time recurrence
-// ---------------------------------------------------------------------------
-
-__global__ void gru_bwd_kernel(int batch, int T, int n, int nu,
-                               const bf16* __restrict__ wp, const bf16* __restrict__ wtp,
-                               const float* __restrict__ br,
-                               const float* __restrict__ gate_in,
-                               const float* __restrict__ h0, const float* __restrict__ hs,
-                               const float* __restrict__ dhs, const float* __restrict__ dhT,
-                               float* __restrict__ dg, float* __restrict__ dzh,
-                               float* __restrict__ dh0, float* __restrict__ dbr_part) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int csize = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  extern __shared__ __align__(16) float smem[];
-  const int n3 = 3 * n;
-  float* hpop = smem;                       // [BT][n]     bf16(hprev)
-  float* dzr = hpop + BT * n;               // [2][BT][3n] bf16(dzrec)
-  float* part = dzr + 2 * BT * n3;          // [KG][BT][3][nu]
-  const int tid = threadIdx.x;
-  const int kg = tid / nu, ul = tid % nu;
-  const int fs = kg;
-  const int u = rank * nu + ul;
-  const int b0 = (blockIdx.x / csize) * BT;
-  const int b = b0 + fs;
-  const bool on = b < batch;
-  const int nq = n >> 2;
-  const int kq0 = kg * nq / KG, kq1 = (kg + 1) * nq / KG;
-  const int jq0 = kg * (3 * nq) / KG, jq1 = (kg + 1) * (3 * nq) / KG;
-
-  // hprev of step t: h0 at t == 0, else hs[:, t - 1]
-  auto hprev = [&](int bb, int t, int k) -> float {
-    return t > 0 ? hs[((size_t)bb * T + t - 1) * n + k] : h0[(size_t)bb * n + k];
-  };
-
-  float dh = on ? dhT[(size_t)b * n + u] : 0.f;
-  float brv[3], dbr[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int q = 0; q < 3; ++q) brv[q] = br[q * n + u];
-  // this step's loads, made a step ahead: own gate inputs, dhs and hprev
-  float g[3] = {0.f, 0.f, 0.f}, dv = 0.f, hp = 0.f;
-  if (on) {
-    const size_t row = (size_t)b * T + T - 1;
-#pragma unroll
-    for (int q = 0; q < 3; ++q) g[q] = gate_in[row * n3 + q * n + u];
-    dv = dhs[row * n + u];
-    hp = hprev(b, T - 1, u);
-  }
-  cluster.sync();   // every block of the cluster runs before remote stores
-
-  for (int t = T - 1; t >= 0; --t) {
-    float* dz = dzr + (t & 1) * BT * n3;
-    // the whole hprev of the cluster's streams, as operand, in every block
-    for (int i = tid; i < BT * n; i += blockDim.x) {
-      const int s = i / n;
-      hpop[i] = b0 + s < batch ? bf16r(hprev(b0 + s, t, i % n)) : 0.f;
-    }
-    float gn[3] = {0.f, 0.f, 0.f}, dvn = 0.f, hpn = 0.f;
-    if (on && t > 0) {
-      const size_t row = (size_t)b * T + t - 1;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) gn[q] = gate_in[row * n3 + q * n + u];
-      dvn = dhs[row * n + u];
-      hpn = hprev(b, t - 1, u);
-    }
-    __syncthreads();
-    float acc[BT][3];
-    rec_partial(wp, hpop, n, u, kq0, kq1, acc);
-#pragma unroll
-    for (int s = 0; s < BT; ++s)
-#pragma unroll
-      for (int q = 0; q < 3; ++q) part[((kg * BT + s) * 3 + q) * nu + ul] = acc[s][q];
-    __syncthreads();
-    float zr[3];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      float a = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KG; ++kk) a += part[((kk * BT + fs) * 3 + q) * nu + ul];
-      zr[q] = a + brv[q];
-    }
-    const float z = sigmoidf_(g[0] + zr[0]);
-    const float r = sigmoidf_(g[1] + zr[1]);
-    const float hc = tanhf(g[2] + r * zr[2]);
-    const float d = dh + dv;
-    const float dzv = d * (hp - hc);
-    const float dph = d * (1.f - z) * (1.f - hc * hc);
-    const float dr = dph * zr[2];
-    const float dpz = dzv * z * (1.f - z);
-    const float dpr = dr * r * (1.f - r);
-    const float dzh_v = dph * r;
-    if (on) {
-      const size_t row = (size_t)b * T + t;
-      dg[row * n3 + u] = dpz;
-      dg[row * n3 + n + u] = dpr;
-      dg[row * n3 + 2 * n + u] = dph;
-      dzh[row * n + u] = dzh_v;
-    }
-    const float o0 = bf16r(dpz), o1 = bf16r(dpr), o2 = bf16r(dzh_v);
-    for (int c = 0; c < csize; ++c) {
-      float* zrow = cluster.map_shared_rank(dz, c) + fs * n3;
-      zrow[u] = o0;
-      zrow[n + u] = o1;
-      zrow[2 * n + u] = o2;
-    }
-    dbr[0] += dpz; dbr[1] += dpr; dbr[2] += dzh_v;
-    const float dkeep = d * z;
-    // dzrec is complete in every block (the buffer alternates with t, so a
-    // block a step ahead cannot overwrite what another still reads)
-    step_barrier(cluster, csize);
-
-    // dh = d*z + bf16(dzrec) . bf16(Wr^T); wtp is [3n/4][n][4]
-    float a[BT];
-#pragma unroll
-    for (int s = 0; s < BT; ++s) a[s] = 0.f;
-#pragma unroll 8
-    for (int jq = jq0; jq < jq1; ++jq) {
-      float w[4];
-      load4(wtp + ((size_t)jq * n + u) * 4, w);
-#pragma unroll
-      for (int s = 0; s < BT; ++s) {
-        const float4 v = *reinterpret_cast<const float4*>(dz + s * n3 + 4 * jq);
-        a[s] = fmaf(v.x, w[0], a[s]);
-        a[s] = fmaf(v.y, w[1], a[s]);
-        a[s] = fmaf(v.z, w[2], a[s]);
-        a[s] = fmaf(v.w, w[3], a[s]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < BT; ++s) part[(kg * BT + s) * nu + ul] = a[s];
-    __syncthreads();
-    float sum = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KG; ++kk) sum += part[(kk * BT + fs) * nu + ul];
-    dh = dkeep + sum;
-#pragma unroll
-    for (int q = 0; q < 3; ++q) g[q] = gn[q];
-    dv = dvn;
-    hp = hpn;
-    // the next step's first barrier comes before `part` and `hpop` change
-  }
-  if (on) dh0[(size_t)b * n + u] = dh;
-  // one dbr partial per stream slot (streams beyond the batch add zeros)
-  float* out = dbr_part + (size_t)b * n3;
-#pragma unroll
-  for (int q = 0; q < 3; ++q) out[q * n + u] = dbr[q];
-}
-
-// ---------------------------------------------------------------------------
-// backward: dWr partials, part p = sum over its rows (b, t) of
+// backward, phase 3: dWr partials, part p = sum over its rows (b, t) of
 // bf16(hprev[row])^T . bf16(dzrec[row]) on the tensor cores
 // ---------------------------------------------------------------------------
 
@@ -464,11 +324,6 @@ __global__ void gru_bwd_kernel(int batch, int T, int n, int nu,
 #define GT_N 128     // tile over gate columns
 #define GT_K 32      // (b, t) rows per stage
 #define GT_LD 136    // padded leading dimension in shared memory
-
-__device__ __forceinline__ void store4_bf16(bf16* dst, float4 v) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v.x, v.y);
-  *reinterpret_cast<__nv_bfloat162*>(dst + 2) = __floats2bfloat162_rn(v.z, v.w);
-}
 
 __global__ void __launch_bounds__(256) dwr_kernel(
     int batch, int T, int n, long long rows_per_part,
@@ -493,31 +348,49 @@ __global__ void __launch_bounds__(256) dwr_kernel(
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) wmma::fill_fragment(c[mi][ni], 0.f);
 
+  // thread tid loads rows tid / 32 + 8 q of each stage at column
+  // (tid % 32) * 4: each row's (b, t) is followed from stage to stage (no
+  // division a stage), and a stage's operands are loaded into registers a
+  // stage ahead of their use
+  const int col = (tid & 31) * 4, j = j0 + col;
+  const bool a_on = i0 + col < n, b_on = j < n3;
+  long long r[4];
+  int bq[4], tq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    r[q] = r_begin + (tid >> 5) + 8 * q;
+    bq[q] = (int)(r[q] / T);
+    tq[q] = (int)(r[q] - (long long)bq[q] * T);
+  }
+  float4 av[4], bv[4];
+  auto fetch = [&]() {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      av[q] = bv[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r[q] < r_end) {
+        if (a_on) {
+          const float* src = tq[q] > 0 ? hs + (size_t)(r[q] - 1) * n : h0 + (size_t)bq[q] * n;
+          av[q] = *reinterpret_cast<const float4*>(src + i0 + col);
+        }
+        if (b_on) {
+          const float* src = j < 2 * n ? dg + (size_t)r[q] * n3 + j
+                                       : dzh + (size_t)r[q] * n + (j - 2 * n);
+          bv[q] = *reinterpret_cast<const float4*>(src);
+        }
+      }
+      r[q] += GT_K;
+      for (tq[q] += GT_K; tq[q] >= T; tq[q] -= T) ++bq[q];
+    }
+  };
+  fetch();
   for (long long r0 = r_begin; r0 < r_end; r0 += GT_K) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int idx = tid + q * 256;
-      const int row = idx >> 5, col = (idx & 31) * 4;
-      const long long r = r0 + row;
-      float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-      if (r < r_end) {
-        const long long b = r / T;
-        const int t = (int)(r - b * T);
-        if (i0 + col < n) {
-          const float* src = t > 0 ? hs + (size_t)(r - 1) * n : h0 + (size_t)b * n;
-          av = *reinterpret_cast<const float4*>(src + i0 + col);
-        }
-        const int j = j0 + col;
-        if (j < n3) {
-          const float* src = j < 2 * n ? dg + (size_t)r * n3 + j
-                                       : dzh + (size_t)r * n + (j - 2 * n);
-          bv = *reinterpret_cast<const float4*>(src);
-        }
-      }
-      store4_bf16(As + row * GT_LD + col, av);
-      store4_bf16(Bs + row * GT_LD + col, bv);
+      store4_bf16(As + ((tid >> 5) + 8 * q) * GT_LD + col, av[q]);
+      store4_bf16(Bs + ((tid >> 5) + 8 * q) * GT_LD + col, bv[q]);
     }
     __syncthreads();
+    if (r0 + GT_K < r_end) fetch();            // in flight during this stage's products
 #pragma unroll
     for (int kk = 0; kk < GT_K; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
@@ -563,6 +436,333 @@ __global__ void reduce_parts_kernel(int count, int parts, const float* __restric
   out[i] = s;
 }
 
+// ---------------------------------------------------------------------------
+// backward, phase 1: the gate pass, off the dependent chain
+// ---------------------------------------------------------------------------
+//
+// The gates of reverse step t depend only on hprev = [h0, hs[:-1]] (the
+// forward's output), not on dh. One product over all B T rows,
+// zrec = bf16(hprev) . bf16(Wr) + br, on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, f32 sums), and an epilogue that forms, per row
+// and unit, z and the factors that turn d = dh + dhs into the step's
+// gradients: dpz = d fz, dpr = d fr, dph = d fh, dzh = d fzh, with
+//   fz = (hprev - hcand) z (1 - z),   fh = (1 - z) (1 - hcand^2),
+//   fr = fh zrec_h r (1 - r),          fzh = fh r.
+// A block takes GP_M rows and GP_U units, i.e. the 3 GP_U gate columns
+// [z | r | h] of those units, so that a thread holds all three gates of its
+// (row, unit) pairs in its accumulators. The unit tiles are the grid's
+// fastest dimension: the blocks of one row tile run together and read its
+// hprev rows from L2 once from device memory. fz, fr and fh go where dgate_in's
+// three gates will be, fzh where dzh will be, z into a buffer of its own:
+// the chain reads each and overwrites it with the gradient in place.
+
+#define GP_M 128     // rows a block
+#define GP_U 32      // units a block
+#define GP_K 32      // k a stage
+#define GP_LD (GP_K + 8)
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a . b, chained in the tensor core's accumulator
+__device__ __forceinline__ void mma_acc(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(256) gate_pass_kernel(
+    int batch, int T, int n, const bf16* __restrict__ wrt, const float* __restrict__ br,
+    const float* __restrict__ gate_in, const float* __restrict__ h0,
+    const float* __restrict__ hs, float* __restrict__ dg, float* __restrict__ dzh,
+    float* __restrict__ zb) {
+  __shared__ __align__(16) bf16 As[GP_M * GP_LD];        // [row][k] bf16(hprev)
+  __shared__ __align__(16) bf16 Bs[3 * GP_U * GP_LD];    // [gate column][k] bf16(Wr^T)
+  const long long rows = (long long)batch * T;
+  const long long r0 = (long long)blockIdx.y * GP_M;
+  const int u0 = blockIdx.x * GP_U, n3 = 3 * n;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;     // 4 x 2 warps: 32 rows x 16 units each
+
+  float acc[2][3][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][q][nt][i] = 0.f;
+
+  // A: 128 rows x 32 k a stage, a float4 of each of 4 rows a thread; the
+  // rows' hprev sources, found once (a 64-bit division each)
+  const int kc = (tid & 7) * 4;
+  const float* asrc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long r = r0 + (tid >> 3) + 32 * i;
+    const long long b = r / T;
+    asrc[i] = r >= rows ? nullptr
+                        : (r - b * T > 0 ? hs + (size_t)(r - 1) * n : h0 + (size_t)b * n) + kc;
+  }
+  // B: 96 columns x 32 k a stage, 16 bytes of one or two columns a thread
+  const bf16* bsrc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = (tid + 256 * i) >> 2, u = u0 + c % GP_U;
+    bsrc[i] = tid + 256 * i < 3 * GP_U * 4 && u < n
+                  ? wrt + (size_t)((c / GP_U) * n + u) * n + (tid & 3) * 8 : nullptr;
+  }
+  // a stage's operands, loaded into registers a stage ahead of their use
+  float4 av[4];
+  uint4 bv[2];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = asrc[i] && k0 + kc < n ? *reinterpret_cast<const float4*>(asrc[i] + k0)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      bv[i] = bsrc[i] && k0 + (tid & 3) * 8 < n ? *reinterpret_cast<const uint4*>(bsrc[i] + k0)
+                                                : make_uint4(0u, 0u, 0u, 0u);
+  };
+  fetch(0);
+  for (int k0 = 0; k0 < n; k0 += GP_K) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) store4_bf16(As + ((tid >> 3) + 32 * i) * GP_LD + kc, av[i]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (tid + 256 * i < 3 * GP_U * 4)
+        *reinterpret_cast<uint4*>(Bs + ((tid + 256 * i) >> 2) * GP_LD + (tid & 3) * 8) = bv[i];
+    __syncthreads();
+    if (k0 + GP_K < n) fetch(k0 + GP_K);       // in flight during this stage's products
+#pragma unroll
+    for (int kk = 0; kk < GP_K; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const bf16* ar = As + (wm * 32 + mt * 16 + g) * GP_LD + kk + 2 * t4;
+        a[mt][0] = ld32(ar);
+        a[mt][1] = ld32(ar + 8 * GP_LD);
+        a[mt][2] = ld32(ar + 8);
+        a[mt][3] = ld32(ar + 8 * GP_LD + 8);
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const bf16* br_ = Bs + (q * GP_U + wn * 16 + nt * 8 + g) * GP_LD + kk + 2 * t4;
+          const uint32_t b0 = ld32(br_), b1 = ld32(br_ + 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_acc(acc[mt][q][nt], a[mt], b0, b1);
+        }
+    }
+    __syncthreads();
+  }
+
+  // C fragment: element 2 hf + e at (row g + 8 hf, column 2 t4 + e)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const long long row = r0 + wm * 32 + mt * 16 + g + 8 * hf;
+      if (row >= rows) continue;
+      const long long b = row / T;
+      const float* hprow = row - b * T > 0 ? hs + (size_t)(row - 1) * n : h0 + (size_t)b * n;
+      const float* gi = gate_in + (size_t)row * n3;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = u0 + wn * 16 + nt * 8 + 2 * t4 + e;
+          if (u >= n) continue;
+          const float zr0 = acc[mt][0][nt][2 * hf + e] + br[u];
+          const float zr1 = acc[mt][1][nt][2 * hf + e] + br[n + u];
+          const float zr2 = acc[mt][2][nt][2 * hf + e] + br[2 * n + u];
+          const float z = sigmoidf_(gi[u] + zr0);
+          const float r = sigmoidf_(gi[n + u] + zr1);
+          const float hc = tanhf(gi[2 * n + u] + r * zr2);
+          const float om = 1.f - z;
+          const float fz = (hprow[u] - hc) * (z * om);
+          const float fh = om * (1.f - hc * hc);
+          const float fr = (fh * zr2) * (r * (1.f - r));
+          float* dgr = dg + (size_t)row * n3;
+          dgr[u] = fz;
+          dgr[n + u] = fr;
+          dgr[2 * n + u] = fh;
+          dzh[(size_t)row * n + u] = fh * r;
+          zb[(size_t)row * n + u] = z;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// backward, phase 2: the dependent chain on a cluster, Wr resident
+// ---------------------------------------------------------------------------
+//
+// dh_{t-1} = d_t z_t + bf16(dzrec_t) . bf16(Wr^T), dzrec_t = d_t [fz | fr | fzh]
+// is all that remains sequential. A cluster of C blocks owns S streams (8 or
+// 16) for all T steps; rank r owns units [r U, r U + U) (U a multiple of 16,
+// units past N padding) and thread (stream s, unit u) keeps dh and its three
+// dbr sums in registers. Per step the thread reads its factors and dhs (from
+// device memory, two steps ahead in registers: a shared-memory ring, as the
+// 16-unit forward has, would need 18.4 KB a step at N=384, S=16, and a step
+// is long enough for loads issued two steps ahead to land), forms d and its
+// gradients, writes dgate_in and dzh over the factors, and puts its three
+// bf16 dzrec entries into the block's copy of the step's rows; the block
+// then sends its columns of every stream's row to the other blocks
+// (distributed shared memory, 16 bytes a store, each word by a fixed thread,
+// double-buffered) behind one cluster barrier a step. (Reading each k
+// step's columns from the block that owns them in the product instead, no
+// broadcast, made the product several times slower on an H100: remote
+// loads in the MMA loop.) Each block then forms dh for its
+// own units on the tensor cores: out^T = Wr_rank . dzrec^T, A = the rank's
+// U rows of Wr (packed in A-fragment order by the wrapper, kept in shared
+// memory where they fit, else read from L2), B = dzrec rows (k = 3N deep).
+// Warp w takes one 16-unit
+// tile, all S streams (each A fragment read once a step and used for the
+// S / 8 stream tiles) and one of S / 2 parts of the k steps; each k step is
+// summed by the tensor core from zero and added to the running sum in IEEE
+// float32, and the parts meet in shared memory in a fixed order.
+template <int S>
+__global__ void __launch_bounds__(1024, 1) gru_bwd_chain_kernel(
+    int batch, int T, int n, int U, int resident, const uint4* __restrict__ wb,
+    const float* __restrict__ dhs, const float* __restrict__ dhT, float* dg, float* dzh,
+    const float* zb, float* __restrict__ dh0, float* __restrict__ dbr_part) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n3 = 3 * n, ldz = n3 + 8, KS = n3 / 16, MT = U / 16;
+  constexpr int KP = S / 2, NTS = S / 8;   // k parts, stream tiles
+  const size_t wwords = (size_t)MT * KS * 32;
+  extern __shared__ __align__(16) unsigned char csmem[];
+  uint4* ws = reinterpret_cast<uint4*>(csmem);
+  bf16* dz = reinterpret_cast<bf16*>(csmem + (resident ? wwords * 16 : 0));  // [2][S][ldz]
+  float* part = reinterpret_cast<float*>(dz + 2 * S * ldz);                  // [KP][S][U]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int s = tid / U, ul = tid % U, u = rank * U + ul;
+  const int b = (blockIdx.x / C) * S + s;
+  const bool own = u < n, on = own && b < batch;
+  const uint4* wg = wb + (size_t)rank * wwords;
+
+  if (resident)
+    for (size_t i = tid; i < wwords; i += blockDim.x) ws[i] = wg[i];
+  for (int i = tid; i < S * ldz; i += blockDim.x) dz[i] = dz[S * ldz + i] = __float2bfloat16_rn(0.f);
+
+  struct Fac { float z, fz, fr, fh, fzh, dv; };
+  auto load = [&](int t) {
+    Fac f = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (on && t >= 0) {
+      const size_t row = (size_t)b * T + t;
+      f.z = zb[row * n + u];
+      f.fz = dg[row * n3 + u];
+      f.fr = dg[row * n3 + n + u];
+      f.fh = dg[row * n3 + 2 * n + u];
+      f.fzh = dzh[row * n + u];
+      f.dv = dhs[row * n + u];
+    }
+    return f;
+  };
+  float dh = on ? dhT[(size_t)b * n + u] : 0.f;
+  float dbr0 = 0.f, dbr1 = 0.f, dbr2 = 0.f;
+  Fac f0 = load(T - 1), f1 = load(T - 2);
+  const int mt = warp % MT, kp = warp / MT;          // warps = MT x KP
+  const int ks0 = kp * KS / KP, ks1 = (kp + 1) * KS / KP;
+  const int g = lane >> 2, t4 = lane & 3;
+  // the broadcast: the rank's 16-byte words of a step's rows (gate q,
+  // stream, 8 units), each sent to a fixed set of the other ranks by a
+  // fixed thread: word tid % W to ranks rank + 1 + tid / W + P i
+  const int wpr = max(0, min(U, n - rank * U)) / 8;  // words of one gate's real units
+  const int W = 3 * S * wpr, P = (int)blockDim.x / max(W, 1);
+  const int wj = tid % max(W, 1);
+  const int woff =
+      W > 0 ? ((wj / wpr) % S) * ldz + (wj / (S * wpr)) * n + rank * U + (wj % wpr) * 8 : 0;
+  const bool sends = W > 0 && tid < P * W;
+  cluster.sync();   // every block is set up before remote stores
+
+  for (int t = T - 1; t >= 0; --t) {
+    const Fac f2 = load(t - 2);
+    const float d = dh + f0.dv;
+    const float dpz = d * f0.fz, dpr = d * f0.fr, dph = d * f0.fh, dzv = d * f0.fzh;
+    if (on) {
+      const size_t row = (size_t)b * T + t;
+      dg[row * n3 + u] = dpz;
+      dg[row * n3 + n + u] = dpr;
+      dg[row * n3 + 2 * n + u] = dph;
+      dzh[row * n + u] = dzv;
+    }
+    dbr0 += dpz;
+    dbr1 += dpr;
+    dbr2 += dzv;
+    const float dkeep = d * f0.z;
+    bf16* buf = dz + (t & 1) * S * ldz;
+    if (own) {
+      bf16* zrow = buf + s * ldz;
+      zrow[u] = __float2bfloat16_rn(dpz);
+      zrow[n + u] = __float2bfloat16_rn(dpr);
+      zrow[2 * n + u] = __float2bfloat16_rn(dzv);
+    }
+    __syncthreads();
+    if (sends) {
+      const uint4 v = *reinterpret_cast<const uint4*>(buf + woff);
+      for (int c = 1 + tid / W; c < C; c += P)
+        *reinterpret_cast<uint4*>(cluster.map_shared_rank(buf, (rank + c) % C) + woff) = v;
+    }
+    // dzrec is complete in every block; the buffer alternates with t, so no
+    // block a step ahead overwrites what another still reads
+    step_barrier(cluster, C);
+
+    float acc[NTS][4] = {};
+    const bf16* xr = buf + g * ldz + 2 * t4;
+    auto product = [&](const uint4* wf) {
+#pragma unroll 2
+      for (int k = ks0; k < ks1; ++k) {
+        const uint4 a = wf[k * 32];
+        const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int nt = 0; nt < NTS; ++nt) {
+          const bf16* x = xr + nt * 8 * ldz + k * 16;
+          float dd[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_acc(dd, av, ld32(x), ld32(x + 8));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[nt][i] += dd[i];
+        }
+      }
+    };
+    if (resident) product(ws + (size_t)mt * KS * 32 + lane);
+    else product(wg + (size_t)mt * KS * 32 + lane);
+    // D fragment: c0, c1 at (unit g, streams 2 t4, 2 t4 + 1); c2, c3 at unit g + 8
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt) {
+      float* pp = part + (kp * S + nt * 8 + 2 * t4) * U + mt * 16 + g;
+      pp[0] = acc[nt][0];
+      pp[U] = acc[nt][1];
+      pp[8] = acc[nt][2];
+      pp[U + 8] = acc[nt][3];
+    }
+    __syncthreads();
+    const float* q = part + s * U + ul;
+    float sum = q[0];
+#pragma unroll
+    for (int i = 1; i < KP; ++i) sum += q[i * S * U];
+    dh = dkeep + sum;
+    f0 = f1;
+    f1 = f2;
+    // the next step's first barrier comes before `part` changes
+  }
+  if (on) dh0[(size_t)b * n + u] = dh;
+  if (own) {                        // one dbr partial per stream slot
+    float* out = dbr_part + (size_t)b * n3;
+    out[u] = dbr0;
+    out[n + u] = dbr1;
+    out[2 * n + u] = dbr2;
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -574,21 +774,41 @@ bool bad_config(int batch, int T, int n, int cluster, int threads) {
          n % cluster != 0 || threads != KG * (n / cluster) || threads > 1024;
 }
 
-// grid of ceil(batch / BT) clusters of `cluster` blocks each
-cudaLaunchConfig_t cluster_launch(int batch, int cluster, int threads, size_t smem,
+// grid of ceil(batch / streams) clusters of `cluster` blocks each
+cudaLaunchConfig_t cluster_launch(int batch, int streams, int cluster, int threads, size_t smem,
                                   cudaStream_t stream, cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cluster;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((batch + BT - 1) / BT) * cluster);
+  cfg.gridDim = dim3(((batch + streams - 1) / streams) * cluster);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+typedef void (*ChainKernel)(int, int, int, int, int, const uint4*, const float*, const float*,
+                            float*, float*, const float*, float*, float*);
+
+ChainKernel chain_kernel_for(int streams) {
+  return streams == 8 ? gru_bwd_chain_kernel<8> : (streams == 16 ? gru_bwd_chain_kernel<16> : nullptr);
+}
+
+// the chain's shared memory (kernels/gru_train.py::bwd_smem_bytes computes
+// the same): the rank's packed rows of Wr where resident, dzrec [2][S][3N+8]
+// bf16, the k parts' sums [S/2][S][U] f32
+size_t chain_smem(int n, int units, int streams, int resident) {
+  return (resident ? (size_t)units * 3 * n * 2 : 0) + (size_t)2 * streams * (3 * n + 8) * 2 +
+         (size_t)(streams / 2) * streams * units * 4;
+}
+
+bool bad_chain(int n, int cluster, int units, int streams) {
+  return n <= 0 || n % 16 != 0 || n > 1024 || cluster < 1 || cluster > 8 || units % 16 != 0 ||
+         cluster * units < n || !chain_kernel_for(streams) || streams * units > 1024;
 }
 
 }  // namespace
@@ -600,11 +820,12 @@ extern "C" int lpcnet_gru_train_fwd(int batch, int T, int n, int cluster, int th
   const int nu = n / cluster;
   const size_t smem = sizeof(float) * ((size_t)2 * BT * n + (size_t)KG * BT * 3 * nu);
   cudaError_t e;
-  if ((e = allow_smem(gru_fwd_kernel, smem)) != cudaSuccess) return (int)e;
+  auto k = threads > 512 ? gru_fwd_kernel<true> : gru_fwd_kernel<false>;
+  if ((e = allow_smem(k, smem)) != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_launch(batch, cluster, threads, smem,
+  cudaLaunchConfig_t cfg = cluster_launch(batch, BT, cluster, threads, smem,
                                           (cudaStream_t)stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, gru_fwd_kernel, batch, T, n, nu, (const bf16*)wp,
+  e = cudaLaunchKernelEx(&cfg, k, batch, T, n, nu, (const bf16*)wp,
                          (const float*)br, (const float*)gate_in, (const float*)h0,
                          (float*)hs, (float*)hT);
   if (e != cudaSuccess) return (int)e;
@@ -630,36 +851,75 @@ extern "C" int lpcnet_gru_train_fwd_warp(int batch, int T, int n, const void* wp
   return (int)cudaGetLastError();
 }
 
-// dbr_part is [ceil(batch / 4) * 4][3n]; dwr_part is [parts][n][3n]. With
-// want_w == 0 only dg, dzh and dh0 are produced.
-extern "C" int lpcnet_gru_train_bwd(int batch, int T, int n, int cluster, int threads,
-                                    const void* wp, const void* wtp, const void* br,
+// The backward's gate pass alone (phase 1 of lpcnet_gru_train_bwd), for
+// holding it against its plain version: z into zb, fz, fr, fh into dg's
+// three gates, fzh into dzh.
+extern "C" int lpcnet_gru_gate_pass(int batch, int T, int n, const void* wrt, const void* br,
                                     const void* gate_in, const void* h0, const void* hs,
-                                    const void* dhs, const void* dhT,
-                                    void* dg, void* dzh, void* dh0, void* dbr_part,
-                                    int want_w, int parts, void* dwr_part,
-                                    void* dwr, void* dbr, void* stream) {
-  if (bad_config(batch, T, n, cluster, threads)) return (int)cudaErrorInvalidValue;
-  if (want_w && parts <= 0) return (int)cudaErrorInvalidValue;
-  const int nu = n / cluster;
+                                    void* dg, void* dzh, void* zb, void* stream) {
+  if (batch <= 0 || T <= 0 || n <= 0 || n % 16 != 0) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)batch * T;
+  dim3 pgrid((n + GP_U - 1) / GP_U, (unsigned)((rows + GP_M - 1) / GP_M));
+  gate_pass_kernel<<<pgrid, 256, 0, (cudaStream_t)stream>>>(
+      batch, T, n, (const bf16*)wrt, (const float*)br, (const float*)gate_in,
+      (const float*)h0, (const float*)hs, (float*)dg, (float*)dzh, (float*)zb);
+  return (int)cudaGetLastError();
+}
+
+// The most clusters of the backward chain's shape the card holds at once; a
+// negative CUDA error code on failure.
+extern "C" int lpcnet_gru_bwd_max_clusters(int streams, int cluster, int threads, int smem) {
+  const ChainKernel k = chain_kernel_for(streams);
+  if (!k) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_launch(64 * streams, streams, cluster, threads, smem, 0, &attr);
+  int count = 0;
+  e = cudaOccupancyMaxActiveClusters(&count, k, &cfg);
+  return e == cudaSuccess ? count : -(int)e;
+}
+
+// The backward: the gate pass, the chain (clusters of `cluster` blocks of
+// `units` units, `streams` streams each; wb the packed rows of Wr, resident
+// in shared memory if `resident`; wrt bf16 Wr^T [3n][n]), then, with
+// want_w, dWr (`parts` row parts) and dbr. dg [B][T][3n], dzh and zb
+// [B][T][n] are written by the gate pass and overwritten by the chain;
+// dbr_part is [ceil(batch / streams) * streams][3n]; dwr_part is
+// [parts][n][3n]. With want_w == 0 only dg, dzh and dh0 are produced.
+extern "C" int lpcnet_gru_train_bwd(int batch, int T, int n, int cluster, int units, int streams,
+                                    int smem, int resident, const void* wb, const void* wrt,
+                                    const void* br, const void* gate_in, const void* h0,
+                                    const void* hs, const void* dhs, const void* dhT, void* dg,
+                                    void* dzh, void* zb, void* dh0, void* dbr_part, int want_w,
+                                    int parts, void* dwr_part, void* dwr, void* dbr,
+                                    void* stream) {
+  if (batch <= 0 || T <= 0 || bad_chain(n, cluster, units, streams) ||
+      (size_t)smem != chain_smem(n, units, streams, resident) || (want_w && parts <= 0))
+    return (int)cudaErrorInvalidValue;
   const int n3 = 3 * n;
-  const size_t smem = sizeof(float) * ((size_t)BT * n + (size_t)2 * BT * n3 +
-                                       (size_t)KG * BT * 3 * nu);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if ((e = allow_smem(gru_bwd_kernel, smem)) != cudaSuccess) return (int)e;
+  const long long rows = (long long)batch * T;
+  dim3 pgrid((n + GP_U - 1) / GP_U, (unsigned)((rows + GP_M - 1) / GP_M));
+  gate_pass_kernel<<<pgrid, 256, 0, s>>>(batch, T, n, (const bf16*)wrt, (const float*)br,
+                                         (const float*)gate_in, (const float*)h0,
+                                         (const float*)hs, (float*)dg, (float*)dzh, (float*)zb);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  const ChainKernel k = chain_kernel_for(streams);
+  if ((e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+      cudaSuccess)
+    return (int)e;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_launch(batch, cluster, threads, smem, s, &attr);
-  e = cudaLaunchKernelEx(&cfg, gru_bwd_kernel, batch, T, n, nu, (const bf16*)wp,
-                         (const bf16*)wtp, (const float*)br, (const float*)gate_in,
-                         (const float*)h0, (const float*)hs, (const float*)dhs,
-                         (const float*)dhT, (float*)dg, (float*)dzh, (float*)dh0,
-                         (float*)dbr_part);
+  cudaLaunchConfig_t cfg = cluster_launch(batch, streams, cluster, streams * units, smem, s, &attr);
+  e = cudaLaunchKernelEx(&cfg, k, batch, T, n, units, resident, (const uint4*)wb,
+                         (const float*)dhs, (const float*)dhT, (float*)dg, (float*)dzh,
+                         (const float*)zb, (float*)dh0, (float*)dbr_part);
   if (e != cudaSuccess) return (int)e;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (!want_w) return 0;
 
-  const long long rows = (long long)batch * T;
   long long rpp = (rows + parts - 1) / parts;
   rpp = (rpp + GT_K - 1) / GT_K * GT_K;
   dim3 ggrid((n + GT_M - 1) / GT_M, (n3 + GT_N - 1) / GT_N, parts);
@@ -670,8 +930,8 @@ extern "C" int lpcnet_gru_train_bwd(int batch, int T, int n, int cluster, int th
   reduce_parts_kernel<<<(wcount + 255) / 256, 256, 0, s>>>(wcount, parts,
                                                            (const float*)dwr_part, (float*)dwr);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const int bparts = (batch + BT - 1) / BT * BT;
-  reduce_parts_kernel<<<(n3 + 255) / 256, 256, 0, s>>>(n3, bparts, (const float*)dbr_part,
+  const int slots = (batch + streams - 1) / streams * streams;
+  reduce_parts_kernel<<<(n3 + 255) / 256, 256, 0, s>>>(n3, slots, (const float*)dbr_part,
                                                        (float*)dbr);
   return (int)cudaGetLastError();
 }

@@ -72,8 +72,28 @@
 //   step's u-law codes while the warps on the other three schedulers run
 //   the next step's GRU-A product.
 // * With every mode word 1 (advance, no teacher-forcing) and the sampler on,
-//   the kernel computes the free-running sample loop, K1's function
-//   (chip_smoke.py holds it so against K1's plain version).
+//   the kernel computes the free-running sample loop, K1's function.
+//
+// K1, the free-running loop (replaces _ar_kernel run with masked=False,
+// sample_loop.py:461, whose first port was ar_kernel<FORM, false> in
+// sample_loop.cu): the template flag FREE. It reads no preload or mode
+// words, has no frozen or teacher-forced branch and always samples. Of the
+// two ways to serve 1024 streams in fewer waves, it splits the tail rather
+// than give warp 0's lanes two streams each: the per-stream tail (GRU-B, the
+// 30 dual-FC nodes, the tree, LPC and PCM) ran redundantly in all C blocks,
+// and it grows with S, so two streams a lane would double every block's
+// tail (and at S = 64 the h_a operand buffers, 100 KB, push GRU-A's slice
+// out of shared memory). Here rank r runs the tail of streams
+// [r SO, r SO + SO), SO = S / C (4 of 32): its GRU-B products are one tile
+// of 8 streams, its node logits a fifth of a round. The new excitation
+// codes (sig_u, pred_u, exc) go from each stream's owner to every block (one
+// 16-byte DSMEM store a stream and block), since the next step's embedding
+// gather in every block needs them: one more cluster barrier a step, where
+// the masked form has a block barrier. Warp 0 no longer caps S at 32: S = 40
+// also fits a block (bf16: GRU-A resident, GRU-B from L2, 224,176 bytes),
+// and 1024 streams take 26 clusters, two waves of 15 in place of three. A
+// single wave (S = 72) does not fit: two h_a operand buffers of 72 streams
+// (113 KB in bf16) and the 110.6 KB slice exceed a block.
 
 #include <cooperative_groups.h>
 
@@ -138,16 +158,20 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 
 // The shared-memory layout of one block, in bytes; the Python side
 // (masked_loop.py::masked_smem_bytes) computes the same total. U, the units
-// of a rank: 16 ceil(Na / (16 C)); Nbp = 16 ceil(Nb / 16).
+// of a rank: 16 ceil(Na / (16 C)); Nbp = 16 ceil(Nb / 16). The free-running
+// form keeps its tail arrays for one tile of 8 streams (TR = 8, else S), its
+// codes four words a stream (one 16-byte store a block) and 8 rows more in
+// each h_a operand buffer (the GRU-B tile of the last rank reads past S).
 struct K2Layout {
-  int u, nbp, ksa, ksbr, ldx, ldb, ldz, ldg;
+  int u, nbp, ksa, ksbr, ldx, ldb, ldz, ldg, hrows;
   size_t wa, wb, hop, hbop, zacc, gacc, haown, hbf, logits, code, table, flags, total;
 };
 
 __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int cluster, int s,
-                                              bool res_a, bool res_b) {
+                                              bool res_a, bool res_b, bool free_) {
   const int ks = form_ks(form), esz = form_esz(form);
   const bool mma = form != FORM_F32;
+  const int tr = free_ ? 8 : s;
   K2Layout L;
   L.u = round_up((na + cluster - 1) / cluster, 16);
   L.nbp = round_up(nb, 16);
@@ -157,19 +181,20 @@ __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int clus
   L.ldb = mma ? L.ksbr * ks + form_xpad(form) : nb + form_xpad(form);
   L.ldz = 3 * L.u + 4;
   L.ldg = 3 * L.nbp + 4;
+  L.hrows = free_ ? s + 8 : s;
   const size_t wslice = mma && res_a ? (size_t)3 * L.u * L.ksa * ks * esz : 0;
   const size_t wbytes = mma && res_b ? (size_t)3 * L.nbp * (L.ksa + L.ksbr) * ks * esz : 0;
   size_t off = 0;
   L.wa = off; off += align16(wslice);
   L.wb = off; off += align16(wbytes);
-  L.hop = off; off += align16((size_t)2 * s * L.ldx * esz);
-  L.hbop = off; off += align16((size_t)s * L.ldb * esz);
+  L.hop = off; off += align16((size_t)2 * L.hrows * L.ldx * esz);
+  L.hbop = off; off += align16((size_t)tr * L.ldb * esz);
   L.zacc = off; off += align16((size_t)s * L.ldz * 4);
-  L.gacc = off; off += align16((size_t)2 * s * L.ldg * 4);
+  L.gacc = off; off += align16((size_t)2 * tr * L.ldg * 4);
   L.haown = off; off += align16((size_t)s * L.u * 4);
-  L.hbf = off; off += align16((size_t)s * nb * 4);
-  L.logits = off; off += align16((size_t)s * 32 * 4);
-  L.code = off; off += align16((size_t)4 * s * 4);
+  L.hbf = off; off += align16((size_t)tr * nb * 4);
+  L.logits = off; off += align16((size_t)tr * 32 * 4);
+  L.code = off; off += align16((size_t)((free_ ? 4 : 3) * s + tr) * 4);
   L.table = off; off += 256 * 4;
   L.flags = off; off += 16;
   L.total = off;
@@ -267,7 +292,7 @@ __device__ __forceinline__ void tile_mma(const uint4* wf, int ksteps,
   out[(2 * t + 1) * ldo + g + 8] = acc[3];
 }
 
-template <int FORM, int NT>
+template <int FORM, int NT, bool FREE>
 __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   typedef typename FormT<FORM>::W W;
   typedef typename FormT<FORM>::Acc Acc;
@@ -278,11 +303,17 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   const int C = p.cluster;
   const int rank = (int)cluster.block_rank();
   const int na = p.na, nb = p.nb, na3 = 3 * na, nb3 = 3 * nb;
-  const K2Layout L = k2_layout(FORM, na, nb, C, S, p.res_a, p.res_b);
+  const K2Layout L = k2_layout(FORM, na, nb, C, S, p.res_a, p.res_b, FREE);
   const int U = L.u, u0 = rank * U, n = p.n_samples, nbp = L.nbp;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b0 = (blockIdx.x / C) * S;
   const int nact = min(S, p.batch - b0);
+  // the streams whose tail (GRU-B to PCM) this block runs: all S in the
+  // masked form; in the free-running form rank r owns [r SO, r SO + SO)
+  const int SO = FREE ? (S + C - 1) / C : S;
+  const int s0 = FREE ? rank * SO : 0;
+  const int so = FREE ? max(0, min(SO, S - s0)) : S;   // this rank's tail streams
+  const int TR = FREE ? 8 : S;                         // tail rows in shared memory
 
   extern __shared__ __align__(16) unsigned char smem[];
   // the packed weights: this rank's GRU-A slice and GRU-B's, in shared
@@ -295,48 +326,50 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   const uint4* wb_g = reinterpret_cast<const uint4*>(p.b_w);
   uint4* wa_s = reinterpret_cast<uint4*>(smem + L.wa);
   uint4* wb_s = reinterpret_cast<uint4*>(smem + L.wb);
-  OT* hop = reinterpret_cast<OT*>(smem + L.hop);          // [2][S][ldx] operand of h_a
-  OT* hbop = reinterpret_cast<OT*>(smem + L.hbop);        // [S][ldb] operand of h_b
+  OT* hop = reinterpret_cast<OT*>(smem + L.hop);          // [2][hrows][ldx] operand of h_a
+  OT* hbop = reinterpret_cast<OT*>(smem + L.hbop);        // [TR][ldb] operand of h_b
   Acc* zacc = reinterpret_cast<Acc*>(smem + L.zacc);      // [S][ldz] GRU-A products
-  Acc* gin = reinterpret_cast<Acc*>(smem + L.gacc);       // [S][ldg] GRU-B input part
-  Acc* grec = gin + S * L.ldg;                            // [S][ldg] GRU-B recurrent part
+  Acc* gin = reinterpret_cast<Acc*>(smem + L.gacc);       // [TR][ldg] GRU-B input part
+  Acc* grec = gin + TR * L.ldg;                           // [TR][ldg] GRU-B recurrent part
   float* haown = reinterpret_cast<float*>(smem + L.haown); // [S][U] this rank's h_a
-  float* hbf = reinterpret_cast<float*>(smem + L.hbf);     // [S][nb] h_b
-  float* logits = reinterpret_cast<float*>(smem + L.logits); // [S][32] visited nodes
-  int* code = reinterpret_cast<int*>(smem + L.code);       // [S][3] sig_u, pred_u, exc
-  int* top = code + 3 * S;                                 // [S] the tree's first 4 bits
+  float* hbf = reinterpret_cast<float*>(smem + L.hbf);     // [TR][nb] h_b
+  float* logits = reinterpret_cast<float*>(smem + L.logits); // [TR][32] visited nodes
+  constexpr int CW = FREE ? 4 : 3;                         // code words a stream
+  int* code = reinterpret_cast<int*>(smem + L.code);       // [S][CW] sig_u, pred_u, exc
+  int* top = code + CW * S;                                // [TR] the tree's first 4 bits
   unsigned* flags = reinterpret_cast<unsigned*>(smem + L.flags); // live, sampler needed
   float* table = reinterpret_cast<float*>(smem + L.table); // [256] threshold logits
+  const int hstride = L.hrows * L.ldx;                     // one operand buffer
 
   // ---- set-up: weights into shared memory, the carried state
   if (F::MMA && p.res_a)
     for (size_t i = tid; i < na_words; i += K2_THREADS) wa_s[i] = wa_g[i];
   if (F::MMA && p.res_b)
     for (size_t i = tid; i < nb_words; i += K2_THREADS) wb_s[i] = wb_g[i];
-  for (int i = tid; i < S * L.ldx; i += K2_THREADS) {
+  for (int i = tid; i < hstride; i += K2_THREADS) {
     const int s = i / L.ldx, k = i % L.ldx;
     const float h = (s < nact && k < na) ? p.ha_in[(size_t)(b0 + s) * na + k] : 0.f;
     hop[i] = OpT<FORM>::of(h);
-    hop[S * L.ldx + i] = OpT<FORM>::of(0.f);
+    hop[hstride + i] = OpT<FORM>::of(0.f);
   }
   for (int i = tid; i < S * U; i += K2_THREADS) {
     const int s = i / U, u = u0 + i % U;
     haown[i] = s < nact && u < na ? p.ha_in[(size_t)(b0 + s) * na + u] : 0.f;
   }
-  for (int i = tid; i < S * L.ldb; i += K2_THREADS) {
-    const int s = i / L.ldb, k = i % L.ldb;
-    const float h = (s < nact && k < nb) ? p.hb_in[(size_t)(b0 + s) * nb + k] : 0.f;
+  for (int i = tid; i < TR * L.ldb; i += K2_THREADS) {
+    const int sl = i / L.ldb, k = i % L.ldb, s = s0 + sl;
+    const float h = (sl < so && s < nact && k < nb) ? p.hb_in[(size_t)(b0 + s) * nb + k] : 0.f;
     hbop[i] = OpT<FORM>::of(h);
-    if (k < nb) hbf[s * nb + k] = h;
+    if (k < nb) hbf[sl * nb + k] = h;
   }
 
-  // warp 0, lane s: stream s's scalar state, in registers
-  const int s_own = lane;
-  const bool own_on = warp == 0 && s_own < nact;
+  // warp 0, lane l: stream s0 + l's scalar state, in registers
+  const int s_own = s0 + lane;
+  const bool own_on = warp == 0 && lane < so && s_own < nact;
   float sig[LPC_ORDER], lpc[LPC_ORDER];
   unsigned st[4] = {1u, 1u, 1u, 1u};
   float de = 0.f, pred = 0.f, pl_cur = 0.f, pl_next = 0.f;
-  int m_cur = 0, m_next = 0, exc = 0;
+  int m_cur = 1, m_next = 1, exc = 0;
   unsigned r2_keep = 0;                     // the second KISS99 word of a sampled step
 #pragma unroll
   for (int j = 0; j < LPC_ORDER; ++j) sig[j] = lpc[j] = 0.f;
@@ -351,10 +384,12 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
     exc = p.exc_in[g];
 #pragma unroll
     for (int k = 0; k < 4; ++k) st[k] = (unsigned)p.rng_in[g * 4 + k];
-    m_next = p.mode[g * n];
-    pl_next = p.preload[g * n];
+    if constexpr (!FREE) {
+      m_next = p.mode[g * n];
+      pl_next = p.preload[g * n];
+    }
   }
-  if (warp == 0 && s_own < S) code[3 * s_own + 2] = exc;
+  if (!FREE && warp == 0 && lane < S) code[CW * lane + 2] = exc;
   for (int i = tid; i < 256; i += K2_THREADS) table[i] = p.logit_table[i];
   cluster.sync();   // every block runs and is set up before remote stores
 
@@ -363,15 +398,15 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
     if (warp == 0) {
       if (t > 0 && own_on) {
         const size_t po = (size_t)(b0 + s_own) * n + (t - 1);
-        if (!(m_cur & 1)) {
+        if (!FREE && !(m_cur & 1)) {
           if (rank == 0) p.pcm[po] = 0.f;      // advance off: frozen, sample 0
         } else {
           int val = 0;
-          if (p.sampled && !(m_cur & 2)) {
+          if (FREE || (p.sampled && !(m_cur & 2))) {
             // levels 4-7; the words were drawn and levels 0-3 descended
             // mid-step. At level 4 + lb the node is (1 << (4 + lb)) | val.
-            val = top[s_own];
-            const float* lg = logits + s_own * 32 + 16;
+            val = top[lane];
+            const float* lg = logits + lane * 32 + 16;
 #pragma unroll
             for (int lb = 0; lb < 4; ++lb) {
               const unsigned byte = (r2_keep >> (8 * lb)) & 0xFFu;
@@ -384,7 +419,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
             kiss99(st);
           }
           float pcm;
-          if (m_cur & 2) {
+          if (!FREE && (m_cur & 2)) {
             // teacher-force: the target gives the sample and its excitation
             pcm = __fsub_rn(pl_cur, __fmul_rn(PREEMPH, de));
             val = lin2ulaw(__fsub_rn(pcm, pred));
@@ -395,9 +430,10 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
           for (int j = LPC_ORDER - 1; j > 0; --j) sig[j] = sig[j - 1];
           sig[0] = pcm;
           exc = val;
-          code[3 * s_own + 2] = val;
+          if (!FREE) code[CW * s_own + 2] = val;
           de = __fadd_rn(pcm, __fmul_rn(PREEMPH, de));
-          if (rank == 0) p.pcm[po] = floorf(__fadd_rn(0.5f, fminf(fmaxf(de, -32767.f), 32767.f)));
+          if (FREE || rank == 0)
+            p.pcm[po] = floorf(__fadd_rn(0.5f, fminf(fmaxf(de, -32767.f), 32767.f)));
         }
       }
       if (t == n) break;
@@ -407,25 +443,35 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
 #pragma unroll
         for (int j = 0; j < LPC_ORDER; ++j) acc = __fadd_rn(acc, __fmul_rn(sig[j], lpc[j]));
         pred = -acc;
-        code[3 * s_own] = lin2ulaw(sig[0]);
-        code[3 * s_own + 1] = lin2ulaw(-acc);
-        m = m_cur = m_next;
-        pl_cur = pl_next;
-        if (t + 1 < n) {                    // next step's words, a step ahead
-          const size_t g = (size_t)(b0 + s_own) * n + t + 1;
-          m_next = p.mode[g];
-          pl_next = p.preload[g];
+        if constexpr (FREE) {
+          // the step's codes to every block of the cluster: the gate phase
+          // gathers the embedding rows of all S streams
+          const int4 c4 = make_int4(lin2ulaw(sig[0]), lin2ulaw(-acc), exc, 0);
+          for (int c = 0; c < C; ++c)
+            *reinterpret_cast<int4*>(cluster.map_shared_rank(code, c) + CW * s_own) = c4;
+        } else {
+          code[CW * s_own] = lin2ulaw(sig[0]);
+          code[CW * s_own + 1] = lin2ulaw(-acc);
+          m = m_cur = m_next;
+          pl_cur = pl_next;
+          if (t + 1 < n) {                  // next step's words, a step ahead
+            const size_t g = (size_t)(b0 + s_own) * n + t + 1;
+            m_next = p.mode[g];
+            pl_next = p.preload[g];
+          }
         }
       }
-      const unsigned live = __ballot_sync(0xffffffffu, own_on && (m & 1));
-      const unsigned need = __ballot_sync(0xffffffffu, own_on && (m & 1) && !(m & 2));
-      if (lane == 0) {
-        flags[0] = live;
-        flags[1] = p.sampled ? need : 0u;
+      if constexpr (!FREE) {
+        const unsigned live = __ballot_sync(0xffffffffu, own_on && (m & 1));
+        const unsigned need = __ballot_sync(0xffffffffu, own_on && (m & 1) && !(m & 2));
+        if (lane == 0) {
+          flags[0] = live;
+          flags[1] = p.sampled ? need : 0u;
+        }
       }
     } else if (t < n) {
       // ---- warps 1..: GRU-A's product of step t on the operand of h_a
-      const OT* cur = hop + (t & 1) * S * L.ldx;
+      const OT* cur = hop + (t & 1) * hstride;
       if constexpr (F::MMA) {
         // warps 4 and 8 share warp 0's scheduler, whose tree and codes are
         // the step's critical path: the other nine take the tiles
@@ -464,13 +510,15 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       }
     }
     if (t == n) break;
-    __syncthreads();
-    const unsigned live = flags[0];
-    const unsigned need = flags[1];
+    // free-running: every block's codes of step t have arrived
+    if constexpr (FREE) cluster.sync(); else __syncthreads();
+    const unsigned live = FREE ? 0u : flags[0];
+    const unsigned need = FREE ? 0u : flags[1];
+    auto is_live = [&](int s) { return FREE ? s < nact : ((live >> s) & 1u) != 0u; };
 
     // ---- gate phase: thread (stream, unit) forms its new h_a and its operand
     // copy, then the block sends its slice to every block of the cluster
-    OT* nxt = hop + ((t + 1) & 1) * S * L.ldx;
+    OT* nxt = hop + ((t + 1) & 1) * hstride;
     for (int i0 = tid; i0 < S * U; i0 += NT * K2_THREADS) {
       // this thread's pairs' reads from L2 first, all in flight together
       float g[NT][3], bias[NT][3], diag[NT][3];
@@ -478,10 +526,10 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       for (int pp = 0; pp < NT; ++pp) {
         const int i = i0 + pp * K2_THREADS;
         const int s = i / U, u = u0 + i % U;
-        if (i >= S * U || !((live >> s) & 1u) || u >= na) continue;
+        if (i >= S * U || !is_live(s) || u >= na) continue;
         const float* ca = p.cond_a + (size_t)(b0 + s) * na3;
-        const size_t r0 = (size_t)code[3 * s] * na3, r1 = (size_t)(256 + code[3 * s + 1]) * na3,
-                     r2 = (size_t)(512 + code[3 * s + 2]) * na3;
+        const size_t r0 = (size_t)code[CW * s] * na3, r1 = (size_t)(256 + code[CW * s + 1]) * na3,
+                     r2 = (size_t)(512 + code[CW * s + 2]) * na3;
         const W* emb = (const W*)p.emb;
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
@@ -504,7 +552,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         if (i >= S * U) break;
         const int s = i / U, j = i % U, u = u0 + j;
         float h = haown[i];
-        if (((live >> s) & 1u) && u < na) {
+        if (is_live(s) && u < na) {
           float zr[3];
 #pragma unroll
           for (int q = 0; q < 3; ++q) {
@@ -537,15 +585,21 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
     // buffer the next step overwrites
     cluster.sync();
 
-    // ---- GRU-B's products on the new h_a and the old h_b
-    if constexpr (F::MMA) {
+    // ---- GRU-B's products on the new h_a and the old h_b, for the tail
+    // streams: all S (masked) or this rank's tile of 8 rows from s0
+    // (free-running; rows past its SO streams are computed and unused)
+    if (so == 0) {
+      // a rank past the last stream has no tail
+    } else if constexpr (F::MMA) {
+      constexpr int NTB = FREE ? 1 : NT;
       const int mtb = 3 * nbp / 16;
       const int ksb = L.ksa + L.ksbr;
-      for (int task = warp; task < 2 * mtb * NT; task += K2_WARPS) {
-        const int part = task / (mtb * NT), mt = task % mtb, nt = (task / mtb) % NT;
+      const OT* xa = nxt + s0 * L.ldx;
+      for (int task = warp; task < 2 * mtb * NTB; task += K2_WARPS) {
+        const int part = task / (mtb * NTB), mt = task % mtb, nt = (task / mtb) % NTB;
         auto gru_b_tile = [&](const uint4* wb) {
           if (part == 0)
-            tile_mma<FORM>(wb + (size_t)mt * ksb * 32, L.ksa, nxt + nt * 8 * L.ldx, L.ldx,
+            tile_mma<FORM>(wb + (size_t)mt * ksb * 32, L.ksa, xa + nt * 8 * L.ldx, L.ldx,
                            gin + nt * 8 * L.ldg + mt * 16, L.ldg, lane);
           else
             tile_mma<FORM>(wb + ((size_t)mt * ksb + L.ksa) * 32, L.ksbr, hbop + nt * 8 * L.ldb,
@@ -554,30 +608,30 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         if (p.res_b) gru_b_tile(wb_s); else gru_b_tile(wb_g);
       }
     } else {
-      for (int o = tid; o < S * nb3; o += K2_THREADS) {
-        const int s = o / nb3, c = o % nb3;
+      for (int o = tid; o < so * nb3; o += K2_THREADS) {
+        const int sl = o / nb3, c = o % nb3, s = s0 + sl;
         float ai = 0.f, ar = 0.f;
 #pragma unroll 16
         for (int k = 0; k < na; ++k) ai += nxt[s * L.ldx + k] * __ldg(p.b_in + (size_t)k * nb3 + c);
-        for (int k = 0; k < nb; ++k) ar += hbop[s * L.ldb + k] * __ldg(p.b_rec + (size_t)k * nb3 + c);
+        for (int k = 0; k < nb; ++k) ar += hbop[sl * L.ldb + k] * __ldg(p.b_rec + (size_t)k * nb3 + c);
         const int pc = (c / nb) * nbp + c % nb;       // the padded layout's column
-        gin[s * L.ldg + pc] = ai;
-        grec[s * L.ldg + pc] = ar;
+        gin[sl * L.ldg + pc] = ai;
+        grec[sl * L.ldg + pc] = ar;
       }
     }
     __syncthreads();
 
-    // ---- GRU-B's update, thread (stream, unit)
-    for (int i = tid; i < S * nb; i += K2_THREADS) {
-      const int s = i / nb, u = i % nb;
+    // ---- GRU-B's update, thread (tail stream, unit)
+    for (int i = tid; i < so * nb; i += K2_THREADS) {
+      const int sl = i / nb, u = i % nb, s = s0 + sl;
       float h = hbf[i];
-      if ((live >> s) & 1u) {
+      if (is_live(s)) {
         const float* cb = p.cond_b + (size_t)(b0 + s) * nb3;
         float gi[3], gr[3];
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           const int c = q * nb + u;
-          const Acc ai = gin[s * L.ldg + q * nbp + u], ar = grec[s * L.ldg + q * nbp + u];
+          const Acc ai = gin[sl * L.ldg + q * nbp + u], ar = grec[sl * L.ldg + q * nbp + u];
           if (FORM == FORM_Q8) {
             gi[q] = __fadd_rn(cb[c], __fmul_rn((float)ai, Q8_SCALE));
             gr[q] = __fadd_rn(__fmul_rn((float)ar, Q8_SCALE), p.b_bias1[c]);
@@ -588,23 +642,26 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         }
         h = gru_out(gi[0], gr[0], gi[1], gr[1], gi[2], gr[2], h);
         hbf[i] = h;
-        hbop[s * L.ldb + u] = OpT<FORM>::of(h);
+        hbop[sl * L.ldb + u] = OpT<FORM>::of(h);
       }
     }
     __syncthreads();
 
-    // ---- the dual-FC logits of the nodes the tree visits, for the streams
-    // that sample: the 15 nodes of levels 0-3; warp 0 draws the step's two
-    // KISS99 words and descends levels 0-3; then the 15 nodes of levels 4-7
-    // under the node reached. Levels 4-7 are descended in the next step's
-    // first phase.
-    if (need) {
-      for (int o = tid; o < S * 15; o += K2_THREADS) {
-        const int s = o / 15, j = o % 15;
-        if ((need >> s) & 1u) logits[s * 32 + j] = node_logit(p, hbf + s * nb, nb, j + 1);
+    // ---- the dual-FC logits of the nodes the tree visits, for the tail
+    // streams that sample: the 15 nodes of levels 0-3; warp 0 draws the
+    // step's two KISS99 words and descends levels 0-3; then the 15 nodes of
+    // levels 4-7 under the node reached. Levels 4-7 are descended in the
+    // next step's first phase.
+    auto samples = [&](int sl) {
+      return FREE ? s0 + sl < nact : ((need >> sl) & 1u) != 0u;
+    };
+    if (FREE ? so > 0 && s0 < nact : need != 0u) {
+      for (int o = tid; o < so * 15; o += K2_THREADS) {
+        const int sl = o / 15, j = o % 15;
+        if (samples(sl)) logits[sl * 32 + j] = node_logit(p, hbf + sl * nb, nb, j + 1);
       }
       __syncthreads();
-      if (warp == 0 && ((need >> lane) & 1u)) {
+      if (warp == 0 && lane < so && samples(lane)) {
         const unsigned r1 = kiss99(st);
         r2_keep = kiss99(st);
         int val = 0;
@@ -617,24 +674,26 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         top[lane] = val;
       }
       __syncthreads();
-      for (int o = tid; o < S * 15; o += K2_THREADS) {
-        const int s = o / 15, j = o % 15;
-        if (!((need >> s) & 1u)) continue;
+      for (int o = tid; o < so * 15; o += K2_THREADS) {
+        const int sl = o / 15, j = o % 15;
+        if (!samples(sl)) continue;
         const int lb = j >= 7 ? 3 : (j >= 3 ? 2 : (j >= 1 ? 1 : 0));
-        const int nd = (1 << (4 + lb)) | (top[s] << lb) | (j + 1 - (1 << lb));
-        logits[s * 32 + 16 + j] = node_logit(p, hbf + s * nb, nb, nd);
+        const int nd = (1 << (4 + lb)) | (top[sl] << lb) | (j + 1 - (1 << lb));
+        logits[sl * 32 + 16 + j] = node_logit(p, hbf + sl * nb, nb, nd);
       }
     }
     __syncthreads();
   }
 
-  // ---- the carried state: each rank its own h_a units, rank 0 the rest
+  // ---- the carried state: each rank its own h_a units, the tail's owner
+  // (rank 0 in the masked form) the rest
   __syncthreads();
   for (int i = tid; i < nact * U; i += K2_THREADS)
     if (u0 + i % U < na) p.ha_out[(size_t)(b0 + i / U) * na + u0 + i % U] = haown[i];
-  if (rank != 0) return;
-  for (int i = tid; i < nact * nb; i += K2_THREADS)
-    p.hb_out[(size_t)(b0 + i / nb) * nb + i % nb] = hbf[i];
+  if (!FREE && rank != 0) return;
+  const int ntail = max(0, min(so, nact - s0));
+  for (int i = tid; i < ntail * nb; i += K2_THREADS)
+    p.hb_out[(size_t)(b0 + s0 + i / nb) * nb + i % nb] = hbf[i];
   if (own_on) {
     const size_t g = (size_t)(b0 + s_own);
 #pragma unroll
@@ -648,18 +707,28 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
 
 typedef void (*K2Kernel)(K2Args);
 
-// the kernel of a form and a stream tiling (S = 8 nt), null if there is none
-K2Kernel kernel_for(int form, int nt) {
-  switch (form * 8 + nt) {
-    case FORM_F32 * 8 + 1: return masked_loop_kernel<FORM_F32, 1>;
-    case FORM_F32 * 8 + 2: return masked_loop_kernel<FORM_F32, 2>;
-    case FORM_F32 * 8 + 4: return masked_loop_kernel<FORM_F32, 4>;
-    case FORM_BF16 * 8 + 1: return masked_loop_kernel<FORM_BF16, 1>;
-    case FORM_BF16 * 8 + 2: return masked_loop_kernel<FORM_BF16, 2>;
-    case FORM_BF16 * 8 + 4: return masked_loop_kernel<FORM_BF16, 4>;
-    case FORM_Q8 * 8 + 1: return masked_loop_kernel<FORM_Q8, 1>;
-    case FORM_Q8 * 8 + 2: return masked_loop_kernel<FORM_Q8, 2>;
-    case FORM_Q8 * 8 + 4: return masked_loop_kernel<FORM_Q8, 4>;
+// the kernel of a form, a stream tiling (S = 8 nt) and the free-running
+// flag, null if there is none. The free-running form (K1) has bf16 and q8
+// instantiations only: in f32 K1 runs sample_loop.cu's kernel.
+K2Kernel kernel_for(int form, int nt, int free_) {
+  switch ((free_ ? 64 : 0) + form * 8 + nt) {
+    case FORM_F32 * 8 + 1: return masked_loop_kernel<FORM_F32, 1, false>;
+    case FORM_F32 * 8 + 2: return masked_loop_kernel<FORM_F32, 2, false>;
+    case FORM_F32 * 8 + 4: return masked_loop_kernel<FORM_F32, 4, false>;
+    case FORM_BF16 * 8 + 1: return masked_loop_kernel<FORM_BF16, 1, false>;
+    case FORM_BF16 * 8 + 2: return masked_loop_kernel<FORM_BF16, 2, false>;
+    case FORM_BF16 * 8 + 4: return masked_loop_kernel<FORM_BF16, 4, false>;
+    case FORM_Q8 * 8 + 1: return masked_loop_kernel<FORM_Q8, 1, false>;
+    case FORM_Q8 * 8 + 2: return masked_loop_kernel<FORM_Q8, 2, false>;
+    case FORM_Q8 * 8 + 4: return masked_loop_kernel<FORM_Q8, 4, false>;
+    case 64 + FORM_BF16 * 8 + 1: return masked_loop_kernel<FORM_BF16, 1, true>;
+    case 64 + FORM_BF16 * 8 + 2: return masked_loop_kernel<FORM_BF16, 2, true>;
+    case 64 + FORM_BF16 * 8 + 4: return masked_loop_kernel<FORM_BF16, 4, true>;
+    case 64 + FORM_BF16 * 8 + 5: return masked_loop_kernel<FORM_BF16, 5, true>;
+    case 64 + FORM_Q8 * 8 + 1: return masked_loop_kernel<FORM_Q8, 1, true>;
+    case 64 + FORM_Q8 * 8 + 2: return masked_loop_kernel<FORM_Q8, 2, true>;
+    case 64 + FORM_Q8 * 8 + 4: return masked_loop_kernel<FORM_Q8, 4, true>;
+    case 64 + FORM_Q8 * 8 + 5: return masked_loop_kernel<FORM_Q8, 5, true>;
     default: return nullptr;
   }
 }
@@ -683,10 +752,12 @@ cudaLaunchConfig_t k2_config(int grid, int cluster, int smem, cudaStream_t strea
 }  // namespace
 
 // The most clusters of `cluster` blocks with `smem` bytes each that the card
-// holds at once for form `form` (0 f32, 1 bf16, 2 q8) and nt stream tiles
-// (S = 8 nt); a negative CUDA error code on failure.
-extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int cluster, int smem) {
-  const K2Kernel k = kernel_for(form, nt);
+// holds at once for form `form` (0 f32, 1 bf16, 2 q8), nt stream tiles
+// (S = 8 nt) and the free-running flag; a negative CUDA error code on
+// failure.
+extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int free_, int cluster,
+                                               int smem) {
+  const K2Kernel k = kernel_for(form, nt, free_);
   if (!k) return -(int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return -(int)e;
@@ -701,9 +772,12 @@ extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int cluster, in
 // q8 packed GRU-B weights (null in f32); b_in, b_rec: f32 only; res_a,
 // res_b: keep the packed weights in shared memory; smem: the layout's total
 // (masked_loop.py::masked_smem_bytes); preload [B, n] f32, mode [B, n] int32
-// (advance | teacher_force << 1); the rest as K1's lpcnet_sample_loop.
+// (advance | teacher_force << 1); the rest as K1's sample_loop.cu entries.
+// With free_ (K1: the free-running form) preload and mode are not read and
+// may be null, and sampled must be 1.
 extern "C" int lpcnet_masked_loop(
-    int form, int nt, int cluster, int smem, int res_a, int res_b, int batch, int na, int nb,
+    int form, int nt, int free_, int cluster, int smem, int res_a, int res_b, int batch, int na,
+    int nb,
     int n_samples, int sampled, const void* emb, const void* emb_scale, const void* a_w,
     const void* a_diag, const void* a_bias1, const void* b_w, const void* b_in,
     const void* b_rec, const void* b_bias1, const void* dual_w, const void* dual_bias,
@@ -712,11 +786,12 @@ extern "C" int lpcnet_masked_loop(
     const void* exc_in, const void* de_in, const void* rng_in, void* ha_out, void* hb_out,
     void* sig_out, void* exc_out, void* de_out, void* rng_out, void* pcm, const void* preload,
     const void* mode, void* stream) {
-  const K2Kernel k = kernel_for(form, nt);
-  if (!k || batch <= 0 || n_samples <= 0 || !preload || !mode || cluster < 1 || cluster > 8 ||
-      na <= 0 || nb <= 0 || (form == FORM_F32 && (res_a || res_b)))
+  const K2Kernel k = kernel_for(form, nt, free_);
+  if (!k || batch <= 0 || n_samples <= 0 || (!free_ && (!preload || !mode)) || cluster < 1 ||
+      cluster > 8 || na <= 0 || nb <= 0 || (form == FORM_F32 && (res_a || res_b)) ||
+      (free_ && (!sampled || (8 * nt + cluster - 1) / cluster > 8)))
     return (int)cudaErrorInvalidValue;
-  if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b).total)
+  if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b, free_).total)
     return (int)cudaErrorInvalidValue;
   K2Args a;
   a.batch = batch; a.na = na; a.nb = nb; a.n_samples = n_samples; a.sampled = sampled;

@@ -1,8 +1,11 @@
-// K1, K6 and K3: the LPCNet autoregressive sample loop, one frame per
+// K1 (f32), K6 and K3: the LPCNet autoregressive sample loop, one frame per
 // launch, free-running (K1) or free-running with each GRU's products merged
 // into one (K6); and the GRU-only teacher-forced run over several
 // conditioning blocks (K3, at the end of this file). The masked form (K2)
-// has a kernel of its own, redesigned for Hopper: masked_loop.cu.
+// has a kernel of its own, redesigned for Hopper: masked_loop.cu, whose
+// free-running form is K1 in bf16 and q8 (in f32 this first design is the
+// faster at 1024 streams: K2's f32 form reads GRU-A's weights from L2 on the
+// CUDA cores for S streams a cluster).
 //
 // Replaces the TPU kernel lpcnet_tpu/kernels/sample_loop.py::_ar_kernel, run
 // free (masked=False, sampled=True: K1), with its helpers _gru_ab,
@@ -435,14 +438,6 @@ static cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-static int launch_form(int form, const Args& a, cudaStream_t s) {
-  switch (form) {
-    case FORM_F32: return (int)launch<FORM_F32>(a, s);
-    case FORM_BF16: return (int)launch<FORM_BF16>(a, s);
-    case FORM_Q8: return (int)launch<FORM_Q8>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 #define SAMPLE_LOOP_PARAMS \
     int form, int batch, int na, int nb, int n_samples, \
@@ -480,11 +475,12 @@ static Args make_args(SAMPLE_LOOP_PARAMS) {
   return a;
 }
 
-// K1: free-running
+// K1 in the f32 form: free-running. The bf16 and q8 forms run the
+// free-running form of masked_loop.cu's cluster kernel.
 extern "C" int lpcnet_sample_loop(SAMPLE_LOOP_PARAMS, void* stream) {
-  if (batch <= 0 || n_samples <= 0) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || n_samples <= 0 || form != FORM_F32) return (int)cudaErrorInvalidValue;
   const Args a = make_args(SAMPLE_LOOP_ARGS);
-  return launch_form(form, a, (cudaStream_t)stream);
+  return (int)launch<FORM_F32>(a, (cudaStream_t)stream);
 }
 
 // K6: free-running, merged products. a_merged [768+Na, 4Na] and b_merged

@@ -18,6 +18,14 @@ package leaves it to XLA.
 * `gru_recurrence_plain` is the kernel's plain PyTorch version: the same
   casts, step by step, differentiated by autograd. The CPU runs it and the
   chip check holds the kernel against it.
+* The backward runs in three phases, each with a plain version used by the
+  tests and the chip check: `gate_pass_plain` (the gates and the factors
+  that turn d = dh + dhs into the step's gradients, for all rows at once:
+  they depend on the forward's hs alone), `chain_plain` (the dependent
+  reverse-time chain dh_{t-1} = d z + bf16(dzrec) . bf16(Wr^T)) and
+  `dwr_plain`; `rec_backward_plain` composes them (the counterpart of the
+  JAX package's `_rec_backward`). `bwd_launch_config` shapes the chain's
+  clusters and `pack_bwd_weights` packs each rank's rows of Wr.
 * `gru_recurrence` dispatches on the device of `gate_in`: CPU -> plain, CUDA
   -> `GruRecurrence` (the kernels; a build or launch failure raises), any
   other device raises.
@@ -38,6 +46,8 @@ import ctypes
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from .masked_loop import SMEM_LIMIT, pack_tiles
 
 # split of the (batch * steps) rows of the dWr product into partial sums:
 # enough blocks to fill the card several times over
@@ -82,6 +92,65 @@ def gru_recurrence_plain(wr, br, gate_in, h0):
     return torch.stack(out, dim=1), h
 
 
+def _hprev(h0, hs):
+    return torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+
+
+def gate_pass_plain(wr, br, gate_in, h0, hs):
+    """Phase 1 of the backward: for every row (b, t) and unit, from
+    hprev = [h0, hs[:-1]], z and the factors fz, fr, fh, fzh that make the
+    step's gradients from d = dh + dhs: dgate_in = d [fz | fr | fh],
+    dzrec = d [fz | fr | fzh]. Returns (z, fz, fr, fh, fzh), each [B, T, N],
+    in the kernel's arithmetic."""
+    n = h0.shape[-1]
+    hp = _hprev(h0, hs)
+    zrec = torch.matmul(_bf16(hp), _bf16(wr)) + br
+    z = torch.sigmoid(gate_in[..., :n] + zrec[..., :n])
+    r = torch.sigmoid(gate_in[..., n:2 * n] + zrec[..., n:2 * n])
+    hc = torch.tanh(gate_in[..., 2 * n:] + r * zrec[..., 2 * n:])
+    om = 1.0 - z
+    fh = om * (1.0 - hc * hc)
+    return (z, (hp - hc) * (z * om), (fh * zrec[..., 2 * n:]) * (r * (1.0 - r)),
+            fh, fh * r)
+
+
+def chain_plain(wr, factors, dhs, dht):
+    """Phase 2: the reverse-time chain. factors = `gate_pass_plain`'s,
+    dhs [B, T, N], dht [B, N] -> (dgate_in [B, T, 3N], dzh [B, T, N] (the
+    candidate part of dzrec), dh0 [B, N], dbr [3N]); per step
+    d = dh + dhs, dh <- d z + bf16(dzrec) . bf16(Wr^T)."""
+    z, fz, fr, fh, fzh = factors
+    wt = _bf16(wr).t()
+    dh = dht
+    dg, dzh, dbr = [], [], 0.0
+    for t in reversed(range(z.shape[1])):
+        d = dh + dhs[:, t]
+        dpz, dpr, dph, dzv = d * fz[:, t], d * fr[:, t], d * fh[:, t], d * fzh[:, t]
+        dg.append(torch.cat([dpz, dpr, dph], dim=-1))
+        dzh.append(dzv)
+        dzrec = torch.cat([dpz, dpr, dzv], dim=-1)
+        dbr = dbr + dzrec
+        dh = d * z[:, t] + torch.matmul(_bf16(dzrec), wt)
+    return (torch.stack(dg[::-1], dim=1), torch.stack(dzh[::-1], dim=1), dh,
+            dbr.sum(dim=0))
+
+
+def dwr_plain(h0, hs, dg, dzh):
+    """Phase 3: dWr = sum over rows of bf16(hprev)^T . bf16(dzrec)."""
+    n = h0.shape[-1]
+    hp = _hprev(h0, hs).reshape(-1, n)
+    dzrec = torch.cat([dg[..., :2 * n], dzh], dim=-1).reshape(-1, 3 * n)
+    return torch.matmul(_bf16(hp).t(), _bf16(dzrec))
+
+
+def rec_backward_plain(wr, br, gate_in, h0, hs, dhs, dht):
+    """The three phases composed: (dgate_in, dh0, dWr, dbr), in the order
+    of the JAX package's `_rec_backward`."""
+    factors = gate_pass_plain(wr, br, gate_in, h0, hs)
+    dg, dzh, dh0, dbr = chain_plain(wr, factors, dhs, dht)
+    return dg, dh0, dwr_plain(h0, hs, dg, dzh), dbr
+
+
 # --------------------------------------------------------------------------
 # CUDA wrapper
 # --------------------------------------------------------------------------
@@ -99,27 +168,93 @@ def _lib():
         lib.lpcnet_gru_train_fwd.restype = ci
         lib.lpcnet_gru_train_fwd_warp.argtypes = [ci] * 3 + [vp] * 7
         lib.lpcnet_gru_train_fwd_warp.restype = ci
-        lib.lpcnet_gru_train_bwd.argtypes = ([ci] * 5 + [vp] * 12 + [ci, ci]
+        lib.lpcnet_gru_train_bwd.argtypes = ([ci] * 8 + [vp] * 13 + [ci, ci]
                                              + [vp] * 4)
         lib.lpcnet_gru_train_bwd.restype = ci
+        lib.lpcnet_gru_gate_pass.argtypes = [ci] * 3 + [vp] * 9
+        lib.lpcnet_gru_gate_pass.restype = ci
+        lib.lpcnet_gru_bwd_max_clusters.argtypes = [ci] * 4
+        lib.lpcnet_gru_bwd_max_clusters.restype = ci
         _LIB = lib
     return _LIB
 
 
-STREAMS_PER_CLUSTER = 4
-
-
-def launch_config(n: int):
-    """(blocks per cluster, threads per block) for N units. A cluster of
-    thread blocks owns 4 streams; at N >= 256 it has 4 blocks, each with a
-    quarter of the units, else one block. A block runs 4 threads per unit
-    it owns (the k range of a product in 4 parts, then one thread per
-    stream and unit)."""
+def _check_units(n: int) -> None:
     if n <= 0 or n % 16 or n > 1024:
         raise ValueError(
             f"GRU training kernel: {n} units (needs a multiple of 16, <= 1024)")
+
+
+def launch_config(n: int):
+    """The forward's (blocks per cluster, threads per block) for N units. A
+    cluster of thread blocks owns 4 streams; at N >= 256 it has 4 blocks,
+    each with a quarter of the units, else one block. A block runs 4
+    threads per unit it owns (the k range of a product in 4 parts, then one
+    thread per stream and unit)."""
+    _check_units(n)
     cluster = 4 if n >= 256 else 1
     return cluster, 4 * (n // cluster)
+
+
+BWD_STREAMS = (8, 16)        # streams a cluster of the backward chain
+BWD_MAX_THREADS = 1024
+
+
+def bwd_cluster_shape(n: int) -> tuple[int, int]:
+    """(C, U) of the backward chain: C = min(8, N / 16) blocks, rank r
+    owning units [r U, r U + U), U = 16 ceil(N / 16 C) (U = 48 at N = 384;
+    the units past N are padding)."""
+    _check_units(n)
+    c = min(8, n // 16)
+    return c, 16 * -(-n // (16 * c))
+
+
+def bwd_smem_bytes(n: int, streams: int, resident: bool) -> int:
+    """Shared memory of one chain block, bytes (the csrc chain_smem): the
+    rank's packed rows of Wr if resident (U x 3N bf16), the dzrec rows of
+    two steps ([2][S][3N + 8] bf16) and the S / 2 k parts' sums
+    ([S/2][S][U] f32)."""
+    _, u = bwd_cluster_shape(n)
+    return ((u * 3 * n * 2 if resident else 0) + 2 * streams * (3 * n + 8) * 2
+            + streams // 2 * streams * u * 4)
+
+
+def bwd_launch_config(batch: int, n: int, max_clusters):
+    """The chain's launch for `batch` streams of an N-unit GRU:
+    {"cluster": C, "units": U, "streams": S, "threads": S U, "clusters":
+    ceil(batch / S), "smem": bytes a block, "resident": Wr's rows in shared
+    memory, "waves"}. A thread owns one (stream, unit), so S U <= 1024.
+    `max_clusters(streams, smem)` is how many such clusters the card holds
+    at once (the card's answer on CUDA). S is the smallest of 8 and 16
+    whose clusters fit one wave, else the largest allowed (in waves). A
+    rank keeps its rows of Wr in shared memory where they fit beside the
+    rest (up to N = 384 at S = 16, 448 at S = 8), else reads them from L2."""
+    if batch <= 0:
+        raise ValueError(f"GRU training kernel: batch {batch}")
+    c, u = bwd_cluster_shape(n)
+    allowed = [s for s in BWD_STREAMS if s * u <= BWD_MAX_THREADS]
+    for s in allowed:
+        resident = bwd_smem_bytes(n, s, True) <= SMEM_LIMIT
+        smem = bwd_smem_bytes(n, s, resident)
+        held = max_clusters(s, smem)
+        if -(-batch // s) <= held or s == allowed[-1]:
+            break
+    clusters = -(-batch // s)
+    return {"cluster": c, "units": u, "streams": s, "threads": s * u,
+            "clusters": clusters, "smem": smem, "resident": resident,
+            "waves": -(-clusters // held)}
+
+
+def pack_bwd_weights(wr: torch.Tensor) -> torch.Tensor:
+    """Wr [N, 3N] -> [C, U / 16, 3N / 16, 32, 8] bf16: rank r's rows (units
+    r U .. r U + U, zero past N) as the A operand of the chain's product
+    dh^T = Wr_rank . dzrec^T, in `mma.sync` m16n8k16 fragment order
+    (`masked_loop.pack_tiles`)."""
+    n = wr.shape[0]
+    c, u = bwd_cluster_shape(n)
+    rows = wr.new_zeros((c * u, 3 * n), dtype=torch.bfloat16)
+    rows[:n] = wr.detach().to(torch.bfloat16)
+    return pack_tiles(rows.reshape(c, u, 3 * n), 16)
 
 
 # the widest GRU whose forward runs warp-synchronously: a stream's units fit
@@ -142,15 +277,6 @@ def pack_recurrent(wr: torch.Tensor) -> torch.Tensor:
     return wb.view(n // 4, 4, 3, n).permute(0, 2, 3, 1).contiguous()
 
 
-def pack_recurrent_t(wr: torch.Tensor) -> torch.Tensor:
-    """Wr [N, 3N] f32 -> wtp [3N/4, N, 4] bf16, the operand of the
-    backward's Wr^T product: four consecutive gate columns of Wr^T's column
-    u sit in one 8-byte word."""
-    n = wr.shape[0]
-    wb = wr.detach().to(torch.bfloat16)
-    return wb.view(n, 3 * n // 4, 4).permute(1, 0, 2).contiguous()
-
-
 def _check(name, t, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -160,10 +286,62 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
 
 
+_BWD_MAX_CLUSTERS: dict = {}
+
+
+def _bwd_max_clusters(dev, n):
+    """`bwd_launch_config`'s `max_clusters(streams, smem)` on the card `dev`:
+    the CUDA occupancy query, remembered per card and shape."""
+    c, u = bwd_cluster_shape(n)
+
+    def ask(streams, smem):
+        key = (dev.index, streams, c, u, smem)
+        if key not in _BWD_MAX_CLUSTERS:
+            with torch.cuda.device(dev):
+                got = _lib().lpcnet_gru_bwd_max_clusters(streams, c, streams * u, smem)
+            if got <= 0:
+                raise RuntimeError(
+                    f"GRU training kernel: no cluster of {c} blocks with {smem} "
+                    f"bytes fits the card (CUDA {-got})")
+            _BWD_MAX_CLUSTERS[key] = got
+        return _BWD_MAX_CLUSTERS[key]
+
+    return ask
+
+
+def gate_pass_kernel(wr, br, gate_in, h0, hs):
+    """The backward's gate pass alone on the card (the first of the
+    backward launch's three phases), for holding it against
+    `gate_pass_plain`: (z, fz, fr, fh, fzh), each [B, T, N]. Not counted:
+    the training path runs it inside `GruRecurrence.backward`."""
+    dev = gate_in.device
+    if dev.type != "cuda":
+        raise ValueError(f"GRU gate pass kernel: unsupported device {dev}")
+    b, t, n3 = gate_in.shape
+    n = n3 // 3
+    _check_units(n)
+    br, gate_in, h0, hs = (x.detach().contiguous() for x in (br, gate_in, h0, hs))
+    for name, x, shape in (("br", br, (n3,)), ("gate_in", gate_in, (b, t, n3)),
+                           ("h0", h0, (b, n)), ("hs", hs, (b, t, n))):
+        _check(name, x, shape, dev)
+    wrt = wr.detach().t().contiguous().to(torch.bfloat16)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dg = torch.empty((b, t, n3), **f32)
+    dzh, zb = (torch.empty((b, t, n), **f32) for _ in range(2))
+    with torch.cuda.device(dev):
+        err = _lib().lpcnet_gru_gate_pass(
+            b, t, n, *(x.data_ptr() for x in (wrt, br, gate_in, h0, hs, dg, dzh, zb)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"GRU gate pass kernel launch failed: CUDA error {err}")
+    return zb, dg[..., :n], dg[..., n:2 * n], dg[..., 2 * n:], dzh
+
+
 class GruRecurrence(torch.autograd.Function):
     """(wr [N, 3N], br [3N], gate_in [B, T, 3N], h0 [B, N]) -> (hs, hT) on
     the card. Saves (wr, br, gate_in, h0, hs) as the JAX VJP does; the
-    backward recomputes the gates and reuses the forward's packed Wr.
+    backward recomputes the gates in its gate pass, then runs the chain and
+    the dWr product (one launch of the three phases).
     `launches` counts kernel launches keyed (direction, N), direction "fwd"
     or "bwd"; `launch_totals()` sums them over N."""
 
@@ -210,7 +388,6 @@ class GruRecurrence(torch.autograd.Function):
                 f"GRU training kernel (forward) launch failed: CUDA error {err}")
         GruRecurrence.launches[("fwd", n)] += 1
         ctx.save_for_backward(wr, br, gate_in, h0, hs)
-        ctx.wp = wp
         return hs, ht
 
     @staticmethod
@@ -225,13 +402,17 @@ class GruRecurrence(torch.autograd.Function):
         _check("dhs", dhs, (b, t, n), dev)
         _check("dhT", dht, (b, n), dev)
         want_w = bool(ctx.needs_input_grad[0] or ctx.needs_input_grad[1])
-        cluster, threads = launch_config(n)
-        wp, wtp = ctx.wp, pack_recurrent_t(wr)
+        cfg = bwd_launch_config(b, n, _bwd_max_clusters(dev, n))
+        wb = pack_bwd_weights(wr)
+        wrt = wr.t().contiguous().to(torch.bfloat16)   # the gate pass's operand
         f32 = dict(dtype=torch.float32, device=dev)
+        # the gate pass writes its factors into dg and dzh (and z into zb);
+        # the chain overwrites them with the gradients
         dg = torch.empty((b, t, n3), **f32)
         dzh = torch.empty((b, t, n), **f32)     # dzrec's candidate part
+        zb = torch.empty((b, t, n), **f32)
         dh0 = torch.empty((b, n), **f32)
-        slots = -(-b // STREAMS_PER_CLUSTER) * STREAMS_PER_CLUSTER
+        slots = cfg["clusters"] * cfg["streams"]
         dbr_part = torch.empty((slots, n3), **f32)   # one partial per stream
         parts, dwr_part, dwr, dbr = 0, None, None, None
         if want_w:
@@ -244,9 +425,10 @@ class GruRecurrence(torch.autograd.Function):
         ptr = lambda x: None if x is None else x.data_ptr()
         with torch.cuda.device(dev):
             err = _lib().lpcnet_gru_train_bwd(
-                b, t, n, cluster, threads, ptr(wp), ptr(wtp), ptr(br),
+                b, t, n, cfg["cluster"], cfg["units"], cfg["streams"],
+                cfg["smem"], int(cfg["resident"]), ptr(wb), ptr(wrt), ptr(br),
                 ptr(gate_in), ptr(h0), ptr(hs), ptr(dhs), ptr(dht),
-                ptr(dg), ptr(dzh), ptr(dh0), ptr(dbr_part),
+                ptr(dg), ptr(dzh), ptr(zb), ptr(dh0), ptr(dbr_part),
                 int(want_w), parts, ptr(dwr_part), ptr(dwr), ptr(dbr),
                 torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:

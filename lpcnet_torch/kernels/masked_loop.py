@@ -14,7 +14,8 @@ q8, the depth zero-padded to a multiple of KS), and lane l's fragment is the
 they are.
 
 * `cluster_shape(na)`, `masked_smem_bytes`, `masked_launch_config`: the
-  launch's shape. A block keeps its GRU-A slice and GRU-B's packed weights
+  launch's shape; `free_launch_config` that of the free-running form
+  (K1). A block keeps its GRU-A slice and GRU-B's packed weights
   in shared memory where they fit and reads them from L2 where they do not
   (the widest GRUs); `masked_launch_config` picks the smallest S that fits
   the card in one wave of clusters.
@@ -57,11 +58,16 @@ def padded_nb(nb: int) -> int:
 
 
 def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
-                      res_a: bool = True, res_b: bool = True) -> int:
+                      res_a: bool = True, res_b: bool = True,
+                      free: bool = False) -> int:
     """Shared memory of one block, bytes: the csrc K2Layout's total. `res_a`
     and `res_b` keep GRU-A's slice and GRU-B's weights in shared memory
-    (bf16 and q8 only)."""
+    (bf16 and q8 only). `free` is K1's free-running form, whose tail arrays
+    hold one tile of 8 streams (each rank runs the tail of S / C streams),
+    whose codes take four words a stream and whose h_a operand buffers have
+    8 rows more."""
     s = 8 * nt
+    tr = 8 if free else s
     ks, esz, pad = _KS[form], _ESZ[form], _XPAD[form]
     mma = form != 0
     c, u = cluster_shape(na)
@@ -73,25 +79,25 @@ def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
     regions = [
         3 * u * ksa * ks * esz if mma and res_a else 0,       # GRU-A slice
         3 * nbp * (ksa + ksbr) * ks * esz if mma and res_b else 0,  # GRU-B weights
-        2 * s * ldx * esz,                               # h_a operand, two buffers
-        s * ldb * esz,                                   # h_b operand
+        2 * (s + 8 if free else s) * ldx * esz,          # h_a operand, two buffers
+        tr * ldb * esz,                                  # h_b operand
         s * ldz * 4,                                     # GRU-A products
-        2 * s * ldg * 4,                                 # GRU-B products
+        2 * tr * ldg * 4,                                # GRU-B products
         s * u * 4,                                       # the rank's h_a
-        s * nb * 4,                                      # h_b
-        s * 32 * 4,                                      # visited node logits
-        4 * s * 4,                                       # codes, tree's top bits
+        tr * nb * 4,                                     # h_b
+        tr * 32 * 4,                                     # visited node logits
+        ((4 if free else 3) * s + tr) * 4,               # codes, tree's top bits
         256 * 4,                                         # threshold logits
         16,                                              # flags
     ]
     return sum(_up(r, 16) for r in regions)
 
 
-def _layout(form: int, na: int, nb: int, nt: int):
+def _layout(form: int, na: int, nb: int, nt: int, free: bool = False):
     """(smem, res_a, res_b) of the first of: both weight sets resident,
     GRU-A's slice only, neither, that fits a block; None if none does."""
     for res_a, res_b in ((True, True), (True, False), (False, False)):
-        smem = masked_smem_bytes(form, na, nb, nt, res_a, res_b)
+        smem = masked_smem_bytes(form, na, nb, nt, res_a, res_b, free)
         if smem <= SMEM_LIMIT:
             return smem, res_a and form != 0, res_b and form != 0
     return None
@@ -127,6 +133,48 @@ def masked_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
     return {"cluster": cluster, "units": units, "nt": nt, "streams": s,
             "clusters": clusters, "smem": smem, "res_a": res_a, "res_b": res_b,
             "waves": -(-clusters // held)}
+
+
+FREE_STREAM_TILES = (1, 2, 4, 5)     # S / 8 of the free-running form (K1)
+
+
+def free_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
+    """K1's launch, the free-running form of K2's kernel, for `batch`
+    streams (bf16 or q8): the keys of `masked_launch_config`. Rank r of a
+    cluster runs
+    the tail (GRU-B to PCM) of streams [r SO, r SO + SO), SO = ceil(S / C)
+    <= 8, so S is not capped at 32 by warp 0's lanes: S = 40 fits a block
+    too. `max_clusters(nt, smem)` as in `masked_launch_config`. S is the
+    smallest of 8, 16, 32 and 40 whose clusters fit one wave; where none
+    does, the one with the fewest waves (the smaller on a tie): at 1024
+    streams on an H100 (15 clusters) S = 40, 26 clusters in two waves."""
+    check_widths(na, nb)
+    if batch <= 0:
+        raise ValueError(f"sample loop kernel: batch {batch}")
+    if form == 0:
+        raise ValueError("the free-running cluster kernel has no f32 form "
+                         "(f32 K1 runs csrc/sample_loop.cu)")
+    cluster, units = cluster_shape(na)
+    best = None
+    for nt in FREE_STREAM_TILES:
+        s = 8 * nt
+        if -(-s // cluster) > 8 or (lay := _layout(form, na, nb, nt, True)) is None:
+            continue
+        held = max_clusters(nt, lay[0])
+        clusters = -(-batch // s)
+        waves = -(-clusters // held)
+        if best is None or waves < best[0]:
+            best = (waves, nt, lay, clusters)
+        if waves == 1:
+            break
+    if best is None:
+        raise ValueError(f"sample loop kernel: Na={na}, Nb={nb} needs "
+                         f"{masked_smem_bytes(form, na, nb, 1, False, False, True)} "
+                         f"bytes of shared memory a block")
+    waves, nt, (smem, res_a, res_b), clusters = best
+    return {"cluster": cluster, "units": units, "nt": nt, "streams": 8 * nt,
+            "clusters": clusters, "smem": smem, "res_a": res_a, "res_b": res_b,
+            "waves": waves}
 
 
 def fragment_index(ks: int):

@@ -1,8 +1,10 @@
 """The autoregressive sample loop: one 10 ms frame of 160 dependent steps
-per stream, as one CUDA kernel launch (`csrc/sample_loop.cu`), free-running
-(K1) or under per-stream, per-sample control masks (K2, its own kernel,
-`csrc/masked_loop.cu`, redesigned for Hopper; launch shape and weight
-packing in `masked_loop.py`).
+per stream, as one CUDA kernel launch, free-running (K1) or under
+per-stream, per-sample control masks (K2). K2 is the cluster kernel of
+`csrc/masked_loop.cu`, redesigned for Hopper (launch shape and weight
+packing in `masked_loop.py`); K1 in bf16 and q8 is that kernel's
+free-running form, in f32 the first design's kernel (`csrc/sample_loop.cu`,
+which also holds K3 and K6).
 
 Port of `lpcnet_tpu/kernels/sample_loop.py::_ar_kernel`, run free
 (masked=False, sampled=True) and masked (masked=True). Each step: LPC
@@ -18,7 +20,8 @@ h_b, last_sig, last_exc, deemph, rng).
   numerics, step by step. The CPU tests use it and the chip check holds the
   kernel against it.
 * `synthesize_frame_kernel` is the wrapper: on a CPU tensor it runs the
-  plain version; on a CUDA tensor it launches the kernel or raises.
+  plain version; on a CUDA tensor it launches the kernel of the bundle's
+  form (`FREE_FORMS`) or raises.
 * `sample_loop_masked_plain` / `synthesize_frame_masked_kernel` are the same
   pair for K2; `masked_kernel_weights` adds K2's packed operands to a
   bundle, once, for the callers that launch it many times. An advance mask freezes a stream's whole state (its KISS99
@@ -314,25 +317,26 @@ def _masked_lib():
         from ._build import load_library
         lib = load_library("masked_loop")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lpcnet_masked_loop.argtypes = [ci] * 11 + [vp] * 31 + [vp]
+        lib.lpcnet_masked_loop.argtypes = [ci] * 12 + [vp] * 31 + [vp]
         lib.lpcnet_masked_loop.restype = ci
-        lib.lpcnet_masked_loop_max_clusters.argtypes = [ci] * 4
+        lib.lpcnet_masked_loop_max_clusters.argtypes = [ci] * 5
         lib.lpcnet_masked_loop_max_clusters.restype = ci
         _MASKED_LIB = lib
     return _MASKED_LIB
 
 
-def _max_clusters(dev, form, na):
-    """K2's `max_clusters(nt, smem)` on the card `dev`: how many clusters
-    of that shape the card holds at once (the CUDA occupancy query,
-    remembered per card and shape)."""
+def _max_clusters(dev, form, na, free=False):
+    """K2's (or, with `free`, K1's) `max_clusters(nt, smem)` on the card
+    `dev`: how many clusters of that shape the card holds at once (the CUDA
+    occupancy query, remembered per card and shape)."""
     cluster = ML.cluster_shape(na)[0]
 
     def ask(nt, smem):
-        key = (dev.index, form, nt, cluster, smem)
+        key = (dev.index, form, nt, free, cluster, smem)
         if key not in _MAX_CLUSTERS:
             with torch.cuda.device(dev):
-                got = _masked_lib().lpcnet_masked_loop_max_clusters(form, nt, cluster, smem)
+                got = _masked_lib().lpcnet_masked_loop_max_clusters(
+                    form, nt, int(free), cluster, smem)
             if got <= 0:
                 raise RuntimeError(
                     f"masked sample loop kernel: no cluster of {cluster} blocks with "
@@ -384,11 +388,13 @@ def _gru_operands(kw, na, nb, dev):
 
 
 def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
-            masked=None, merged=None):
+            masked=None, merged=None, free=False):
     """Check the operands, allocate the outputs and launch the kernel on the
     current stream; `masked` is None (K1, K6) or (preload, mode, sampled)
     (K2); `merged` is (form, a_merged, b_merged) for K6, whose cond_a and
-    cond_b come in the 4N layout."""
+    cond_b come in the 4N layout; `free` launches K2's kernel in its
+    free-running form (K1 on K2's cluster design), `kw` then carrying K2's
+    packs."""
     dev = cond_a.device
     b = cond_a.shape[0]
     na = kw["a_bias1"].shape[-1] // 3
@@ -442,11 +448,17 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
         stream = torch.cuda.current_stream(dev).cuda_stream
         if merged is not None:
             err = _lib().lpcnet_sample_loop_merged(*args, stream)
-        elif masked is None:
+        elif masked is None and not free:
             err = _lib().lpcnet_sample_loop(*args, stream)
         else:
             emb, emb_scale, a_rec, a_diag, a_bias1, b_in, b_rec, b_bias1 = weights
-            cfg = ML.masked_launch_config(b, na, nb, form, _max_clusters(dev, form, na))
+            if free:
+                preload, mode, sampled = None, None, True
+                cfg = ML.free_launch_config(b, na, nb, form,
+                                            _max_clusters(dev, form, na, True))
+            else:
+                cfg = ML.masked_launch_config(b, na, nb, form,
+                                              _max_clusters(dev, form, na))
             if form == 0:           # f32: the matrices as they are
                 a_w, b_w = a_rec, None
             else:
@@ -455,7 +467,7 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
                 _check("k2_a", a_w, shape_a, a_rec.dtype, dev)
                 _check("k2_b", b_w, shape_b, a_rec.dtype, dev)
             err = _masked_lib().lpcnet_masked_loop(
-                form, cfg["nt"], cfg["cluster"], cfg["smem"], int(cfg["res_a"]),
+                form, cfg["nt"], int(free), cfg["cluster"], cfg["smem"], int(cfg["res_a"]),
                 int(cfg["res_b"]), b, na, nb, n_samples,
                 int(bool(sampled)), *(ptr(t) for t in (
                     emb, emb_scale, a_w, a_diag, a_bias1, b_w, b_in, b_rec, b_bias1)),
@@ -467,21 +479,47 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
     return new_state, pcm
 
 
+# the operand forms whose free-running loop (K1) is K2's cluster kernel in
+# its free-running form; the others run the first design, ar_kernel in
+# csrc/sample_loop.cu
+FREE_FORMS = (1, _FORM_Q8)
+
+
+def k1_form(kw) -> int:
+    """The form of a K1 bundle: 0 f32, 1 bf16, 2 q8."""
+    if is_q8_bundle(kw):
+        return _FORM_Q8
+    dt = kw["emb_cat"].dtype
+    if dt not in _FORMS:
+        raise TypeError(f"sample loop kernel: operand dtype {dt}")
+    return _FORMS[dt]
+
+
 def synthesize_frame_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
                             n_samples: int = 160):
     """One frame of the sample loop: (new_state, pcm [B, n_samples]).
 
     On a CPU tensor this runs `sample_loop_plain`. On a CUDA tensor it
     launches the CUDA kernel (built on first use) and counts the launch in
-    `synthesize_frame_kernel.launches`; any other device raises. Any batch
-    size works: the kernel masks the ragged last block of streams.
+    `synthesize_frame_kernel.launches`; any other device raises. The kernel
+    is chosen by the bundle's form, never by a failure: bf16 and q8
+    (`FREE_FORMS`) run K2's cluster kernel in its free-running form (its
+    packs from `masked_kernel_weights`, built here for this call when `kw`
+    lacks them), f32 the first design's kernel (`csrc/sample_loop.cu`),
+    which at 1024 streams is the faster of the two in f32. Any batch size
+    works: the kernels mask the ragged last cluster or block of streams.
     """
     dev = cond_a.device
     if dev.type == "cpu":
         return sample_loop_plain(kw, state, cond_a, cond_b, lpc, n_samples)
     if dev.type != "cuda":
         raise ValueError(f"sample loop kernel: unsupported device {dev}")
-    out = _launch(kw, state, cond_a, cond_b, lpc, n_samples)
+    if k1_form(kw) in FREE_FORMS:
+        if "k2_a" not in kw:
+            kw = masked_kernel_weights(kw)
+        out = _launch(kw, state, cond_a, cond_b, lpc, n_samples, free=True)
+    else:
+        out = _launch(kw, state, cond_a, cond_b, lpc, n_samples)
     synthesize_frame_kernel.launches += 1
     return out
 

@@ -577,3 +577,67 @@ def test_trainer_without_cuda_raises_rather_than_train_on_the_host(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         api.load_plc_model(api.DEMO_PLC_MODEL_PATH)
     assert T.Trainer(M.LPCNetConfig(**SMALL), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 384, 640, 1024])
+def test_cuda_gru_backward_at_every_width(cuda, n):
+    """The three-phase backward at 16, 384, 640 and 1024 units (Wr's rows
+    resident in shared memory at 16 and 384, read from L2 at 640 and 1024),
+    a ragged batch: every gradient leaf within 1e-2 of its largest entry
+    against the plain version's autograd, two runs bit-equal."""
+    params, x, h0, w = _gru_case(n, 64, 37, 24, cuda)
+    _, _, gk = _gru_run(G.gru_recurrence, params, x, h0, w)
+    torch.cuda.synchronize()
+    _, _, gp = _gru_run(G.gru_recurrence_plain, params, x, h0, w)
+    for k in gp:
+        scale = max(1e-3, float(gp[k].abs().max()))
+        assert float((gk[k] - gp[k]).abs().max()) / scale <= 1e-2, k
+    _, _, gk2 = _gru_run(G.gru_recurrence, params, x, h0, w)
+    assert all(torch.equal(gk[k], gk2[k]) for k in gk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 384, 640])
+def test_cuda_gru_gate_pass_matches_plain(cuda, n):
+    """The backward's gate pass alone: z and the four factors within 1e-5
+    of `gate_pass_plain` (zrec's float32 sums in another order on the
+    tensor cores)."""
+    params, x, h0, _ = _gru_case(n, 64, 37, 24, cuda)
+    with torch.no_grad():
+        gi = G.gate_input(params, x)
+        hs, _ = G.gru_recurrence(params["recurrent"], params["bias"][1], gi, h0)
+        got = G.gate_pass_kernel(params["recurrent"], params["bias"][1], gi, h0, hs)
+        want = G.gate_pass_plain(params["recurrent"], params["bias"][1], gi, h0, hs)
+    for a, c in zip(got, want):
+        assert float((a - c).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 130, 1024])
+@pytest.mark.parametrize("form", ["bf16", "q8"])
+def test_cuda_free_running_k1_ragged_batches(cuda, form, b):
+    """K1 in bf16 and q8 is the cluster kernel's free-running form: one
+    launch counted, one step within 1e-4 (bf16 h_b 1e-2), RNG equal, q8
+    >90 % exact PCM and bf16 RMS within 0.5 of the plain version's, at one
+    stream, one wave and two waves of clusters."""
+    cfg = M.LPCNetConfig()
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda), cfg)
+    kw = K.masked_kernel_weights(_bundle(fused, cfg, form))
+    ca, cb, lpc, s0 = _inputs(fused, cfg, b, cuda)
+    s1k, _ = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, 1)
+    s1p, _ = K.sample_loop_plain(kw, s0, ca, cb, lpc, 1)
+    assert float((s1k.gru_a - s1p.gru_a).abs().max()) <= 1e-4
+    assert float((s1k.gru_b - s1p.gru_b).abs().max()) <= (1e-2 if form == "bf16" else 1e-4)
+    before = K.synthesize_frame_kernel.launches
+    sk, pk = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, 32)
+    torch.cuda.synchronize()
+    assert K.synthesize_frame_kernel.launches == before + 1
+    sp, pp = K.sample_loop_plain(kw, s0, ca, cb, lpc, 32)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert bool(torch.isfinite(pk).all())
+    if form == "q8":
+        assert float((pk == pp).float().mean()) > 0.90
+    else:
+        rk, rp = (float(v.square().mean().sqrt()) for v in (pk, pp))
+        assert abs(rk - rp) / max(rp, 1.0) < 0.5

@@ -261,17 +261,24 @@ def test_launch_config_refuses(n):
 
 
 def test_pack_recurrent_layout():
-    """wp[kq, g, u, j] = Wr[4 kq + j, g N + u] and
-    wtp[jq, u, j] = Wr[u, 4 jq + j], both rounded to bf16."""
+    """wp[kq, g, u, j] = Wr[4 kq + j, g N + u] (the forward's operand), and
+    the backward chain's packed rows (`pack_bwd_weights`, rank r's units
+    r U .. r U + U in fragment order) hold Wr[u, j], both rounded to
+    bf16."""
     n = 16
     wr = torch.from_numpy(np.random.RandomState(9).normal(
         size=(n, 3 * n)).astype(np.float32))
-    wp, wtp = G.pack_recurrent(wr), G.pack_recurrent_t(wr)
+    wp, wbp = G.pack_recurrent(wr), G.pack_bwd_weights(wr)
     wb = wr.to(torch.bfloat16)
-    assert wp.shape == (n // 4, 3, n, 4) and wtp.shape == (3 * n // 4, n, 4)
-    assert wp.dtype == wtp.dtype == torch.bfloat16
-    assert wp.is_contiguous() and wtp.is_contiguous()
+    assert wp.shape == (n // 4, 3, n, 4) and wbp.shape == (1, 1, 3, 32, 8)
+    assert wp.dtype == wbp.dtype == torch.bfloat16
+    assert wp.is_contiguous() and wbp.is_contiguous()
     for kq, g, u, j in [(0, 0, 0, 0), (1, 2, 5, 3), (3, 1, 15, 2)]:
         assert wp[kq, g, u, j] == wb[4 * kq + j, g * n + u]
-    for jq, u, j in [(0, 0, 0), (7, 3, 2), (11, 15, 3)]:
-        assert wtp[jq, u, j] == wb[u, 4 * jq + j]
+    # lane 4 g + t, element e: row g + 8 ((e // 2) & 1), column
+    # 16 k + 2 t + 8 (e // 4) + e % 2 of k step k
+    for k, lane, e in [(0, 0, 0), (1, 7, 3), (2, 31, 7), (2, 13, 5)]:
+        g, t = lane // 4, lane % 4
+        u = g + 8 * ((e // 2) & 1)
+        j = 16 * k + 2 * t + 8 * (e // 4) + e % 2
+        assert wbp[0, 0, k, lane, e] == wb[u, j]

@@ -332,3 +332,131 @@ def test_warp_forward_reads_wr_from_the_packed_layout(n):
                 for j in range(4):
                     got[4 * kq + j, q * n + u] = flat[base + j]
     assert torch.equal(got, wr.to(torch.bfloat16))
+
+
+# --------------------------------------------------------------------------
+# K1: the free-running form of K2's kernel
+# --------------------------------------------------------------------------
+
+# streams, and the (S, waves) the design gives on a card that holds 15
+# clusters of 8 blocks (an H100): the smallest S of 8, 16, 32 and 40 that
+# fits one wave, else the fewest waves
+FREE_CASES = {1: (8, 1), 130: (16, 1), 256: (32, 1), 1024: (40, 2), 4097: (40, 7)}
+
+
+@pytest.mark.parametrize("batch", sorted(FREE_CASES))
+@pytest.mark.parametrize("form", ["bf16", "q8"])
+def test_free_launch_config_covers_each_stream_once(form, batch):
+    """Every stream in one cluster, its GRU-A gate phase in every rank and
+    its tail (GRU-B to PCM) in exactly one: rank r of the cluster runs
+    streams [r SO, r SO + SO), SO = ceil(S / C) <= 8 (one GRU-B tile of 8
+    rows). 1024 streams take two waves of S = 40, not three of 32."""
+    cfg = ML.free_launch_config(batch, 384, 16, ML.FORMS[form], lambda nt, smem: 15)
+    s, c = cfg["streams"], cfg["cluster"]
+    assert (s, cfg["waves"]) == FREE_CASES[batch]
+    assert s == 8 * cfg["nt"] and cfg["nt"] in ML.FREE_STREAM_TILES
+    assert cfg["clusters"] == -(-batch // s) and cfg["waves"] == -(-cfg["clusters"] // 15)
+    so = -(-s // c)
+    assert so <= 8 and c == 8
+    tail = np.zeros(batch, int)
+    gate = np.zeros(batch, int)
+    for k in range(cfg["clusters"]):
+        b0 = k * s
+        nact = min(s, batch - b0)
+        assert nact > 0
+        gate[b0:b0 + nact] += c
+        for r in range(c):
+            s0 = r * so
+            own = max(0, min(so, s - s0, nact - s0))
+            tail[b0 + s0:b0 + s0 + own] += 1
+    assert (tail == 1).all() and (gate == c).all()
+
+
+@pytest.mark.parametrize("nt", [1, 2, 4, 5])
+@pytest.mark.parametrize("form", ["bf16", "q8"])
+def test_free_shared_memory_fits_a_block(form, nt):
+    """The free-running layout fits a block in both of its forms and every
+    tiling, GRU-A's slice resident; bf16 at S = 40 takes 224,176 bytes
+    with GRU-B's weights read from L2, and S = 48 would not fit with the
+    slice resident (243,120 bytes). There is no f32 form: f32 K1 runs the
+    first design's kernel."""
+    f = ML.FORMS[form]
+    cfg = ML.free_launch_config(8 * nt * 15, 384, 16, f, lambda n, smem: 15)
+    assert cfg["nt"] == nt
+    assert cfg["smem"] == ML.masked_smem_bytes(f, 384, 16, nt, cfg["res_a"],
+                                               cfg["res_b"], free=True)
+    assert cfg["smem"] <= ML.SMEM_LIMIT
+    assert cfg["res_a"]
+    with pytest.raises(ValueError):
+        ML.free_launch_config(8 * nt * 15, 384, 16, 0, lambda n, smem: 15)
+    if form == "bf16" and nt == 5:
+        assert cfg["smem"] == 224176 and not cfg["res_b"]
+        assert ML.masked_smem_bytes(f, 384, 16, 6, True, False, free=True) == 243120
+
+
+@pytest.mark.parametrize("na,nb", [(640, 16), (100, 10), (48, 16), (16, 16)])
+def test_free_launch_config_at_other_widths(na, nb):
+    """Other widths run too: each rank's tail is at most 8 streams (a
+    cluster of C < 8 blocks takes S <= 8 C) and the layout fits."""
+    for form in (1, 2):
+        for batch in (1, 37, 1024):
+            cfg = ML.free_launch_config(batch, na, nb, form, lambda n, smem: 15)
+            assert -(-cfg["streams"] // cfg["cluster"]) <= 8
+            assert cfg["smem"] <= ML.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
+def test_k1_dispatch_is_by_form(form):
+    """bf16 and q8 bundles run the free-running cluster kernel, f32 the
+    first design's kernel: `k1_form` reads the bundle, with or without K2's
+    packs."""
+    kw = _bundle(form, 64)
+    want = ML.FORMS[form]
+    assert K.k1_form(kw) == K.k1_form(K.masked_kernel_weights(kw)) == want
+    assert (want in K.FREE_FORMS) == (form != "f32")
+
+
+def test_decoder_holds_k1_packs_built_once(monkeypatch):
+    """The decoder's bundle carries K1's packs (`k2_a`, `k2_b`), built
+    when the decoder is built and not again for any frame."""
+    from lpcnet_torch.codec.decoder import LPCNetDecoder
+    cfg = M.LPCNetConfig(rnn_units1=64, rnn_units2=16, cond_size=32, pitch_embed_dim=8)
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=5), cfg)
+    calls = []
+    real = K.masked_kernel_weights
+    monkeypatch.setattr(K, "masked_kernel_weights",
+                        lambda kw: calls.append(1) or real(kw))
+    dec = LPCNetDecoder.from_fused(fused, cfg, 3, device="cpu", use_kernel=True)
+    assert len(calls) == 1
+    kw = dec._kw
+    a, bi, br = _a_operands(K.kernel_weights(dec.fused, cfg))
+    assert torch.equal(kw["k2_a"], ML.pack_gru_a(a))
+    assert torch.equal(kw["k2_b"], ML.pack_gru_b(bi, br))
+    packs = (kw["k2_a"], kw["k2_b"])
+    rs = np.random.RandomState(2)
+    for _ in range(4):
+        dec.synthesize((rs.normal(size=(3, 36)) * 0.3).astype(np.float32))
+    assert len(calls) == 1
+    assert dec._kw["k2_a"] is packs[0] and dec._kw["k2_b"] is packs[1]
+
+
+@pytest.mark.parametrize("form", ["bf16", "q8"])
+def test_k1_wrapper_with_packs_runs_plain_on_cpu_and_refuses_others(form):
+    """With K1's packs in the bundle the wrapper still runs
+    `sample_loop_plain` on a CPU tensor and counts no launch; a tensor on
+    another device is refused."""
+    kw = K.masked_kernel_weights(_bundle(form, 64))
+    cfg = M.LPCNetConfig(rnn_units1=64, rnn_units2=16, cond_size=32, pitch_embed_dim=8)
+    b, n = 3, 6
+    rs = np.random.RandomState(3)
+    ca = torch.from_numpy(rs.normal(size=(b, 3 * 64)).astype(np.float32))
+    cb = torch.from_numpy(rs.normal(size=(b, 3 * 16)).astype(np.float32))
+    lpc = torch.from_numpy(rs.normal(size=(b, 16)).astype(np.float32) * 0.1)
+    s0 = M.init_sample_state(b, cfg, torch.device("cpu"))
+    before = K.synthesize_frame_kernel.launches
+    got = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, n)
+    want = K.sample_loop_plain(kw, s0, ca, cb, lpc, n)
+    assert K.synthesize_frame_kernel.launches == before
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0].gru_a, want[0].gru_a)
+    with pytest.raises(ValueError):
+        K.synthesize_frame_kernel(kw, s0, ca.to("meta"), cb, lpc, n)

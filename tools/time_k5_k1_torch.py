@@ -1,0 +1,105 @@
+"""Time lpcnet_torch's GRU training backward (K5 at 384 units) and its
+free-running sample loop (K1) on one CUDA card, for the checkout at
+CHECKOUT (default: this repository), so that two versions can be compared
+within one run:
+
+    python tools/time_k5_k1_torch.py [CHECKOUT] [--label NAME]
+
+It builds that checkout's kernels, then times, with CUDA events after a
+warm-up launch: one K5 backward (`torch.autograd.grad` through
+`gru_train.gru_recurrence`, 3 launches) at the training shape, B=128,
+T=2400, N=384, on seeded weights; and one K1 launch
+(`sample_loop.synthesize_frame_kernel`, 10 launches) at B=1024, n=160 on the
+demo vocoder's bf16 and q8 bundles (as the decoder builds them), from a
+fresh state on seeded conditioning. It prints one JSON line {"label",
+"card", "ms": {...}}. Run the parent and the change alternately (parent,
+change, change, parent) in one call; every process reads the same seeded
+inputs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def _time(fn, reps, torch):
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("checkout", nargs="?",
+                    default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--label", default=None)
+    ns = ap.parse_args(argv)
+    root = os.path.abspath(ns.checkout)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from lpcnet_torch import api
+    from lpcnet_torch.kernels import _build
+    from lpcnet_torch.kernels import gru_train as G
+    from lpcnet_torch.kernels import sample_loop as K
+    from lpcnet_torch.models import lpcnet as M
+    from lpcnet_torch.nn.quantized import quantize_fused
+
+    if not torch.cuda.is_available():
+        sys.exit("time_k5_k1_torch: CUDA is not available")
+    _build.build_all(["sample_loop", "masked_loop", "gru_train"])
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ms = {}
+
+    # K5 backward, B=128, T=2400, N=384 (the recipe of chip_smoke.py's gru_case)
+    n, b, t = 384, 128, 2400
+    rs = np.random.RandomState(7)
+    f = lambda *s: torch.from_numpy(rs.normal(size=s).astype(np.float32)).to(dev)
+    kernel, wr0 = f(512, 3 * n) * 0.05, f(n, 3 * n) * float(0.8 / np.sqrt(n))
+    bias, x, h0, w = f(2, 3 * n) * 0.1, f(b, t, 512), f(b, n) * 0.3, f(b, t, n)
+    wr = wr0.clone().requires_grad_(True)
+    br = bias[1].clone().requires_grad_(True)
+    gi = G.gate_input({"kernel": kernel, "bias": bias}, x).requires_grad_(True)
+    hs, ht = G.gru_recurrence(wr, br, gi, h0)
+    dht = torch.zeros_like(ht)
+    ms["k5_bwd[384] B=128 T=2400"] = _time(lambda: torch.autograd.grad(
+        (hs, ht), (wr, br, gi), (w, dht), retain_graph=True), 3, torch)
+    del hs, ht, gi, x
+    torch.cuda.empty_cache()
+
+    # K1 at B=1024, n=160
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
+    b = 1024
+    rs = np.random.RandomState(1)
+    feats = torch.from_numpy((rs.normal(size=(3, b, 36)) * 0.3).astype(np.float32)).to(dev)
+    fs = M.init_frame_state(b, cfg, dev)
+    for k in range(3):
+        fs, _, ca, cb, lpc = M.frame_network(fused, fs, feats[k], cfg)
+    ca, cb, lpc = ca.contiguous(), cb.contiguous(), lpc.contiguous()
+    s0 = M.init_sample_state(b, cfg, dev)
+    pack = getattr(K, "masked_kernel_weights", lambda kw: kw)
+    for form, kw in (("bf16", K.kernel_weights(fused, cfg)),
+                     ("q8", K.kernel_weights(quantize_fused(fused), cfg))):
+        kw = pack(kw)
+        ms[f"k1[{form}] B=1024 n=160"] = _time(
+            lambda: K.synthesize_frame_kernel(kw, s0, ca, cb, lpc), 10, torch)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"label": ns.label or root, "card": card, "ms": ms}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
