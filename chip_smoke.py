@@ -25,8 +25,10 @@ Needs one CUDA card and nvcc. Phases:
   5. the GRU training kernel (K5, forward and backward) vs its plain version
      at 384 and 16 units, B=128, at T=320 and at the training path's T=2400,
      and the 16-unit forward (warp-synchronous) again at B=37, T=2400; the
-     backward's gate pass alone vs its plain version, and the backward at
-     16, 384, 640 and 1024 units, B=37, T=48;
+     backward's gate pass alone vs its plain version, and the forward and
+     backward at 16, 64, 384, 448, 640 and 1024 units, B=37, T=48 (the
+     forward on each of its three routes: warp-synchronous, Wr resident
+     across a cluster, the first cluster kernel);
   6. the masked sample-loop kernel (K2, the cluster kernel of
      csrc/masked_loop.cu) vs its plain version at 256 streams, 32 steps and
      one full frame, f32, bf16 and q8, with and without the sampler; at the
@@ -44,9 +46,10 @@ Needs one CUDA card and nvcc. Phases:
      device's busy share;
   8. timings of K5 and K2 at the training path's shapes vs their plain
      versions, their bounds and, for K5, torch.nn.GRU (cuDNN) as a
-     yardstick, with the layer's input product alone, and the backward's
-     three phases apart (gate pass, chain, dWr); K2 in all three forms on
-     the same inputs, and K1 on them; K2 in bf16 at 256 and 1024 streams;
+     yardstick, with the layer's input product alone, the forward's route
+     and the backward's three phases apart (gate pass, chain, dWr); K2 in
+     all three forms on the same inputs, and K1 on them; K2 in bf16 at 256
+     and 1024 streams;
   9. the teacher-forced kernel (K3) vs its plain version at 256 streams,
      3 blocks of 160 steps, f32, bf16 and q8, and against K2 with the
      sampler off; the PLC-net chain kernel (K4) vs its plain version at 256
@@ -61,15 +64,17 @@ Needs one CUDA card and nvcc. Phases:
      path gave them in one frame (the sample-rate section compacted to 64
      streams), then their timings on those arguments, with their bounds, and
      the frame's split;
- 12. the merged sample-loop kernel (K6) vs its plain version at 256 streams,
-     32 steps, f32 and bf16, and one step against K1's kernel;
+ 12. the merged sample-loop kernel (K6: K1's kernel of its form on the
+     merged matrices' checked non-zero blocks) vs its plain version at 256
+     streams, 32 steps, f32 and bf16, and one step against K1's kernel;
  13. the codec path: api.LPCNetEncoder on 1024 streams of a seeded
      speech-like signal for 10 superframes, the card's decode of its packets
      against its quantized features, then runtime.serving.StreamPool at 1024
      streams decoding those packets for 10 ticks of 40 ms on the demo
      vocoder, the merged flag off (K1) and on (K6): 4 launches a tick of the
      selected kernel, none of the other; K6 and K1 vs the plain version at
-     the main shapes from the K6 pool's state, their timings, bounds and the
+     the main shapes from the K6 pool's state (one step, and the share of
+     exact PCM over the 160-step frame), their timings, bounds and the
      tick's split; the C fixture's speech encoded on the card (packets
      bit-exact against C counted) and one `cli encode` -> `cli decode`.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
@@ -404,13 +409,14 @@ def check_k5(n, t, dev, b=TRAIN_BATCH):
     off = float(((hk - hp).abs() > 2e-5).float().mean())
     gerr = {k: float((gk[k] - gp[k]).abs().max())
             / max(1e-3, float(gp[k].abs().max())) for k in gp}
-    _, _, gk2 = gru_grads(G.gru_recurrence, params, x, h0, w)
-    biteq = all(bool(torch.equal(gk[k], gk2[k])) for k in gk)
-    log(f"K5[{n}] vs plain, B={b} T={t}: per-step max|hs| err {step_err:.3e} "
+    hk2, _, gk2 = gru_grads(G.gru_recurrence, params, x, h0, w)
+    biteq = bool(torch.equal(hk, hk2)) and all(bool(torch.equal(gk[k], gk2[k])) for k in gk)
+    log(f"K5[{n}] vs plain, B={b} T={t}, forward {fwd_route_words(n, b, dev)}: "
+        f"per-step max|hs| err {step_err:.3e} "
         f"(tol 2e-5); trajectory max err {traj_err:.3e} (tol 5e-3), share "
         f"beyond 2e-5 {off:.5f}; scaled gradient errs "
         + ", ".join(f"{k} {v:.3e}" for k, v in gerr.items())
-        + f" (tol 1e-2); backward bit-equal twice: {biteq}")
+        + f" (tol 1e-2); forward and backward bit-equal twice: {biteq}")
     assert step_err <= 2e-5 and bool(torch.equal(htk, hk[:, -1])), n
     assert traj_err <= 5e-3, (n, traj_err)
     assert max(gerr.values()) <= 1e-2, (n, gerr)
@@ -440,28 +446,60 @@ def check_gate_pass(n, dev, b=TRAIN_BATCH, t=320):
     return max(errs.values())
 
 
+def fwd_route_words(n, b, dev):
+    """The forward kernel an N-unit GRU runs at b streams, in words."""
+    route = G.forward_route(n)
+    if route == "warp":
+        return "gru_fwd_warp_kernel (warp-synchronous, Wr in registers)"
+    if route == "cluster":
+        c, threads = G.launch_config(n)
+        return (f"gru_fwd_kernel (the first cluster design: clusters of {c} blocks "
+                f"of {threads} threads, 4 streams, Wr from L2)")
+    c = G.fwd_launch_config(b, n, G._max_clusters(dev, n, "fwd"))
+    return (f"gru_fwd_chain_kernel (clusters of {c['cluster']} x {c['units']} units, "
+            f"{c['streams']} streams, Wr resident, {c['smem']} bytes, "
+            f"{c['clusters']} clusters in {c['waves']} wave(s), the product on the "
+            f"tensor cores)")
+
+
 def check_k5_widths(dev):
-    """The backward at 16, 384, 640 and 1024 units (clusters of 1, 8, 8 and
-    8 blocks; Wr's rows resident in shared memory at 16 and 384, read from
-    L2 at 640 and 1024), B=37 (a ragged last cluster), T=48, through
-    autograd from the kernel forward, at check_k5's gradient bars (each
-    leaf within 1e-2 of its largest entry; two runs bit-equal)."""
+    """The forward and the backward at 16, 64, 384, 448, 640 and 1024 units
+    (forward: warp-synchronous at 16, Wr resident across clusters of 4 and
+    8 blocks at 64 to 448, the first cluster kernel at 640 and 1024;
+    backward: clusters of 1, 4 and 8 blocks, Wr's rows resident in shared
+    memory up to 448, read from L2 at 640 and 1024), B=37 (a ragged last
+    cluster), T=48, at check_k5's bars: every forward step within 2e-5 of a
+    plain step from the same state, the trajectory within 5e-3, the forward
+    bit-equal twice; through autograd from the kernel forward, each gradient
+    leaf within 1e-2 of its largest entry, two runs bit-equal."""
     b, t = 37, 48
-    for n in (16, 384, 640, 1024):
+    for n in (16, 64, 384, 448, 640, 1024):
         params, x, h0, w = gru_case(n, b, t, dev, SEED + 11)
-        cfg = G.bwd_launch_config(b, n, G._bwd_max_clusters(dev, n))
-        _, _, gk = gru_grads(G.gru_recurrence, params, x, h0, w)
+        cfg = G.bwd_launch_config(b, n, G._max_clusters(dev, n))
+        hk, _, gk = gru_grads(G.gru_recurrence, params, x, h0, w)
         torch.cuda.synchronize()
-        _, _, gp = gru_grads(G.gru_recurrence_plain, params, x, h0, w)
-        _, _, gk2 = gru_grads(G.gru_recurrence, params, x, h0, w)
+        hp, _, gp = gru_grads(G.gru_recurrence_plain, params, x, h0, w)
+        hk2, _, gk2 = gru_grads(G.gru_recurrence, params, x, h0, w)
+        with torch.no_grad():
+            gi = G.gate_input(params, x)
+            hprev = torch.cat([h0[:, None], hk[:, :-1]], dim=1)
+            step, _ = G.gru_recurrence_plain(
+                params["recurrent"], params["bias"][1],
+                gi.reshape(b * t, 1, 3 * n), hprev.reshape(b * t, n))
+        step_err = float((step.reshape(b, t, n) - hk).abs().max())
+        traj_err = float((hk - hp).abs().max())
         gerr = {k: float((gk[k] - gp[k]).abs().max())
                 / max(1e-3, float(gp[k].abs().max())) for k in gp}
-        biteq = all(bool(torch.equal(gk[k], gk2[k])) for k in gk)
-        log(f"K5 backward [{n}] B={b} T={t} (clusters of {cfg['cluster']} x "
+        biteq = bool(torch.equal(hk, hk2)) and all(
+            bool(torch.equal(gk[k], gk2[k])) for k in gk)
+        log(f"K5 [{n}] B={b} T={t}: forward {fwd_route_words(n, b, dev)}: per-step "
+            f"max|hs| err {step_err:.3e} (tol 2e-5), trajectory {traj_err:.3e} (tol "
+            f"5e-3); backward (clusters of {cfg['cluster']} x "
             f"{cfg['units']} units, {cfg['streams']} streams, Wr "
             f"{'resident' if cfg['resident'] else 'from L2'}, {cfg['smem']} bytes): "
             "scaled gradient errs " + ", ".join(f"{k} {v:.3e}" for k, v in gerr.items())
-            + f" (tol 1e-2); bit-equal twice: {biteq}")
+            + f" (tol 1e-2); forward and backward bit-equal twice: {biteq}")
+        assert step_err <= 2e-5 and traj_err <= 5e-3, (n, step_err, traj_err)
         assert max(gerr.values()) <= 1e-2 and biteq, (n, gerr, biteq)
         torch.cuda.empty_cache()
 
@@ -513,6 +551,7 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
                           reps=1, warmup=0)
     hs, ht = G.gru_recurrence(wr, br, gi, h0)
     dht = torch.zeros_like(ht)
+    route = fwd_route_words(n, b, dev)
     b_ms = time_cuda(lambda: torch.autograd.grad(
         (hs, ht), (wr, br, gi), (w, dht), retain_graph=True), reps=3, warmup=1)
     # the backward's phases: the gate pass alone, then the backward of a
@@ -527,7 +566,7 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
     del hs_nw, ht_nw
     phases = {"gate_pass_ms": gate_ms, "chain_ms": nw_ms - gate_ms,
               "dwr_ms": b_ms - nw_ms}
-    bcfg = G.bwd_launch_config(b, n, G._bwd_max_clusters(dev, n))
+    bcfg = G.bwd_launch_config(b, n, G._max_clusters(dev, n))
     del hs, ht
     hs, ht = G.gru_recurrence_plain(wr, br, gi, h0)
     pb_ms = time_cuda(lambda: torch.autograd.grad(
@@ -575,8 +614,7 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
         f"{bcfg['cluster']} x {bcfg['units']} units, {bcfg['streams']} streams, "
         f"{bcfg['clusters']} clusters in {bcfg['waves']} wave(s), Wr "
         f"{'resident' if bcfg['resident'] else 'from L2'}), dWr and reductions "
-        f"{phases['dwr_ms']:.3f} ms; the forward kernel "
-        f"{'warp-synchronous' if G.forward_uses_warp(n) else 'on clusters'}; "
+        f"{phases['dwr_ms']:.3f} ms; the forward kernel {route}; "
         f"1 launch per training step each way; card: {smi}")
     src = "lpcnet_torch/kernels/csrc/gru_train.cu"
     products_ms = (our_f - f_ms) + (our_b - b_ms)
@@ -585,7 +623,7 @@ def time_k5(n, launches, step_err, grad_err, dev, smi):
          "replaces": "lpcnet_tpu/kernels/gru_train.py:72",
          "launches": launches[("fwd", n)], "max_abs_err": step_err,
          "ms": f_ms, "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby,
-         "library_ms": lib_f, "pass": True},
+         "library_ms": lib_f, "pass": True, "design": route},
         {"name": f"gru_train_bwd[{n}]", "route": "cuda", "source": src,
          "replaces": "lpcnet_tpu/kernels/gru_train.py:141",
          "launches": launches[("bwd", n)], "max_abs_err": grad_err,
@@ -1792,8 +1830,12 @@ def check_k6(fused, cfg, dev):
 def check_k6_main_shape(kw, mw, st, ca, cb, lpc, form):
     """K6 vs its plain version at the main shapes (B=1024, n=160) from the
     live state the codec path left, and one step against K1's kernel, at
-    K1's main-shape bars (`check_k1_main_shape`). Returns the largest
-    one-step error against the plain version."""
+    K1's main-shape bars (`check_k1_main_shape`), and the share of exact PCM
+    over the frame: f32 at least 95 %; bf16 is logged beside K1's own share
+    against K1's plain version on the same inputs (its bar is the RMS, as
+    K1's: an h_a one f32 bit apart can round to the neighbouring bf16
+    operand and set a stream apart). Returns the largest one-step error
+    against the plain version."""
     s1k, _ = K.synthesize_frame_merged_kernel(mw, st, ca, cb, lpc, 1)
     s1p, _ = K.sample_loop_merged_plain(mw, st, ca, cb, lpc, 1)
     s11, _ = K.synthesize_frame_kernel(kw, st, ca, cb, lpc, 1)
@@ -1809,15 +1851,22 @@ def check_k6_main_shape(kw, mw, st, ca, cb, lpc, form):
     rms_k, rms_p = (float(x.square().mean().sqrt()) for x in (pk, pp))
     rng_eq = all(bool(torch.equal(a, b)) for a, b in zip(sk.rng, sp.rng))
     finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+    _, pk1 = K.synthesize_frame_kernel(kw, st, ca, cb, lpc)
+    torch.cuda.synchronize()
+    _, pp1 = K.sample_loop_plain(kw, st, ca, cb, lpc)
+    same_k1 = float((pk1 == pp1).float().mean())
     log(f"K6[{form}] vs plain, B={ca.shape[0]} n={pk.shape[1]}, live state: "
         f"one step max|h_a| err {err_a:.3e}, max|h_b| err {err_b:.3e} (against "
-        f"K1's kernel {k1_a:.3e}, {k1_b:.3e}); frame: exact pcm {same:.4f}, "
-        f"streams apart {apart}, rms {rms_k:.1f} vs {rms_p:.1f}, rng equal "
-        f"{rng_eq}, finite {finite}")
+        f"K1's kernel {k1_a:.3e}, {k1_b:.3e}); frame: exact pcm {same:.4f} (bar "
+        f"0.95 {'held' if same >= 0.95 else 'missed'}; K1 vs its plain version on "
+        f"the same inputs {same_k1:.4f}), streams apart {apart}, rms {rms_k:.1f} vs "
+        f"{rms_p:.1f}, rng equal {rng_eq}, finite {finite}")
     tol_b = 1e-2 if form == "bf16" else 1e-4
     assert err_a <= 1e-4 and k1_a <= 1e-4 and rng_eq and finite, form
     assert err_b <= tol_b and k1_b <= tol_b, form
     assert abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5, form
+    if form == "f32":
+        assert same >= 0.95, (form, same)
     return max(err_a, err_b)
 
 
@@ -1829,9 +1878,9 @@ def codec_pcm(streams, superframes):
 
 def drive_codec(dev, smi):
     """The codec path at full width: LPCNetEncoder on 1024 streams of the
-    seeded signal for 10 superframes, then the packets through
+    seeded signal for 10 superframes, then the packets through two
     StreamPool(capacity=1024).step_packets on the demo vocoder, 10 ticks with
-    the merged flag off (K1) and 10 with it on (K6). Returns ({"K1"|"K6":
+    the merged flag off (K1) and 10 with it on (K6), taken in turn. Returns ({"K1"|"K6":
     the run's pcm, ms per tick, pool and launches}, the timed parts)."""
     from lpcnet_torch.codec import decoder as CD
     b, n_sf = CODEC_STREAMS, CODEC_SUPERFRAMES
@@ -1866,47 +1915,58 @@ def drive_codec(dev, smi):
 
     fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
     sids = [f"call-{i}" for i in range(b)]
+    # two pools, the merged flag off (K1) and on (K6), their ticks taken in
+    # turn (off, on, off, on, ...) so that the host's drift over the run
+    # falls on both alike; the flag is read at each frame's launch
+    pools, attach_ms, out, ticks, counts = {}, {}, {}, {}, {}
+    for flag in (False, True):
+        pools[flag] = api.StreamPool(fused, cfg, capacity=b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for sid in sids:                     # a call's set-up, not a tick
+            pools[flag].attach(sid)
+        torch.cuda.synchronize()
+        attach_ms[flag] = 1e3 * (time.perf_counter() - t0)
+        out[flag], ticks[flag], counts[flag] = [], [], np.zeros(3, int)
+    prev = K.set_merged(False)
+    try:
+        for t in range(n_sf):
+            for flag in (False, True):
+                K.set_merged(flag)
+                K.synthesize_frame_kernel.launches = 0
+                K.synthesize_frame_merged_kernel.launches = 0
+                K.synthesize_frame_masked_kernel.launches = 0
+                t0 = time.perf_counter()
+                got = pools[flag].step_packets(
+                    {sid: packets[t][i] for i, sid in enumerate(sids)})
+                out[flag].append(np.stack([got[sid] for sid in sids]))
+                ticks[flag].append(1e3 * (time.perf_counter() - t0))
+                counts[flag] += (K.synthesize_frame_kernel.launches,
+                                 K.synthesize_frame_merged_kernel.launches,
+                                 K.synthesize_frame_masked_kernel.launches)
+    finally:
+        K.set_merged(prev)
     runs = {}
     for flag in (False, True):
-        prev = K.set_merged(flag)
-        try:
-            pool = api.StreamPool(fused, cfg, capacity=b)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for sid in sids:                 # a call's set-up, not a tick
-                pool.attach(sid)
-            torch.cuda.synchronize()
-            attach_ms = 1e3 * (time.perf_counter() - t0)
-            K.synthesize_frame_kernel.launches = 0
-            K.synthesize_frame_merged_kernel.launches = 0
-            K.synthesize_frame_masked_kernel.launches = 0
-            out, ticks = [], []
-            for t in range(n_sf):
-                t0 = time.perf_counter()
-                got = pool.step_packets({sid: packets[t][i] for i, sid in enumerate(sids)})
-                out.append(np.stack([got[sid] for sid in sids]))
-                ticks.append(1e3 * (time.perf_counter() - t0))
-            k1, k6 = K.synthesize_frame_kernel.launches, K.synthesize_frame_merged_kernel.launches
-            k2 = K.synthesize_frame_masked_kernel.launches
-        finally:
-            K.set_merged(prev)
         name = "K6" if flag else "K1"
+        pool, k1, k6, k2 = pools[flag], *(int(c) for c in counts[flag])
         assert (k1, k6, k2) == ((0, 4 * n_sf, 0) if flag else (4 * n_sf, 0, 0)), (k1, k6, k2)
-        pcm_out = np.stack(out)                       # [ticks, B, 640]
+        pcm_out = np.stack(out[flag])                 # [ticks, B, 640]
         assert pcm_out.dtype == np.int16 and pcm_out.shape == (n_sf, b, 640)
         la = cfg.lookahead
         assert not pcm_out[0, :, :la * 160].any(), f"{name}: warmup not silent"
         assert pcm_out[1:].any(axis=(0, 2)).all(), f"{name}: a stream stayed silent"
         # the tick's own time: the mean of ticks 2-10 (the first also sets
         # up the frame network's and the decode's first calls on this pool)
-        tick_ms = float(np.mean(ticks[1:]))
+        tk = ticks[flag]
+        tick_ms = float(np.mean(tk[1:]))
         runs[name] = dict(pcm=pcm_out, tick_ms=tick_ms, pool=pool, launches=k1 + k6)
         log(f"codec decode [{name}, flag {'on' if flag else 'off'}]: StreamPool "
-            f"B={b}, {n_sf} ticks of 40 ms: {tick_ms:.3f} ms/tick (ticks 2-{n_sf}, "
-            f"host clock, PCM on the host; range {min(ticks[1:]):.3f}-"
-            f"{max(ticks[1:]):.3f}; first tick {ticks[0]:.3f}), "
+            f"B={b}, {n_sf} ticks of 40 ms, in turn with the other pool's: "
+            f"{tick_ms:.3f} ms/tick (ticks 2-{n_sf}, host clock, PCM on the host; "
+            f"range {min(tk[1:]):.3f}-{max(tk[1:]):.3f}; first tick {tk[0]:.3f}), "
             f"{40.0 / tick_ms * b:.1f} streams x real time; {b} attaches before "
-            f"the first tick {attach_ms:.1f} ms; launches K1 {k1}, K6 {k6}, K2 "
+            f"the first tick {attach_ms[flag]:.1f} ms; launches K1 {k1}, K6 {k6}, K2 "
             f"{k2}; warmup silent, int16, non-zero after; card: {smi}")
     rms = {k: float(np.sqrt(np.mean(v["pcm"][1:].astype(np.float64) ** 2)))
            for k, v in runs.items()}
@@ -1997,9 +2057,18 @@ def time_k6(runs, parts, dev, smi):
             f"+ 4 x {name} {kern:.3f} ms (CUDA events, alone, B={CODEC_STREAMS}) + "
             f"host rest {rest:.3f} ms ({100 * rest / tick:.1f} %; unpack_fields "
             f"{parts['unpack_ms']:.3f} ms on the host clock); card: {smi}")
+    on_off = runs["K6"]["tick_ms"] / runs["K1"]["tick_ms"]
+    log(f"codec tick with the merged flag on / off: {on_off:.3f} (K6 runs K1's kernel "
+        f"on the merged matrices' blocks); card: {smi}")
     r = res["bf16"]
     return {"name": "sample_loop_merged[bf16]", "route": "cuda",
-            "source": "lpcnet_torch/kernels/csrc/sample_loop.cu",
+            "source": "lpcnet_torch/kernels/csrc/masked_loop.cu",
+            "design": "K1's kernel of its form on the merged matrices' checked "
+                      "non-zero blocks (sample_loop.merged_packs), the 4N "
+                      "conditioning converted once a launch: bf16 "
+                      "masked_loop_kernel<FORM_BF16, NT, FREE=true>, f32 "
+                      "ar_kernel<FORM_F32> (csrc/sample_loop.cu)",
+            "tick_on_over_off": on_off,
             "replaces": "lpcnet_tpu/kernels/sample_loop.py:554",
             "launches": runs["K6"]["launches"], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"],

@@ -17,7 +17,12 @@
 // though, is a product with the whole of Wr (0.88 MB in bf16 at N=384) for
 // every group of streams, plus barriers.
 //
-// The forward:
+// The forward, by width (kernels/gru_train.py::forward_route): where a rank's
+// slice of Wr fits a block's shared memory (48 <= N <= 512, the training
+// path's 384 units among them) gru_fwd_chain_kernel (below the backward
+// chain): the backward chain's cluster design, Wr resident, the product on
+// the tensor cores; above 512 units the first design, gru_fwd_kernel; at
+// N <= 32 gru_fwd_warp_kernel. The first design:
 // * Streams are independent: a cluster of thread blocks owns 4 streams for
 //   all T steps, with no grid sync. The TPU kernel's time blocks, its batch
 //   tiles and the padding of small GRUs to 128 lanes are gone: any B, any T,
@@ -763,6 +768,189 @@ __global__ void __launch_bounds__(1024, 1) gru_bwd_chain_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward on a cluster, Wr resident
+// ---------------------------------------------------------------------------
+//
+// The backward chain's design applied to the forward, where the slice fits
+// a block's shared memory (fwd_launch_config in kernels/gru_train.py: up to
+// N = 512; above it gru_fwd_kernel, at N <= 32 gru_fwd_warp_kernel). A
+// cluster of C blocks owns S streams (8 or 16) for all T steps; rank r owns
+// units [r U, r U + U) (bwd_cluster_shape: C = 8, U = 48 at N = 384; units
+// past N are padding with zero weights whose h stays 0) and keeps Wr's 3U
+// columns of its units (all N rows) in shared memory: 110.6 KB in bf16 at
+// N = 384, packed by the wrapper in the A-fragment order of mma.sync
+// m16n8k16 (pack_fwd_weights). Per step:
+// * the product zrec^T = Wr_rank^T . bf16(h)^T on the tensor cores: A = the
+//   slice (16 gate columns a tile), B = the bf16 operand rows of h (8
+//   streams a tile, double-buffered, [S][C U + 8]); warp w takes one column
+//   tile, both stream tiles (each A fragment read once a step) and one of KP
+//   parts of the k steps; each k step is summed by the tensor core from zero
+//   and added to the running sum in IEEE float32 (the chained accumulation
+//   does not round to nearest, and a forward carries its error 2400 steps),
+//   and the parts meet in shared memory in a fixed order;
+// * thread (stream s, unit u) adds br, does the gate arithmetic of its own
+//   (stream, unit) with the gate inputs it loaded two steps ahead in
+//   registers, keeps h in float32 in a register and writes hs;
+// * the new bf16 h goes to every block: the 8 lanes that hold 8 consecutive
+//   units of one stream gather them into one 16-byte word by shuffles and
+//   lane c of the 8 stores it into rank c's copy (distributed shared
+//   memory), so there is no block barrier before the exchange; then one
+//   cluster barrier, split into arrive and wait around the store of hs.
+// The arithmetic is the first cluster kernel's: bf16 operands, f32 sums,
+// reset-after gates, br added to the recurrent sums. What is left of a step
+// (tools/trace_k5_chain_torch.py on an H100 at N = 384: about 6,600 cycles)
+// is the product, which reads the whole slice from shared memory every
+// step, and the exchange: the remote stores and the barrier's release,
+// which waits for them to land, about a third each.
+
+// k parts of the product (kernels/gru_train.py::fwd_kparts): as many as
+// the block's warps give every column tile, at most the k steps
+__host__ __device__ inline int fwd_kparts(int n, int units, int streams) {
+  const int warps = streams * units / 32, mt = 3 * units / 16;
+  const int kp = warps / mt < n / 16 ? warps / mt : n / 16;
+  return kp > 1 ? kp : 1;
+}
+
+template <int S>
+__global__ void __launch_bounds__(1024, 1) gru_fwd_chain_kernel(
+    int batch, int T, int n, int U, const uint4* __restrict__ wb, const float* __restrict__ br,
+    const float* __restrict__ gate_in, const float* __restrict__ h0, float* __restrict__ hs,
+    float* __restrict__ hT) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n3 = 3 * n, ldx = C * U + 8, ldp = 3 * U + 4, KS = n / 16, MT = 3 * U / 16;
+  const int KP = fwd_kparts(n, U, S);
+  constexpr int NTS = S / 8;                          // stream tiles
+  const size_t wwords = (size_t)MT * KS * 32;
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  uint4* ws = reinterpret_cast<uint4*>(fsmem);                          // the slice
+  bf16* hop = reinterpret_cast<bf16*>(fsmem + wwords * 16);             // [2][S][ldx]
+  float* part = reinterpret_cast<float*>(hop + 2 * S * ldx);            // [KP][S][ldp]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int s = tid / U, ul = tid % U, u = rank * U + ul;
+  const int b0 = (blockIdx.x / C) * S, b = b0 + s;
+  const bool own = u < n, on = own && b < batch;
+
+  const uint4* wg = wb + (size_t)rank * wwords;
+  for (size_t i = tid; i < wwords; i += blockDim.x) ws[i] = wg[i];
+  // buffer 0: every block's own copy of bf16(h0); buffer 1 zero
+  for (int i = tid; i < 2 * S * ldx; i += blockDim.x) {
+    const int ss = i / ldx, k = i % ldx;
+    const bool in = ss < S && k < n && b0 + ss < batch;
+    hop[i] = __float2bfloat16_rn(in ? h0[(size_t)(b0 + ss) * n + k] : 0.f);
+  }
+  float h = on ? h0[(size_t)b * n + u] : 0.f;
+  float brv[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) brv[q] = own ? br[q * n + u] : 0.f;
+  struct Gin { float z, r, h; };
+  auto load = [&](int t) {
+    Gin g = {0.f, 0.f, 0.f};
+    if (on && t < T) {
+      const float* p = gate_in + ((size_t)b * T + t) * n3 + u;
+      g.z = p[0];
+      g.r = p[n];
+      g.h = p[2 * n];
+    }
+    return g;
+  };
+  Gin g0 = load(0), g1 = load(1);
+  const int mt = warp % MT, kp = warp / MT;
+  const bool prod = kp < KP;
+  const int ks0 = kp * KS / KP, ks1 = (kp + 1) * KS / KP;
+  const int g = lane >> 2, t4 = lane & 3;
+  // the exchange word of this lane's group of 8 (stream s, units from
+  // u - c), and the rank it goes to
+  const int c = lane & 7, woff = s * ldx + u - c;
+  cluster.sync();   // every block is set up before remote stores
+
+  for (int t = 0; t < T; ++t) {
+    const Gin g2 = load(t + 2);
+    const bf16* cur = hop + (t & 1) * S * ldx;
+    bf16* nxt = hop + ((t + 1) & 1) * S * ldx;
+    if (prod) {
+      float acc[NTS][4] = {};
+      const uint4* wf = ws + (size_t)mt * KS * 32 + lane;
+      const bf16* xr = cur + g * ldx + 2 * t4;
+#pragma unroll 2
+      for (int k = ks0; k < ks1; ++k) {
+        const uint4 a = wf[k * 32];
+        const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int nt = 0; nt < NTS; ++nt) {
+          const bf16* x = xr + nt * 8 * ldx + k * 16;
+          float dd[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_acc(dd, av, ld32(x), ld32(x + 8));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[nt][i] += dd[i];
+        }
+      }
+      // D fragment: c0, c1 at (gate column g, streams 2 t4, 2 t4 + 1); c2, c3 at column g + 8
+#pragma unroll
+      for (int nt = 0; nt < NTS; ++nt) {
+        float* pp = part + (kp * S + nt * 8 + 2 * t4) * ldp + mt * 16 + g;
+        pp[0] = acc[nt][0];
+        pp[ldp] = acc[nt][1];
+        pp[8] = acc[nt][2];
+        pp[ldp + 8] = acc[nt][3];
+      }
+    }
+    __syncthreads();
+    float zr[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float* pq = part + s * ldp + q * U + ul;
+      float a = pq[0];
+      for (int i = 1; i < KP; ++i) a += pq[i * S * ldp];
+      zr[q] = a + brv[q];
+    }
+    if (own) {
+      const float z = sigmoid_rcp(g0.z + zr[0]);
+      const float r = sigmoid_rcp(g0.r + zr[1]);
+      const float hc = tanhf(g0.h + r * zr[2]);
+      h = z * h + (1.f - z) * hc;
+    }
+    // the new operand: lanes 8j .. 8j+7 hold 8 consecutive units of one
+    // stream (U is a multiple of 16); even lanes pair their value with the
+    // next lane's, every lane of the group gathers the four pairs
+    const uint32_t mine = __bfloat16_as_ushort(__float2bfloat16_rn(h));
+    const uint32_t pair = mine | (__shfl_down_sync(0xffffffffu, mine, 1) << 16);
+    const int base = lane & ~7;
+    uint4 v;
+    v.x = __shfl_sync(0xffffffffu, pair, base);
+    v.y = __shfl_sync(0xffffffffu, pair, base + 2);
+    v.z = __shfl_sync(0xffffffffu, pair, base + 4);
+    v.w = __shfl_sync(0xffffffffu, pair, base + 6);
+    if (c < C) *reinterpret_cast<uint4*>(cluster.map_shared_rank(nxt, c) + woff) = v;
+    // the cluster barrier: h's operand complete in every block, and the
+    // buffer the next step writes no longer read; hs is stored meanwhile
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    if (on) hs[((size_t)b * T + t) * n + u] = h;
+    g0 = g1;
+    g1 = g2;
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  }
+  if (on) hT[(size_t)b * n + u] = h;
+}
+
+typedef void (*FwdChainKernel)(int, int, int, int, const uint4*, const float*, const float*,
+                               const float*, float*, float*);
+
+FwdChainKernel fwd_chain_kernel_for(int streams) {
+  return streams == 8 ? gru_fwd_chain_kernel<8>
+                      : (streams == 16 ? gru_fwd_chain_kernel<16> : nullptr);
+}
+
+// the resident forward's shared memory (kernels/gru_train.py::fwd_smem_bytes
+// computes the same): the rank's slice (3U x N bf16), the operand of h
+// [2][S][C U + 8] bf16, the k parts' sums [KP][S][3U + 4] f32
+size_t fwd_chain_smem(int n, int cluster, int units, int streams) {
+  return (size_t)3 * units * n * 2 + (size_t)2 * streams * (cluster * units + 8) * 2 +
+         (size_t)fwd_kparts(n, units, streams) * streams * (3 * units + 4) * 4;
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -832,6 +1020,29 @@ extern "C" int lpcnet_gru_train_fwd(int batch, int T, int n, int cluster, int th
   return (int)cudaGetLastError();
 }
 
+// The forward with Wr resident across a cluster (gru_fwd_chain_kernel):
+// clusters of `cluster` blocks of `units` units, `streams` streams each; wf
+// the ranks' packed slices (kernels/gru_train.py::pack_fwd_weights); smem
+// the layout's total (fwd_smem_bytes).
+extern "C" int lpcnet_gru_train_fwd_chain(int batch, int T, int n, int cluster, int units,
+                                          int streams, int smem, const void* wf, const void* br,
+                                          const void* gate_in, const void* h0, void* hs, void* hT,
+                                          void* stream) {
+  const FwdChainKernel k = fwd_chain_kernel_for(streams);
+  if (batch <= 0 || T <= 0 || !k || bad_chain(n, cluster, units, streams) ||
+      (size_t)smem != fwd_chain_smem(n, cluster, units, streams))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_launch(batch, streams, cluster, streams * units, smem,
+                                          (cudaStream_t)stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, k, batch, T, n, units, (const uint4*)wf, (const float*)br,
+                         (const float*)gate_in, (const float*)h0, (float*)hs, (float*)hT);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // the warp-synchronous forward, N = 16 or 32; wp as in lpcnet_gru_train_fwd
 extern "C" int lpcnet_gru_train_fwd_warp(int batch, int T, int n, const void* wp,
                                          const void* br, const void* gate_in, const void* h0,
@@ -866,11 +1077,13 @@ extern "C" int lpcnet_gru_gate_pass(int batch, int T, int n, const void* wrt, co
   return (int)cudaGetLastError();
 }
 
-// The most clusters of the backward chain's shape the card holds at once; a
-// negative CUDA error code on failure.
-extern "C" int lpcnet_gru_bwd_max_clusters(int streams, int cluster, int threads, int smem) {
-  const ChainKernel k = chain_kernel_for(streams);
-  if (!k) return -(int)cudaErrorInvalidValue;
+// The most clusters of the backward chain's shape (fwd == 0) or of the
+// resident forward's (fwd == 1) the card holds at once; a negative CUDA
+// error code on failure.
+extern "C" int lpcnet_gru_max_clusters(int fwd, int streams, int cluster, int threads, int smem) {
+  const void* k = fwd ? (const void*)fwd_chain_kernel_for(streams)
+                      : (const void*)chain_kernel_for(streams);
+  if (!k || (fwd != 0 && fwd != 1)) return -(int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchAttribute attr;

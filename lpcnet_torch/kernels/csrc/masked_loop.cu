@@ -94,6 +94,15 @@
 // and 1024 streams take 26 clusters, two waves of 15 in place of three. A
 // single wave (S = 72) does not fit: two h_a operand buffers of 72 streams
 // (113 KB in bf16) and the 110.6 KB slice exceed a block.
+//
+// K6 in bf16, the merged-product loop (replaces
+// sample_loop.py::_sample_kernel_merged; its first port, ar_kernel<FORM,
+// true> in sample_loop.cu, read the merged matrices' zero blocks from L2
+// every step and is gone): the same function as K1, since a zero block adds
+// nothing to a float32 sum. It is this free-running form on the merged
+// matrices' non-zero blocks, packed as K1's (kernels/sample_loop.py::
+// merged_packs, which checks the padding blocks are zero), with the
+// conditioning's merged 4N layout converted once a launch into K1's.
 
 #include <cooperative_groups.h>
 

@@ -1,11 +1,12 @@
-// K1 (f32), K6 and K3: the LPCNet autoregressive sample loop, one frame per
-// launch, free-running (K1) or free-running with each GRU's products merged
-// into one (K6); and the GRU-only teacher-forced run over several
+// K1 (f32) and K3: the LPCNet autoregressive sample loop, one frame per
+// launch, free-running (K1); and the GRU-only teacher-forced run over several
 // conditioning blocks (K3, at the end of this file). The masked form (K2)
 // has a kernel of its own, redesigned for Hopper: masked_loop.cu, whose
 // free-running form is K1 in bf16 and q8 (in f32 this first design is the
 // faster at 1024 streams: K2's f32 form reads GRU-A's weights from L2 on the
-// CUDA cores for S streams a cluster).
+// CUDA cores for S streams a cluster). K6, the merged-product loop, runs K1's
+// kernel of its form on the non-zero blocks of its merged matrices
+// (kernels/sample_loop.py::merged_packs): f32 K6 is this kernel.
 //
 // Replaces the TPU kernel lpcnet_tpu/kernels/sample_loop.py::_ar_kernel, run
 // free (masked=False, sampled=True: K1), with its helpers _gru_ab,
@@ -39,17 +40,6 @@
 // * KISS99 runs in uint32 registers, bit-exact with the C decoder; bit
 //   decisions are `logit - thr > 0`. The scalar helpers live in
 //   sample_common.cuh, shared with K2.
-// * K6 (replaces lpcnet_tpu/kernels/sample_loop.py::_sample_kernel_merged)
-//   is a template flag of the same kernel, float forms only: each GRU
-//   reads one merged matrix, [768+Na, 4Na] for GRU-A and [Na+Nb, 4Nb] for
-//   GRU-B, with columns [z | r | h input side | h recurrent side] and zero
-//   blocks where an operand does not feed a column block, and one f32 sum
-//   per output column covers the three gathered embedding rows, the
-//   recurrent product and the conditioning in the same 4N layout, the
-//   recurrent bias folded in (the wrapper forms it). The tanh takes
-//   m[2N:3N] + r * m[3N:4N]. It reads the zero blocks as the TPU kernel
-//   does: a third more weight bytes per step than K1 for the same
-//   multiply-adds. Its sampler, LPC filter, KISS99 and de-emphasis are K1's.
 // Tensor cores, weights in shared memory across a cluster (as K2 now has
 // them) and TMA are later work here.
 
@@ -80,19 +70,7 @@ struct Args {
   float* ha_out; float* hb_out; float* sig_out;
   int* exc_out; float* de_out; long long* rng_out;
   float* pcm;               // [B, n_samples]
-  // K6 only: the merged matrices; cond_a and cond_b are then [B, 4Na] and
-  // [B, 4Nb] with the recurrent bias folded in
-  const void* a_merged;     // [768 + Na, 4Na] f32 / bf16
-  const void* b_merged;     // [Na + Nb, 4Nb]
 };
-
-// K6's update from the four merged column blocks of one unit
-__device__ __forceinline__ float gru_out4(float mz, float mr, float mhi, float mhr, float h0) {
-  float z = sigmoidf_(mz);
-  float r = sigmoidf_(mr);
-  float hc = tanhf(__fadd_rn(mhi, __fmul_rn(r, mhr)));
-  return __fadd_rn(__fmul_rn(z, h0), __fmul_rn(__fsub_rn(1.f, z), hc));
-}
 
 // what the two GRU steps read besides the per-stream conditioning
 struct GruWeights {
@@ -201,85 +179,7 @@ __device__ __forceinline__ void gru_b_phase(const GruWeights& w, int na, int nb,
   __syncthreads();
 }
 
-// K6's GRU-A for the block's BT streams: thread u owns unit u, columns u,
-// Na+u, 2Na+u and 3Na+u of the merged matrix, one f32 sum each over the
-// recurrent rows, the three embedding rows and the 4N conditioning (float
-// forms only).
 template <int FORM>
-__device__ __forceinline__ void gru_a_merged_phase(const void* a_merged, int na,
-                                                   const float* ca0, const float* hop,
-                                                   float* ha, const int* code, unsigned live,
-                                                   int tid) {
-  typedef typename FormT<FORM>::W W;
-  const W* am = (const W*)a_merged;
-  const int na4 = 4 * na;
-  const W* rec = am + (size_t)768 * na4;
-  for (int u = tid; u < na; u += NTHREADS) {
-    float acc[BT][4];
-#pragma unroll
-    for (int s = 0; s < BT; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
-    for (int k = 0; k < na; ++k) {
-      const size_t row = (size_t)k * na4;
-      float w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = wload(rec, row + q * na + u);
-#pragma unroll
-      for (int s = 0; s < BT; ++s) {
-        const float x = hop[s * na + k];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[s][q] += x * w[q];
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < BT; ++s) {
-      if (!((live >> s) & 1u)) continue;           // absent: h_a stays
-      const float* ca = ca0 + (size_t)s * na4;
-      const int r0 = code[3 * s], r1 = 256 + code[3 * s + 1], r2 = 512 + code[3 * s + 2];
-      float m[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = q * na + u;
-        float v = __fadd_rn(acc[s][q], wload(am, (size_t)r0 * na4 + col));
-        v = __fadd_rn(v, wload(am, (size_t)r1 * na4 + col));
-        v = __fadd_rn(v, wload(am, (size_t)r2 * na4 + col));
-        m[q] = __fadd_rn(v, ca[col]);
-      }
-      ha[s * na + u] = gru_out4(m[0], m[1], m[2], m[3], ha[s * na + u]);
-    }
-  }
-}
-
-// K6's GRU-B: one thread per (stream, merged column) of the nact present
-// streams sums [new h_a | h_b] against the [Na+Nb, 4Nb] matrix plus the 4N
-// conditioning into m ([BT][4nb] scratch), then the update of hb for the
-// `live` ones. Every thread of the block calls it; it ends on a barrier.
-template <int FORM>
-__device__ __forceinline__ void gru_b_merged_phase(const void* b_merged, int na, int nb,
-                                                   const float* cb0, const float* hop,
-                                                   const float* hbop, float* hb, float* m,
-                                                   int nact, unsigned live, int tid) {
-  typedef typename FormT<FORM>::W W;
-  const W* bm = (const W*)b_merged;
-  const int nb4 = 4 * nb;
-  for (int o = tid; o < BT * nb4; o += NTHREADS) {
-    const int s = o / nb4, c = o % nb4;
-    if (s >= nact) continue;
-    float acc = 0.f;
-    for (int k = 0; k < na; ++k) acc += hop[s * na + k] * wload(bm, (size_t)k * nb4 + c);
-    for (int k = 0; k < nb; ++k) acc += hbop[s * nb + k] * wload(bm, (size_t)(na + k) * nb4 + c);
-    m[o] = __fadd_rn(acc, cb0[(size_t)s * nb4 + c]);
-  }
-  __syncthreads();
-  for (int o = tid; o < BT * nb; o += NTHREADS) {
-    const int s = o / nb, u = o % nb;
-    if (!((live >> s) & 1u)) continue;
-    const float* mm = m + s * nb4;
-    hb[o] = gru_out4(mm[u], mm[nb + u], mm[2 * nb + u], mm[3 * nb + u], hb[o]);
-  }
-  __syncthreads();
-}
-
-template <int FORM, bool MERGED>
 __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
   const GruWeights w = {p.emb, p.emb_scale, p.a_rec, p.a_diag, p.a_bias1,
                         p.b_in, p.b_rec, p.b_bias1};
@@ -347,21 +247,12 @@ __global__ void __launch_bounds__(NTHREADS) ar_kernel(Args p) {
     const unsigned live = (1u << nact) - 1u;
 
     // (b) GRU-A, (c) GRU-B
-    if constexpr (MERGED)
-      gru_a_merged_phase<FORM>(p.a_merged, na, p.cond_a + (size_t)b0 * 4 * na, hop, ha, code,
-                               live, tid);
-    else
-      gru_a_phase<FORM>(w, na, p.cond_a + (size_t)b0 * na3, (size_t)na3, hop, ha, code, live,
-                        tid);
+    gru_a_phase<FORM>(w, na, p.cond_a + (size_t)b0 * na3, (size_t)na3, hop, ha, code, live, tid);
     __syncthreads();
     for (int i = tid; i < BT * na; i += NTHREADS) hop[i] = operand<FORM>(ha[i]);
     __syncthreads();
-    if constexpr (MERGED)     // gin and grec, contiguous, hold the [BT][4nb] sums
-      gru_b_merged_phase<FORM>(p.b_merged, na, nb, p.cond_b + (size_t)b0 * 4 * nb, hop, hbop,
-                               hb, gin, nact, live, tid);
-    else
-      gru_b_phase<FORM>(w, na, nb, p.cond_b + (size_t)b0 * nb3, (size_t)nb3, hop, hbop, hb, gin,
-                        grec, nact, live, tid);
+    gru_b_phase<FORM>(w, na, nb, p.cond_b + (size_t)b0 * nb3, (size_t)nb3, hop, hbop, hb, gin,
+                      grec, nact, live, tid);
 
     // (d) dual-FC node logits: both channels of node n from columns n, 256+n
     for (int o = tid; o < BT * 256; o += NTHREADS) {
@@ -425,16 +316,16 @@ static size_t smem_bytes(int na, int nb) {
        + sizeof(int) * 3 * BT + sizeof(unsigned) * 4 * BT;
 }
 
-template <int FORM, bool MERGED = false>
+template <int FORM>
 static cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.na, a.nb);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ar_kernel<FORM, MERGED>,
+    cudaError_t e = cudaFuncSetAttribute(ar_kernel<FORM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int grid = (a.batch + BT - 1) / BT;
-  ar_kernel<FORM, MERGED><<<grid, NTHREADS, smem, stream>>>(a);
+  ar_kernel<FORM><<<grid, NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -471,7 +362,6 @@ static Args make_args(SAMPLE_LOOP_PARAMS) {
   a.ha_out = (float*)ha_out; a.hb_out = (float*)hb_out; a.sig_out = (float*)sig_out;
   a.exc_out = (int*)exc_out; a.de_out = (float*)de_out; a.rng_out = (long long*)rng_out;
   a.pcm = (float*)pcm;
-  a.a_merged = nullptr; a.b_merged = nullptr;
   return a;
 }
 
@@ -481,31 +371,6 @@ extern "C" int lpcnet_sample_loop(SAMPLE_LOOP_PARAMS, void* stream) {
   if (batch <= 0 || n_samples <= 0 || form != FORM_F32) return (int)cudaErrorInvalidValue;
   const Args a = make_args(SAMPLE_LOOP_ARGS);
   return (int)launch<FORM_F32>(a, (cudaStream_t)stream);
-}
-
-// K6: free-running, merged products. a_merged [768+Na, 4Na] and b_merged
-// [Na+Nb, 4Nb] f32 or bf16 (form 0 or 1); cond_a4 [B, 4Na] and cond_b4
-// [B, 4Nb] in the merged layout with the recurrent bias folded in; the rest
-// as in K1.
-extern "C" int lpcnet_sample_loop_merged(
-    int form, int batch, int na, int nb, int n_samples, const void* a_merged,
-    const void* b_merged, const void* dual_w, const void* dual_bias, const void* dual_factor,
-    const void* logit_table, const void* cond_a4, const void* cond_b4, const void* lpc,
-    const void* ha_in, const void* hb_in, const void* sig_in, const void* exc_in,
-    const void* de_in, const void* rng_in, void* ha_out, void* hb_out, void* sig_out,
-    void* exc_out, void* de_out, void* rng_out, void* pcm, void* stream) {
-  if (batch <= 0 || n_samples <= 0 || !a_merged || !b_merged) return (int)cudaErrorInvalidValue;
-  Args a = make_args(form, batch, na, nb, n_samples, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, nullptr, nullptr, nullptr, dual_w, dual_bias, dual_factor,
-                     logit_table, cond_a4, cond_b4, lpc, ha_in, hb_in, sig_in, exc_in, de_in,
-                     rng_in, ha_out, hb_out, sig_out, exc_out, de_out, rng_out, pcm);
-  a.a_merged = a_merged; a.b_merged = b_merged;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (form) {
-    case FORM_F32: return (int)launch<FORM_F32, true>(a, s);
-    case FORM_BF16: return (int)launch<FORM_BF16, true>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // --------------------------------------------------------------------------

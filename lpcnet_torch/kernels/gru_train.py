@@ -34,9 +34,14 @@ package leaves it to XLA.
 
 Unlike the TPU kernel, any batch size and any number of steps work, and a
 small GRU (16 units) runs at its own width; the unit count must be a
-multiple of 16 and at most 1024. At N <= 32 (`WARP_MAX_UNITS`) the forward
-is a warp-synchronous kernel: a stream is N lanes of a warp, lane u owns
-unit u and keeps its 3N columns of Wr in registers.
+multiple of 16 and at most 1024. The forward's kernel follows the width
+(`forward_route`): at N <= 32 (`WARP_MAX_UNITS`) a warp-synchronous kernel
+(a stream is N lanes of a warp, lane u owns unit u and keeps its 3N columns
+of Wr in registers); where a rank's slice of Wr fits a block (up to 512
+units, the training path's 384 among them) the backward chain's cluster
+design (`fwd_launch_config`, `pack_fwd_weights`: Wr resident across the
+cluster, the product on the tensor cores); above it the first cluster
+kernel (`launch_config`, Wr from L2).
 """
 
 from __future__ import annotations
@@ -173,8 +178,10 @@ def _lib():
         lib.lpcnet_gru_train_bwd.restype = ci
         lib.lpcnet_gru_gate_pass.argtypes = [ci] * 3 + [vp] * 9
         lib.lpcnet_gru_gate_pass.restype = ci
-        lib.lpcnet_gru_bwd_max_clusters.argtypes = [ci] * 4
-        lib.lpcnet_gru_bwd_max_clusters.restype = ci
+        lib.lpcnet_gru_max_clusters.argtypes = [ci] * 5
+        lib.lpcnet_gru_max_clusters.restype = ci
+        lib.lpcnet_gru_train_fwd_chain.argtypes = [ci] * 7 + [vp] * 7
+        lib.lpcnet_gru_train_fwd_chain.restype = ci
         _LIB = lib
     return _LIB
 
@@ -186,7 +193,9 @@ def _check_units(n: int) -> None:
 
 
 def launch_config(n: int):
-    """The forward's (blocks per cluster, threads per block) for N units. A
+    """The first cluster forward's (blocks per cluster, threads per block)
+    for N units (`gru_fwd_kernel`, which runs above the resident forward's
+    widths, `forward_route`). A
     cluster of thread blocks owns 4 streams; at N >= 256 it has 4 blocks,
     each with a quarter of the units, else one block. A block runs 4
     threads per unit it owns (the k range of a product in 4 parts, then one
@@ -264,9 +273,77 @@ WARP_MAX_UNITS = 32
 
 def forward_uses_warp(n: int) -> bool:
     """Whether the forward of an N-unit GRU runs the warp-synchronous
-    kernel (N <= 32) rather than the cluster kernel."""
+    kernel (N <= 32) rather than a cluster kernel."""
     launch_config(n)
     return n <= WARP_MAX_UNITS
+
+
+def fwd_kparts(n: int, streams: int) -> int:
+    """The k parts of the resident forward's product (the csrc
+    fwd_kparts): as many as the block's S U / 32 warps give each of the 3U
+    / 16 gate-column tiles, at most the N / 16 k steps (2 at N = 384,
+    S = 16)."""
+    _, u = bwd_cluster_shape(n)
+    return max(1, min((streams * u // 32) // (3 * u // 16), n // 16))
+
+
+def fwd_smem_bytes(n: int, streams: int) -> int:
+    """Shared memory of one resident forward block, bytes (the csrc
+    fwd_chain_smem): the rank's slice of Wr (3U x N bf16), the operand of
+    h for two steps ([2][S][C U + 8] bf16) and the k parts' sums
+    ([KP][S][3U + 4] f32)."""
+    c, u = bwd_cluster_shape(n)
+    return (3 * u * n * 2 + 2 * streams * (c * u + 8) * 2
+            + fwd_kparts(n, streams) * streams * (3 * u + 4) * 4)
+
+
+def forward_route(n: int) -> str:
+    """The forward kernel of an N-unit GRU, by width alone: "warp" at
+    N <= 32 (`gru_fwd_warp_kernel`), "resident" where a rank's slice of Wr
+    fits a block beside the rest at S = 8 (`gru_fwd_chain_kernel`, up to
+    N = 512), "cluster" above (`gru_fwd_kernel`, Wr from L2)."""
+    if forward_uses_warp(n):
+        return "warp"
+    return "resident" if fwd_smem_bytes(n, 8) <= SMEM_LIMIT else "cluster"
+
+
+def fwd_launch_config(batch: int, n: int, max_clusters):
+    """The resident forward's launch for `batch` streams: the keys of
+    `bwd_launch_config` ("cluster", "units", "streams", "threads",
+    "clusters", "smem", "waves"; the slice is always resident). The
+    cluster shape is the backward chain's (`bwd_cluster_shape`); S is the
+    smallest of 8 and 16 whose clusters fit one wave by
+    `max_clusters(streams, smem)`, else the largest that fits a block
+    (S U <= 1024 threads and the shared memory)."""
+    if batch <= 0:
+        raise ValueError(f"GRU training kernel: batch {batch}")
+    if forward_route(n) != "resident":
+        raise ValueError(f"GRU training kernel: {n} units have no resident forward")
+    c, u = bwd_cluster_shape(n)
+    allowed = [s for s in BWD_STREAMS if s * u <= BWD_MAX_THREADS
+               and fwd_smem_bytes(n, s) <= SMEM_LIMIT]
+    for s in allowed:
+        smem = fwd_smem_bytes(n, s)
+        held = max_clusters(s, smem)
+        if -(-batch // s) <= held or s == allowed[-1]:
+            break
+    clusters = -(-batch // s)
+    return {"cluster": c, "units": u, "streams": s, "threads": s * u,
+            "clusters": clusters, "smem": smem, "waves": -(-clusters // held)}
+
+
+def pack_fwd_weights(wr: torch.Tensor) -> torch.Tensor:
+    """Wr [N, 3N] -> [C, 3U / 16, N / 16, 32, 8] bf16: rank r's 3U gate
+    columns [z | r | h] of units r U .. r U + U (zero past N), all N rows
+    deep, as the A operand of the resident forward's product
+    zrec^T = Wr_rank^T . h^T, in `mma.sync` m16n8k16 fragment order
+    (`masked_loop.pack_tiles`)."""
+    n = wr.shape[0]
+    c, u = bwd_cluster_shape(n)
+    cols = wr.new_zeros((3, c * u, n), dtype=torch.bfloat16)    # [gate, unit, k]
+    cols[:, :n] = wr.detach().to(torch.bfloat16).t().reshape(3, n, n)
+    at = cols.reshape(3, c, u, n).transpose(0, 1).reshape(c, 3 * u, n)
+    return pack_tiles(at, 16)
 
 
 def pack_recurrent(wr: torch.Tensor) -> torch.Tensor:
@@ -286,25 +363,28 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
 
 
-_BWD_MAX_CLUSTERS: dict = {}
+_MAX_CLUSTERS: dict = {}
 
 
-def _bwd_max_clusters(dev, n):
-    """`bwd_launch_config`'s `max_clusters(streams, smem)` on the card `dev`:
-    the CUDA occupancy query, remembered per card and shape."""
+def _max_clusters(dev, n, direction="bwd"):
+    """`bwd_launch_config`'s (or, with direction "fwd",
+    `fwd_launch_config`'s) `max_clusters(streams, smem)` on the card `dev`:
+    the CUDA occupancy query of that kernel, remembered per card and
+    shape."""
     c, u = bwd_cluster_shape(n)
+    fwd = {"bwd": 0, "fwd": 1}[direction]
 
     def ask(streams, smem):
-        key = (dev.index, streams, c, u, smem)
-        if key not in _BWD_MAX_CLUSTERS:
+        key = (dev.index, direction, streams, c, u, smem)
+        if key not in _MAX_CLUSTERS:
             with torch.cuda.device(dev):
-                got = _lib().lpcnet_gru_bwd_max_clusters(streams, c, streams * u, smem)
+                got = _lib().lpcnet_gru_max_clusters(fwd, streams, c, streams * u, smem)
             if got <= 0:
                 raise RuntimeError(
                     f"GRU training kernel: no cluster of {c} blocks with {smem} "
                     f"bytes fits the card (CUDA {-got})")
-            _BWD_MAX_CLUSTERS[key] = got
-        return _BWD_MAX_CLUSTERS[key]
+            _MAX_CLUSTERS[key] = got
+        return _MAX_CLUSTERS[key]
 
     return ask
 
@@ -370,17 +450,23 @@ class GruRecurrence(torch.autograd.Function):
         _check("br", br, (n3,), dev)
         _check("gate_in", gate_in, (b, t, n3), dev)
         _check("h0", h0, (b, n), dev)
-        cluster, threads = launch_config(n)
-        wp = pack_recurrent(wr)
+        route = forward_route(n)
+        wp = pack_fwd_weights(wr) if route == "resident" else pack_recurrent(wr)
         hs = torch.empty((b, t, n), dtype=torch.float32, device=dev)
         ht = torch.empty((b, n), dtype=torch.float32, device=dev)
         ptrs = (wp.data_ptr(), br.data_ptr(), gate_in.data_ptr(),
                 h0.data_ptr(), hs.data_ptr(), ht.data_ptr())
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if forward_uses_warp(n):
+            if route == "warp":
                 err = _lib().lpcnet_gru_train_fwd_warp(b, t, n, *ptrs, stream)
+            elif route == "resident":
+                cfg = fwd_launch_config(b, n, _max_clusters(dev, n, "fwd"))
+                err = _lib().lpcnet_gru_train_fwd_chain(
+                    b, t, n, cfg["cluster"], cfg["units"], cfg["streams"],
+                    cfg["smem"], *ptrs, stream)
             else:
+                cluster, threads = launch_config(n)
                 err = _lib().lpcnet_gru_train_fwd(b, t, n, cluster, threads,
                                                   *ptrs, stream)
         if err != 0:
@@ -402,7 +488,7 @@ class GruRecurrence(torch.autograd.Function):
         _check("dhs", dhs, (b, t, n), dev)
         _check("dhT", dht, (b, n), dev)
         want_w = bool(ctx.needs_input_grad[0] or ctx.needs_input_grad[1])
-        cfg = bwd_launch_config(b, n, _bwd_max_clusters(dev, n))
+        cfg = bwd_launch_config(b, n, _max_clusters(dev, n))
         wb = pack_bwd_weights(wr)
         wrt = wr.t().contiguous().to(torch.bfloat16)   # the gate pass's operand
         f32 = dict(dtype=torch.float32, device=dev)

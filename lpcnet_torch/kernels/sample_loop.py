@@ -4,7 +4,7 @@ per-stream, per-sample control masks (K2). K2 is the cluster kernel of
 `csrc/masked_loop.cu`, redesigned for Hopper (launch shape and weight
 packing in `masked_loop.py`); K1 in bf16 and q8 is that kernel's
 free-running form, in f32 the first design's kernel (`csrc/sample_loop.cu`,
-which also holds K3 and K6).
+which also holds K3); K6 runs K1's kernel of its form.
 
 Port of `lpcnet_tpu/kernels/sample_loop.py::_ar_kernel`, run free
 (masked=False, sampled=True) and masked (masked=True). Each step: LPC
@@ -42,7 +42,12 @@ h_b, last_sig, last_exc, deemph, rng).
   `_synthesize_frame_pallas_merged`): float K1 with each GRU's input and
   recurrent products merged into one product over a `[k_in+k_rec, 4N]`
   matrix, the conditioning remapped to that layout with the recurrent bias
-  folded in (`cond4`). `synthesize_frame_auto` picks K6 when
+  folded in (`cond4`). A zero block adds nothing to a float32 sum, so K6
+  runs K1's kernel of its form (bf16: the cluster kernel's free-running
+  form; f32: the first design's) on the merged matrices' non-zero blocks,
+  the padding checked to be zero (`merged_packs`), with the conditioning's
+  4N layout converted once a launch into K1's. `synthesize_frame_auto`
+  picks K6 when
   `LPCNET_KERNEL_MERGED` is set (read at import, `set_merged` at run time)
   and the bundle is float, K1 otherwise.
 """
@@ -301,8 +306,6 @@ def _lib():
         lib.lpcnet_sample_loop.restype = ci
         lib.lpcnet_teacher_force.argtypes = [ci] * 6 + [vp] * 19
         lib.lpcnet_teacher_force.restype = ci
-        lib.lpcnet_sample_loop_merged.argtypes = [ci] * 5 + [vp] * 23
-        lib.lpcnet_sample_loop_merged.restype = ci
         _LIB = lib
     return _LIB
 
@@ -388,33 +391,25 @@ def _gru_operands(kw, na, nb, dev):
 
 
 def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
-            masked=None, merged=None, free=False):
+            masked=None, free=False):
     """Check the operands, allocate the outputs and launch the kernel on the
     current stream; `masked` is None (K1, K6) or (preload, mode, sampled)
-    (K2); `merged` is (form, a_merged, b_merged) for K6, whose cond_a and
-    cond_b come in the 4N layout; `free` launches K2's kernel in its
-    free-running form (K1 on K2's cluster design), `kw` then carrying K2's
-    packs."""
+    (K2); `free` launches K2's kernel in its free-running form (K1 on K2's
+    cluster design), `kw` then carrying K2's packs."""
     dev = cond_a.device
     b = cond_a.shape[0]
     na = kw["a_bias1"].shape[-1] // 3
     nb = kw["b_bias1"].shape[-1] // 3
     f32 = torch.float32
-    if merged is None:
-        form, emb, emb_scale, a_rec, a_diag, b_in, b_rec = _gru_operands(
-            kw, na, nb, dev)
-        weights = (emb, emb_scale, a_rec, a_diag, kw["a_bias1"], b_in, b_rec,
-                   kw["b_bias1"])
-        ncond = 3
-    else:
-        form, a_merged, b_merged = merged
-        weights = (a_merged, b_merged)
-        ncond = 4
+    form, emb, emb_scale, a_rec, a_diag, b_in, b_rec = _gru_operands(
+        kw, na, nb, dev)
+    weights = (emb, emb_scale, a_rec, a_diag, kw["a_bias1"], b_in, b_rec,
+               kw["b_bias1"])
     for name, shape in (("dual_w", (nb, 512)), ("dual_bias", (1, 512)),
                         ("dual_factor", (1, 512)), ("logit_table", (1, 256))):
         _check(name, kw[name], shape, f32, dev)
-    _check("cond_a", cond_a, (b, ncond * na), f32, dev)
-    _check("cond_b", cond_b, (b, ncond * nb), f32, dev)
+    _check("cond_a", cond_a, (b, 3 * na), f32, dev)
+    _check("cond_b", cond_b, (b, 3 * nb), f32, dev)
     _check("lpc", lpc, (b, LPC_ORDER), f32, dev)
     ha_in = state.gru_a.contiguous()
     hb_in = state.gru_b.contiguous()
@@ -446,9 +441,7 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
     args = (form, b, na, nb, n_samples) + tuple(ptr(t) for t in weights) + tail
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if merged is not None:
-            err = _lib().lpcnet_sample_loop_merged(*args, stream)
-        elif masked is None and not free:
+        if masked is None and not free:
             err = _lib().lpcnet_sample_loop(*args, stream)
         else:
             emb, emb_scale, a_rec, a_diag, a_bias1, b_in, b_rec, b_bias1 = weights
@@ -776,8 +769,10 @@ def merged_kernel_weights(kw):
     package's `_merged_weights`: `a_merged` [768+Na, 4Na] (embedding rows,
     then GRU-A's recurrent rows), `b_merged` [Na+Nb, 4Nb] (GRU-B's input
     rows, then its recurrent rows), in the bundle's operand type; the biases
-    (for `cond4`) and the sampler's tensors are shared with `kw`. Built
-    only where K6 runs, so K1's bundle stays as it is."""
+    (for `cond4`) and the sampler's tensors are shared with `kw`; and the
+    kernel's launch operands built from the merged matrices
+    (`merged_packs`). Built only where K6 runs, so K1's bundle stays as it
+    is."""
     if is_q8_bundle(kw):
         raise TypeError("K6 takes float bundles only (f32 or bf16 operands)")
     na = kw["a_bias1"].shape[-1] // 3
@@ -786,7 +781,52 @@ def merged_kernel_weights(kw):
                              "dual_factor", "logit_table")}
     mw["a_merged"] = _merge(kw["emb_cat"], kw["a_rec"], na)
     mw["b_merged"] = _merge(kw["b_in"], kw["b_rec"], nb)
-    return mw
+    return merged_packs(mw)
+
+
+def _unmerge(m, k_in, n, name):
+    """`_merge`'s inverse: [k_in+k_rec, 4n] -> (w_in [k_in, 3n],
+    w_rec [k_rec, 3n]), contiguous, each the [z | r | h] column blocks its
+    rows feed. The two blocks `_merge` pads (the input rows' h-recurrent
+    block, the recurrent rows' h-input block) are checked, not assumed: a
+    non-zero entry there raises ValueError, so a product over the blocks
+    returned is the product over the whole merged matrix."""
+    top, bot = m[:k_in], m[k_in:]
+    for block, what in ((top[:, 3 * n:], "input rows' h-recurrent"),
+                        (bot[:, 2 * n:3 * n], "recurrent rows' h-input")):
+        if bool(block.any()):
+            raise ValueError(f"{name}: the {what} block of the merged layout "
+                             f"is not zero")
+    return (top[:, :3 * n].contiguous(),
+            torch.cat([bot[:, :2 * n], bot[:, 3 * n:]], dim=1).contiguous())
+
+
+def _h_bias(bias1):
+    """[1, 3N] recurrent bias -> [0 | 0 | bias_h]: what is left to add to
+    the recurrent sums once `cond4` has folded bias_z and bias_r into the
+    conditioning."""
+    n = bias1.shape[-1] // 3
+    return torch.cat([torch.zeros_like(bias1[..., :2 * n]), bias1[..., 2 * n:]],
+                     dim=-1).contiguous()
+
+
+def merged_packs(mw):
+    """`mw` with K6's launch operands under "k6", built from its own merged
+    matrices once per operand set (the decoder keeps them with `mw`): a
+    bundle in K1's layout whose `emb_cat`, `a_rec`, `b_in` and `b_rec` are
+    the non-zero blocks of `a_merged` and `b_merged` (`_unmerge`: the
+    padding blocks checked to be zero), whose recurrent biases are
+    `_h_bias`'s and whose sampler tensors are `mw`'s, with K2's fragment
+    packs (`masked_kernel_weights`; None in f32). K6 runs K1's kernel of its
+    form on it."""
+    a_m, b_m = mw["a_merged"], mw["b_merged"]
+    na, nb = a_m.shape[1] // 4, b_m.shape[1] // 4
+    emb, a_rec = _unmerge(a_m, 768, na, "a_merged")
+    b_in, b_rec = _unmerge(b_m, na, nb, "b_merged")
+    k6 = {k: mw[k] for k in ("dual_w", "dual_bias", "dual_factor", "logit_table")}
+    k6.update(emb_cat=emb, a_rec=a_rec, b_in=b_in, b_rec=b_rec,
+              a_bias1=_h_bias(mw["a_bias1"]), b_bias1=_h_bias(mw["b_bias1"]))
+    return dict(mw, k6=masked_kernel_weights(k6))
 
 
 def cond4(cond, bias1):
@@ -843,36 +883,46 @@ def sample_loop_merged_plain(mw, state: SampleState, cond_a, cond_b, lpc,
                        gru_ab=_gru_ab_merged_plain(mw))
 
 
+def merged_as_k1(mw, cond_a, cond_b):
+    """K6's launch in K1's terms: (the K1-layout bundle of `merged_packs`,
+    built here when `mw` lacks it, and cond_a, cond_b [B, 3N] converted
+    through the merged 4N layout (`cond4`) into K1's: its first 3N columns,
+    [cond_zr + bias_zr | cond_h], the last block (bias_h) being the
+    bundle's recurrent bias)."""
+    if "k6" not in mw:
+        mw = merged_packs(mw)
+    na, nb = (mw[k].shape[-1] // 3 for k in ("a_bias1", "b_bias1"))
+    ca = cond4(cond_a, mw["a_bias1"][0])[:, :3 * na].contiguous()
+    cb = cond4(cond_b, mw["b_bias1"][0])[:, :3 * nb].contiguous()
+    return mw["k6"], ca, cb
+
+
 def synthesize_frame_merged_kernel(mw, state: SampleState, cond_a, cond_b,
                                    lpc, n_samples: int = 160):
     """One frame of K6: (new_state, pcm [B, n_samples]); `mw` is
-    `merged_kernel_weights(kw)`, cond_a and cond_b in K1's 3N layout (the
-    4N layout is formed here, before the launch).
+    `merged_kernel_weights(kw)`, cond_a and cond_b in K1's 3N layout.
 
     On a CPU tensor this runs `sample_loop_merged_plain`. On a CUDA tensor
-    it launches the kernel and counts the launch in
-    `synthesize_frame_merged_kernel.launches`; any other device raises. Any
-    batch size works, with no padding of streams."""
+    it launches K1's kernel of the operands' form (bf16: K2's cluster
+    kernel in its free-running form; f32: the first design's) on the
+    operands `merged_packs` built from `a_merged` and `b_merged` (here, for
+    this call, when `mw` lacks them), and counts the launch in
+    `synthesize_frame_merged_kernel.launches`; any other device raises. The
+    conditioning is formed in the 4N layout and converted once a launch
+    into K1's (`merged_as_k1`). Any batch size works, with no padding of
+    streams."""
     dev = cond_a.device
     if dev.type == "cpu":
         return sample_loop_merged_plain(mw, state, cond_a, cond_b, lpc,
                                         n_samples)
     if dev.type != "cuda":
         raise ValueError(f"sample loop kernel: unsupported device {dev}")
-    a_m, b_m = mw["a_merged"], mw["b_merged"]
-    if a_m.dtype not in _FORMS:
-        raise TypeError(f"merged sample loop kernel: operand dtype {a_m.dtype}")
-    b, na3 = cond_a.shape
-    na = na3 // 3
-    nb = mw["b_bias1"].shape[-1] // 3
-    f32 = torch.float32
-    _check("a_merged", a_m, (768 + na, 4 * na), a_m.dtype, dev)
-    _check("b_merged", b_m, (na + nb, 4 * nb), a_m.dtype, dev)
-    _check("cond_b", cond_b, (b, 3 * nb), f32, dev)
-    ca4 = cond4(cond_a, mw["a_bias1"][0]).contiguous()
-    cb4 = cond4(cond_b, mw["b_bias1"][0]).contiguous()
-    out = _launch(mw, state, ca4, cb4, lpc, n_samples,
-                  merged=(_FORMS[a_m.dtype], a_m, b_m))
+    dt = mw["a_merged"].dtype
+    if dt not in _FORMS:
+        raise TypeError(f"merged sample loop kernel: operand dtype {dt}")
+    kw6, ca, cb = merged_as_k1(mw, cond_a, cond_b)
+    out = _launch(kw6, state, ca, cb, lpc, n_samples,
+                  free=_FORMS[dt] in FREE_FORMS)
     synthesize_frame_merged_kernel.launches += 1
     return out
 

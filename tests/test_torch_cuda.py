@@ -128,6 +128,42 @@ def test_cuda_merged_kernel_matches_plain(cuda, form, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+def test_cuda_merged_kernel_at_the_decode_batch(cuda, form):
+    """K6 at the decode pool's 1024 streams (bf16: two waves of K1's
+    clusters of 40), full width: one step within 1e-4 of its plain version
+    and of K1's kernel on the same inputs (bf16 GRU-B 1e-2); over 32 steps
+    RNG equal, finite, f32 >=98 % exact PCM, bf16 RMS within 0.5; one launch
+    of K6 and none of K1 counted a call."""
+    cfg = M.LPCNetConfig()
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda), cfg)
+    kw = K.masked_kernel_weights(K.kernel_weights(
+        fused, cfg, dtype={"f32": torch.float32, "bf16": torch.bfloat16}[form]))
+    mw = K.merged_kernel_weights(kw)
+    ca, cb, lpc, s0 = _inputs(fused, cfg, 1024, cuda)
+    s1k, _ = K.synthesize_frame_merged_kernel(mw, s0, ca, cb, lpc, 1)
+    s1p, _ = K.sample_loop_merged_plain(mw, s0, ca, cb, lpc, 1)
+    s11, _ = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, 1)
+    for other in (s1p, s11):
+        assert float((s1k.gru_a - other.gru_a).abs().max()) <= 1e-4
+        assert float((s1k.gru_b - other.gru_b).abs().max()) <= (
+            1e-2 if form == "bf16" else 1e-4)
+    k1, k6 = K.synthesize_frame_kernel.launches, K.synthesize_frame_merged_kernel.launches
+    sk, pk = K.synthesize_frame_merged_kernel(mw, s0, ca, cb, lpc, 32)
+    torch.cuda.synchronize()
+    assert (K.synthesize_frame_kernel.launches - k1,
+            K.synthesize_frame_merged_kernel.launches - k6) == (0, 1)
+    sp, pp = K.sample_loop_merged_plain(mw, s0, ca, cb, lpc, 32)
+    assert all(torch.equal(a, b) for a, b in zip(sk.rng, sp.rng))
+    assert bool(torch.isfinite(pk).all()) and bool(torch.isfinite(sk.gru_a).all())
+    if form == "f32":
+        assert float((pk == pp).float().mean()) >= 0.98
+    else:
+        rms_k, rms_p = (float(x.square().mean().sqrt()) for x in (pk, pp))
+        assert abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["float-off", "float-on", "int8-on"])
 def test_cuda_stream_pool_decodes_through_the_selected_kernel(cuda, case):
     """StreamPool.step_packets on the card: 4 sample-loop launches a 40 ms
@@ -483,6 +519,34 @@ def test_cuda_gru_kernel_matches_plain(cuda, n, nin, b, t):
         assert float((gk[k] - gp[k]).abs().max()) / scale <= 1e-2, k
     _, _, gk2 = _gru_run(G.gru_recurrence, params, x, h0, w)
     assert all(torch.equal(gk[k], gk2[k]) for k in gk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 384, 448, 640, 1024])
+def test_cuda_gru_forward_at_every_width(cuda, n):
+    """K5's forward on its route by width (resident clusters at 64, 384
+    and 448 units, the first cluster kernel at 640 and 1024) at a ragged
+    batch and step count: every step within 2e-5 of a plain step from the
+    same state, the trajectory within 5e-3 of the plain version's, hT the
+    last step's h, two runs bit-equal, one forward launch counted."""
+    b, t = 37, 29
+    params, x, h0, _ = _gru_case(n, 64, b, t, cuda)
+    with torch.no_grad():
+        gi = G.gate_input(params, x)
+        wr, br = params["recurrent"], params["bias"][1]
+        before = G.GruRecurrence.launches[("fwd", n)]
+        hk, htk = G.gru_recurrence(wr, br, gi, h0)
+        torch.cuda.synchronize()
+        assert G.GruRecurrence.launches[("fwd", n)] == before + 1
+        hk2, _ = G.gru_recurrence(wr, br, gi, h0)
+        hp, _ = G.gru_recurrence_plain(wr, br, gi, h0)
+        hprev = torch.cat([h0[:, None], hk[:, :-1]], dim=1)
+        step, _ = G.gru_recurrence_plain(wr, br, gi.reshape(b * t, 1, 3 * n),
+                                         hprev.reshape(b * t, n))
+    assert G.forward_route(n) == ("resident" if n <= 448 else "cluster")
+    assert float((step.reshape(b, t, n) - hk).abs().max()) <= 2e-5
+    assert float((hk - hp).abs().max()) <= 5e-3
+    assert torch.equal(htk, hk[:, -1]) and torch.equal(hk, hk2)
 
 
 @pytest.mark.cuda

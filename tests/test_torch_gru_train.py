@@ -1,9 +1,10 @@
 """The GRU training kernel's Python side (K5: plain version, wrapper, weight
 packing) vs the JAX package, on the CPU. The same numpy-seeded arrays go
 through `lpcnet_tpu.kernels.gru_train.gru_seq_pallas` (the TPU kernel, run by
-the Pallas interpreter) and through `lpcnet_torch.kernels.gru_train`. The
-CUDA kernels themselves are held against the plain version in
-test_torch_cuda.py."""
+the Pallas interpreter) and through `lpcnet_torch.kernels.gru_train`; the
+resident forward's packed slices, launch shape and route by width against
+readers that mirror `csrc/gru_train.cu`. The CUDA kernels themselves are
+held against the plain version in test_torch_cuda.py."""
 
 import os
 
@@ -282,3 +283,116 @@ def test_pack_recurrent_layout():
         u = g + 8 * ((e // 2) & 1)
         j = 16 * k + 2 * t + 8 * (e // 4) + e % 2
         assert wbp[0, 0, k, lane, e] == wb[u, j]
+
+
+# --------------------------------------------------------------------------
+# the resident forward (`gru_fwd_chain_kernel`): its packed slices, launch
+# shape and route, against readers that mirror csrc/gru_train.cu
+# --------------------------------------------------------------------------
+
+def _read_a_tiles(pack):
+    """Rows [M, K] from one rank's packed m16n8k16 A fragments
+    [M/16, K/16, 32, 8]: lane l = 4 g + t holds, in register i, row
+    g + 8 (i & 1) at depth 2 t + 8 (i >> 1) + {0, 1} (the PTX ISA's layout;
+    the kernel reads it as wb[(mt KS + k) 32 + lane])."""
+    mts, kts = pack.shape[:2]
+    rows = torch.zeros(mts * 16, kts * 16, dtype=pack.dtype)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for e in range(8):
+            i, half = e // 2, e % 2
+            rows[g + 8 * (i & 1)::16, 2 * t + 8 * (i >> 1) + half::16] = pack[:, :, lane, e]
+    return rows
+
+
+@pytest.mark.parametrize("n", [64, 384, 448])
+def test_pack_fwd_weights_rebuilds_the_rank_columns(n):
+    """Rank r's packed slice holds, at row q U + j, Wr's column q N + r U + j
+    (gate q of unit r U + j) over all N rows, in bf16; the rows of padding
+    units (r U + j >= N: 64 of them at N = 448) are zero."""
+    wr = torch.from_numpy(np.random.RandomState(n).normal(
+        size=(n, 3 * n)).astype(np.float32))
+    c, u = G.bwd_cluster_shape(n)
+    pack = G.pack_fwd_weights(wr)
+    assert pack.shape == (c, 3 * u // 16, n // 16, 32, 8)
+    assert pack.dtype == torch.bfloat16 and pack.is_contiguous()
+    wb = wr.to(torch.bfloat16)
+    pads = 0
+    for r in range(c):
+        rows = _read_a_tiles(pack[r])
+        for q in range(3):
+            for j in range(u):
+                unit = r * u + j
+                if unit < n:
+                    assert torch.equal(rows[q * u + j], wb[:, q * n + unit]), (r, q, j)
+                else:
+                    assert not rows[q * u + j].any()
+                    pads += 1
+    assert pads == 3 * (c * u - n)
+
+
+@pytest.mark.parametrize("n", [48, 64, 384, 448, 512])
+@pytest.mark.parametrize("batch", [1, 37, 128, 1024])
+def test_fwd_launch_covers_every_stream_and_unit_once(n, batch):
+    """The resident forward's clusters cover every (stream, unit) once
+    (cluster k owns streams [k S, k S + S) ∩ [0, B), thread (s, u) of rank r
+    unit r U + u where that is < N); a block fits 232,448 bytes and 1024
+    threads; the product's warp tasks (column tile, k part) cover every
+    column tile and k step once; and the exchange (lane 8j + c of a warp
+    sends the 16-byte word of its group's 8 units to rank c) delivers every
+    8-unit word of every stream to every rank once."""
+    cfg = G.fwd_launch_config(batch, n, lambda s, smem: 15)
+    c, u, s = cfg["cluster"], cfg["units"], cfg["streams"]
+    assert (c, u) == G.bwd_cluster_shape(n) and c * u >= n and u % 16 == 0
+    assert cfg["threads"] == s * u <= 1024 and s in (8, 16)
+    assert cfg["smem"] == G.fwd_smem_bytes(n, s) <= 232448
+    seen = np.zeros((batch, n), int)
+    tid = np.arange(cfg["threads"])
+    for k in range(cfg["clusters"]):
+        for r in range(c):
+            b, unit = k * s + tid // u, r * u + tid % u
+            keep = (b < batch) & (unit < n)
+            np.add.at(seen, (b[keep], unit[keep]), 1)
+    assert (seen == 1).all()
+    assert cfg["waves"] == -(-cfg["clusters"] // 15)
+    # the product: warp w takes column tile w % MT and k part w // MT < KP
+    mt, ks, kp = 3 * u // 16, n // 16, G.fwd_kparts(n, s)
+    tasks = np.zeros((mt, ks), int)
+    for w in range(cfg["threads"] // 32):
+        if w // mt < kp:
+            p = w // mt
+            tasks[w % mt, p * ks // kp:(p + 1) * ks // kp] += 1
+    assert (tasks == 1).all()
+    # the exchange: (destination rank, stream, first unit of the word)
+    words = np.zeros((c, s, c * u // 8), int)
+    lane = tid % 32
+    for r in range(c):
+        first = r * u + tid % u - (lane & 7)
+        for t_ in tid[(lane & 7) < c]:
+            words[lane[t_] & 7, t_ // u, first[t_] // 8] += 1
+        assert (first % 8 == 0).all()
+    assert (words == 1).all()
+    if n == 384:            # the slice: Wr's 144 columns of 48 units, 110.6 KB
+        assert (c, u) == (8, 48)
+        assert cfg["smem"] - 2 * s * (c * u + 8) * 2 - kp * s * (3 * u + 4) * 4 == 110592
+
+
+def test_forward_route_is_chosen_by_width():
+    """Warp-synchronous at N <= 32; the resident cluster forward where a
+    rank's slice of Wr fits a block beside the operand buffers (48..512
+    units, the training path's 384 among them); the first cluster kernel
+    above (Wr from L2). The resident forward's S follows the card's cluster
+    count as the backward chain's does, and a width without a resident
+    forward has no launch of it."""
+    want = {16: "warp", 32: "warp", 48: "resident", 64: "resident",
+            384: "resident", 448: "resident", 512: "resident",
+            528: "cluster", 640: "cluster", 1024: "cluster"}
+    assert {n: G.forward_route(n) for n in want} == want
+    assert G.fwd_launch_config(128, 384, lambda s, m: 15)["streams"] == 16
+    assert G.fwd_launch_config(128, 384, lambda s, m: 16)["streams"] == 8
+    assert G.fwd_launch_config(128, 512, lambda s, m: 15)["streams"] == 8
+    for n in (16, 640, 1024):
+        with pytest.raises(ValueError):
+            G.fwd_launch_config(8, n, lambda s, m: 15)
+    with pytest.raises(ValueError):
+        G.forward_route(24)

@@ -1,9 +1,11 @@
 """K6, the merged-product form of the sample loop, on the CPU: its operands
 and its plain version against the JAX package's `_merged_weights`, `_cond4`
 and the TPU kernel `_sample_kernel_merged` run by the Pallas interpreter;
-the flag and the dispatch between K1 and K6, alone and under the decoder.
-The CUDA kernel itself is held against its plain version in
-test_torch_cuda.py."""
+its launch operands (`merged_packs`: the merged matrices' non-zero blocks in
+K1's layout and fragment packs, the padding checked) and the conversion of
+its conditioning that the CUDA wrapper launches (`merged_as_k1`); the flag
+and the dispatch between K1 and K6, alone and under the decoder. The CUDA
+kernel itself is held against its plain version in test_torch_cuda.py."""
 
 import os
 
@@ -20,6 +22,7 @@ from lpcnet_tpu.models import lpcnet as JM
 from lpcnet_tpu.utils.rng import Kiss99State as JKiss
 
 from lpcnet_torch.codec import decoder as D
+from lpcnet_torch.kernels import masked_loop as ML
 from lpcnet_torch.kernels import sample_loop as K
 from lpcnet_torch.models import lpcnet as M
 from lpcnet_torch.nn import quantized as Q
@@ -106,6 +109,106 @@ def test_merged_operands_bit_equal_to_jax(fused, form):
                           jnp.asarray(mw[bias][0].numpy()), n)
         assert got.shape == (8, 4 * n)
         assert np.array_equal(got.numpy(), np.asarray(want4)), bias
+
+
+def _unpack_tiles(pack):
+    """The A operand [..., M, K] held by m16n8k16 fragment packs
+    [..., M / 16, K / 16, 32, 8]: lane 4 g + t holds, in register i, row
+    g + 8 (i & 1) at depth 2 t + 8 (i >> 1) + {0, 1} (the PTX ISA's
+    layout, independent of `masked_loop.fragment_index`)."""
+    *lead, mts, kts, _, _ = pack.shape
+    out = torch.zeros(*lead, mts * 16, kts * 16, dtype=pack.dtype)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for e in range(8):
+            i, half = e // 2, e % 2
+            m, k = g + 8 * (i & 1), 2 * t + 8 * (i >> 1) + half
+            out[..., m::16, k::16] = pack[..., lane, e]
+    return out
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+def test_merged_packs_hold_the_non_zero_blocks(fused, form):
+    """K6's launch operands (`merged_packs`, under "k6") are the non-zero
+    blocks of its own merged matrices: the embedding rows' [z | r | h_in],
+    the recurrent rows' [z | r | h_rec], GRU-B's likewise, each equal to
+    K1's matrix of the same bundle; the recurrent biases reduced to
+    [0 | 0 | bias_h]; in bf16 the fragment packs unpack to those blocks,
+    rank by rank, and equal K1's packs of the same bundle (f32 has none)."""
+    _, tf = fused
+    na, nb = TCFG.rnn_units1, TCFG.rnn_units2
+    kw = K.masked_kernel_weights(K.kernel_weights(tf, TCFG,
+                                                  dtype=DTYPES[form][1]))
+    mw = K.merged_kernel_weights(kw)
+    k6, a_m, b_m = mw["k6"], mw["a_merged"], mw["b_merged"]
+    blocks = {"emb_cat": a_m[:768, :3 * na],
+              "a_rec": torch.cat([a_m[768:, :2 * na], a_m[768:, 3 * na:]], 1),
+              "b_in": b_m[:na, :3 * nb],
+              "b_rec": torch.cat([b_m[na:, :2 * nb], b_m[na:, 3 * nb:]], 1)}
+    for k, want in blocks.items():
+        assert k6[k].is_contiguous() and torch.equal(k6[k], want), k
+        assert torch.equal(k6[k], kw[k]), k
+    for k, n in (("a_bias1", na), ("b_bias1", nb)):
+        assert not k6[k][:, :2 * n].any()
+        assert torch.equal(k6[k][:, 2 * n:], kw[k][:, 2 * n:])
+    if form == "f32":
+        assert k6["k2_a"] is None and k6["k2_b"] is None
+        return
+    assert torch.equal(k6["k2_a"], kw["k2_a"]) and torch.equal(k6["k2_b"], kw["k2_b"])
+    c, u = ML.cluster_shape(na)
+    at = _unpack_tiles(k6["k2_a"])                  # [C, 3U, ceil(Na/16) 16]
+    for r in range(c):
+        for q in range(3):
+            for j in range(u):
+                want = (blocks["a_rec"][:, q * na + r * u + j] if r * u + j < na
+                        else torch.zeros(na, dtype=a_m.dtype))
+                assert torch.equal(at[r, q * u + j, :na], want), (r, q, j)
+    nbp, ksa = ML.padded_nb(nb), -(-na // 16)
+    bt = _unpack_tiles(k6["k2_b"])                  # [3Nbp, (ksa + ksbr) 16]
+    for q in range(3):
+        for j in range(nb):
+            assert torch.equal(bt[q * nbp + j, :na], blocks["b_in"][:, q * nb + j])
+            assert torch.equal(bt[q * nbp + j, 16 * ksa:16 * ksa + nb],
+                               blocks["b_rec"][:, q * nb + j])
+
+
+@pytest.mark.parametrize("block", ["a_in", "a_rec", "b_in", "b_rec"])
+def test_merged_packs_refuse_padding_that_is_not_zero(fused, block):
+    """A merged matrix with a non-zero entry in a block the layout pads
+    (the input rows' h-recurrent block or the recurrent rows' h-input
+    block, of either GRU) is refused when K6's operands are built: the
+    kernels skip those blocks."""
+    _, tf = fused
+    na, nb = TCFG.rnn_units1, TCFG.rnn_units2
+    mw = K.merged_kernel_weights(K.kernel_weights(tf, TCFG))
+    bad = {k: v for k, v in mw.items() if k != "k6"}
+    key, row, col = {"a_in": ("a_merged", 5, 3 * na + 1),
+                     "a_rec": ("a_merged", 768 + 2, 2 * na + 3),
+                     "b_in": ("b_merged", 1, 3 * nb + 2),
+                     "b_rec": ("b_merged", na + 1, 2 * nb)}[block]
+    bad[key] = mw[key].clone()
+    bad[key][row, col] = 0.5
+    with pytest.raises(ValueError, match="not zero"):
+        K.merged_packs(bad)
+    K.merged_packs({k: v for k, v in mw.items() if k != "k6"})   # the real one passes
+
+
+def test_k6_in_k1_terms_is_the_plain_k6(fused):
+    """What the CUDA wrapper launches for K6 (`merged_as_k1`: K1's plain
+    version on the checked blocks, the conditioning converted from the 4N
+    layout) against K6's plain version, f32, B=16, 32 steps: RNG equal,
+    >=98 % equal PCM, GRU states within 1e-4 (the sums differ only in
+    their order: cond4 folds bias_z, bias_r into the conditioning)."""
+    _, tf = fused
+    mw = K.merged_kernel_weights(K.kernel_weights(tf, TCFG, dtype=torch.float32))
+    ca, cb, lpc, s0 = _inputs(tf, 16, seed=17)
+    kw6, ca3, cb3 = K.merged_as_k1(mw, ca, cb)
+    s1, p1 = K.sample_loop_plain(kw6, s0, ca3, cb3, lpc, 32)
+    s6, p6 = K.sample_loop_merged_plain(mw, s0, ca, cb, lpc, 32)
+    assert all(torch.equal(a, b) for a, b in zip(s1.rng, s6.rng))
+    assert float((p1 == p6).float().mean()) >= 0.98
+    assert float((s1.gru_a - s6.gru_a).abs().max()) <= 1e-4
+    assert float((s1.gru_b - s6.gru_b).abs().max()) <= 1e-4
 
 
 def test_merged_weights_refuse_q8(fused):

@@ -1,20 +1,22 @@
-"""Time lpcnet_torch's GRU training backward (K5 at 384 units) and its
-free-running sample loop (K1) on one CUDA card, for the checkout at
-CHECKOUT (default: this repository), so that two versions can be compared
-within one run:
+"""Time lpcnet_torch's GRU training recurrence (K5 at 384 units, forward and
+backward), its free-running sample loop (K1) and the loop's merged form
+(K6) on one CUDA card, for the checkout at CHECKOUT (default: this
+repository), so that two versions can be compared within one run:
 
     python tools/time_k5_k1_torch.py [CHECKOUT] [--label NAME]
 
 It builds that checkout's kernels, then times, with CUDA events after a
-warm-up launch: one K5 backward (`torch.autograd.grad` through
-`gru_train.gru_recurrence`, 3 launches) at the training shape, B=128,
-T=2400, N=384, on seeded weights; and one K1 launch
-(`sample_loop.synthesize_frame_kernel`, 10 launches) at B=1024, n=160 on the
-demo vocoder's bf16 and q8 bundles (as the decoder builds them), from a
-fresh state on seeded conditioning. It prints one JSON line {"label",
-"card", "ms": {...}}. Run the parent and the change alternately (parent,
-change, change, parent) in one call; every process reads the same seeded
-inputs.
+warm-up launch: one K5 forward (`gru_train.gru_recurrence` without
+gradients, 3 launches) and one K5 backward (`torch.autograd.grad` through
+it, 3 launches) at the training shape, B=128, T=2400, N=384, on seeded
+weights; and one K1 launch (`sample_loop.synthesize_frame_kernel`, 10
+launches) at B=1024, n=160 on the demo vocoder's bf16, q8 and f32 bundles
+(as the decoder builds them), and one K6 launch
+(`sample_loop.synthesize_frame_merged_kernel`, 10 launches) on the bf16
+and f32 bundles' merged operands, from a fresh state on seeded
+conditioning. It prints one JSON line {"label", "card", "ms": {...}}. Run
+the parent and the change alternately (parent, change, change, parent) in
+one call; every process reads the same seeded inputs.
 """
 
 from __future__ import annotations
@@ -72,6 +74,9 @@ def main(argv=None):
     wr = wr0.clone().requires_grad_(True)
     br = bias[1].clone().requires_grad_(True)
     gi = G.gate_input({"kernel": kernel, "bias": bias}, x).requires_grad_(True)
+    with torch.no_grad():
+        ms["k5_fwd[384] B=128 T=2400"] = _time(
+            lambda: G.gru_recurrence(wr, br, gi, h0), 3, torch)
     hs, ht = G.gru_recurrence(wr, br, gi, h0)
     dht = torch.zeros_like(ht)
     ms["k5_bwd[384] B=128 T=2400"] = _time(lambda: torch.autograd.grad(
@@ -91,10 +96,15 @@ def main(argv=None):
     s0 = M.init_sample_state(b, cfg, dev)
     pack = getattr(K, "masked_kernel_weights", lambda kw: kw)
     for form, kw in (("bf16", K.kernel_weights(fused, cfg)),
-                     ("q8", K.kernel_weights(quantize_fused(fused), cfg))):
+                     ("q8", K.kernel_weights(quantize_fused(fused), cfg)),
+                     ("f32", K.kernel_weights(fused, cfg, dtype=torch.float32))):
         kw = pack(kw)
         ms[f"k1[{form}] B=1024 n=160"] = _time(
             lambda: K.synthesize_frame_kernel(kw, s0, ca, cb, lpc), 10, torch)
+        if form != "q8":
+            mw = K.merged_kernel_weights(kw)
+            ms[f"k6[{form}] B=1024 n=160"] = _time(
+                lambda: K.synthesize_frame_merged_kernel(mw, s0, ca, cb, lpc), 10, torch)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]

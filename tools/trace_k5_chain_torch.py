@@ -1,4 +1,5 @@
-"""Where a step of K5's backward chain goes, on one CUDA card:
+"""Where a step of K5's backward chain and of its resident forward goes, on
+one CUDA card:
 
     python tools/trace_k5_chain_torch.py [--units 384]
 
@@ -12,7 +13,14 @@ trace/`, git-ignored), runs one backward through it and prints the cycles
 a step spends in each phase: the step's arithmetic and stores, the first
 block barrier, the broadcast of dzrec over distributed shared memory, the
 cluster barrier, the dh product, the second block barrier, the sum of the
-k parts. The kernel without the reads is the one the port runs.
+k parts. The same copy's resident forward (`gru_fwd_chain_kernel`, where
+the width has one) reads `clock64()` likewise, and one forward through it
+gives its phases: the gate-input loads issued and the product, the block
+barrier, the k-part sum and the gate arithmetic, the exchange of the new h
+(shuffles and the 16-byte stores to every block), the cluster barrier's
+arrive with the store of hs, and its wait; the forward is also timed
+alone (CUDA events). The kernels without the reads are the ones the port
+runs.
 """
 
 from __future__ import annotations
@@ -26,11 +34,13 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("step arithmetic and stores", "block barrier 1", "dzrec broadcast",
           "cluster barrier", "dh product", "block barrier 2", "k-part sum")
+FWD_PHASES = ("loads issued and product", "block barrier", "k-part sum and gates",
+              "exchange", "barrier arrive and hs store", "barrier wait")
 
 # (anchor in the chain kernel, text put in its place): the clock reads
 PROBES = [
     ("namespace {\n\ntypedef __nv_bfloat16 bf16;",
-     "__device__ unsigned long long g_trace[8];\nnamespace {\n\ntypedef __nv_bfloat16 bf16;"),
+     "__device__ unsigned long long g_trace[16];\nnamespace {\n\ntypedef __nv_bfloat16 bf16;"),
     ("    const Fac f2 = load(t - 2);",
      "    unsigned long long tk = clock64();\n"
      "#define TR(i) if (blockIdx.x == 0 && tid == 0) "
@@ -46,13 +56,28 @@ PROBES = [
     ("      pp[U + 8] = acc[nt][3];\n    }\n    __syncthreads();",
      "      pp[U + 8] = acc[nt][3];\n    }\n    TR(4) __syncthreads(); TR(5)"),
     ("    f0 = f1;\n    f1 = f2;", "    f0 = f1;\n    f1 = f2;\n    TR(6)"),
+    # the resident forward, into g_trace[8 + i]
+    ("    const Gin g2 = load(t + 2);",
+     "    unsigned long long tf_ = clock64();\n"
+     "#define TRF(i) if (blockIdx.x == 0 && tid == 0) "
+     "{ unsigned long long c_ = clock64(); g_trace[8 + i] += c_ - tf_; tf_ = c_; }\n"
+     "    const Gin g2 = load(t + 2);"),
+    ("      }\n    }\n    __syncthreads();\n    float zr[3];",
+     "      }\n    }\n    TRF(0) __syncthreads(); TRF(1)\n    float zr[3];"),
+    ("    // the new operand: lanes 8j .. 8j+7 hold",
+     "    TRF(2)\n    // the new operand: lanes 8j .. 8j+7 hold"),
+    ("map_shared_rank(nxt, c) + woff) = v;\n",
+     "map_shared_rank(nxt, c) + woff) = v;\n    TRF(3)\n"),
+    ("    g1 = g2;\n    asm volatile(\"barrier.cluster.wait.acquire.aligned;\\n\" ::: \"memory\");\n",
+     "    g1 = g2;\n    TRF(4)\n"
+     "    asm volatile(\"barrier.cluster.wait.acquire.aligned;\\n\" ::: \"memory\");\n    TRF(5)\n"),
 ]
 TRACE_API = """
 extern "C" int trace_get(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_trace, sizeof(unsigned long long) * 8);
+  return (int)cudaMemcpyFromSymbol(out, g_trace, sizeof(unsigned long long) * 16);
 }
 extern "C" int trace_reset() {
-  unsigned long long z[8] = {0};
+  unsigned long long z[16] = {0};
   return (int)cudaMemcpyToSymbol(g_trace, z, sizeof(z));
 }
 """
@@ -102,7 +127,12 @@ def main(argv=None):
                                                 retain_graph=True), 3, torch)
     with torch.no_grad():
         gate_ms = _time(lambda: G.gate_pass_kernel(wr, br, gi, h0, hs), 3, torch)
-    cfg = G.bwd_launch_config(b, n, G._bwd_max_clusters(dev, n))
+        fwd = lambda: G.gru_recurrence(wr, br, gi, h0)
+        fwd_ms = _time(fwd, 3, torch)
+    cfg = G.bwd_launch_config(b, n, G._max_clusters(dev, n))
+    resident = G.forward_route(n) == "resident"
+    if resident:
+        fcfg = G.fwd_launch_config(b, n, G._max_clusters(dev, n, "fwd"))
 
     src = open(os.path.join(ROOT, "lpcnet_torch/kernels/csrc/gru_train.cu")).read()
     for anchor, text in PROBES:
@@ -118,7 +148,8 @@ def main(argv=None):
                    capture_output=True)
     lib, real = ctypes.CDLL(so), G._lib()
     for name in ("lpcnet_gru_train_fwd", "lpcnet_gru_train_fwd_warp", "lpcnet_gru_train_bwd",
-                 "lpcnet_gru_gate_pass", "lpcnet_gru_bwd_max_clusters"):
+                 "lpcnet_gru_gate_pass", "lpcnet_gru_max_clusters",
+                 "lpcnet_gru_train_fwd_chain"):
         getattr(lib, name).argtypes = getattr(real, name).argtypes
         getattr(lib, name).restype = ctypes.c_int
     G._LIB = lib
@@ -128,11 +159,15 @@ def main(argv=None):
         lib.trace_reset()
         whole()
         torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * 8)()
+        with torch.no_grad():
+            fwd()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 16)()
         lib.trace_get(buf)
     finally:
         G._LIB = real
     cycles = [v / t for v in buf[:len(PHASES)]]
+    fcycles = [v / t for v in buf[8:8 + len(FWD_PHASES)]]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
@@ -143,6 +178,17 @@ def main(argv=None):
           "cycles a step (clock64, block 0, thread 0): "
           + ", ".join(f"{p} {c:.0f}" for p, c in zip(PHASES, cycles))
           + f"; total {sum(cycles):.0f}; card: {smi}", flush=True)
+    if resident:
+        print(f"K5 fwd[{n}] B={b} T={t}: {fwd_ms:.3f} ms (CUDA events); "
+              f"gru_fwd_chain_kernel, clusters of {fcfg['cluster']} x {fcfg['units']} "
+              f"units, {fcfg['streams']} streams, Wr resident, {fcfg['smem']} bytes; "
+              "cycles a step (clock64, block 0, thread 0): "
+              + ", ".join(f"{p} {c:.0f}" for p, c in zip(FWD_PHASES, fcycles))
+              + f"; total {sum(fcycles):.0f}; card: {smi}", flush=True)
+    else:
+        print(f"K5 fwd[{n}] B={b} T={t}: {fwd_ms:.3f} ms (CUDA events), "
+              f"route {G.forward_route(n)}: no resident forward to trace; card: {smi}",
+              flush=True)
 
 
 if __name__ == "__main__":
