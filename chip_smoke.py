@@ -50,10 +50,12 @@ Needs one CUDA card and nvcc. Phases:
      and the backward's three phases apart (gate pass, chain, dWr); K2 in
      all three forms on the same inputs, and K1 on them; K2 in bf16 at 256
      and 1024 streams;
-  9. the teacher-forced kernel (K3) vs its plain version at 256 streams,
-     3 blocks of 160 steps, f32, bf16 and q8, and against K2 with the
-     sampler off; the PLC-net chain kernel (K4) vs its plain version at 256
-     streams, 4 steps; a teacher-forced frame through the decoder (K2);
+  9. the teacher-forced run (K3, the teacher-forced form of
+     csrc/masked_loop.cu's cluster kernel) vs its plain version at 37 and
+     256 streams, 3 blocks of 160 steps, f32, bf16 and q8, and against K2
+     with the sampler off; the PLC-net chain (K4, clusters of 8 blocks that
+     split its units, csrc/plc_chain.cu) vs its plain version at 256, 37 and
+     3 streams; a teacher-forced frame through the decoder (K2);
  10. the PLC path: runtime.serving.PLCStreamPool on the demo vocoder and the
      demo PLC network at 256 streams for 200 frames of a seeded speech-like
      signal, 10 % of the 20 ms packets lost, FEC rows queued for a quarter
@@ -62,8 +64,9 @@ Needs one CUDA card and nvcc. Phases:
      one more frame runs under torch.profiler;
  11. K3, both K2 calls and K4 vs their plain versions on the arguments that
      path gave them in one frame (the sample-rate section compacted to 64
-     streams), then their timings on those arguments, with their bounds, and
-     the frame's split;
+     streams), then their timings on those arguments (K3's kernel alone and
+     its call with the closed forms in PyTorch), with their bounds, and the
+     frame's split;
  12. the merged sample-loop kernel (K6: K1's kernel of its form on the
      merged matrices' checked non-zero blocks) vs its plain version at 256
      streams, 32 steps, f32 and bf16, and one step against K1's kernel;
@@ -285,7 +288,7 @@ def check_k1_batches(fused, cfg, dev):
 
 def k1_launch_shape(b, na, nb, form, dev):
     """K1's free-running cluster launch at b streams, in words."""
-    c = K.ML.free_launch_config(b, na, nb, form, K._max_clusters(dev, form, na, True))
+    c = K.ML.free_launch_config(b, na, nb, form, K._max_clusters(dev, form, na, K.KIND_FREE))
     res = "+".join(k for k, on in (("GRU-A", c["res_a"]), ("GRU-B", c["res_b"])) if on)
     return (f"clusters of {c['cluster']} blocks, {c['streams']} streams each "
             f"({-(-c['streams'] // c['cluster'])} a rank's tail), {c['clusters']} clusters "
@@ -1192,97 +1195,129 @@ def tf_case(fused, cfg, b, n, nblk, dev, seed):
 
 
 def check_k3(fused, cfg, dev):
-    """K3 vs its plain version at B=256, 3 blocks of 160 steps, drain-shaped
-    counts, each form. Bars: RNG equal; a stream that runs no step bit-equal
-    in every field; the signal state equal (the closed forms are the same
-    PyTorch code on both sides); one step from a shared state within 1e-4
-    (bf16 GRU-B 1e-2: its operand is the new h_a rounded to bf16); over the
-    run f32 within 2e-2 and q8 within 5e-2 (the JAX package's bars for this
-    kernel), bf16 finite with a mean |h| error under 1e-2 (teacher forcing
-    feeds both sides the same codes, so a flipped operand does not set a
-    stream adrift as it does in K1); RNG equal to K2's with the sampler off
-    under the same prefix mask."""
-    b, n, nblk = CHECK_BATCH, 160, 3
-    s0, ca, cb, lpc, tg, counts = tf_case(fused, cfg, b, n, nblk, dev, SEED + 21)
+    """K3 vs its plain version at B=37 and 256, 3 blocks of 160 steps,
+    drain-shaped counts, each form, on K2's packed bundles (a bundle without
+    the packs is refused). Bars: RNG equal; a stream that runs no step
+    bit-equal in every field; the signal state equal (the closed forms are
+    the same PyTorch code on both sides); one step from a shared state
+    within 1e-4 (bf16 GRU-B 1e-2: its operand is the new h_a rounded to
+    bf16); over the run f32 within 2e-2 and q8 within 5e-2 (the JAX
+    package's bars for this kernel), bf16 finite with a mean |h| error under
+    1e-2 (teacher forcing feeds both sides the same codes, so a flipped
+    operand does not set a stream adrift as it does in K1); RNG equal to
+    K2's with the sampler off under the same prefix mask."""
+    n, nblk = 160, 3
     bundles = {
         "f32": K.kernel_weights(fused, cfg, dtype=torch.float32),
         "bf16": K.kernel_weights(fused, cfg, dtype=torch.bfloat16),
         "q8": K.kernel_weights(quantize_fused(fused), cfg),
     }
-    one = torch.clamp(counts[:, :1], max=1)
-    first = (ca[:, :1].contiguous(), cb[:, :1].contiguous(), lpc[:, :1],
-             tg[:, :n], one, n)
-    frozen = counts.sum(1) == 0
-    for form, kw in bundles.items():
-        s1k = K.teacher_force_blocks_kernel(kw, s0, *first)
-        s1p = K.teacher_force_blocks_plain(kw, s0, *first)
-        err_a = float((s1k.gru_a - s1p.gru_a).abs().max())
-        err_b = float((s1k.gru_b - s1p.gru_b).abs().max())
-        assert err_a <= 1e-4, (form, err_a)
-        assert err_b <= (1e-2 if form == "bf16" else 1e-4), (form, err_b)
-        sk = K.teacher_force_blocks_kernel(kw, s0, ca, cb, lpc, tg, counts, n)
-        torch.cuda.synchronize()
-        sp = K.teacher_force_blocks_plain(kw, s0, ca, cb, lpc, tg, counts, n)
-        rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
-        sig_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk[2:5], sp[2:5]))
-        inert = all(bool(torch.equal(a[frozen], c[frozen])) for a, c in
-                    zip(sk[:5] + tuple(sk.rng), s0[:5] + tuple(s0.rng)))
-        d = torch.cat([(sk.gru_a - sp.gru_a).abs().flatten(),
-                       (sk.gru_b - sp.gru_b).abs().flatten()])
-        finite = bool(torch.isfinite(sk.gru_a).all() and torch.isfinite(sk.gru_b).all())
-        adv = torch.arange(n, device=dev)[None, :] < counts[:, :1]
-        s2, _ = K.synthesize_frame_masked_kernel(
-            kw, s0, first[0][:, 0], first[1][:, 0], lpc[:, 0].contiguous(),
-            tg[:, :n].contiguous(), adv, adv, n, sampled=False)
-        s3 = K.teacher_force_prefix_kernel(kw, s0, ca[:, 0], cb[:, 0], lpc[:, 0],
-                                           tg[:, :n], counts[:, 0])
-        k2_eq = all(bool(torch.equal(a, c)) for a, c in zip(s2.rng, s3.rng))
-        k2_err = float((s2.gru_a - s3.gru_a).abs().max())
-        log(f"K3[{form}] vs plain, B={b}, {nblk} blocks x {n}: one step max|h_a| "
-            f"err {err_a:.3e}, max|h_b| err {err_b:.3e}; run: rng equal {rng_eq}, "
-            f"signal state equal {sig_eq}, frozen streams untouched {inert}, "
-            f"max|h| err {float(d.max()):.3e}, mean {float(d.mean()):.3e}; vs K2 "
-            f"sampled=False on block 0: rng equal {k2_eq}, max|gru_a| apart "
-            f"{k2_err:.3e}")
-        assert rng_eq and sig_eq and inert and finite and k2_eq, form
-        if form == "bf16":
-            assert float(d.mean()) <= 1e-2, (form, float(d.mean()))
-        else:
-            assert float(d.max()) <= (5e-2 if form == "q8" else 2e-2), form
-        assert k2_err <= (5e-2 if form == "q8" else 2e-2), (form, k2_err)
+    for b in (37, CHECK_BATCH):
+        s0, ca, cb, lpc, tg, counts = tf_case(fused, cfg, b, n, nblk, dev, SEED + 21)
+        one = torch.clamp(counts[:, :1], max=1)
+        first = (ca[:, :1].contiguous(), cb[:, :1].contiguous(), lpc[:, :1],
+                 tg[:, :n], one, n)
+        frozen = counts.sum(1) == 0
+        for form, bare in bundles.items():
+            try:
+                K.teacher_force_blocks_kernel(bare, s0, *first)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("K3 took a bundle without K2's packs")
+            kw = K.masked_kernel_weights(bare)
+            s1k = K.teacher_force_blocks_kernel(kw, s0, *first)
+            s1p = K.teacher_force_blocks_plain(kw, s0, *first)
+            err_a = float((s1k.gru_a - s1p.gru_a).abs().max())
+            err_b = float((s1k.gru_b - s1p.gru_b).abs().max())
+            assert err_a <= 1e-4, (form, err_a)
+            assert err_b <= (1e-2 if form == "bf16" else 1e-4), (form, err_b)
+            sk = K.teacher_force_blocks_kernel(kw, s0, ca, cb, lpc, tg, counts, n)
+            torch.cuda.synchronize()
+            sp = K.teacher_force_blocks_plain(kw, s0, ca, cb, lpc, tg, counts, n)
+            rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+            sig_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk[2:5], sp[2:5]))
+            inert = state_equal(sk, s0, frozen)
+            d = torch.cat([(sk.gru_a - sp.gru_a).abs().flatten(),
+                           (sk.gru_b - sp.gru_b).abs().flatten()])
+            finite = bool(torch.isfinite(sk.gru_a).all() and torch.isfinite(sk.gru_b).all())
+            adv = torch.arange(n, device=dev)[None, :] < counts[:, :1]
+            s2, _ = K.synthesize_frame_masked_kernel(
+                kw, s0, first[0][:, 0], first[1][:, 0], lpc[:, 0].contiguous(),
+                tg[:, :n].contiguous(), adv, adv, n, sampled=False)
+            s3 = K.teacher_force_prefix_kernel(kw, s0, ca[:, 0], cb[:, 0], lpc[:, 0],
+                                               tg[:, :n], counts[:, 0])
+            k2_eq = all(bool(torch.equal(a, c)) for a, c in zip(s2.rng, s3.rng))
+            k2_err = float((s2.gru_a - s3.gru_a).abs().max())
+            log(f"K3[{form}] vs plain, B={b}, {nblk} blocks x {n}: one step max|h_a| "
+                f"err {err_a:.3e}, max|h_b| err {err_b:.3e}; run: rng equal {rng_eq}, "
+                f"signal state equal {sig_eq}, frozen streams untouched {inert}, "
+                f"max|h| err {float(d.max()):.3e}, mean {float(d.mean()):.3e}; vs K2 "
+                f"sampled=False on block 0: rng equal {k2_eq}, max|gru_a| apart "
+                f"{k2_err:.3e}; launch {k3_launch_shape(b, cfg, form, nblk, dev)}")
+            assert rng_eq and sig_eq and inert and finite and k2_eq, form
+            if form == "bf16":
+                assert float(d.mean()) <= 1e-2, (form, float(d.mean()))
+            else:
+                assert float(d.max()) <= (5e-2 if form == "q8" else 2e-2), form
+            assert k2_err <= (5e-2 if form == "q8" else 2e-2), (form, k2_err)
     log("K3 bars: rng equal (also to K2's), frozen streams bit-equal, one step "
         "1e-4 (bf16 h_b 1e-2), run f32 2e-2 / q8 5e-2 / bf16 mean 1e-2: pass")
+
+
+def k3_launch_shape(b, cfg, form, nblk, dev):
+    """K3's clusters at `b` streams, as the wrapper picks them."""
+    f = K.ML.FORMS[form]
+    c = K.ML.tf_launch_config(b, cfg.rnn_units1, cfg.rnn_units2, f, nblk,
+                              K._max_clusters(dev, f, cfg.rnn_units1, K.KIND_TF))
+    return (f"{c['clusters']} clusters of {c['cluster']} x {c['units']} units, "
+            f"{c['streams']} streams, {c['smem']} bytes a block, GRU-A "
+            f"{'resident' if c['res_a'] else 'from L2'}, GRU-B "
+            f"{'resident' if c['res_b'] else 'from L2'}")
+
+
+def k4_launch_shape(b, cw):
+    """K4's clusters at `b` streams, as the wrapper picks them."""
+    dev = cw["d1_w"].device
+    n_in, nd = cw["d1_w"].shape
+    c = PC.chain_launch_config(
+        b, n_in, nd, cw["g1_rec"].shape[0], cw["g2_rec"].shape[0], cw["out_w"].shape[1],
+        PC._max_clusters(dev), torch.cuda.get_device_properties(dev).multi_processor_count)
+    return (f"{c['clusters']} clusters of {PC.CLUSTER} blocks, {c['streams']} streams, "
+            f"a weight ring of {c['stages']} chunks of {c['rows']} rows, {c['smem']} bytes "
+            f"a block")
 
 
 def chain_case(plc_params, b, k_steps, dev, seed):
     rs = np.random.RandomState(seed)
     r = lambda *s: torch.from_numpy(rs.normal(size=s).astype(np.float32)).to(dev)
     masks = torch.from_numpy(rs.rand(b, k_steps) < 0.6).to(dev)
-    masks[: b // 8] = False
+    masks[: max(1, b // 8)] = False
     return (PC.plc_chain_weights(plc_params), torch.tanh(r(b, 256)),
             torch.tanh(r(b, 256)), r(b, k_steps, PM.PLC_INPUT_SIZE) * 0.5, masks)
 
 
 def check_k4(plc_params, dev):
-    """K4 vs its plain version at B=256, K=4 on the demo PLC network: states
+    """K4 vs its plain version on the demo PLC network at (B, K) = (256, 4),
+    (160, 4), (37, 4) and (3, 1) (clusters of 32, 16 and 8 streams): states
     after every step within 2e-5, outputs within 2e-4 (the JAX package's
     bars), frozen streams' states exact, two runs bit-equal."""
-    b, k = CHECK_BATCH, 4
-    cw, h1, h2, inputs, masks = chain_case(plc_params, b, k, dev, SEED + 23)
-    got = PC.plc_chain_kernel(cw, h1, h2, inputs, masks, k)
-    torch.cuda.synchronize()
-    want = PC.plc_chain_plain(cw, h1, h2, inputs, masks, k)
-    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-    fro = slice(0, b // 8)
-    inert = (bool(torch.equal(got[0][fro], h1[fro, None].expand(-1, k, -1)))
-             and bool(torch.equal(got[1][fro], h2[fro, None].expand(-1, k, -1))))
-    again = PC.plc_chain_kernel(cw, h1, h2, inputs, masks, k)
-    biteq = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
-    log(f"K4 vs plain, B={b} K={k}: max err h1 {errs[0]:.3e}, h2 {errs[1]:.3e} "
-        f"(tol 2e-5), outputs {errs[2]:.3e} (tol 2e-4); frozen streams exact "
-        f"{inert}; bit-equal twice {biteq}")
-    assert errs[0] <= 2e-5 and errs[1] <= 2e-5 and errs[2] <= 2e-4, errs
-    assert inert and biteq
+    for b, k in ((CHECK_BATCH, 4), (160, 4), (37, 4), (3, 1)):
+        cw, h1, h2, inputs, masks = chain_case(plc_params, b, k, dev, SEED + 23)
+        got = PC.plc_chain_kernel(cw, h1, h2, inputs, masks, k)
+        torch.cuda.synchronize()
+        want = PC.plc_chain_plain(cw, h1, h2, inputs, masks, k)
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        fro = ~masks.any(dim=1)
+        inert = (bool(torch.equal(got[0][fro], h1[fro, None].expand(-1, k, -1)))
+                 and bool(torch.equal(got[1][fro], h2[fro, None].expand(-1, k, -1))))
+        again = PC.plc_chain_kernel(cw, h1, h2, inputs, masks, k)
+        biteq = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
+        log(f"K4 vs plain, B={b} K={k}: max err h1 {errs[0]:.3e}, h2 {errs[1]:.3e} "
+            f"(tol 2e-5), outputs {errs[2]:.3e} (tol 2e-4); frozen streams exact "
+            f"{inert}; bit-equal twice {biteq}; launch {k4_launch_shape(b, cw)}")
+        assert errs[0] <= 2e-5 and errs[1] <= 2e-5 and errs[2] <= 2e-4, errs
+        assert bool(fro.any()) and inert and biteq
 
 
 def check_decoder_preload(dev):
@@ -1539,7 +1574,7 @@ def k4_bound_ms(cw, b, k_steps):
     n1, n2, n_out = cw["g1_rec"].shape[0], cw["g2_rec"].shape[0], cw["out_w"].shape[1]
     macs = n_in * nd + nd * 3 * n1 + n1 * 3 * n1 + n1 * 3 * n2 + n2 * 3 * n2 + n2 * n_out
     op_s = 2 * macs * b * k_steps / PEAK["f32"]
-    byts = (sum(v.numel() * 4 for v in cw.values())
+    byts = (sum(cw[name].numel() * 4 for name in PC._CWNAMES)
             + b * 4 * (k_steps * (n_in + 1 + n1 + n2 + n_out) + n1 + n2))
     byte_s = byts / HBM_BPS
     return 1e3 * max(op_s, byte_s), ("operations" if op_s >= byte_s else "bytes")
@@ -1697,9 +1732,11 @@ def time_plc_kernels(calls, models, counts, chain_counts, frame_ms, smi):
     a4 = calls["plc_chain_kernel"][busiest]
     k2_pair = k2_calls[2 * busiest:2 * busiest + 2]
     (k3_step_err, k3_err), k2_errs, k4_err = check_plc_captured(a3, k2_pair, a4)
-    kw, cnt = a3[0], a3[6]
+    kw, s0, ca, cb, lpc, tg, cnt, blk = a3
     b3, nblk = cnt.shape
-    k3_ms = time_cuda(lambda: K.teacher_force_blocks_kernel(*a3), reps=10)
+    codes, _ = K.tf_codes(s0, lpc, tg, cnt, blk)
+    k3_ms = time_cuda(lambda: K.tf_launch(kw, s0, ca, cb, cnt, codes, blk), reps=20)
+    k3_call = time_cuda(lambda: K.teacher_force_blocks_kernel(*a3), reps=10)
     k3_plain = time_cuda(lambda: K.teacher_force_blocks_plain(*a3), reps=1, warmup=0)
     k3_bound, k3_by = k3_bound_ms(kw, cfg, cnt, nblk, a3[7])
     mean_steps = float(np.mean([int(c[6].sum()) for c in k3_calls]))
@@ -1719,36 +1756,49 @@ def time_plc_kernels(calls, models, counts, chain_counts, frame_ms, smi):
         return st
 
     un_ms = time_cuda(unchained, reps=20)
-    log(f"K3[bf16] B={b3} ({nblk} blocks x {a3[7]}, {int(cnt.sum())} steps to run, "
-        f"{int((cnt.sum(1) > 0).sum())} streams draining; mean of the captured "
-        f"frames {mean_steps:.0f} steps): kernel {k3_ms:.4f} ms/launch, plain "
-        f"{k3_plain:.2f} ms, bound {k3_bound:.5f} ms ({k3_by}), 1 launch per "
-        f"frame; library: no single PyTorch call computes K3; card: {smi}")
+    longest = int(max(len(w) for w in K.ML.tf_step_budget(
+        cnt.cpu(), K.ML.tf_launch_config(b3, cfg.rnn_units1, cfg.rnn_units2, 1, nblk,
+                                         K._max_clusters(cnt.device, 1, cfg.rnn_units1,
+                                                         K.KIND_TF))["streams"], blk)[1]))
+    log(f"K3[bf16] B={b3} ({nblk} blocks x {blk}, {int(cnt.sum())} steps to run, "
+        f"{int((cnt.sum(1) > 0).sum())} streams draining, the busiest cluster "
+        f"{longest} dependent steps; mean of the captured frames {mean_steps:.0f} "
+        f"steps): the call with its closed forms in PyTorch {k3_call:.4f} ms/launch "
+        f"(the kernels line's ms, as earlier runs timed K3), the launch alone "
+        f"{k3_ms:.4f} ms ({1e3 * k3_ms / max(longest, 1):.3f} us a dependent step), plain {k3_plain:.2f} ms, bound {k3_bound:.5f} ms "
+        f"({k3_by}), 1 launch per frame; library: no single PyTorch call computes "
+        f"K3; launch {k3_launch_shape(b3, cfg, 'bf16', nblk, cnt.device)}; card: {smi}")
     log(f"K4 B={h1.shape[0]} K={k_steps}: kernel {k4_ms:.4f} ms/launch, plain "
         f"{k4_plain:.3f} ms, bound {k4_bound:.5f} ms ({k4_by}), 1 launch per "
         f"frame with fastchain, else 0; the unchained path's {k_steps} masked "
         f"compute_plc_pred calls {un_ms:.4f} ms; library: no single PyTorch "
-        f"call computes K4; card: {smi}")
-    kernels = k3_ms + sum(k2_ms)
-    log(f"PLC frame {frame_ms:.3f} ms = K3 {k3_ms:.3f} ms + K2 head {k2_ms[0]:.3f} "
-        f"ms + K2 tail {k2_ms[1]:.3f} ms (B={b2}, n={n2}; CUDA events, alone, on "
-        f"the busiest captured frame's arguments) + frame-rate rest and host "
-        f"{frame_ms - kernels:.3f} ms ({100 * (frame_ms - kernels) / frame_ms:.1f}"
-        f" %); card: {smi}")
+        f"call computes K4; launch {k4_launch_shape(h1.shape[0], cw)}; card: {smi}")
+    kernels = k3_call + sum(k2_ms)
+    log(f"PLC frame {frame_ms:.3f} ms = K3's call {k3_call:.3f} ms (kernel {k3_ms:.3f} "
+        f"ms, closed forms in PyTorch {k3_call - k3_ms:.3f} ms) + K2 head "
+        f"{k2_ms[0]:.3f} ms + K2 tail {k2_ms[1]:.3f} ms (B={b2}, n={n2}; CUDA "
+        f"events, alone, on the busiest captured frame's arguments) + frame-rate "
+        f"rest and host {frame_ms - kernels:.3f} ms "
+        f"({100 * (frame_ms - kernels) / frame_ms:.1f} %); card: {smi}")
     log_frame_rate_pieces(fused, cfg, plc_params, h1.shape[0], smi)
     src = "lpcnet_torch/kernels/csrc/"
     return k2_ms, k2_errs, [
         {"name": "teacher_force[bf16]", "route": "cuda",
-         "source": src + "sample_loop.cu",
+         "source": src + "masked_loop.cu",
          "replaces": "lpcnet_tpu/kernels/sample_loop.py:785",
          "launches": counts[1] + chain_counts[1], "max_abs_err": k3_err,
-         "one_step_err": k3_step_err, "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None, "pass": True},
+         "one_step_err": k3_step_err, "ms": k3_call, "kernel_ms": k3_ms,
+         "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None, "pass": True,
+         "design": "masked_loop_kernel<FORM, NT, KIND_TF>: K2's clusters, teacher-forced; "
+                   + k3_launch_shape(b3, cfg, "bf16", nblk, cnt.device)},
         {"name": "plc_chain", "route": "cuda", "source": src + "plc_chain.cu",
          "replaces": "lpcnet_tpu/kernels/plc_chain.py:89",
          "launches": chain_counts[2], "max_abs_err": k4_err, "ms": k4_ms,
          "plain_ms": k4_plain, "bound_ms": k4_bound, "bound_by": k4_by,
-         "library_ms": None, "pass": True},
+         "library_ms": None, "pass": True,
+         "design": "chain_cluster_kernel<S>: the units split over 8 ranks, weights "
+                   "streamed by TMA; " + k4_launch_shape(h1.shape[0], cw)},
     ]
 
 
@@ -2066,7 +2116,7 @@ def time_k6(runs, parts, dev, smi):
             "design": "K1's kernel of its form on the merged matrices' checked "
                       "non-zero blocks (sample_loop.merged_packs), the 4N "
                       "conditioning converted once a launch: bf16 "
-                      "masked_loop_kernel<FORM_BF16, NT, FREE=true>, f32 "
+                      "masked_loop_kernel<FORM_BF16, NT, KIND_FREE>, f32 "
                       "ar_kernel<FORM_F32> (csrc/sample_loop.cu)",
             "tick_on_over_off": on_off,
             "replaces": "lpcnet_tpu/kernels/sample_loop.py:554",
@@ -2143,7 +2193,7 @@ def main():
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None,
             "pass": True,
-            "design": "masked_loop_kernel<FORM, NT, FREE=true>: K2's clusters in "
+            "design": "masked_loop_kernel<FORM, NT, KIND_FREE>: K2's clusters in "
                       "the free-running form, the tail split over the ranks; "
                       + k1_launch_shape(MAIN_BATCH, cfg.rnn_units1, cfg.rnn_units2,
                                         K.ML.FORMS[form], dev),

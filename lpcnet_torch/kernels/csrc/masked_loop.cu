@@ -76,7 +76,7 @@
 //
 // K1, the free-running loop (replaces _ar_kernel run with masked=False,
 // sample_loop.py:461, whose first port was ar_kernel<FORM, false> in
-// sample_loop.cu): the template flag FREE. It reads no preload or mode
+// sample_loop.cu): the kind KIND_FREE. It reads no preload or mode
 // words, has no frozen or teacher-forced branch and always samples. Of the
 // two ways to serve 1024 streams in fewer waves, it splits the tail rather
 // than give warp 0's lanes two streams each: the per-stream tail (GRU-B, the
@@ -103,6 +103,33 @@
 // matrices' non-zero blocks, packed as K1's (kernels/sample_loop.py::
 // merged_packs, which checks the padding blocks are zero), with the
 // conditioning's merged 4N layout converted once a launch into K1's.
+//
+// K3, the teacher-forced run (replaces sample_loop.py::_tf_kernel,
+// teacher_force_blocks_pallas; its first port, tf_kernel in sample_loop.cu,
+// swept GRU-A's matrix from L2 every step with three block barriers, ~45 us
+// a dependent step, and is gone): the kind KIND_TF. Every input is known
+// before the launch: the u-law codes of every step (three bytes a stream
+// and step, from tf_precompute in PyTorch), the conditioning of each of
+// n_blocks blocks, and a step count per stream and block. Stream s advances
+// at step t of block k iff t < counts[s, k]; the cluster runs block k up to
+// the largest count among its own streams (every rank reads the same
+// counts, so all take the same number of cluster barriers), and a cluster
+// with nothing to run copies its state out and stops. What it keeps of K2:
+// the clusters, GRU-A's resident slice, the product on the tensor cores and
+// the DSMEM exchange behind one cluster barrier a step. What it changes:
+// * no LPC, u-law, dual-FC, tree or PCM; warp 0 has no per-stream chain;
+// * the gate inputs leave the chain: a thread reads its streams' code bytes
+//   two steps ahead and issues the three embedding rows' gathers and the
+//   conditioning's loads one step ahead, between the cluster barrier's
+//   arrive and its wait, and adds them (in K2's order) in the next gate
+//   phase;
+// * nothing in the loop reads h_b, so GRU-B leaves the chain too: rank r
+//   owns the tail streams [r SO, r SO + SO) as in the free-running form,
+//   and warps 0, 4 and 8 (the three that take no GRU-A tile) run its two
+//   products for step t-1 beside step t's GRU-A product and its update
+//   inside the cluster barrier's wait;
+// * the KISS99 words, which nothing in the loop reads, advance after it by
+//   twice the stream's total count, in the tail's owner only.
 
 #include <cooperative_groups.h>
 
@@ -117,10 +144,16 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
+// the kernel's kinds: K2 (masks), K1 (free-running), K3 (teacher-forced run)
+enum { KIND_MASKED = 0, KIND_FREE = 1, KIND_TF = 2 };
+
 
 struct K2Args {
   int batch, na, nb, n_samples, sampled, cluster;
   int res_a, res_b;         // GRU-A's slice, GRU-B's weights in shared memory
+  int n_blocks, blk;        // K3: conditioning blocks, steps a block
+  const int* counts;        // K3: [B, n_blocks] steps to run
+  const uint8_t* codes;     // K3: [B, n_blocks * blk, 3] sig_u, pred_u, exc
   const void* emb;          // [768, 3Na] f32 / bf16 / int8
   const float* emb_scale;   // [3Na] (q8)
   const void* a_w;          // bf16 / q8: packed slices [C][3U/16][ceil(Na/KS)][32][16 bytes]; f32: a_rec [Na, 3Na]
@@ -134,8 +167,8 @@ struct K2Args {
   const float* dual_bias;   // [512]
   const float* dual_factor; // [512]
   const float* logit_table; // [256]
-  const float* cond_a;      // [B, 3Na]
-  const float* cond_b;      // [B, 3Nb]
+  const float* cond_a;      // [B, 3Na] (K3: [B, n_blocks, 3Na])
+  const float* cond_b;      // [B, 3Nb] (K3: [B, n_blocks, 3Nb])
   const float* lpc;         // [B, 16]
   const float* ha_in; const float* hb_in; const float* sig_in;
   const int* exc_in; const float* de_in; const long long* rng_in;
@@ -171,16 +204,21 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // form keeps its tail arrays for one tile of 8 streams (TR = 8, else S), its
 // codes four words a stream (one 16-byte store a block) and 8 rows more in
 // each h_a operand buffer (the GRU-B tile of the last rank reads past S).
+// The teacher-forced form (K3) splits the tail as the free-running one
+// does, has no node logits, threshold table or codes, and keeps the counts
+// of its S streams for each of n_blocks blocks and each block's largest.
 struct K2Layout {
   int u, nbp, ksa, ksbr, ldx, ldb, ldz, ldg, hrows;
   size_t wa, wb, hop, hbop, zacc, gacc, haown, hbf, logits, code, table, flags, total;
 };
 
 __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int cluster, int s,
-                                              bool res_a, bool res_b, bool free_) {
+                                              bool res_a, bool res_b, int kind,
+                                              int n_blocks) {
   const int ks = form_ks(form), esz = form_esz(form);
   const bool mma = form != FORM_F32;
-  const int tr = free_ ? 8 : s;
+  const bool free_ = kind == KIND_FREE, tf = kind == KIND_TF;
+  const int tr = free_ || tf ? 8 : s;
   K2Layout L;
   L.u = round_up((na + cluster - 1) / cluster, 16);
   L.nbp = round_up(nb, 16);
@@ -190,7 +228,7 @@ __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int clus
   L.ldb = mma ? L.ksbr * ks + form_xpad(form) : nb + form_xpad(form);
   L.ldz = 3 * L.u + 4;
   L.ldg = 3 * L.nbp + 4;
-  L.hrows = free_ ? s + 8 : s;
+  L.hrows = free_ || tf ? s + 8 : s;
   const size_t wslice = mma && res_a ? (size_t)3 * L.u * L.ksa * ks * esz : 0;
   const size_t wbytes = mma && res_b ? (size_t)3 * L.nbp * (L.ksa + L.ksbr) * ks * esz : 0;
   size_t off = 0;
@@ -202,9 +240,10 @@ __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int clus
   L.gacc = off; off += align16((size_t)2 * tr * L.ldg * 4);
   L.haown = off; off += align16((size_t)s * L.u * 4);
   L.hbf = off; off += align16((size_t)tr * nb * 4);
-  L.logits = off; off += align16((size_t)tr * 32 * 4);
-  L.code = off; off += align16((size_t)((free_ ? 4 : 3) * s + tr) * 4);
-  L.table = off; off += 256 * 4;
+  L.logits = off; off += tf ? 0 : align16((size_t)tr * 32 * 4);
+  L.code = off;
+  off += align16((size_t)(tf ? n_blocks * (s + 1) : (free_ ? 4 : 3) * s + tr) * 4);
+  L.table = off; off += tf ? 0 : 256 * 4;
   L.flags = off; off += 16;
   L.total = off;
   return L;
@@ -301,28 +340,43 @@ __device__ __forceinline__ void tile_mma(const uint4* wf, int ksteps,
   out[(2 * t + 1) * ldo + g + 8] = acc[3];
 }
 
-template <int FORM, int NT, bool FREE>
+// K3's gate inputs of one (stream, unit) pair as loaded, before any sum: the
+// three embedding rows' values of its three gate columns in the weights' own
+// type and the block's conditioning. Held in registers from the loads'
+// issue, a step ahead, to the gate phase that adds them.
+__device__ __forceinline__ float wf(float x) { return x; }
+__device__ __forceinline__ float wf(bf16 x) { return __bfloat162float(x); }
+
+template <int FORM> struct GateRaw {
+  typename FormT<FORM>::W e[3][3];   // [embedding row][gate]
+  float ca[3];
+};
+
+template <int FORM, int NT, int KIND>
 __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   typedef typename FormT<FORM>::W W;
   typedef typename FormT<FORM>::Acc Acc;
   typedef typename OpT<FORM>::T OT;
   typedef K2Form<FORM> F;
+  constexpr bool FREE = KIND == KIND_FREE, TF = KIND == KIND_TF;
+  constexpr bool SPLIT = FREE || TF;      // the tail split over the ranks
   constexpr int S = 8 * NT;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = p.cluster;
   const int rank = (int)cluster.block_rank();
   const int na = p.na, nb = p.nb, na3 = 3 * na, nb3 = 3 * nb;
-  const K2Layout L = k2_layout(FORM, na, nb, C, S, p.res_a, p.res_b, FREE);
+  const K2Layout L = k2_layout(FORM, na, nb, C, S, p.res_a, p.res_b, KIND, p.n_blocks);
   const int U = L.u, u0 = rank * U, n = p.n_samples, nbp = L.nbp;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b0 = (blockIdx.x / C) * S;
   const int nact = min(S, p.batch - b0);
   // the streams whose tail (GRU-B to PCM) this block runs: all S in the
-  // masked form; in the free-running form rank r owns [r SO, r SO + SO)
-  const int SO = FREE ? (S + C - 1) / C : S;
-  const int s0 = FREE ? rank * SO : 0;
-  const int so = FREE ? max(0, min(SO, S - s0)) : S;   // this rank's tail streams
-  const int TR = FREE ? 8 : S;                         // tail rows in shared memory
+  // masked form; in the free-running and teacher-forced forms rank r owns
+  // [r SO, r SO + SO)
+  const int SO = SPLIT ? (S + C - 1) / C : S;
+  const int s0 = SPLIT ? rank * SO : 0;
+  const int so = SPLIT ? max(0, min(SO, S - s0)) : S;  // this rank's tail streams
+  const int TR = SPLIT ? 8 : S;                        // tail rows in shared memory
 
   extern __shared__ __align__(16) unsigned char smem[];
   // the packed weights: this rank's GRU-A slice and GRU-B's, in shared
@@ -346,14 +400,36 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   constexpr int CW = FREE ? 4 : 3;                         // code words a stream
   int* code = reinterpret_cast<int*>(smem + L.code);       // [S][CW] sig_u, pred_u, exc
   int* top = code + CW * S;                                // [TR] the tree's first 4 bits
+  // K3: [n_blocks][S] the streams' counts, then [n_blocks] each block's largest
+  int* cnt = reinterpret_cast<int*>(smem + L.code);
   unsigned* flags = reinterpret_cast<unsigned*>(smem + L.flags); // live, sampler needed
   float* table = reinterpret_cast<float*>(smem + L.table); // [256] threshold logits
   const int hstride = L.hrows * L.ldx;                     // one operand buffer
 
+  // K3: the steps the cluster runs (0 when no stream of it has any)
+  const int nbk = p.n_blocks;
+  int total = 1;
+  if constexpr (TF) {
+    for (int i = tid; i < nbk * S; i += K2_THREADS) {
+      const int k = i / S, s = i % S;
+      const int c = s < nact ? p.counts[(size_t)(b0 + s) * nbk + k] : 0;
+      cnt[i] = min(max(c, 0), p.blk);
+    }
+    __syncthreads();
+    for (int k = tid; k < nbk; k += K2_THREADS) {
+      int m = 0;
+      for (int s = 0; s < S; ++s) m = max(m, cnt[k * S + s]);
+      cnt[nbk * S + k] = m;
+    }
+    __syncthreads();
+    total = 0;
+    for (int k = 0; k < nbk; ++k) total += cnt[nbk * S + k];
+  }
+
   // ---- set-up: weights into shared memory, the carried state
-  if (F::MMA && p.res_a)
+  if (F::MMA && p.res_a && total > 0)
     for (size_t i = tid; i < na_words; i += K2_THREADS) wa_s[i] = wa_g[i];
-  if (F::MMA && p.res_b)
+  if (F::MMA && p.res_b && total > 0)
     for (size_t i = tid; i < nb_words; i += K2_THREADS) wb_s[i] = wb_g[i];
   for (int i = tid; i < hstride; i += K2_THREADS) {
     const int s = i / L.ldx, k = i % L.ldx;
@@ -370,6 +446,315 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
     const float h = (sl < so && s < nact && k < nb) ? p.hb_in[(size_t)(b0 + s) * nb + k] : 0.f;
     hbop[i] = OpT<FORM>::of(h);
     if (k < nb) hbf[sl * nb + k] = h;
+  }
+
+  // GRU-A's product of one step on the operand `cur`, into zacc; `pt` is
+  // this thread's index among the `npt` threads that take it
+  auto gru_a_product = [&](const OT* cur, int pt, int npt) {
+    if constexpr (F::MMA) {
+      const int mta = 3 * U / 16;
+      for (int task = pt >> 5; task < mta * NT; task += npt >> 5) {
+        const int mt = task % mta, nt = task / mta;
+        const size_t w0 = (size_t)mt * L.ksa * 32;
+        if (p.res_a)
+          tile_mma<FORM>(wa_s + w0, L.ksa, cur + nt * 8 * L.ldx, L.ldx,
+                         zacc + nt * 8 * L.ldz + mt * 16, L.ldz, lane);
+        else
+          tile_mma<FORM>(wa_g + w0, L.ksa, cur + nt * 8 * L.ldx, L.ldx,
+                         zacc + nt * 8 * L.ldz + mt * 16, L.ldz, lane);
+      }
+    } else {
+      // f32: thread (local column, stream tile), weights from L2, K1's sums
+      const float* a_rec = (const float*)p.a_w;
+      for (int task = pt; task < 3 * U * NT; task += npt) {
+        const int lc = task % (3 * U), nt = task / (3 * U);
+        if (u0 + lc % U >= na) continue;            // padding: never read
+        const int col = (lc / U) * na + u0 + lc % U;
+        float acc[8];
+#pragma unroll
+        for (int s = 0; s < 8; ++s) acc[s] = 0.f;
+        const float* x = cur + nt * 8 * L.ldx;
+#pragma unroll 16
+        for (int k = 0; k < na; ++k) {
+          const float w = __ldg(a_rec + (size_t)k * na3 + col);
+#pragma unroll
+          for (int s = 0; s < 8; ++s) acc[s] += x[s * L.ldx + k] * w;
+        }
+#pragma unroll
+        for (int s = 0; s < 8; ++s) zacc[(nt * 8 + s) * L.ldz + lc] = acc[s];
+      }
+    }
+  };
+  // this rank's slice of the new operand to the other blocks, 16 bytes a store
+  auto send_slice = [&](OT* nxt) {
+    constexpr int EPW = 16 / F::ESZ;                 // operand elements a word
+    const int wps = U / EPW;                         // words a stream's slice
+    for (int i = tid; i < (C - 1) * S * wps; i += K2_THREADS) {
+      const int c = (rank + 1 + i / (S * wps)) % C, s = (i / wps) % S, w = i % wps;
+      const int off = s * L.ldx + u0 + w * EPW;
+      *reinterpret_cast<uint4*>(cluster.map_shared_rank(nxt, c) + off) =
+          *reinterpret_cast<const uint4*>(nxt + off);
+    }
+  };
+
+  if constexpr (TF) {
+    // ---- K3: the teacher-forced run
+    if (total > 0) {
+      const int* cmax = cnt + nbk * S;
+      const size_t nstep = (size_t)nbk * p.blk;          // code triples a stream
+      const W* emb = (const W*)p.emb;
+      // the step after (k, t) that the cluster runs; k == nbk past the last
+      auto step_after = [&](int& k, int& t) {
+        if (k >= nbk) return;
+        if (++t >= cmax[k]) {
+          t = 0;
+          do { ++k; } while (k < nbk && cmax[k] == 0);
+        }
+      };
+      auto live_at = [&](int s, int k, int t) { return k < nbk && t < cnt[k * S + s]; };
+      // thread tid's first NT (stream, unit) pairs, i = tid + pp K2_THREADS,
+      // have their gate inputs loaded ahead (all of them where U <= 48)
+      auto pair_on = [&](int pp) {
+        const int i = tid + pp * K2_THREADS;
+        return i < S * U && u0 + i % U < na;
+      };
+      float bias[NT][3], diag[NT][3], scale[NT][3];
+      int cd[NT][3];
+      GateRaw<FORM> raw[NT];
+#pragma unroll
+      for (int pp = 0; pp < NT; ++pp) {
+        const int u = u0 + (tid + pp * K2_THREADS) % U;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const int col = q * na + u;
+          const bool on = pair_on(pp);
+          bias[pp][q] = on ? __ldg(p.a_bias1 + col) : 0.f;
+          diag[pp][q] = FORM == FORM_Q8 && on ? __ldg(p.a_diag + col) : 0.f;
+          scale[pp][q] = FORM == FORM_Q8 && on ? __ldg(p.emb_scale + col) : 0.f;
+          cd[pp][q] = 0;
+        }
+      }
+      // the code bytes of step (k, t) for the live pairs
+      auto load_codes = [&](int k, int t) {
+#pragma unroll
+        for (int pp = 0; pp < NT; ++pp) {
+          const int s = (tid + pp * K2_THREADS) / U;
+          if (!pair_on(pp) || !live_at(s, k, t)) continue;
+          const uint8_t* c3 = p.codes + ((size_t)(b0 + s) * nstep + (size_t)k * p.blk + t) * 3;
+#pragma unroll
+          for (int r = 0; r < 3; ++r) cd[pp][r] = __ldg(c3 + r);
+        }
+      };
+      // the raw gate inputs of a pair at step (k, t) on codes c
+      auto gather = [&](GateRaw<FORM>& g, int s, int u, int k, const int* c) {
+        const float* ca = p.cond_a + ((size_t)(b0 + s) * nbk + k) * na3;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const int col = q * na + u;
+          g.ca[q] = __ldg(ca + col);
+#pragma unroll
+          for (int r = 0; r < 3; ++r) g.e[r][q] = __ldg(emb + (size_t)(256 * r + c[r]) * na3 + col);
+        }
+      };
+      auto gather_all = [&](int k, int t) {
+#pragma unroll
+        for (int pp = 0; pp < NT; ++pp) {
+          const int i = tid + pp * K2_THREADS, s = i / U;
+          if (pair_on(pp) && live_at(s, k, t)) gather(raw[pp], s, u0 + i % U, k, cd[pp]);
+        }
+      };
+      // gate q's input: the embedding rows and the conditioning summed in
+      // K2's order
+      auto gate_in = [&](const GateRaw<FORM>& g, int q, float sc) {
+        if constexpr (FORM == FORM_Q8) {
+          const int e = (int)g.e[0][q] + (int)g.e[1][q] + (int)g.e[2][q];
+          return __fadd_rn(g.ca[q], __fmul_rn((float)e, sc));
+        } else {
+          const float e = __fadd_rn(__fadd_rn(wf(g.e[0][q]), wf(g.e[1][q])),
+                                    wf(g.e[2][q]));
+          return __fadd_rn(g.ca[q], e);
+        }
+      };
+      // the new h_a of a pair from its gate inputs and this step's products
+      auto gate = [&](const GateRaw<FORM>& g, int s, int j, float h, const float* bs,
+                      const float* dg, const float* sc) {
+        float gi[3], zr[3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const Acc acc = zacc[s * L.ldz + q * U + j];
+          gi[q] = gate_in(g, q, sc[q]);
+          if (FORM == FORM_Q8)
+            zr[q] = __fadd_rn(__fadd_rn(__fmul_rn((float)acc, Q8_SCALE), __fmul_rn(dg[q], h)), bs[q]);
+          else
+            zr[q] = __fadd_rn((float)acc, bs[q]);
+        }
+        return gru_out(gi[0], zr[0], gi[1], zr[1], gi[2], zr[2], h);
+      };
+      // GRU-B's products for this rank's tile of 8 tail rows, by the 96
+      // threads of warps 0, 4 and 8 (gw = warp / 4)
+      auto gru_b_products = [&](const OT* cur, int gw) {
+        if (so == 0) return;
+        if constexpr (F::MMA) {
+          const int mtb = 3 * nbp / 16, ksb = L.ksa + L.ksbr;
+          const OT* xa = cur + s0 * L.ldx;
+          for (int task = gw; task < 2 * mtb; task += 3) {
+            const int part = task / mtb, mt = task % mtb;
+            auto tile = [&](const uint4* wb) {
+              if (part == 0)
+                tile_mma<FORM>(wb + (size_t)mt * ksb * 32, L.ksa, xa, L.ldx, gin + mt * 16,
+                               L.ldg, lane);
+              else
+                tile_mma<FORM>(wb + ((size_t)mt * ksb + L.ksa) * 32, L.ksbr, hbop, L.ldb,
+                               grec + mt * 16, L.ldg, lane);
+            };
+            if (p.res_b) tile(wb_s); else tile(wb_g);
+          }
+        } else {
+          for (int o = gw * 32 + lane; o < so * nb3; o += 96) {
+            const int sl = o / nb3, c = o % nb3, s = s0 + sl;
+            float ai = 0.f, ar = 0.f;
+#pragma unroll 16
+            for (int k = 0; k < na; ++k) ai += cur[s * L.ldx + k] * __ldg(p.b_in + (size_t)k * nb3 + c);
+            for (int k = 0; k < nb; ++k) ar += hbop[sl * L.ldb + k] * __ldg(p.b_rec + (size_t)k * nb3 + c);
+            const int pc = (c / nb) * nbp + c % nb;
+            gin[sl * L.ldg + pc] = ai;
+            grec[sl * L.ldg + pc] = ar;
+          }
+        }
+      };
+      // GRU-B's update of step (k, t) from its products, thread (tail
+      // stream, unit) from i0 in steps of `stride`
+      auto gru_b_update = [&](int k, int t, int i0, int stride) {
+        for (int i = i0; i < so * nb; i += stride) {
+          const int sl = i / nb, u = i % nb, s = s0 + sl;
+          if (!live_at(s, k, t)) continue;
+          const float* cb = p.cond_b + ((size_t)(b0 + s) * nbk + k) * nb3;
+          float gi[3], gr[3];
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const int c = q * nb + u;
+            const Acc ai = gin[sl * L.ldg + q * nbp + u], ar = grec[sl * L.ldg + q * nbp + u];
+            if (FORM == FORM_Q8) {
+              gi[q] = __fadd_rn(__ldg(cb + c), __fmul_rn((float)ai, Q8_SCALE));
+              gr[q] = __fadd_rn(__fmul_rn((float)ar, Q8_SCALE), __ldg(p.b_bias1 + c));
+            } else {
+              gi[q] = __fadd_rn(__ldg(cb + c), (float)ai);
+              gr[q] = __fadd_rn((float)ar, __ldg(p.b_bias1 + c));
+            }
+          }
+          const float h = gru_out(gi[0], gr[0], gi[1], gr[1], gi[2], gr[2], hbf[i]);
+          hbf[i] = h;
+          hbop[sl * L.ldb + u] = OpT<FORM>::of(h);
+        }
+      };
+
+      // (k, t) the step, (k1, t1) and (k2, t2) the two after it, (kb, tb)
+      // the one before: GRU-B's step
+      int k = 0, t = 0;
+      while (cmax[k] == 0) ++k;
+      int k1 = k, t1 = t;
+      step_after(k1, t1);
+      int k2 = k1, t2 = t1;
+      step_after(k2, t2);
+      int kb = k, tb = t;
+      // step 0's codes and gate inputs; step 1's codes
+      load_codes(k, t);
+      gather_all(k, t);
+      load_codes(k1, t1);
+      const bool gru_b_warp = (warp & 3) == 0;
+      cluster.sync();   // every block runs and is set up before remote stores
+
+      for (int j = 0;; ++j) {
+        const OT* cur = hop + (j & 1) * hstride;
+        // ---- GRU-A's product of step j beside GRU-B's products of step j-1
+        if (!gru_b_warp) {
+          if (j < total) gru_a_product(cur, (warp - 1 - warp / 4) * 32 + lane, 288);
+        } else if (j > 0) {
+          gru_b_products(cur, warp >> 2);
+        }
+        if (j == total) break;
+        __syncthreads();
+
+        // ---- gate phase: thread (stream, unit) forms its new h_a from the
+        // gate inputs loaded a step ahead
+        OT* nxt = hop + ((j + 1) & 1) * hstride;
+#pragma unroll
+        for (int pp = 0; pp < NT; ++pp) {
+          const int i = tid + pp * K2_THREADS;
+          if (i >= S * U) break;
+          const int s = i / U, jj = i % U, u = u0 + jj;
+          float h = haown[i];
+          if (u < na && live_at(s, k, t)) {
+            h = gate(raw[pp], s, jj, h, bias[pp], diag[pp], scale[pp]);
+            haown[i] = h;
+          }
+          nxt[s * L.ldx + u] = OpT<FORM>::of(h);
+        }
+        // pairs past the first NT (ranks of more than 48 units): gathered here
+        for (int i = tid + NT * K2_THREADS; i < S * U; i += K2_THREADS) {
+          const int s = i / U, jj = i % U, u = u0 + jj;
+          float h = haown[i];
+          if (u < na && live_at(s, k, t)) {
+            const uint8_t* c3 = p.codes + ((size_t)(b0 + s) * nstep + (size_t)k * p.blk + t) * 3;
+            const int c[3] = {__ldg(c3), __ldg(c3 + 1), __ldg(c3 + 2)};
+            GateRaw<FORM> g;
+            gather(g, s, u, k, c);
+            float bs[3], dg[3], sc[3];
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+              bs[q] = __ldg(p.a_bias1 + q * na + u);
+              dg[q] = FORM == FORM_Q8 ? __ldg(p.a_diag + q * na + u) : 0.f;
+              sc[q] = FORM == FORM_Q8 ? __ldg(p.emb_scale + q * na + u) : 0.f;
+            }
+            h = gate(g, s, jj, h, bs, dg, sc);
+            haown[i] = h;
+          }
+          nxt[s * L.ldx + u] = OpT<FORM>::of(h);
+        }
+        __syncthreads();
+        send_slice(nxt);
+        // the cluster barrier: the new operand complete in every block, and
+        // the buffer the next step writes no longer read. Between its arrive
+        // and its wait, GRU-B's update of step j-1 (warps 0, 4, 8) and the
+        // loads of step j+1's gate inputs and step j+2's codes.
+        asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+        if (gru_b_warp && j > 0) {
+          gru_b_update(kb, tb, (warp >> 2) * 32 + lane, 96);
+          asm volatile("bar.sync 1, 96;\n" ::: "memory");
+        }
+        kb = k; tb = t;
+        k = k1; t = t1;
+        k1 = k2; t1 = t2;
+        step_after(k2, t2);
+        gather_all(k, t);
+        load_codes(k1, t1);
+        asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+      }
+      // GRU-B's update of the last step
+      __syncthreads();
+      gru_b_update(kb, tb, tid, K2_THREADS);
+    }
+
+    // ---- the carried state: each rank its own h_a units, the tail's owner
+    // its streams' h_b and KISS99 words, advanced by two draws a step run
+    __syncthreads();
+    for (int i = tid; i < nact * U; i += K2_THREADS)
+      if (u0 + i % U < na) p.ha_out[(size_t)(b0 + i / U) * na + u0 + i % U] = haown[i];
+    const int ntail = max(0, min(so, nact - s0));
+    for (int i = tid; i < ntail * nb; i += K2_THREADS)
+      p.hb_out[(size_t)(b0 + s0 + i / nb) * nb + i % nb] = hbf[i];
+    if (warp == 0 && lane < ntail) {
+      const size_t g = (size_t)(b0 + s0 + lane);
+      int draws = 0;
+      for (int k = 0; k < nbk; ++k) draws += 2 * cnt[k * S + s0 + lane];
+      unsigned st[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) st[q] = (unsigned)p.rng_in[g * 4 + q];
+      for (int i = 0; i < draws; ++i) kiss99(st);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) p.rng_out[g * 4 + q] = (long long)st[q];
+    }
+    return;
   }
 
   // warp 0, lane l: stream s0 + l's scalar state, in registers
@@ -484,38 +869,9 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       if constexpr (F::MMA) {
         // warps 4 and 8 share warp 0's scheduler, whose tree and codes are
         // the step's critical path: the other nine take the tiles
-        const int mta = 3 * U / 16;
-        for (int task = warp - 1 - warp / 4; (warp & 3) && task < mta * NT;
-             task += K2_WARPS - K2_WARPS / 4) {
-          const int mt = task % mta, nt = task / mta;
-          const size_t w0 = (size_t)mt * L.ksa * 32;
-          if (p.res_a)
-            tile_mma<FORM>(wa_s + w0, L.ksa, cur + nt * 8 * L.ldx, L.ldx,
-                           zacc + nt * 8 * L.ldz + mt * 16, L.ldz, lane);
-          else
-            tile_mma<FORM>(wa_g + w0, L.ksa, cur + nt * 8 * L.ldx, L.ldx,
-                           zacc + nt * 8 * L.ldz + mt * 16, L.ldz, lane);
-        }
+        if (warp & 3) gru_a_product(cur, (warp - 1 - warp / 4) * 32 + lane, 288);
       } else {
-        // f32: thread (local column, stream tile), weights from L2, K1's sums
-        const float* a_rec = (const float*)p.a_w;
-        for (int task = tid - 32; task < 3 * U * NT; task += K2_THREADS - 32) {
-          const int lc = task % (3 * U), nt = task / (3 * U);
-          if (u0 + lc % U >= na) continue;            // padding: never read
-          const int col = (lc / U) * na + u0 + lc % U;
-          float acc[8];
-#pragma unroll
-          for (int s = 0; s < 8; ++s) acc[s] = 0.f;
-          const float* x = cur + nt * 8 * L.ldx;
-#pragma unroll 16
-          for (int k = 0; k < na; ++k) {
-            const float w = __ldg(a_rec + (size_t)k * na3 + col);
-#pragma unroll
-            for (int s = 0; s < 8; ++s) acc[s] += x[s * L.ldx + k] * w;
-          }
-#pragma unroll
-          for (int s = 0; s < 8; ++s) zacc[(nt * 8 + s) * L.ldz + lc] = acc[s];
-        }
+        gru_a_product(cur, tid - 32, K2_THREADS - 32);
       }
     }
     if (t == n) break;
@@ -579,17 +935,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       }
     }
     __syncthreads();
-    // this rank's slice of the new operand to the other blocks, 16 bytes a store
-    {
-      constexpr int EPW = 16 / F::ESZ;                 // operand elements a word
-      const int wps = U / EPW;                         // words a stream's slice
-      for (int i = tid; i < (C - 1) * S * wps; i += K2_THREADS) {
-        const int c = (rank + 1 + i / (S * wps)) % C, s = (i / wps) % S, w = i % wps;
-        const int off = s * L.ldx + u0 + w * EPW;
-        *reinterpret_cast<uint4*>(cluster.map_shared_rank(nxt, c) + off) =
-            *reinterpret_cast<const uint4*>(nxt + off);
-      }
-    }
+    send_slice(nxt);
     // the new operand copy is complete in every block; nobody still reads the
     // buffer the next step overwrites
     cluster.sync();
@@ -716,28 +1062,29 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
 
 typedef void (*K2Kernel)(K2Args);
 
-// the kernel of a form, a stream tiling (S = 8 nt) and the free-running
-// flag, null if there is none. The free-running form (K1) has bf16 and q8
-// instantiations only: in f32 K1 runs sample_loop.cu's kernel.
-K2Kernel kernel_for(int form, int nt, int free_) {
-  switch ((free_ ? 64 : 0) + form * 8 + nt) {
-    case FORM_F32 * 8 + 1: return masked_loop_kernel<FORM_F32, 1, false>;
-    case FORM_F32 * 8 + 2: return masked_loop_kernel<FORM_F32, 2, false>;
-    case FORM_F32 * 8 + 4: return masked_loop_kernel<FORM_F32, 4, false>;
-    case FORM_BF16 * 8 + 1: return masked_loop_kernel<FORM_BF16, 1, false>;
-    case FORM_BF16 * 8 + 2: return masked_loop_kernel<FORM_BF16, 2, false>;
-    case FORM_BF16 * 8 + 4: return masked_loop_kernel<FORM_BF16, 4, false>;
-    case FORM_Q8 * 8 + 1: return masked_loop_kernel<FORM_Q8, 1, false>;
-    case FORM_Q8 * 8 + 2: return masked_loop_kernel<FORM_Q8, 2, false>;
-    case FORM_Q8 * 8 + 4: return masked_loop_kernel<FORM_Q8, 4, false>;
-    case 64 + FORM_BF16 * 8 + 1: return masked_loop_kernel<FORM_BF16, 1, true>;
-    case 64 + FORM_BF16 * 8 + 2: return masked_loop_kernel<FORM_BF16, 2, true>;
-    case 64 + FORM_BF16 * 8 + 4: return masked_loop_kernel<FORM_BF16, 4, true>;
-    case 64 + FORM_BF16 * 8 + 5: return masked_loop_kernel<FORM_BF16, 5, true>;
-    case 64 + FORM_Q8 * 8 + 1: return masked_loop_kernel<FORM_Q8, 1, true>;
-    case 64 + FORM_Q8 * 8 + 2: return masked_loop_kernel<FORM_Q8, 2, true>;
-    case 64 + FORM_Q8 * 8 + 4: return masked_loop_kernel<FORM_Q8, 4, true>;
-    case 64 + FORM_Q8 * 8 + 5: return masked_loop_kernel<FORM_Q8, 5, true>;
+// the kernel of a form, a stream tiling (S = 8 nt) and a kind, null if
+// there is none. The free-running form (K1) has bf16 and q8 instantiations
+// only: in f32 K1 runs sample_loop.cu's kernel. The teacher-forced form
+// (K3) has all three forms at S = 8, 16 and 32.
+K2Kernel kernel_for(int form, int nt, int kind) {
+  switch (kind * 64 + form * 8 + nt) {
+#define K2_CASE(KIND, FORM, NT) \
+    case KIND * 64 + FORM * 8 + NT: return masked_loop_kernel<FORM, NT, KIND>;
+    K2_CASE(KIND_MASKED, FORM_F32, 1) K2_CASE(KIND_MASKED, FORM_F32, 2)
+    K2_CASE(KIND_MASKED, FORM_F32, 4) K2_CASE(KIND_MASKED, FORM_BF16, 1)
+    K2_CASE(KIND_MASKED, FORM_BF16, 2) K2_CASE(KIND_MASKED, FORM_BF16, 4)
+    K2_CASE(KIND_MASKED, FORM_Q8, 1) K2_CASE(KIND_MASKED, FORM_Q8, 2)
+    K2_CASE(KIND_MASKED, FORM_Q8, 4)
+    K2_CASE(KIND_FREE, FORM_BF16, 1) K2_CASE(KIND_FREE, FORM_BF16, 2)
+    K2_CASE(KIND_FREE, FORM_BF16, 4) K2_CASE(KIND_FREE, FORM_BF16, 5)
+    K2_CASE(KIND_FREE, FORM_Q8, 1) K2_CASE(KIND_FREE, FORM_Q8, 2)
+    K2_CASE(KIND_FREE, FORM_Q8, 4) K2_CASE(KIND_FREE, FORM_Q8, 5)
+    K2_CASE(KIND_TF, FORM_F32, 1) K2_CASE(KIND_TF, FORM_F32, 2)
+    K2_CASE(KIND_TF, FORM_F32, 4) K2_CASE(KIND_TF, FORM_BF16, 1)
+    K2_CASE(KIND_TF, FORM_BF16, 2) K2_CASE(KIND_TF, FORM_BF16, 4)
+    K2_CASE(KIND_TF, FORM_Q8, 1) K2_CASE(KIND_TF, FORM_Q8, 2)
+    K2_CASE(KIND_TF, FORM_Q8, 4)
+#undef K2_CASE
     default: return nullptr;
   }
 }
@@ -758,15 +1105,28 @@ cudaLaunchConfig_t k2_config(int grid, int cluster, int smem, cudaStream_t strea
   return cfg;
 }
 
+// launch the kernel k on clusters of `cluster` blocks, one per 8 nt streams
+int k2_launch(K2Kernel k, const K2Args& a, int nt, int smem, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int clusters = (a.batch + 8 * nt - 1) / (8 * nt);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = k2_config(clusters * a.cluster, a.cluster, smem, (cudaStream_t)stream,
+                                     &attr);
+  e = cudaLaunchKernelEx(&cfg, k, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The most clusters of `cluster` blocks with `smem` bytes each that the card
 // holds at once for form `form` (0 f32, 1 bf16, 2 q8), nt stream tiles
-// (S = 8 nt) and the free-running flag; a negative CUDA error code on
-// failure.
-extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int free_, int cluster,
+// (S = 8 nt) and kind (0 masked, 1 free-running, 2 teacher-forced); a
+// negative CUDA error code on failure.
+extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int kind, int cluster,
                                                int smem) {
-  const K2Kernel k = kernel_for(form, nt, free_);
+  const K2Kernel k = kernel_for(form, nt, kind);
   if (!k) return -(int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return -(int)e;
@@ -795,14 +1155,15 @@ extern "C" int lpcnet_masked_loop(
     const void* exc_in, const void* de_in, const void* rng_in, void* ha_out, void* hb_out,
     void* sig_out, void* exc_out, void* de_out, void* rng_out, void* pcm, const void* preload,
     const void* mode, void* stream) {
-  const K2Kernel k = kernel_for(form, nt, free_);
+  const int kind = free_ ? KIND_FREE : KIND_MASKED;
+  const K2Kernel k = kernel_for(form, nt, kind);
   if (!k || batch <= 0 || n_samples <= 0 || (!free_ && (!preload || !mode)) || cluster < 1 ||
       cluster > 8 || na <= 0 || nb <= 0 || (form == FORM_F32 && (res_a || res_b)) ||
       (free_ && (!sampled || (8 * nt + cluster - 1) / cluster > 8)))
     return (int)cudaErrorInvalidValue;
-  if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b, free_).total)
+  if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b, kind, 0).total)
     return (int)cudaErrorInvalidValue;
-  K2Args a;
+  K2Args a = {};
   a.batch = batch; a.na = na; a.nb = nb; a.n_samples = n_samples; a.sampled = sampled;
   a.cluster = cluster; a.res_a = res_a; a.res_b = res_b;
   a.emb = emb; a.emb_scale = (const float*)emb_scale;
@@ -818,12 +1179,41 @@ extern "C" int lpcnet_masked_loop(
   a.ha_out = (float*)ha_out; a.hb_out = (float*)hb_out; a.sig_out = (float*)sig_out;
   a.exc_out = (int*)exc_out; a.de_out = (float*)de_out; a.rng_out = (long long*)rng_out;
   a.pcm = (float*)pcm; a.preload = (const float*)preload; a.mode = (const int*)mode;
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int clusters = (batch + 8 * nt - 1) / (8 * nt);
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = k2_config(clusters * cluster, cluster, smem, (cudaStream_t)stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, k, a);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return k2_launch(k, a, nt, smem, stream);
+}
+
+// K3, the teacher-forced form. a_w, b_w, b_in, b_rec, res_a, res_b, smem as
+// K2's (smem: masked_loop.py::masked_smem_bytes with tf_blocks = n_blocks);
+// cond_a [B, n_blocks, 3Na], cond_b [B, n_blocks, 3Nb] f32; counts
+// [B, n_blocks] int32 (clamped to 0..blk_samples); codes
+// [B, n_blocks * blk_samples, 3] uint8; h_a, h_b and the KISS99 words
+// ([B, 4] int64) in and out.
+extern "C" int lpcnet_teacher_force(
+    int form, int nt, int cluster, int smem, int res_a, int res_b, int batch, int na, int nb,
+    int n_blocks, int blk_samples, const void* emb, const void* emb_scale, const void* a_w,
+    const void* a_diag, const void* a_bias1, const void* b_w, const void* b_in,
+    const void* b_rec, const void* b_bias1, const void* cond_a, const void* cond_b,
+    const void* counts, const void* codes, const void* ha_in, const void* hb_in,
+    const void* rng_in, void* ha_out, void* hb_out, void* rng_out, void* stream) {
+  const K2Kernel k = kernel_for(form, nt, KIND_TF);
+  if (!k || batch <= 0 || n_blocks <= 0 || blk_samples <= 0 || cluster < 1 || cluster > 8 ||
+      na <= 0 || nb <= 0 || (form == FORM_F32 && (res_a || res_b)) ||
+      (8 * nt + cluster - 1) / cluster > 8)
+    return (int)cudaErrorInvalidValue;
+  if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b, KIND_TF,
+                                n_blocks).total)
+    return (int)cudaErrorInvalidValue;
+  K2Args a = {};
+  a.batch = batch; a.na = na; a.nb = nb; a.cluster = cluster; a.res_a = res_a; a.res_b = res_b;
+  a.n_blocks = n_blocks; a.blk = blk_samples;
+  a.counts = (const int*)counts; a.codes = (const uint8_t*)codes;
+  a.emb = emb; a.emb_scale = (const float*)emb_scale;
+  a.a_w = a_w; a.a_diag = (const float*)a_diag; a.a_bias1 = (const float*)a_bias1;
+  a.b_w = b_w; a.b_in = (const float*)b_in; a.b_rec = (const float*)b_rec;
+  a.b_bias1 = (const float*)b_bias1;
+  a.cond_a = (const float*)cond_a; a.cond_b = (const float*)cond_b;
+  a.ha_in = (const float*)ha_in; a.hb_in = (const float*)hb_in;
+  a.rng_in = (const long long*)rng_in;
+  a.ha_out = (float*)ha_out; a.hb_out = (float*)hb_out; a.rng_out = (long long*)rng_out;
+  return k2_launch(k, a, nt, smem, stream);
 }

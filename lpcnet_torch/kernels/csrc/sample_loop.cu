@@ -1,10 +1,9 @@
-// K1 (f32) and K3: the LPCNet autoregressive sample loop, one frame per
-// launch, free-running (K1); and the GRU-only teacher-forced run over several
-// conditioning blocks (K3, at the end of this file). The masked form (K2)
-// has a kernel of its own, redesigned for Hopper: masked_loop.cu, whose
-// free-running form is K1 in bf16 and q8 (in f32 this first design is the
-// faster at 1024 streams: K2's f32 form reads GRU-A's weights from L2 on the
-// CUDA cores for S streams a cluster). K6, the merged-product loop, runs K1's
+// K1 (f32): the LPCNet autoregressive sample loop, one frame per launch,
+// free-running. The masked form (K2) has a kernel of its own, redesigned for
+// Hopper: masked_loop.cu, whose free-running form is K1 in bf16 and q8 (in
+// f32 this first design is the faster at 1024 streams: K2's f32 form reads
+// GRU-A's weights from L2 on the CUDA cores for S streams a cluster) and
+// whose teacher-forced form is K3. K6, the merged-product loop, runs K1's
 // kernel of its form on the non-zero blocks of its merged matrices
 // (kernels/sample_loop.py::merged_packs): f32 K6 is this kernel.
 //
@@ -371,161 +370,4 @@ extern "C" int lpcnet_sample_loop(SAMPLE_LOOP_PARAMS, void* stream) {
   if (batch <= 0 || n_samples <= 0 || form != FORM_F32) return (int)cudaErrorInvalidValue;
   const Args a = make_args(SAMPLE_LOOP_ARGS);
   return (int)launch<FORM_F32>(a, (cudaStream_t)stream);
-}
-
-// --------------------------------------------------------------------------
-// K3: the teacher-forced run. Replaces the TPU kernel
-// lpcnet_tpu/kernels/sample_loop.py::_tf_kernel (teacher_force_blocks_pallas).
-//
-// In a fully teacher-forced segment the signal history, the prediction and
-// the three u-law codes of every step are closed forms of the target audio;
-// the wrapper computes them in PyTorch. What is left for the kernel is the
-// dependent chain: for each stream, for each of n_blocks conditioning blocks
-// k, for t < counts[k]: the three-row embedding gather plus GRU-A, GRU-B, and
-// the two KISS99 draws a K2 step makes. Steps at or beyond the count leave
-// the stream's state and RNG words as they are. No LPC filter, no u-law
-// transcendentals, no dual-FC, no PCM.
-//
-// Bound on an H100: as K1, the chain of dependent steps, each of which sweeps
-// GRU-A's recurrent matrix from L2; its arithmetic (0.46 M multiply-adds a
-// step and stream) and its bytes are far below that. The design is K1's: a
-// block owns BT streams for the whole run and thread u owns GRU-A unit u, the
-// same two device functions do the steps. Beyond K1: a block runs each
-// conditioning block only up to the largest count of its own streams, so
-// streams with nothing queued cost nothing but the launch; the codes come as
-// three bytes a step (the TPU version's packed int32 and its transposed
-// index block are gone); the RNG words, which nothing in the loop reads,
-// advance after it by twice the stream's total count.
-
-struct TfArgs {
-  int batch, na, nb, n_blocks, blk_samples;
-  GruWeights w;
-  const float* cond_a;      // [B, n_blocks, 3Na]
-  const float* cond_b;      // [B, n_blocks, 3Nb]
-  const int* counts;        // [B, n_blocks] steps to run, 0..blk_samples
-  const uint8_t* codes;     // [B, n_blocks * blk_samples, 3] sig_u, pred_u, exc
-  const float* ha_in; const float* hb_in; const long long* rng_in;
-  float* ha_out; float* hb_out; long long* rng_out;
-};
-
-template <int FORM>
-__global__ void __launch_bounds__(NTHREADS) tf_kernel(TfArgs p) {
-  const int na = p.na, nb = p.nb, na3 = 3 * na, nb3 = 3 * nb;
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * BT;
-  const int nact = min(BT, p.batch - b0);
-  const int n_total = p.n_blocks * p.blk_samples;
-
-  extern __shared__ float smem[];
-  float* ha = smem;                    // [BT][na] state
-  float* hop = ha + BT * na;           // [BT][na] GRU operand copy
-  float* hb = hop + BT * na;           // [BT][nb]
-  float* hbop = hb + BT * nb;          // [BT][nb]
-  float* gin = hbop + BT * nb;         // [BT][3nb]
-  float* grec = gin + BT * nb3;        // [BT][3nb]
-  int* code = (int*)(grec + BT * nb3); // [BT][3]
-  int* cnt = code + 3 * BT;            // [BT] this block's counts
-
-  for (int i = tid; i < BT * na; i += NTHREADS) {
-    int s = i / na;
-    ha[i] = s < nact ? p.ha_in[(size_t)(b0 + s) * na + i % na] : 0.f;
-  }
-  for (int i = tid; i < BT * nb; i += NTHREADS) {
-    int s = i / nb;
-    hb[i] = s < nact ? p.hb_in[(size_t)(b0 + s) * nb + i % nb] : 0.f;
-  }
-  int draws = 0;                       // thread s: KISS99 draws owed to stream s
-  __syncthreads();
-
-  for (int k = 0; k < p.n_blocks; ++k) {
-    if (tid < BT) {
-      int c = tid < nact ? p.counts[(size_t)(b0 + tid) * p.n_blocks + k] : 0;
-      c = min(max(c, 0), p.blk_samples);
-      cnt[tid] = c;
-      draws += 2 * c;
-    }
-    __syncthreads();
-    int cmax = 0;
-#pragma unroll
-    for (int s = 0; s < BT; ++s) cmax = max(cmax, cnt[s]);
-    const float* ca0 = p.cond_a + ((size_t)b0 * p.n_blocks + k) * na3;
-    const float* cb0 = p.cond_b + ((size_t)b0 * p.n_blocks + k) * nb3;
-
-    for (int t = 0; t < cmax; ++t) {
-      if (tid < 3 * BT) {
-        const int s = tid / 3;
-        code[tid] = s < nact
-            ? (int)p.codes[((size_t)(b0 + s) * n_total + (size_t)k * p.blk_samples + t) * 3 + tid % 3]
-            : 0;
-      }
-      for (int i = tid; i < BT * na; i += NTHREADS) hop[i] = operand<FORM>(ha[i]);
-      for (int i = tid; i < BT * nb; i += NTHREADS) hbop[i] = operand<FORM>(hb[i]);
-      __syncthreads();
-      unsigned live = 0;
-#pragma unroll
-      for (int s = 0; s < BT; ++s)
-        if (t < cnt[s]) live |= 1u << s;
-      gru_a_phase<FORM>(p.w, na, ca0, (size_t)p.n_blocks * na3, hop, ha, code, live, tid);
-      __syncthreads();
-      for (int i = tid; i < BT * na; i += NTHREADS) hop[i] = operand<FORM>(ha[i]);
-      __syncthreads();
-      gru_b_phase<FORM>(p.w, na, nb, cb0, (size_t)p.n_blocks * nb3, hop, hbop, hb, gin, grec,
-                        nact, live, tid);
-    }
-    __syncthreads();                   // cnt is rewritten by the next block
-  }
-
-  for (int i = tid; i < nact * na; i += NTHREADS)
-    p.ha_out[(size_t)(b0 + i / na) * na + i % na] = ha[i];
-  for (int i = tid; i < nact * nb; i += NTHREADS)
-    p.hb_out[(size_t)(b0 + i / nb) * nb + i % nb] = hb[i];
-  if (tid < nact) {
-    unsigned st[4];
-    for (int j = 0; j < 4; ++j) st[j] = (unsigned)p.rng_in[(size_t)(b0 + tid) * 4 + j];
-    for (int i = 0; i < draws; ++i) kiss99(st);
-    for (int j = 0; j < 4; ++j) p.rng_out[(size_t)(b0 + tid) * 4 + j] = (long long)st[j];
-  }
-}
-
-template <int FORM>
-static cudaError_t launch_tf(const TfArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)BT * (2 * a.na + 2 * a.nb + 6 * a.nb))
-                    + sizeof(int) * 4 * BT;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(tf_kernel<FORM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  tf_kernel<FORM><<<(a.batch + BT - 1) / BT, NTHREADS, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// K3. cond_a [B, n_blocks, 3Na], cond_b [B, n_blocks, 3Nb] f32; counts
-// [B, n_blocks] int32; codes [B, n_blocks * blk_samples, 3] uint8; the state
-// as in K1 (rng [B, 4] int64 words).
-extern "C" int lpcnet_teacher_force(
-    int form, int batch, int na, int nb, int n_blocks, int blk_samples,
-    const void* emb, const void* emb_scale, const void* a_rec, const void* a_diag,
-    const void* a_bias1, const void* b_in, const void* b_rec, const void* b_bias1,
-    const void* cond_a, const void* cond_b, const void* counts, const void* codes,
-    const void* ha_in, const void* hb_in, const void* rng_in,
-    void* ha_out, void* hb_out, void* rng_out, void* stream) {
-  if (batch <= 0 || n_blocks <= 0 || blk_samples <= 0) return (int)cudaErrorInvalidValue;
-  TfArgs a;
-  a.batch = batch; a.na = na; a.nb = nb; a.n_blocks = n_blocks; a.blk_samples = blk_samples;
-  a.w.emb = emb; a.w.emb_scale = (const float*)emb_scale;
-  a.w.a_rec = a_rec; a.w.a_diag = (const float*)a_diag; a.w.a_bias1 = (const float*)a_bias1;
-  a.w.b_in = b_in; a.w.b_rec = b_rec; a.w.b_bias1 = (const float*)b_bias1;
-  a.cond_a = (const float*)cond_a; a.cond_b = (const float*)cond_b;
-  a.counts = (const int*)counts; a.codes = (const uint8_t*)codes;
-  a.ha_in = (const float*)ha_in; a.hb_in = (const float*)hb_in;
-  a.rng_in = (const long long*)rng_in;
-  a.ha_out = (float*)ha_out; a.hb_out = (float*)hb_out; a.rng_out = (long long*)rng_out;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (form) {
-    case FORM_F32: return (int)launch_tf<FORM_F32>(a, s);
-    case FORM_BF16: return (int)launch_tf<FORM_BF16>(a, s);
-    case FORM_Q8: return (int)launch_tf<FORM_Q8>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }

@@ -15,7 +15,11 @@ they are.
 
 * `cluster_shape(na)`, `masked_smem_bytes`, `masked_launch_config`: the
   launch's shape; `free_launch_config` that of the free-running form
-  (K1). A block keeps its GRU-A slice and GRU-B's packed weights
+  (K1), `tf_launch_config` that of the teacher-forced form (K3), whose
+  rank r runs GRU-B for streams [r SO, r SO + SO) as K1's does and keeps
+  the counts of its S streams in shared memory; `tf_step_budget` mirrors
+  that form's schedule of steps. A block keeps its GRU-A slice and GRU-B's
+  packed weights
   in shared memory where they fit and reads them from L2 where they do not
   (the widest GRUs); `masked_launch_config` picks the smallest S that fits
   the card in one wave of clusters.
@@ -59,14 +63,19 @@ def padded_nb(nb: int) -> int:
 
 def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
                       res_a: bool = True, res_b: bool = True,
-                      free: bool = False) -> int:
+                      free: bool = False, tf_blocks: int = 0) -> int:
     """Shared memory of one block, bytes: the csrc K2Layout's total. `res_a`
     and `res_b` keep GRU-A's slice and GRU-B's weights in shared memory
     (bf16 and q8 only). `free` is K1's free-running form, whose tail arrays
     hold one tile of 8 streams (each rank runs the tail of S / C streams),
     whose codes take four words a stream and whose h_a operand buffers have
-    8 rows more."""
+    8 rows more. `tf_blocks` > 0 is K3's teacher-forced form over that many
+    conditioning blocks: the tail and the operand buffers as the
+    free-running form's, no node logits, codes or threshold table, and the
+    counts of the S streams for each block with each block's largest."""
     s = 8 * nt
+    tf = tf_blocks > 0
+    free = free or tf
     tr = 8 if free else s
     ks, esz, pad = _KS[form], _ESZ[form], _XPAD[form]
     mma = form != 0
@@ -85,19 +94,21 @@ def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
         2 * tr * ldg * 4,                                # GRU-B products
         s * u * 4,                                       # the rank's h_a
         tr * nb * 4,                                     # h_b
-        tr * 32 * 4,                                     # visited node logits
-        ((4 if free else 3) * s + tr) * 4,               # codes, tree's top bits
-        256 * 4,                                         # threshold logits
+        0 if tf else tr * 32 * 4,                        # visited node logits
+        (tf_blocks * (s + 1) if tf else
+         (4 if free else 3) * s + tr) * 4,               # codes, tree's top bits
+        0 if tf else 256 * 4,                            # threshold logits
         16,                                              # flags
     ]
     return sum(_up(r, 16) for r in regions)
 
 
-def _layout(form: int, na: int, nb: int, nt: int, free: bool = False):
+def _layout(form: int, na: int, nb: int, nt: int, free: bool = False,
+            tf_blocks: int = 0):
     """(smem, res_a, res_b) of the first of: both weight sets resident,
     GRU-A's slice only, neither, that fits a block; None if none does."""
     for res_a, res_b in ((True, True), (True, False), (False, False)):
-        smem = masked_smem_bytes(form, na, nb, nt, res_a, res_b, free)
+        smem = masked_smem_bytes(form, na, nb, nt, res_a, res_b, free, tf_blocks)
         if smem <= SMEM_LIMIT:
             return smem, res_a and form != 0, res_b and form != 0
     return None
@@ -175,6 +186,65 @@ def free_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
     return {"cluster": cluster, "units": units, "nt": nt, "streams": 8 * nt,
             "clusters": clusters, "smem": smem, "res_a": res_a, "res_b": res_b,
             "waves": waves}
+
+
+def tf_launch_config(batch: int, na: int, nb: int, form: int, n_blocks: int,
+                     max_clusters):
+    """K3's launch, the teacher-forced form of K2's kernel, for `batch`
+    streams over `n_blocks` conditioning blocks: the keys of
+    `masked_launch_config`. Rank r of a cluster runs GRU-B for streams
+    [r SO, r SO + SO), SO = ceil(S / C) <= 8, as the free-running form
+    does. `max_clusters(nt, smem)` as in `masked_launch_config`. S is the
+    smallest of 8, 16 and 32 whose clusters fit one wave; where none does,
+    32 in waves. On an H100 (15 clusters): 64 streams (the PLC path's
+    compacted drain) take 8 clusters of 8, 256 take 8 of 32."""
+    check_widths(na, nb)
+    if batch <= 0 or n_blocks <= 0:
+        raise ValueError(f"teacher-force kernel: batch {batch}, {n_blocks} blocks")
+    cluster, units = cluster_shape(na)
+    fits = [(nt, lay) for nt in STREAM_TILES
+            if -(-8 * nt // cluster) <= 8
+            and (lay := _layout(form, na, nb, nt, tf_blocks=n_blocks)) is not None]
+    if not fits:
+        raise ValueError(f"teacher-force kernel: Na={na}, Nb={nb}, {n_blocks} "
+                         f"blocks need more shared memory than a block has")
+    for nt, lay in fits:
+        held = max_clusters(nt, lay[0])
+        if -(-batch // (8 * nt)) <= held or nt == fits[-1][0]:
+            break
+    smem, res_a, res_b = lay
+    clusters = -(-batch // (8 * nt))
+    return {"cluster": cluster, "units": units, "nt": nt, "streams": 8 * nt,
+            "clusters": clusters, "smem": smem, "res_a": res_a, "res_b": res_b,
+            "waves": -(-clusters // held)}
+
+
+def tf_step_budget(counts, streams: int, blk: int):
+    """The teacher-forced form's schedule, as the kernel reads it: counts
+    [B, n_blocks] -> (the steps each cluster of `streams` streams runs in
+    each block, [clusters, n_blocks], the largest of its own streams'
+    counts clamped to 0..blk; the (block, step) pairs every rank of
+    cluster c walks, in order, skipping blocks with no step)."""
+    counts = torch.as_tensor(counts).clamp(0, blk)
+    b, nblk = counts.shape
+    clusters = -(-b // streams)
+    pad = counts.new_zeros(clusters * streams - b, nblk)
+    cmax = torch.cat([counts, pad]).reshape(clusters, streams, nblk).amax(dim=1)
+
+    def walk(cm):                   # the kernel's first step and step_after
+        k, t, steps = 0, 0, []
+        while k < nblk and cm[k] == 0:
+            k += 1
+        while k < nblk:
+            steps.append((k, t))
+            t += 1
+            if t >= cm[k]:
+                t, k = 0, k + 1
+                while k < nblk and cm[k] == 0:
+                    k += 1
+        return steps
+
+    return cmax, [walk(cmax[c].tolist()) for c in range(clusters)]
 
 
 def fragment_index(ks: int):

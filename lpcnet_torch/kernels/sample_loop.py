@@ -3,8 +3,8 @@ per stream, as one CUDA kernel launch, free-running (K1) or under
 per-stream, per-sample control masks (K2). K2 is the cluster kernel of
 `csrc/masked_loop.cu`, redesigned for Hopper (launch shape and weight
 packing in `masked_loop.py`); K1 in bf16 and q8 is that kernel's
-free-running form, in f32 the first design's kernel (`csrc/sample_loop.cu`,
-which also holds K3); K6 runs K1's kernel of its form.
+free-running form, in f32 the first design's kernel (`csrc/sample_loop.cu`);
+K3 is its teacher-forced form; K6 runs K1's kernel of its form.
 
 Port of `lpcnet_tpu/kernels/sample_loop.py::_ar_kernel`, run free
 (masked=False, sampled=True) and masked (masked=True). Each step: LPC
@@ -36,7 +36,9 @@ h_b, last_sig, last_exc, deemph, rng).
   GRU-B only. `tf_precompute` gives the closed forms of everything else a
   teacher-forced step would compute (the u-law codes of every step and the
   signal state at the end), so the kernel carries only (h_a, h_b, rng) and
-  emits no PCM. User: the batched PLC's drain of queued audio.
+  emits no PCM. On the card it is the teacher-forced form of K2's cluster
+  kernel, which takes K2's packs (`masked_kernel_weights`). User: the
+  batched PLC's drain of queued audio.
 * `merged_kernel_weights` / `sample_loop_merged_plain` /
   `synthesize_frame_merged_kernel` (K6, port of `_sample_kernel_merged` /
   `_synthesize_frame_pallas_merged`): float K1 with each GRU's input and
@@ -304,8 +306,6 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.lpcnet_sample_loop.argtypes = [ci] * 5 + [vp] * 29
         lib.lpcnet_sample_loop.restype = ci
-        lib.lpcnet_teacher_force.argtypes = [ci] * 6 + [vp] * 19
-        lib.lpcnet_teacher_force.restype = ci
         _LIB = lib
     return _LIB
 
@@ -324,22 +324,28 @@ def _masked_lib():
         lib.lpcnet_masked_loop.restype = ci
         lib.lpcnet_masked_loop_max_clusters.argtypes = [ci] * 5
         lib.lpcnet_masked_loop_max_clusters.restype = ci
+        lib.lpcnet_teacher_force.argtypes = [ci] * 11 + [vp] * 20
+        lib.lpcnet_teacher_force.restype = ci
         _MASKED_LIB = lib
     return _MASKED_LIB
 
 
-def _max_clusters(dev, form, na, free=False):
-    """K2's (or, with `free`, K1's) `max_clusters(nt, smem)` on the card
-    `dev`: how many clusters of that shape the card holds at once (the CUDA
-    occupancy query, remembered per card and shape)."""
+# the cluster kernel's kinds (csrc/masked_loop.cu): K2, K1, K3
+KIND_MASKED, KIND_FREE, KIND_TF = 0, 1, 2
+
+
+def _max_clusters(dev, form, na, kind=KIND_MASKED):
+    """`max_clusters(nt, smem)` of the cluster kernel's kind `kind` (K2, K1
+    or K3) on the card `dev`: how many clusters of that shape the card holds
+    at once (the CUDA occupancy query, remembered per card and shape)."""
     cluster = ML.cluster_shape(na)[0]
 
     def ask(nt, smem):
-        key = (dev.index, form, nt, free, cluster, smem)
+        key = (dev.index, form, nt, kind, cluster, smem)
         if key not in _MAX_CLUSTERS:
             with torch.cuda.device(dev):
                 got = _masked_lib().lpcnet_masked_loop_max_clusters(
-                    form, nt, int(free), cluster, smem)
+                    form, nt, kind, cluster, smem)
             if got <= 0:
                 raise RuntimeError(
                     f"masked sample loop kernel: no cluster of {cluster} blocks with "
@@ -388,6 +394,18 @@ def _gru_operands(kw, na, nb, dev):
     _check("a_bias1", kw["a_bias1"], (1, 3 * na), f32, dev)
     _check("b_bias1", kw["b_bias1"], (1, 3 * nb), f32, dev)
     return form, emb, emb_scale, a_rec, a_diag, b_in, b_rec
+
+
+def _cluster_operands(kw, form, a_rec, na, nb, dev):
+    """The cluster kernel's GRU operands (a_w, b_w): in f32 the recurrent
+    matrix as it is and no pack; in bf16 and q8 K2's packs, checked."""
+    if form == 0:
+        return a_rec, None
+    a_w, b_w = kw["k2_a"], kw["k2_b"]
+    shape_a, shape_b = ML.packed_shapes(form, na, nb)
+    _check("k2_a", a_w, shape_a, a_rec.dtype, dev)
+    _check("k2_b", b_w, shape_b, a_rec.dtype, dev)
+    return a_w, b_w
 
 
 def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
@@ -448,17 +466,11 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
             if free:
                 preload, mode, sampled = None, None, True
                 cfg = ML.free_launch_config(b, na, nb, form,
-                                            _max_clusters(dev, form, na, True))
+                                            _max_clusters(dev, form, na, KIND_FREE))
             else:
                 cfg = ML.masked_launch_config(b, na, nb, form,
                                               _max_clusters(dev, form, na))
-            if form == 0:           # f32: the matrices as they are
-                a_w, b_w = a_rec, None
-            else:
-                a_w, b_w = kw["k2_a"], kw["k2_b"]
-                shape_a, shape_b = ML.packed_shapes(form, na, nb)
-                _check("k2_a", a_w, shape_a, a_rec.dtype, dev)
-                _check("k2_b", b_w, shape_b, a_rec.dtype, dev)
+            a_w, b_w = _cluster_operands(kw, form, a_rec, na, nb, dev)
             err = _masked_lib().lpcnet_masked_loop(
                 form, cfg["nt"], int(free), cfg["cluster"], cfg["smem"], int(cfg["res_a"]),
                 int(cfg["res_b"]), b, na, nb, n_samples,
@@ -668,12 +680,14 @@ def teacher_force_blocks_kernel(kw, state: SampleState, cond_a_blocks,
                                 blk_samples: int) -> SampleState:
     """N conditioning blocks of teacher-forced steps in one launch (K3); see
     `teacher_force_blocks_plain` for the arguments. The closed forms
-    (`tf_precompute`) run in PyTorch before the launch.
+    (`tf_precompute`) run in PyTorch before the launch (`tf_codes`).
 
     On a CPU tensor this runs the plain version. On a CUDA tensor it
-    launches the CUDA kernel and counts the launch in
-    `teacher_force_blocks_kernel.launches`; any other device raises. Any
-    batch size works, with no padding of streams."""
+    launches the teacher-forced form of K2's cluster kernel (`tf_launch`,
+    which counts the launch in `teacher_force_blocks_kernel.launches`); any
+    other device raises. There `kw` must be `masked_kernel_weights(...)`: a
+    bundle without K2's packs raises (build them once per weight bundle, as
+    the PLC pool does). Any batch size works, with no padding of streams."""
     dev = cond_a_blocks.device
     if dev.type == "cpu":
         return teacher_force_blocks_plain(kw, state, cond_a_blocks,
@@ -681,20 +695,44 @@ def teacher_force_blocks_kernel(kw, state: SampleState, cond_a_blocks,
                                           counts, blk_samples)
     if dev.type != "cuda":
         raise ValueError(f"teacher-force kernel: unsupported device {dev}")
+    if "k2_a" not in kw:
+        raise ValueError("teacher-force kernel: the bundle has no packed "
+                         "operands; pass masked_kernel_weights(kw)")
+    codes, sig_state = tf_codes(state, lpc_blocks, targets, counts, blk_samples)
+    ha, hb, rng = tf_launch(kw, state, cond_a_blocks, cond_b_blocks, counts,
+                            codes, blk_samples)
+    return sig_state._replace(gru_a=ha, gru_b=hb,
+                              rng=Kiss99State(*torch.unbind(rng, dim=1)))
+
+
+def tf_codes(state: SampleState, lpc_blocks, targets, counts, blk_samples: int):
+    """K3's inputs from the closed forms (`_tf_chain`): (codes
+    [B, N * blk_samples, 3] uint8, the SampleState with the final signal
+    state)."""
+    codes, sig_state = _tf_chain(state, lpc_blocks, targets,
+                                 counts.to(torch.int32), blk_samples)
+    return codes.to(torch.uint8).contiguous(), sig_state
+
+
+def tf_launch(kw, state: SampleState, cond_a_blocks, cond_b_blocks, counts,
+              codes, blk_samples: int):
+    """One launch of K3 on the card on `tf_codes`' codes: (h_a, h_b, KISS99
+    words [B, 4] int64) after the run. `kw` carries K2's packs. Counts the
+    launch in `teacher_force_blocks_kernel.launches`."""
+    dev = cond_a_blocks.device
     b, n_blocks = counts.shape
     na = kw["a_bias1"].shape[-1] // 3
     nb = kw["b_bias1"].shape[-1] // 3
     f32 = torch.float32
     counts = counts.to(torch.int32).contiguous()
-    codes, sig_state = _tf_chain(state, lpc_blocks, targets, counts,
-                                 blk_samples)
-    codes = codes.to(torch.uint8).contiguous()
     form, emb, emb_scale, a_rec, a_diag, b_in, b_rec = _gru_operands(
         kw, na, nb, dev)
+    a_w, b_w = _cluster_operands(kw, form, a_rec, na, nb, dev)
     ca = cond_a_blocks.contiguous()
     cb = cond_b_blocks.contiguous()
     _check("cond_a_blocks", ca, (b, n_blocks, 3 * na), f32, dev)
     _check("cond_b_blocks", cb, (b, n_blocks, 3 * nb), f32, dev)
+    _check("counts", counts, (b, n_blocks), torch.int32, dev)
     _check("codes", codes, (b, n_blocks * blk_samples, 3), torch.uint8, dev)
     ha_in, hb_in = state.gru_a.contiguous(), state.gru_b.contiguous()
     rng_in = torch.stack(tuple(state.rng), dim=1).contiguous()
@@ -702,20 +740,21 @@ def teacher_force_blocks_kernel(kw, state: SampleState, cond_a_blocks,
     _check("gru_b", hb_in, (b, nb), f32, dev)
     _check("rng", rng_in, (b, 4), torch.int64, dev)
     ha, hb, rng = (torch.empty_like(x) for x in (ha_in, hb_in, rng_in))
+    cfg = ML.tf_launch_config(b, na, nb, form, n_blocks,
+                              _max_clusters(dev, form, na, KIND_TF))
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
-        err = _lib().lpcnet_teacher_force(
-            form, b, na, nb, n_blocks, blk_samples,
-            ptr(emb), ptr(emb_scale), ptr(a_rec), ptr(a_diag),
-            ptr(kw["a_bias1"]), ptr(b_in), ptr(b_rec), ptr(kw["b_bias1"]),
-            ptr(ca), ptr(cb), ptr(counts), ptr(codes),
-            ptr(ha_in), ptr(hb_in), ptr(rng_in), ptr(ha), ptr(hb), ptr(rng),
+        err = _masked_lib().lpcnet_teacher_force(
+            form, cfg["nt"], cfg["cluster"], cfg["smem"], int(cfg["res_a"]),
+            int(cfg["res_b"]), b, na, nb, n_blocks, blk_samples,
+            *(ptr(t) for t in (emb, emb_scale, a_w, a_diag, kw["a_bias1"], b_w,
+                               b_in, b_rec, kw["b_bias1"], ca, cb, counts, codes,
+                               ha_in, hb_in, rng_in, ha, hb, rng)),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"teacher-force kernel launch failed: CUDA error {err}")
     teacher_force_blocks_kernel.launches += 1
-    return sig_state._replace(gru_a=ha, gru_b=hb,
-                              rng=Kiss99State(*torch.unbind(rng, dim=1)))
+    return ha, hb, rng
 
 
 teacher_force_blocks_kernel.launches = 0

@@ -694,6 +694,13 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
     Returns (new state, output [B, 160] float, clipped to int16 range).
     """
     flags = flags or current_flags()
+    # with `fastchain` one chain-kernel launch takes the place of the
+    # frame's up to five dependent PLC-net calls (see _chain_causal), on the
+    # bundle the owner built once
+    use_chain = kw is not None and flags.fastchain
+    if use_chain and cw is None:
+        raise ValueError("fastchain needs the chain kernel's weights: pass "
+                         "cw=plc_chain_weights(plc_params)")
     stats = stats if stats is not None else {"compacted": 0, "overflowed": 0,
                                               "full": 0}
     b = pcm.shape[0]
@@ -733,11 +740,6 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
     s = s._replace(feat_count=torch.where(L, torch.zeros_like(s.feat_count),
                                           s.feat_count))
 
-    # with `fastchain` one chain-kernel launch takes the place of the
-    # frame's up to five dependent PLC-net calls (see _chain_causal)
-    use_chain = kw is not None and flags.fastchain
-    if use_chain and cw is None:
-        cw = PC.plc_chain_weights(plc_params)
     ch = None
     ring_at = lambda k: tree_map(lambda x: x[k], s.plc_ring)
     if enable_blending:

@@ -294,7 +294,8 @@ def _masked_case(cuda, form, sampled, b, **widths):
 def _tf_case(fused, cfg, b, n, nblk, dev, seed=40):
     """Drain-shaped inputs of K3: conditioning blocks from consecutive
     frame-network steps, a carried signal state, targets, prefix counts with
-    full, partial, empty and late-starting streams."""
+    a stream that drains all blocks, full, partial, empty and late-starting
+    streams."""
     rs = np.random.RandomState(seed)
     r = lambda *s: torch.from_numpy(rs.normal(size=s).astype(np.float32)).to(dev)
     fs = M.init_frame_state(b, cfg, dev)
@@ -308,30 +309,39 @@ def _tf_case(fused, cfg, b, n, nblk, dev, seed=40):
     counts[: b // 2] = [n] * (nblk - 1) + [n // 2]
     counts[b // 2: 3 * b // 4, 0] = n
     counts[3 * b // 4 + 2:, 1:] = n            # rows between stay frozen
+    counts[0] = n                              # the longest drain: every block
     stack = lambda xs: torch.stack(xs[-nblk:], dim=1).contiguous()
     return (s0, stack(cas), stack(cbs), stack(lpcs), r(b, nblk * n) * 900,
             torch.from_numpy(counts).to(dev))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(37, 32), (64, 160), (256, 32)])
 @pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
-def test_cuda_teacher_force_kernel_matches_plain(cuda, form):
-    """K3 vs its plain version at full width and an odd batch, 3 blocks of
-    32 steps. RNG equal; streams that run no step bit-equal; the signal state
-    (closed forms, the same PyTorch code on both sides) equal; one step from
-    a shared state within 1e-4 (bf16 GRU-B 1e-2, see K1); over the run f32
-    within 2e-2 and q8 within 5e-2 (the JAX package's bars for this kernel),
-    bf16 finite; RNG equal to K2's with the sampler off under the same
-    prefix mask; one launch counted per call."""
+def test_cuda_teacher_force_kernel_matches_plain(cuda, form, b, n):
+    """K3 (the teacher-forced form of K2's cluster kernel) vs its plain
+    version at full width, 3 blocks: an odd batch (37, one ragged cluster),
+    the PLC path's compacted drain (64 streams, 3 x 160 steps, the longest
+    480) and 256 streams (clusters of 32). RNG equal; streams that run no
+    step bit-equal; the signal state (closed forms, the same PyTorch code on
+    both sides) equal; one step from a shared state within 1e-4 (bf16 GRU-B
+    1e-2, see K1); over the run f32 within 2e-2 and q8 within 5e-2 (the JAX
+    package's bars for this kernel), bf16 finite with a mean |h| error
+    within 1e-2; RNG equal to K2's with the sampler off under the same
+    prefix mask; one launch counted per call; a bundle without K2's packs
+    refused."""
     cfg = M.LPCNetConfig()
     fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda), cfg)
     if form == "q8":
-        kw = K.kernel_weights(Q.quantize_fused(fused), cfg)
+        bare = K.kernel_weights(Q.quantize_fused(fused), cfg)
     else:
-        kw = K.kernel_weights(fused, cfg, dtype={"f32": torch.float32,
-                                                 "bf16": torch.bfloat16}[form])
-    b, n, nblk = 37, 32, 3
+        bare = K.kernel_weights(fused, cfg, dtype={"f32": torch.float32,
+                                                   "bf16": torch.bfloat16}[form])
+    kw = K.masked_kernel_weights(bare)
+    nblk = 3
     s0, ca, cb, lpc, tg, counts = _tf_case(fused, cfg, b, n, nblk, cuda)
+    with pytest.raises(ValueError):
+        K.teacher_force_blocks_kernel(bare, s0, ca, cb, lpc, tg, counts, n)
     one = torch.clamp(counts, max=1)
     first = (ca[:, :1].contiguous(), cb[:, :1].contiguous(), lpc[:, :1],
              tg[:, :n], one[:, :1], n)
@@ -356,6 +366,10 @@ def test_cuda_teacher_force_kernel_matches_plain(cuda, form):
         tol = 5e-2 if form == "q8" else 2e-2
         assert float((sk.gru_a - sp.gru_a).abs().max()) <= tol
         assert float((sk.gru_b - sp.gru_b).abs().max()) <= tol
+    else:
+        d = torch.cat([(sk.gru_a - sp.gru_a).abs().flatten(),
+                       (sk.gru_b - sp.gru_b).abs().flatten()])
+        assert float(d.mean()) <= 1e-2
     adv = torch.arange(n, device=cuda)[None, :] < counts[:, :1]
     s2, _ = K.synthesize_frame_masked_kernel(
         kw, s0, ca[:, 0].contiguous(), cb[:, 0].contiguous(),
@@ -367,11 +381,12 @@ def test_cuda_teacher_force_kernel_matches_plain(cuda, form):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k_steps", [(37, 4), (256, 4), (3, 1)])
+@pytest.mark.parametrize("b,k_steps", [(37, 4), (160, 4), (256, 4), (3, 1)])
 def test_cuda_plc_chain_kernel_matches_plain(cuda, b, k_steps):
-    """K4 vs its plain version: states after every step within 2e-5, outputs
-    within 2e-4, frozen streams' states exact, two runs bit-equal, one
-    launch counted per call."""
+    """K4 vs its plain version (clusters of 8, 16 and 32 streams): states
+    after every step within 2e-5, outputs within 2e-4, frozen streams'
+    states exact, two runs bit-equal, one launch counted per call; a bundle
+    without the per-rank packs is refused."""
     rs = np.random.RandomState(0)
     r = lambda *s: torch.from_numpy(rs.normal(size=s).astype(np.float32)).to(cuda)
     params = PM.init_params(seed=3, device=cuda)
@@ -394,6 +409,9 @@ def test_cuda_plc_chain_kernel_matches_plain(cuda, b, k_steps):
     assert torch.equal(got[1][0], h2[0].expand(k_steps, -1))
     again = PC.plc_chain_kernel(cw, h1, h2, inputs, masks, k_steps)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+    bare = {k: v for k, v in cw.items() if not k.startswith("k4_")}
+    with pytest.raises(ValueError):
+        PC.plc_chain_kernel(bare, h1, h2, inputs, masks, k_steps)
 
 
 @pytest.mark.cuda

@@ -460,3 +460,86 @@ def test_k1_wrapper_with_packs_runs_plain_on_cpu_and_refuses_others(form):
     assert torch.equal(got[1], want[1]) and torch.equal(got[0].gru_a, want[0].gru_a)
     with pytest.raises(ValueError):
         K.synthesize_frame_kernel(kw, s0, ca.to("meta"), cb, lpc, n)
+
+
+# streams -> (S, clusters) of the teacher-forced form (K3) on a card that
+# holds 15 clusters of 8 blocks: the smallest S of 8, 16, 32 in one wave, else
+# 32 in waves
+TF_CASES = {1: (8, 1), 37: (8, 5), 64: (8, 8), 256: (32, 8), 1024: (32, 32)}
+
+
+@pytest.mark.parametrize("batch", sorted(TF_CASES))
+@pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
+def test_tf_launch_config_covers_each_stream_once(form, batch):
+    """K3's launch over 3 conditioning blocks: every stream in one cluster,
+    its GRU-A gate phase in every rank, its GRU-B and its KISS99 words in
+    exactly one (rank r owns [r SO, r SO + SO), SO = ceil(S / C) <= 8, as
+    in the free-running form); the block's shared memory is the layout's
+    (csrc K2Layout with the counts of S streams a block) and fits the card.
+    The PLC path's compacted drain (64 streams) takes 8 clusters of 8."""
+    f = ML.FORMS[form]
+    cfg = ML.tf_launch_config(batch, 384, 16, f, 3, lambda nt, smem: 15)
+    s, c = cfg["streams"], cfg["cluster"]
+    assert (s, cfg["clusters"]) == TF_CASES[batch] and s == 8 * cfg["nt"]
+    assert cfg["waves"] == -(-cfg["clusters"] // 15)
+    assert cfg["smem"] == ML.masked_smem_bytes(f, 384, 16, cfg["nt"], cfg["res_a"],
+                                               cfg["res_b"], tf_blocks=3)
+    assert cfg["smem"] <= ML.SMEM_LIMIT
+    assert cfg["res_a"] == (form != "f32")
+    so = -(-s // c)
+    assert so <= 8 and c == 8
+    tail = np.zeros(batch, int)
+    gate = np.zeros(batch, int)
+    for k in range(cfg["clusters"]):
+        b0 = k * s
+        nact = min(s, batch - b0)
+        assert nact > 0
+        gate[b0:b0 + nact] += c
+        for r in range(c):
+            own = max(0, min(so, s - r * so, nact - r * so))
+            tail[b0 + r * so:b0 + r * so + own] += 1
+    assert (tail == 1).all() and (gate == c).all()
+
+
+@pytest.mark.parametrize("nt", [1, 2, 4])
+@pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
+def test_tf_shared_memory_layout(form, nt):
+    """The teacher-forced layout at Na=384, Nb=16 against the masked one:
+    the tail of 8 rows and the 8 extra operand rows of the free-running
+    form, no node logits, codes or threshold table, and 4 (S + 1) bytes a
+    conditioning block for the counts; bf16 keeps GRU-A's slice resident at
+    every S and GRU-B's below 32 streams (the card's run at 64 streams read
+    184,704 bytes a block)."""
+    f = ML.FORMS[form]
+    base = ML.masked_smem_bytes(f, 384, 16, nt, False, False, free=True)
+    tf = {n: ML.masked_smem_bytes(f, 384, 16, nt, False, False, tf_blocks=n)
+          for n in (1, 3, 20)}
+    s = 8 * nt
+    up = lambda x: -(-x // 16) * 16
+    free_only = up(8 * 32 * 4) + up((4 * s + 8) * 4) + 256 * 4
+    assert tf[3] == base - free_only + up(3 * (s + 1) * 4)
+    assert tf[20] - tf[1] == up(20 * (s + 1) * 4) - up((s + 1) * 4)
+    if form == "bf16":
+        cfg = ML.tf_launch_config(8 * nt * 15, 384, 16, f, 3, lambda n, smem: 15)
+        assert cfg["res_a"] and cfg["res_b"] == (nt < 4)
+        if nt == 1:
+            assert cfg["smem"] == 184704
+
+
+@pytest.mark.parametrize("na,nb", [(640, 16), (100, 10), (64, 16), (16, 16)])
+def test_tf_launch_config_at_other_widths(na, nb):
+    """Other widths run too: each rank's GRU-B tail is at most 8 streams and
+    the layout fits a block."""
+    for form in (0, 1, 2):
+        for batch in (1, 37, 256):
+            cfg = ML.tf_launch_config(batch, na, nb, form, 3, lambda n, smem: 15)
+            assert -(-cfg["streams"] // cfg["cluster"]) <= 8
+            assert cfg["smem"] <= ML.SMEM_LIMIT
+            assert cfg["clusters"] * cfg["streams"] >= batch
+
+
+def test_tf_launch_config_refuses_no_blocks():
+    with pytest.raises(ValueError):
+        ML.tf_launch_config(8, 384, 16, 1, 0, lambda n, smem: 15)
+    with pytest.raises(ValueError):
+        ML.tf_launch_config(0, 384, 16, 1, 3, lambda n, smem: 15)

@@ -13,6 +13,7 @@ from lpcnet_tpu.models import plc as JPM
 
 from lpcnet_torch.kernels import plc_chain as PC
 from lpcnet_torch.models import plc as PM
+from lpcnet_torch.plc import batched as BP
 from lpcnet_torch.weights.convert import params_to_torch
 
 torch.set_num_threads(1)
@@ -101,3 +102,135 @@ def test_k4_wrapper_refuses_other_devices(params):
     with pytest.raises(ValueError):
         PC.plc_chain_kernel(PC.plc_chain_weights(tp), h1.to("meta"), h2,
                             inputs, masks, 2)
+
+
+# --------------------------------------------------------------------------
+# The cluster design's layout (csrc/plc_chain.cu), read back by index
+# arithmetic written out apart from the packer's code
+# --------------------------------------------------------------------------
+
+C = PC.CLUSTER
+
+
+@pytest.fixture(scope="module")
+def packed(params):
+    return PC.plc_chain_weights(params[1])
+
+
+def test_per_rank_packs_rebuild_every_matrix(packed):
+    """Rank r's packed GRU matrix [k, 3U + 8] holds, at local column
+    q U + j, gate column q n + r U + j of the original (U = n / C), and zeros
+    in the 8 columns of padding; its dense units' pack [n_in, nd / C] holds
+    columns r nd / C + j. Together the ranks' packs hold every entry once."""
+    cw = packed
+    for name, n in (("g1_in", 256), ("g1_rec", 256), ("g2_in", 256), ("g2_rec", 256)):
+        w, pk = cw[name].numpy(), cw["k4_" + name].numpy()
+        u = n // C
+        assert pk.shape == (C, w.shape[0], 3 * u + PC.RING_PAD)
+        seen = np.zeros(w.shape, int)
+        for r in range(C):
+            for lc in range(3 * u):
+                col = (lc // u) * n + r * u + lc % u
+                assert np.array_equal(pk[r, :, lc], w[:, col]), (name, r, lc)
+                seen[:, col] += 1
+            assert not pk[r, :, 3 * u:].any()
+        assert (seen == 1).all(), name
+    d1, pk = cw["d1_w"].numpy(), cw["k4_d1"].numpy()
+    ud = d1.shape[1] // C
+    for r in range(C):
+        assert np.array_equal(pk[r], d1[:, r * ud:(r + 1) * ud])
+
+
+def test_rank_biases_and_outputs_gather_every_entry(packed):
+    """The kernel's gathers of a rank's biases (dst[i] = bias[part 3n +
+    (lc / u) n + r u + lc % u], i = part 3u + lc) and of its output columns
+    (outputs r, r + C, ...) take every bias of both GRUs and every output
+    column once."""
+    cw = packed
+    for name, n in (("g1_b", 256), ("g2_b", 256)):
+        bias = cw[name].numpy().reshape(-1)
+        u = n // C
+        seen = np.zeros(bias.shape, int)
+        for r in range(C):
+            for i in range(6 * u):
+                part, lc = i // (3 * u), i % (3 * u)
+                seen[part * 3 * n + (lc // u) * n + r * u + lc % u] += 1
+        assert (seen == 1).all()
+    n_out = cw["out_w"].shape[1]
+    outs = sorted(r + C * j for r in range(C) for j in range(-(-(n_out - r) // C)))
+    assert outs == list(range(n_out))
+
+
+@pytest.mark.parametrize("streams", PC.STREAMS)
+def test_product_tiles_and_parts_cover_each_term_once(streams):
+    """The product's thread mapping (tid -> part kp = tid % KP, tile
+    tid / KP -> 4 streams x 4 columns) over the block's 384 threads: every
+    (stream, column) output is one tile's, every k of it one part's; the KP
+    lanes of a tile sit in one warp, a power of two of them, so the
+    shuffles that sum them stay in the warp."""
+    nc = 3 * 256 // C
+    kp_n = PC.k_parts(nc, streams)
+    assert kp_n in (1, 2, 4, 8, 16, 32)
+    cover = np.zeros((streams, nc, kp_n), int)
+    for tid in range(PC.THREADS):
+        kp, tile = tid % kp_n, tid // kp_n
+        sq, cq = tile % (streams // 4), tile // (streams // 4)
+        assert (tile * kp_n) // 32 == (tile * kp_n + kp_n - 1) // 32
+        cover[4 * sq:4 * sq + 4, 4 * cq:4 * cq + 4, kp] += 1
+    assert (cover == 1).all()
+
+
+def test_ring_chunks_cover_each_matrix_once():
+    """The chunk table a step (the kernel's descriptors): the rows of GRU-1's
+    input and recurrent matrices, then GRU-2's input and recurrent ones, in
+    chunks of `rows` rows, each row once, the count within the table."""
+    for rows, _ in PC.RING_SHAPES:
+        chunks = []
+        for seg, k in enumerate((128, 256, 256, 256)):
+            chunks += [(seg, r0, min(rows, k - r0)) for r0 in range(0, k, rows)]
+        assert len(chunks) == PC.ring_chunks(128, 256, 256, rows) <= PC.RING_CHUNKS
+        for seg, k in enumerate((128, 256, 256, 256)):
+            assert sum(n for s, _, n in chunks if s == seg) == k
+
+
+@pytest.mark.parametrize("batch", [1, 3, 37, 64, 160, 256, 1024])
+def test_chain_launch_config(batch):
+    """The launch on a card of 132 SMs that holds 15 clusters of 8 blocks:
+    S the smallest of 8, 16, 32 whose clusters fit one wave on at most 132
+    SMs, else 32 in waves; the clusters cover each stream once; the ring
+    takes the largest chunks that fit (256 streams: 8 clusters of 32, 2
+    chunks of 48 rows) and the block's shared memory fits the card."""
+    cfg = PC.chain_launch_config(batch, 57, 128, 256, 256, 20, lambda s, smem: 15, 132)
+    s = cfg["streams"]
+    want = next((x for x in PC.STREAMS if -(-batch // x) <= 15 and -(-batch // x) * C <= 132),
+                32)
+    assert s == want and cfg["clusters"] == -(-batch // s)
+    assert cfg["waves"] == -(-cfg["clusters"] // 15)
+    assert cfg["smem"] == PC.chain_smem_bytes(s, 57, 128, 256, 256, 20, cfg["stages"],
+                                              cfg["rows"]) <= PC.SMEM_LIMIT
+    assert (cfg["rows"], cfg["stages"]) == next(
+        rn for rn in PC.RING_SHAPES
+        if PC.chain_smem_bytes(s, 57, 128, 256, 256, 20, rn[1], rn[0]) <= PC.SMEM_LIMIT)
+    if batch == 256:
+        assert (s, cfg["clusters"], cfg["rows"], cfg["stages"]) == (32, 8, 48, 2)
+    count = np.zeros(batch, int)
+    for c in range(cfg["clusters"]):
+        count[c * s:min(batch, (c + 1) * s)] += 1
+    assert (count == 1).all()
+
+
+def test_plc_step_refuses_fastchain_without_chain_weights():
+    """With `fastchain` the PLC step runs K4 on the bundle its owner built
+    once; without one it raises before any work, and packs nothing."""
+    flags = BP.PLCFlags(fasttf=True, fastfnet=True, fastchain=True, compact="0")
+    with pytest.raises(ValueError):
+        BP._plc_frame_step_fused(None, None, None, torch.zeros(1, 160),
+                                 torch.zeros(1, dtype=torch.bool), None, True, 0, 0,
+                                 kw={}, flags=flags, cw=None)
+
+
+def test_chain_launch_config_refuses_widths_it_cannot_split():
+    with pytest.raises(ValueError):
+        PC.chain_launch_config(8, 57, 100, 256, 256, 20, lambda s, smem: 15, 132)
+    with pytest.raises(ValueError):
+        PC.chain_launch_config(0, 57, 128, 256, 256, 20, lambda s, smem: 15, 132)

@@ -17,6 +17,7 @@ from lpcnet_tpu.models import lpcnet as JM
 from lpcnet_tpu.nn import quantized as JQ
 from lpcnet_tpu.utils.rng import Kiss99State as JKiss
 
+from lpcnet_torch.kernels import masked_loop as ML
 from lpcnet_torch.kernels import sample_loop as K
 from lpcnet_torch.models import lpcnet as M
 from lpcnet_torch.nn import quantized as Q
@@ -195,3 +196,69 @@ def test_k3_wrapper_refuses_other_devices(fused):
     with pytest.raises(ValueError):
         K.teacher_force_blocks_kernel(tkw, s0, ca.to("meta"), cb, lpc, targets,
                                       counts, N)
+
+
+@pytest.mark.parametrize("streams", [8, 16])
+def test_step_budget_mirror_gives_the_plain_versions_steps(fused, streams):
+    """The teacher-forced kernel's schedule (`masked_loop.tf_step_budget`:
+    each cluster runs block k up to its own streams' largest count, every
+    rank walking the same (block, step) pairs) advances each stream by
+    exactly the steps `teacher_force_blocks_plain` runs for it: its KISS99
+    words, drawn twice for every step of the walk that the stream takes
+    (t < counts[s, k]), equal the plain version's, bit for bit, in clusters
+    of 8 and 16 streams over a batch with a ragged last cluster, empty
+    blocks, a block whose counts are all short of it and streams that never
+    move."""
+    _, tf = fused
+    kw = K.kernel_weights(tf, TCFG, dtype=torch.float32)
+    s0, ca, cb, lpc, targets, counts = _case(tf, seed=43)
+    counts = counts.clone()
+    counts[:, 1] = counts[:, 1] // 2           # no stream fills block 1
+    cmax, walks = ML.tf_step_budget(counts, streams, N)
+    clamped = counts.clamp(0, N)
+    assert cmax.shape == (-(-B // streams), NBLK)
+    taken = torch.zeros(B, dtype=torch.long)
+    for c, walk in enumerate(walks):
+        rows = range(c * streams, min(B, (c + 1) * streams))
+        assert len(walk) == int(cmax[c].sum())
+        assert walk == sorted(walk)                      # blocks, then steps, in order
+        for i in rows:
+            taken[i] = sum(1 for k, t in walk if t < clamped[i, k])
+    assert torch.equal(taken, clamped.sum(1))
+    want = K.teacher_force_blocks_plain(kw, s0, ca, cb, lpc, targets, counts, N)
+    rng = s0.rng
+    for m in range(int(taken.max())):
+        _, nxt = M.draw_threshold_bytes(rng)
+        rng = type(rng)(*(torch.where(m < taken, a, b) for a, b in zip(nxt, rng)))
+    assert all(torch.equal(a, b) for a, b in zip(rng, want.rng))
+
+
+@pytest.mark.parametrize("form", ["f32", "q8"])
+def test_k3_wrapper_with_packs_runs_plain_on_cpu(fused, monkeypatch, form):
+    """With K2's packs in the bundle (`masked_kernel_weights`, what the card
+    needs) the wrapper on CPU tensors is the plain version on the bare
+    bundle, bit for bit, counts no launch, and holds the bars of the
+    interpreted TPU kernel: RNG and excitation exact, GRU states within
+    1e-4, signal state within 1e-3."""
+    monkeypatch.setattr(JK, "_INTERPRET", True)
+    jkw, tkw = _bundles(fused, form)
+    packed = K.masked_kernel_weights(tkw)
+    assert "k2_a" in packed
+    s0, ca, cb, lpc, targets, counts = _case(fused[1], seed=44)
+    before = K.teacher_force_blocks_kernel.launches
+    got = K.teacher_force_blocks_kernel(packed, s0, ca, cb, lpc, targets, counts, N)
+    assert K.teacher_force_blocks_kernel.launches == before
+    want = K.teacher_force_blocks_plain(tkw, s0, ca, cb, lpc, targets, counts, N)
+    for a, b in zip(got[:5] + tuple(got.rng), want[:5] + tuple(want.rng)):
+        assert torch.equal(a, b)
+    js = JK.teacher_force_blocks_pallas(
+        jkw, _jax_state(s0), ca.numpy(), cb.numpy(), lpc.numpy(),
+        targets.numpy(), counts.numpy(), JCFG, N, bt=B)
+    t = state_to_numpy(got)
+    for f in ("z", "w", "jsr", "jcong"):
+        assert np.array_equal(t["rng"][f], np.asarray(getattr(js.rng, f))), f
+    assert np.array_equal(t["last_exc"], np.asarray(js.last_exc))
+    for f, tol in (("gru_a", 1e-4), ("gru_b", 1e-4), ("last_sig", 1e-3),
+                   ("deemph", 1e-3)):
+        np.testing.assert_allclose(t[f], np.asarray(getattr(js, f)), atol=tol,
+                                   err_msg=f)
