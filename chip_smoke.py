@@ -67,10 +67,24 @@ Needs one CUDA card and nvcc. Phases:
      streams), then their timings on those arguments (K3's kernel alone and
      its call with the closed forms in PyTorch), with their bounds, and the
      frame's split;
- 12. the merged sample-loop kernel (K6: K1's kernel of its form on the
+ 12. the non-causal PLC path: PLCStreamPool(non_causal=True) on the demo
+     vocoder's weights under LPCNetConfig(lookahead=0) and the demo PLC
+     network at 256 streams for 100 frames of the same kind of traffic (no
+     FEC: the mode has none), K2 twice and K3 three times a frame asserted,
+     never-lost streams 80 samples late bit for bit, one frame under
+     torch.profiler; then 20 frames with the DC filter on the traffic plus
+     an offset of 300; K2 and K3 vs their plain versions on the five calls
+     of the busiest frame (the deferred resync, the section's two
+     half-frames and its reverse-time resynthesis, compacted; the good
+     streams' resync at 256), timed, with K3's launch and bound at 256
+     streams for one block and the frame's split; the two-path step
+     (fused_step=False) at 256 streams for 10 frames in each mode; the host
+     PLC: `cli plc` in the four modes on the C fixture's PLC input, the
+     clean packets held to C's traces;
+ 13. the merged sample-loop kernel (K6: K1's kernel of its form on the
      merged matrices' checked non-zero blocks) vs its plain version at 256
      streams, 32 steps, f32 and bf16, and one step against K1's kernel;
- 13. the codec path: api.LPCNetEncoder on 1024 streams of a seeded
+ 14. the codec path: api.LPCNetEncoder on 1024 streams of a seeded
      speech-like signal for 10 superframes, the card's decode of its packets
      against its quantized features, then runtime.serving.StreamPool at 1024
      streams decoding those packets for 10 ticks of 40 ms on the demo
@@ -87,6 +101,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -129,6 +144,10 @@ PLC_FRAMES = 200
 PLC_CHAIN_FRAMES = 50
 CHECK_BATCH = 256
 CHECK_STEPS = 32
+NC_STREAMS = 256
+NC_FRAMES = 100
+NC_DC_FRAMES = 20
+TWO_PATH_FRAMES = 10
 CODEC_STREAMS = 1024
 CODEC_SUPERFRAMES = 10
 
@@ -1628,19 +1647,11 @@ def state_equal(got, want, rows=slice(None)):
                zip(got[:5] + tuple(got.rng), want[:5] + tuple(want.rng)))
 
 
-def check_plc_captured(a3, k2_calls, a4):
-    """K3, both K2 calls and K4 against their plain versions on arguments
-    the PLC path gave them in one frame. Bars, as for the same kernels at
-    their other shapes. K3 (bf16): RNG and signal state equal, streams with
-    no step untouched, one step from the frame's state within 1e-4 (GRU-B
-    1e-2), over the drain finite with a mean |h| error within 1e-2. K2
-    (bf16, n=80, sampled): RNG equal, streams that do not advance untouched
-    with PCM 0, teacher-forced samples exact, one step within 1e-4 (GRU-B
-    1e-2), over the half-frame finite, at least 95 % of the advancing
-    streams' PCM exact and its RMS within 0.5 of the plain version's. K4:
-    states within 2e-5, outputs within 2e-4, frozen streams' states exact.
-    Returns (K3's one-step and run error, each K2 call's one-step error,
-    K4's error)."""
+def check_k3_captured(a3, where):
+    """K3 (bf16) against its plain version on arguments a PLC path gave it:
+    RNG and signal state equal, streams with no step untouched, one step
+    from the captured state within 1e-4 (GRU-B 1e-2), over the run finite
+    with a mean |h| error within 1e-2. Returns (one-step error, run error)."""
     kw, s0, ca, cb, lpc, tg, cnt, n = a3
     one = torch.clamp(cnt, max=1)
     one[:, 1:] = 0
@@ -1657,49 +1668,65 @@ def check_plc_captured(a3, k2_calls, a4):
     d = torch.cat([(sk.gru_a - sp.gru_a).abs().flatten(),
                    (sk.gru_b - sp.gru_b).abs().flatten()])
     finite = bool(torch.isfinite(sk.gru_a).all() and torch.isfinite(sk.gru_b).all())
-    log(f"K3[bf16] vs plain on the PLC path's arguments, B={cnt.shape[0]}, "
+    log(f"K3[bf16] vs plain on {where}, B={cnt.shape[0]}, "
         f"{cnt.shape[1]} blocks x {n}, {int(cnt.sum())} steps: one step max|h_a| "
         f"err {err_a:.3e} (tol 1e-4), max|h_b| err {err_b:.3e} (tol 1e-2); "
-        f"drain: rng equal {rng_eq}, signal state equal {sig_eq}, streams with "
+        f"run: rng equal {rng_eq}, signal state equal {sig_eq}, streams with "
         f"no step untouched {inert}, max|h| err {float(d.max()):.3e}, mean "
         f"{float(d.mean()):.3e} (tol 1e-2)")
-    assert err_a <= 1e-4 and err_b <= 1e-2, (err_a, err_b)
-    assert rng_eq and sig_eq and inert and finite
-    assert float(d.mean()) <= 1e-2, float(d.mean())
-    k3_errs = (max(err_a, err_b), float(d.max()))
+    assert err_a <= 1e-4 and err_b <= 1e-2, (where, err_a, err_b)
+    assert rng_eq and sig_eq and inert and finite, where
+    assert float(d.mean()) <= 1e-2, (where, float(d.mean()))
+    return max(err_a, err_b), float(d.max())
 
-    k2_errs = []
-    for which, a2 in zip(("head", "tail"), k2_calls):
-        kw, s0, ca, cb, lpc, tg, tf, adv, n = a2
-        first = (kw, s0, ca, cb, lpc, tg[:, :1].contiguous(),
-                 tf[:, :1].contiguous(), adv[:, :1].contiguous(), 1)
-        s1k, _ = K.synthesize_frame_masked_kernel(*first)
-        s1p, _ = K.sample_loop_masked_plain(*first)
-        err_a = float((s1k.gru_a - s1p.gru_a).abs().max())
-        err_b = float((s1k.gru_b - s1p.gru_b).abs().max())
-        sk, pk = K.synthesize_frame_masked_kernel(*a2)
-        torch.cuda.synchronize()
-        sp, pp = K.sample_loop_masked_plain(*a2)
-        live = adv.any(dim=1)
-        rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
-        inert = state_equal(sk, s0, ~live) and not bool(pk[~adv].any())
-        tf_eq = bool(torch.equal(pk[tf], pp[tf]))
-        finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
-        same = float((pk == pp)[live].float().mean())
-        rms_k, rms_p = (float(v[live].square().mean().sqrt()) for v in (pk, pp))
-        log(f"K2[bf16] vs plain on the PLC path's arguments ({which}), "
-            f"B={adv.shape[0]} n={n}, {int(live.sum())} streams advancing, "
-            f"{int(tf.any(dim=1).sum())} of them teacher-forced: one step "
-            f"max|h_a| err {err_a:.3e} (tol 1e-4), max|h_b| err {err_b:.3e} "
-            f"(tol 1e-2); half-frame: rng equal {rng_eq}, other streams "
-            f"untouched with pcm 0 {inert}, teacher-forced pcm exact {tf_eq}, "
-            f"advancing streams' exact pcm {same:.4f} (bar 0.95), rms "
-            f"{rms_k:.1f} vs {rms_p:.1f}")
-        assert err_a <= 1e-4 and err_b <= 1e-2, (which, err_a, err_b)
-        assert rng_eq and inert and tf_eq and finite, which
-        assert same >= 0.95, (which, same)
-        assert abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5, (which, rms_k, rms_p)
-        k2_errs.append(max(err_a, err_b))
+
+def check_k2_captured(a2, where):
+    """K2 (bf16, sampled) against its plain version on arguments a PLC path
+    gave it: RNG equal, streams that do not advance untouched with PCM 0,
+    teacher-forced samples exact, one step within 1e-4 (GRU-B 1e-2), over
+    the call finite, at least 95 % of the advancing streams' PCM exact and
+    its RMS within 0.5 of the plain version's. Returns the one-step error."""
+    kw, s0, ca, cb, lpc, tg, tf, adv, n = a2
+    first = (kw, s0, ca, cb, lpc, tg[:, :1].contiguous(),
+             tf[:, :1].contiguous(), adv[:, :1].contiguous(), 1)
+    s1k, _ = K.synthesize_frame_masked_kernel(*first)
+    s1p, _ = K.sample_loop_masked_plain(*first)
+    err_a = float((s1k.gru_a - s1p.gru_a).abs().max())
+    err_b = float((s1k.gru_b - s1p.gru_b).abs().max())
+    sk, pk = K.synthesize_frame_masked_kernel(*a2)
+    torch.cuda.synchronize()
+    sp, pp = K.sample_loop_masked_plain(*a2)
+    live = adv.any(dim=1)
+    rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+    inert = state_equal(sk, s0, ~live) and not bool(pk[~adv].any())
+    tf_eq = bool(torch.equal(pk[tf], pp[tf]))
+    finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+    same = float((pk == pp)[live].float().mean()) if bool(live.any()) else 1.0
+    rms_k, rms_p = ((float(v[live].square().mean().sqrt()) if bool(live.any())
+                     else 0.0) for v in (pk, pp))
+    log(f"K2[bf16] vs plain on {where}, B={adv.shape[0]} n={n}, "
+        f"{int(live.sum())} streams advancing, {int(tf.any(dim=1).sum())} of "
+        f"them teacher-forced: one step max|h_a| err {err_a:.3e} (tol 1e-4), "
+        f"max|h_b| err {err_b:.3e} (tol 1e-2); call: rng equal {rng_eq}, other "
+        f"streams untouched with pcm 0 {inert}, teacher-forced pcm exact "
+        f"{tf_eq}, advancing streams' exact pcm {same:.4f} (bar 0.95), rms "
+        f"{rms_k:.1f} vs {rms_p:.1f}")
+    assert err_a <= 1e-4 and err_b <= 1e-2, (where, err_a, err_b)
+    assert rng_eq and inert and tf_eq and finite, where
+    assert same >= 0.95, (where, same)
+    assert abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5, (where, rms_k, rms_p)
+    return max(err_a, err_b)
+
+
+def check_plc_captured(a3, k2_calls, a4):
+    """K3, both K2 calls and K4 against their plain versions on arguments
+    the causal PLC path gave them in one frame (`check_k3_captured`,
+    `check_k2_captured`). K4: states within 2e-5, outputs within 2e-4,
+    frozen streams' states exact. Returns (K3's one-step and run error, each
+    K2 call's one-step error, K4's error)."""
+    k3_errs = check_k3_captured(a3, "the PLC path's arguments")
+    k2_errs = [check_k2_captured(a2, f"the PLC path's arguments ({which})")
+               for which, a2 in zip(("head", "tail"), k2_calls)]
 
     cw, h1, h2, inputs, masks, k_steps = a4
     got = PC.plc_chain_kernel(*a4)
@@ -1800,6 +1827,282 @@ def time_plc_kernels(calls, models, counts, chain_counts, frame_ms, smi):
          "design": "chain_cluster_kernel<S>: the units split over 8 ranks, weights "
                    "streamed by TMA; " + k4_launch_shape(h1.shape[0], cw)},
     ]
+
+
+# --------------------------------------------------------------------------
+# The non-causal PLC path, the two-path steps and the host PLC
+# --------------------------------------------------------------------------
+
+def plc_ticker(pool, pcm, lost, sids):
+    """One 10 ms tick of `pool` on frame k of the traffic -> [B, 160]."""
+    def tick(k):
+        out = pool.step({sid: (None if lost[i, k] else pcm[i, k])
+                         for i, sid in enumerate(sids)})
+        return np.stack([out[sid] for sid in sids])
+    return tick
+
+
+def delayed_exact(out, pcm, rows):
+    """The non-causal mode's output of `rows` equals their input 80 samples
+    late, bit for bit, from the second frame on; returns the largest
+    difference."""
+    got = out[rows].reshape(int(rows.sum()), -1)[:, 80:]
+    want = pcm[rows].reshape(int(rows.sum()), -1)[:, :got.shape[1]]
+    return float(np.abs(got - want).max())
+
+
+def drive_nc_plc(dev, smi):
+    """The non-causal PLC path at full width: PLCStreamPool(non_causal=True)
+    over the demo vocoder's weights under LPCNetConfig(lookahead=0) and the
+    demo PLC network, 256 streams, then a pool with the DC filter. Returns
+    (launch counts of the default run, its ms per frame, its captured kernel
+    calls grouped per frame, the DC pool's ms per frame, the models)."""
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
+    cfg0 = dataclasses.replace(cfg, lookahead=0)
+    plc_params = api.load_plc_model(api.DEMO_PLC_MODEL_PATH, device=dev)
+    pcm, lost, _ = plc_traffic(NC_STREAMS, NC_FRAMES, SEED + 43)
+    sids = [f"call-{i}" for i in range(NC_STREAMS)]
+    clean = ~lost.any(axis=1)
+
+    pool = PLCStreamPool(fused, cfg0, plc_params, capacity=NC_STREAMS,
+                         non_causal=True, device=dev)
+    st = pool.plc.state
+    assert pool.plc.use_kernel and pool.plc.flags.fasttf
+    assert pool.plc.plc_buf_size == 80 and st.plc_ring.gru1.shape[0] == 1
+    for sid in sids:
+        pool.attach(sid)
+    tick = plc_ticker(pool, pcm, lost, sids)
+    per_frame, outs = [], []
+    reset_plc_counts()
+    with capture_kernel_calls() as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(NC_FRAMES):
+            before = plc_counts()
+            outs.append(tick(k))
+            per_frame.append(tuple(a - c for a, c in zip(plc_counts(), before)))
+        torch.cuda.synchronize()
+        frame_ms = 1e3 * (time.perf_counter() - t0) / NC_FRAMES
+    counts = plc_counts()
+    stats = dict(pool.plc.stats)
+    out = np.stack(outs, axis=1)
+    assert out.shape == (NC_STREAMS, NC_FRAMES, 160) and np.isfinite(out).all()
+    assert out.min() >= -32768 and out.max() <= 32767
+    assert clean.sum() >= NC_STREAMS // 16
+    worst = delayed_exact(out, pcm, clean)
+    assert worst == 0.0, ("never-lost streams not 80 samples late", worst)
+    assert set(per_frame) == {(2, 3, 0)}, collections.Counter(per_frame)
+    assert counts == (2 * NC_FRAMES, 3 * NC_FRAMES, 0), counts
+    assert sum(stats.values()) == NC_FRAMES and stats["compacted"] > 0, stats
+    concealed = out[lost]
+    assert concealed.any() and np.array_equal(concealed, np.round(concealed))
+    st = pool.plc.state
+    assert all(bool(torch.isfinite(x).all()) for x in
+               (st.sstate.gru_a, st.features, st.plc_net.gru1, st.pcm_buf))
+    rms_in = float(np.sqrt(np.mean(pcm[lost] ** 2)))
+    rms_out = float(np.sqrt(np.mean(concealed ** 2)))
+    log(f"non-causal PLC path: PLCStreamPool(non_causal=True) {NC_STREAMS} "
+        f"streams, the demo vocoder under lookahead 0, {NC_FRAMES} frames, "
+        f"{100 * lost.mean():.2f} % of frames lost: {frame_ms:.3f} ms/frame (host "
+        f"clock, the dicts included), {10.0 / frame_ms * NC_STREAMS:.1f} streams "
+        f"x real time; K2 launches {counts[0]}, K3 {counts[1]}, K4 {counts[2]} "
+        f"(every frame K2 2, K3 3); sections compacted {stats['compacted']}, "
+        f"overflowed {stats['overflowed']} (capacity "
+        f"{BP._compact_capacity(NC_STREAMS)}); {int(clean.sum())} never-lost "
+        f"streams 80 samples late bit for bit; concealed frames rms "
+        f"{rms_out:.0f} (the lost audio's {rms_in:.0f}); card: {smi}")
+    profile_step(lambda: tick(NC_FRAMES - 1), "non-causal PLC frame", smi)
+
+    dc = PLCStreamPool(fused, cfg0, plc_params, capacity=NC_STREAMS,
+                       non_causal=True, remove_dc=True, device=dev)
+    for sid in sids:
+        dc.attach(sid)
+    tick_dc = plc_ticker(dc, pcm + 300.0, lost, sids)
+    per_frame, outs = [], []
+    reset_plc_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(NC_DC_FRAMES):
+        before = plc_counts()
+        outs.append(tick_dc(k))
+        per_frame.append(tuple(a - c for a, c in zip(plc_counts(), before)))
+    torch.cuda.synchronize()
+    dc_ms = 1e3 * (time.perf_counter() - t0) / NC_DC_FRAMES
+    dc_counts = plc_counts()
+    out = np.stack(outs, axis=1)
+    worst = delayed_exact(out, pcm[:, :NC_DC_FRAMES] + 300.0, clean)
+    assert np.isfinite(out).all() and worst == 0.0, worst
+    assert set(per_frame) == {(2, 3, 0)} and dc.plc.stats["compacted"] == 0
+    # a never-lost stream's tracker is the C's per-sample recurrence over its
+    # input (src/lpcnet_plc.c:404-412), here in float64 on the host
+    x = pcm[clean, :NC_DC_FRAMES].reshape(int(clean.sum()), -1) + 300.0
+    ref = np.zeros(len(x))
+    for i in range(x.shape[1]):
+        ref += 0.003 * (x[:, i] - ref)
+    dcm = dc.plc.state.dc_mem[torch.from_numpy(clean).to(dev)].cpu().numpy()
+    dc_err = float(np.abs(dcm - ref).max())
+    assert dc_err < 0.5, dc_err
+    log(f"non-causal PLC path with the DC filter (+300 offset): {NC_DC_FRAMES} "
+        f"frames, {dc_ms:.3f} ms/frame (host clock; the full-batch program), K2 "
+        f"launches {dc_counts[0]}, K3 {dc_counts[1]}; never-lost streams 80 "
+        f"samples late bit for bit, their DC trackers within {dc_err:.2e} of "
+        f"the float64 recurrence (tol 0.5); card: {smi}")
+    reset_plc_counts()
+    return counts, frame_ms, calls, dc_counts, dc_ms, (fused, cfg0, plc_params)
+
+
+def time_nc_kernels(calls, models, counts, frame_ms, smi):
+    """K2 and K3 on the arguments of the non-causal frame whose section ran
+    the most reverse-time steps (the deferred resync: of the frame that ran
+    the most of it): each call held against its plain version
+    (`check_k2_captured`, `check_k3_captured`) and timed; K3's launch alone
+    and its bound on the full batch's resync; the frame's split. Returns the
+    kernels line's additions for K2 and K3."""
+    fused, cfg0, plc_params = models
+    k3 = calls["teacher_force_blocks_kernel"]
+    k2 = calls["synthesize_frame_masked_kernel"]
+    frames = len(k2) // 2
+    assert len(k3) == 3 * frames
+    busiest = max(range(frames), key=lambda f: int(k3[3 * f + 1][6].sum()))
+    _, rev, good = k3[3 * busiest:3 * busiest + 3]
+    head, tail = k2[2 * busiest:2 * busiest + 2]
+    # the busiest frame's recoveries queue their resync for the next frame:
+    # the deferred resync is taken from the frame that ran the most of it
+    queued = max((k3[3 * f] for f in range(frames)), key=lambda a: int(a[6].sum()))
+    named = [("K3 deferred resync", queued), ("K2 first half-frame", head),
+             ("K3 reverse-time resynthesis", rev), ("K2 second half-frame", tail),
+             ("K3 good streams' resync", good)]
+    errs, ms = {}, {}
+    for name, a in named:
+        where = f"the non-causal path's arguments ({name})"
+        errs[name] = (check_k3_captured(a, where) if name.startswith("K3")
+                      else (check_k2_captured(a, where), 0.0))
+        fn = K.teacher_force_blocks_kernel if name.startswith("K3") else \
+            K.synthesize_frame_masked_kernel
+        ms[name] = time_cuda(lambda: fn(*a), reps=10)
+    kw, s0, ca, cb, lpc, tg, cnt, blk = good
+    assert cnt.shape == (NC_STREAMS, 1) and blk == 160
+    codes, _ = K.tf_codes(s0, lpc, tg, cnt, blk)
+    good_kernel = time_cuda(lambda: K.tf_launch(kw, s0, ca, cb, cnt, codes, blk), reps=20)
+    good_plain = time_cuda(lambda: K.teacher_force_blocks_plain(*good), reps=1, warmup=0)
+    good_bound, good_by = k3_bound_ms(kw, cfg0, cnt, 1, blk)
+    waves = K.ML.tf_launch_config(
+        NC_STREAMS, cfg0.rnn_units1, cfg0.rnn_units2, 1, 1,
+        K._max_clusters(cnt.device, 1, cfg0.rnn_units1, K.KIND_TF))["waves"]
+    for name, a in named:
+        log(f"{name} on the busiest non-causal frame's arguments: "
+            f"B={a[1].gru_a.shape[0]}, {ms[name]:.4f} ms a call (CUDA events, "
+            f"alone); card: {smi}")
+    log(f"K3[bf16] at B={NC_STREAMS}, one block of 160 (the good streams' resync, "
+        f"{int(cnt.sum())} steps): the call {ms[named[4][0]]:.4f} ms, the launch alone "
+        f"{good_kernel:.4f} ms, plain {good_plain:.2f} ms, bound {good_bound:.5f} ms "
+        f"({good_by}); launch {k3_launch_shape(NC_STREAMS, cfg0, 'bf16', 1, cnt.device)}, "
+        f"{waves} wave(s); card: {smi}")
+    kernels = sum(ms.values())
+    log(f"non-causal PLC frame {frame_ms:.3f} ms = "
+        + " + ".join(f"{name} {v:.3f}" for name, v in ms.items())
+        + f" (the calls with their closed forms, alone) + frame-rate rest and host "
+        f"{frame_ms - kernels:.3f} ms ({100 * (frame_ms - kernels) / frame_ms:.1f} "
+        f"%); card: {smi}")
+    k2_add = {"launches_nc_path": counts[0],
+              "ms_nc_path": [ms[named[1][0]], ms[named[3][0]]],
+              "max_abs_err_nc_path": max(errs[named[1][0]][0], errs[named[3][0]][0])}
+    k3_add = {"launches_nc_path": counts[1],
+              "ms_nc_path": [ms[named[0][0]], ms[named[2][0]], ms[named[4][0]]],
+              "max_abs_err_nc_path": max(errs[n][1] for n, _ in named
+                                         if n.startswith("K3")),
+              "kernel_ms_nc_full_batch": good_kernel,
+              "plain_ms_nc_full_batch": good_plain,
+              "bound_ms_nc_full_batch": good_bound,
+              "bound_by_nc_full_batch": good_by}
+    return k2_add, k3_add
+
+
+def drive_two_path(dev, smi):
+    """The two-path step (fused_step=False, the reference of the fused one)
+    at 256 streams, 10 frames of the PLC traffic in each mode, on the demo
+    weights (lookahead 0 for the non-causal mode): never-lost streams exact
+    (80 samples late in the non-causal mode). Returns the launch counts."""
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
+    plc_params = api.load_plc_model(api.DEMO_PLC_MODEL_PATH, device=dev)
+    pcm, lost, _ = plc_traffic(NC_STREAMS, TWO_PATH_FRAMES, SEED + 45)
+    lost[:, 4:6] |= np.arange(NC_STREAMS)[:, None] % 4 == 1     # a loss for sure
+    clean = ~lost.any(axis=1)
+    all_counts = {}
+    for mode in ("causal", "non-causal"):
+        nc = mode == "non-causal"
+        c = dataclasses.replace(cfg, lookahead=0) if nc else cfg
+        plc = BP.BatchedPLC(fused, c, plc_params, NC_STREAMS, non_causal=nc,
+                            fused_step=False, device=dev)
+        reset_plc_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plc.run(pcm, lost)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / TWO_PATH_FRAMES
+        counts = plc_counts()
+        all_counts[mode] = counts
+        assert np.isfinite(out).all() and out[lost].any()
+        if nc:
+            assert delayed_exact(out, pcm, clean) == 0.0
+        else:
+            assert np.array_equal(out[clean], pcm[clean])
+        assert counts[0] > 0 and counts[2] == 0, counts
+        log(f"two-path step [{mode}]: BatchedPLC(fused_step=False) {NC_STREAMS} "
+            f"streams, {TWO_PATH_FRAMES} frames: {ms:.3f} ms/frame (host clock, "
+            f"outputs on the device until the end), K2 launches {counts[0]}, K3 "
+            f"{counts[1]}; {int(clean.sum())} never-lost streams exact; card: {smi}")
+    reset_plc_counts()
+    return all_counts
+
+
+def plc_trace_gate(out, ref, lost, delay):
+    """test_neural_cref.py's PLC gate: the packets outside a loss-affected
+    window (a lost packet and the 2 after it) within 2 of C, int16
+    wraparound aware. `delay`: how many samples the C trace lags `out` (the
+    non-causal modes' 80, which the driver drops). Returns (packets gated,
+    the worst difference among them)."""
+    d = np.zeros(len(ref))
+    d[delay:] = np.abs(((out[:len(ref) - delay] - ref[delay:].astype(np.float64)
+                         + 32768) % 65536) - 32768)
+    affected = {p + i for p in np.nonzero(lost)[0].tolist() for i in range(3)}
+    gated = [p for p in range(len(lost)) if p not in affected]
+    worst = max(float(d[p * 320:(p + 1) * 320].max()) for p in gated)
+    return len(gated), worst
+
+
+def host_plc_on_card(smi):
+    """`cli plc` on the card in the four modes, on the C fixture's PLC input
+    with its loss pattern written out as a pattern file: int16 of the
+    input's length, the clean packets within 2 of C's trace (the causal
+    modes on the demo vocoder, the non-causal ones on a seeded lookahead-0
+    one; those packets are the input handed through). Returns the K2
+    launches of the four runs."""
+    from lpcnet_torch import cli
+    fx = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "fixtures", "neural_cref.npz"))
+    reset_plc_counts()
+    with tempfile.TemporaryDirectory() as d:
+        pin, pat, pout = (os.path.join(d, f) for f in ("in.pcm", "loss.txt", "o.pcm"))
+        fx["plc_in_pcm"].astype(np.int16).tofile(pin)
+        np.savetxt(pat, fx["plc_lost"].astype(int), fmt="%d")
+        for mode, key in (("causal", "causal"), ("causal_dc", "causal_dc"),
+                          ("noncausal", "nc"), ("noncausal_dc", "nc_dc")):
+            before = K.synthesize_frame_masked_kernel.launches
+            t0 = time.perf_counter()
+            cli.main(["plc", mode, pat, pin, pout])
+            secs = time.perf_counter() - t0
+            out = np.fromfile(pout, np.int16)
+            assert out.shape == fx["plc_in_pcm"].shape, (mode, out.shape)
+            n, worst = plc_trace_gate(out.astype(np.float64), fx[f"plc_{key}_pcm"],
+                                      fx["plc_lost"], 80 if key.startswith("nc") else 0)
+            launches = K.synthesize_frame_masked_kernel.launches - before
+            log(f"cli plc {mode} on the card: {out.size} int16 samples, "
+                f"{int(fx['plc_lost'].sum())} of {fx['plc_lost'].size} packets "
+                f"lost; {n} clean packets within {worst:.0f} of C (bar 2); K2 "
+                f"launches {launches}; {secs:.2f} s; card: {smi}")
+            assert worst <= 2 and launches > 0, (mode, worst, launches)
+    return K.synthesize_frame_masked_kernel.launches
 
 
 # --------------------------------------------------------------------------
@@ -2245,7 +2548,22 @@ def main():
     k2_entry["ms_plc_path"] = k2_plc_ms
     k2_entry["max_abs_err_plc_path"] = max(k2_plc_err)
 
-    # 12. K6 vs plain, 13. the codec path, then K6's timings on its state
+    # 12. the non-causal PLC path, K2 and K3 on its arguments, the two-path
+    # steps and the host PLC behind `cli plc`
+    nc_counts, nc_ms, nc_calls, nc_dc_counts, nc_dc_ms, nc_models = drive_nc_plc(dev, smi)
+    k2_nc, k3_nc = time_nc_kernels(nc_calls, nc_models, nc_counts, nc_ms, smi)
+    del nc_calls
+    k3_entry = next(e for e in entries if e["name"] == "teacher_force[bf16]")
+    k2_entry.update(k2_nc, launches_nc_dc_path=nc_dc_counts[0],
+                    ms_nc_frame=nc_ms, ms_nc_dc_frame=nc_dc_ms)
+    k3_entry.update(k3_nc, launches_nc_dc_path=nc_dc_counts[1])
+    two = drive_two_path(dev, smi)
+    k2_entry["launches_two_path"] = [two[m][0] for m in ("causal", "non-causal")]
+    k3_entry["launches_two_path"] = [two[m][1] for m in ("causal", "non-causal")]
+    k2_entry["launches_host_plc"] = host_plc_on_card(smi)
+    torch.cuda.empty_cache()
+
+    # 13. K6 vs plain, 14. the codec path, then K6's timings on its state
     check_k6(fused, cfg, dev)
     runs, parts = drive_codec(dev, smi)
     k6_entry = time_k6(runs, parts, dev, smi)

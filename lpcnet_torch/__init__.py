@@ -9,8 +9,10 @@ network -> the 160-step autoregressive sample loop, the CUDA kernel in
 (`train/train_lpcnet.py`: the teacher-forced training graph whose two GRU
 recurrences run through the CUDA kernels of `kernels/csrc/gru_train.cu`,
 forward and backward, with optional scheduled sampling through the masked
-form of the sample loop), batched packet-loss concealment
-(`runtime.serving.PLCStreamPool`) and the 1.6 kb/s codec (`codec.encoder`,
+form of the sample loop), batched packet-loss concealment, causal and
+non-causal (`runtime.serving.PLCStreamPool`), the reference's host PLC state
+machine (`plc.plc.PLC`, `cli plc`), the reference's DNNw weight blobs
+(`weights.lpcnet_arrays`, `weights.aux_arrays`) and the 1.6 kb/s codec (`codec.encoder`,
 packet decode through `runtime.serving.StreamPool`, whose sample loop can be
 the merged-product kernel).
 

@@ -35,7 +35,9 @@ from .models import lpcnet as M
 from .nn.quantized import quantize_fused
 from .runtime.serving import PLCStreamPool, StreamPool  # noqa: F401 (public)
 from .utils.device import resolve_device
+from .weights.aux_arrays import load_plc_blob
 from .weights.checkpoint import load_checkpoint
+from .weights.lpcnet_arrays import load_lpcnet_blob
 
 # the shipped demo vocoder, read by path from the JAX package's data folder
 DEMO_MODEL_PATH = str(Path(__file__).resolve().parent.parent / "lpcnet_tpu"
@@ -45,8 +47,10 @@ DEMO_PLC_MODEL_PATH = str(Path(DEMO_MODEL_PATH).parent / "demo_plc_model.npz")
 
 def load_model(path: Optional[str] = None, seed: int = 0, int8: bool = False,
                device=None):
-    """Load fused inference params: a `.npz` checkpoint, or (path=None) a
-    random init from numpy's RandomState(seed). That init cannot reproduce
+    """Load fused inference params: a `.npz` checkpoint, a DNNw weight blob
+    (any other path, e.g. the reference's `weights_blob.bin`, read at
+    `LPCNetConfig()`), or (path=None) a random init from numpy's
+    RandomState(seed). That init cannot reproduce
     the JAX package's `jax.random` weights for the same seed; to compare the
     two packages, carry JAX weights across with `weights.convert`.
 
@@ -57,14 +61,14 @@ def load_model(path: Optional[str] = None, seed: int = 0, int8: bool = False,
     dev = resolve_device(device)
     if path is None:
         cfg = M.LPCNetConfig()
-        params = M.init_params(cfg, seed, dev)
+        fused = M.fuse_inference_params(M.init_params(cfg, seed, dev), cfg)
     elif path.endswith(".npz"):
         params, cfg = load_checkpoint(path, dev)
+        fused = M.fuse_inference_params(params, cfg)
     else:
-        raise NotImplementedError(
-            f"{path}: only .npz checkpoints load here; DNNw weight blobs are "
-            "not ported yet")
-    fused = M.fuse_inference_params(params, cfg)
+        cfg = M.LPCNetConfig()
+        with open(path, "rb") as f:
+            fused = load_lpcnet_blob(f.read(), cfg, dev)
     if int8:
         fused = quantize_fused(fused)
     return fused, cfg
@@ -72,16 +76,15 @@ def load_model(path: Optional[str] = None, seed: int = 0, int8: bool = False,
 
 def load_plc_model(path: Optional[str] = None, seed: int = 0, device=None):
     """The PLC feature-prediction network's params (`models.plc`) on
-    `device`: a `.npz` checkpoint, or (path=None) a random init from numpy's
-    RandomState(seed)."""
+    `device`: a `.npz` checkpoint, a DNNw weight blob (any other path), or
+    (path=None) a random init from numpy's RandomState(seed)."""
     from .models import plc as PM
     dev = resolve_device(device)
     if path is None:
         return PM.init_params(seed, device=dev)
     if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz checkpoints load here; DNNw weight blobs are "
-            "not ported yet")
+        with open(path, "rb") as f:
+            return load_plc_blob(f.read(), device=dev)
     params, _ = load_checkpoint(path, dev)
     return params
 

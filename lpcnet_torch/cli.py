@@ -6,14 +6,19 @@
     python -m lpcnet_torch.cli features  <input.pcm> <features.f32>
     python -m lpcnet_torch.cli synthesis <features.f32> <output.pcm>
     python -m lpcnet_torch.cli addlpc    <features.f32> <features_lpc.f32>
-        [--model model.npz|random] [--device cuda|cpu]
+    python -m lpcnet_torch.cli plc <causal|causal_dc|noncausal|noncausal_dc>
+                                   <percent|pattern.txt> <input.pcm> <output.pcm>
+        [--model model.npz|model.bin|random] [--device cuda|cpu]
 
 File formats are the C demo's: .pcm raw 16 kHz s16le mono, .f32 raw float32
-feature rows of 36, .lpcnet 8-byte packets (40 ms each). Sampling is the C
-bit tree. The model (decode, synthesis) defaults to the shipped demo
-vocoder (lpcnet_tpu/data/demo_model.npz, read as a file). Every mode runs on
-the GPU unless `--device cpu` is passed; LPCNET_KERNEL_MERGED=1 selects the
-merged sample-loop kernel for float models.
+feature rows of 36, .lpcnet 8-byte packets (40 ms each); a loss pattern is
+one 0/1 flag per 20 ms packet. Sampling is the C bit tree. The model
+(decode, synthesis, the causal plc modes) defaults to the shipped demo
+vocoder (lpcnet_tpu/data/demo_model.npz, read as a file); the non-causal
+plc modes need a lookahead-0 model and default to a seeded random one. The
+plc modes run the shipped demo PLC network. Every mode runs on the GPU
+unless `--device cpu` is passed; LPCNET_KERNEL_MERGED=1 selects the merged
+sample-loop kernel for float models.
 """
 
 from __future__ import annotations
@@ -36,15 +41,31 @@ def _read_features(path):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="lpcnet_torch")
     ap.add_argument("mode", choices=["encode", "decode", "features",
-                                     "synthesis", "addlpc"])
-    ap.add_argument("args", nargs=2, metavar="FILE")
-    ap.add_argument("--model", default=api.DEMO_MODEL_PATH,
-                    help="model weights (.npz checkpoint); default = the "
-                         "shipped demo vocoder; 'random' for a seeded "
-                         "random init")
+                                     "synthesis", "addlpc", "plc"])
+    ap.add_argument("args", nargs="+", metavar="ARG")
+    ap.add_argument("--model", default=None,
+                    help="model weights (.npz checkpoint or DNNw blob); "
+                         "default = the shipped demo vocoder (a seeded "
+                         "random one for the non-causal plc modes); "
+                         "'random' for a seeded random init")
     ap.add_argument("--device", default="cuda")
     ns = ap.parse_args(argv)
-    model = None if ns.model == "random" else ns.model
+    n_args = 4 if ns.mode == "plc" else 2
+    if len(ns.args) != n_args:
+        ap.error(f"{ns.mode} takes {n_args} arguments")
+    if ns.model == "random":
+        model = None
+    elif ns.model is not None:
+        model = ns.model
+    elif ns.mode == "plc" and ns.args[0].startswith("noncausal"):
+        model = None                        # the demo vocoder has lookahead 2
+    else:
+        model = api.DEMO_MODEL_PATH
+
+    if ns.mode == "plc":
+        from .plc.driver import run_plc_file
+        run_plc_file(*ns.args, model_path=model, device=ns.device)
+        return
     src, dst = ns.args
 
     if ns.mode == "encode":

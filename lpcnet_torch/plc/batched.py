@@ -1,30 +1,39 @@
-"""Batched packet-loss concealment with a loss pattern per stream (causal).
+"""Batched packet-loss concealment with a loss pattern per stream.
 
-The reference PLC (src/lpcnet_plc.c:188-337) is a state machine whose
+The reference PLC (src/lpcnet_plc.c:188-492) is a state machine whose
 control flow depends on the loss flag, so a batch of streams would have to
 share one loss pattern. Here every stream steps through the same frame step
 and masks select each stream's behaviour, so a serving node runs hundreds of
 independent streams, each with its own losses, in one pass per 10 ms frame.
 
-Structure, as in `lpcnet_tpu/plc/batched.py::_plc_frame_step_fused`: one
-interleaved program per frame over a single state. The conceal (lost) and
-update (good packet) paths' sub-operations are masked per stream, and
-corresponding ones share device work, since the masks are disjoint. The
-data-dependent pieces (the drain of queued audio, blending after a loss, the
-flush of deferred frame-network inputs) are unrolled to their bounded maxima
-with enable masks: the drain runs at most ceil(plc_buf_size / 160) = 3
-iterations and the deferred feature buffer holds at most 2*(k-1) = 4 frames.
+Structure, as in `lpcnet_tpu/plc/batched.py::_plc_frame_step_fused` and
+`_plc_frame_step_nc_fused`: one interleaved program per frame over a single
+state. The conceal (lost) and update (good packet) paths' sub-operations are
+masked per stream, and corresponding ones share device work, since the
+masks are disjoint. The data-dependent pieces (the drain of queued audio,
+blending after a loss, the flush of deferred frame-network inputs) are
+unrolled to their bounded maxima with enable masks: the causal drain runs at
+most ceil(plc_buf_size / 160) = 3 iterations and the deferred feature buffer
+holds at most 2*(k-1) = 4 frames. The two-path steps (`fused_step=False`:
+both paths on copies of the state, merged per stream) are kept as the
+reference the fused steps are held to.
 
-On a card the sample-rate work of a frame is three kernel launches: the
-teacher-forced drain (K3, `kernels.sample_loop.teacher_force_blocks_kernel`)
+On a card the sample-rate work of a causal frame is three kernel launches:
+the teacher-forced drain (K3, `kernels.sample_loop.teacher_force_blocks_kernel`)
 and two masked half-frames (K2, `synthesize_frame_masked_kernel`); with
 `fastchain` the frame's PLC-net calls are one more (K4,
-`kernels.plc_chain.plc_chain_kernel`).
+`kernels.plc_chain.plc_chain_kernel`). A non-causal frame is five: K3 for
+the deferred resync of the streams that recovered a frame before, K2 for
+the first half-frame of the lost and recovering streams, K3 for the
+recovering streams' reverse-time resynthesis, K2 for the second half-frame,
+and K3 for the good streams' resync on the whole batch.
 
 Scope: the causal mode with or without blending (LPCNET_PLC_CAUSAL /
-LPCNET_PLC_CODEC), the FEC queue of every stream (`fec_add`, `fec_clear`)
-and the DC filter (`remove_dc`). The non-causal mode and the unfused
-two-path step are not ported yet.
+LPCNET_PLC_CODEC) and its FEC queue of every stream (`fec_add`,
+`fec_clear`), the non-causal mode (LPCNET_PLC_NONCAUSAL, which needs a
+lookahead-0 vocoder and has no FEC, as in the reference), the DC filter
+(`remove_dc`, fused steps only) and the two-path steps. Not ported: the
+JAX package's profiling ablation set (`_abl`, `_consume`).
 """
 
 from __future__ import annotations
@@ -177,10 +186,11 @@ def _compact_capacity(b: int, compact: Optional[str] = None) -> int:
 
 
 class BatchedPLC:
-    """Mixed-loss batched causal PLC.
+    """Mixed-loss batched PLC, causal or non-causal.
 
     Call step(pcm [B, 160], lost [B]) per 10 ms frame; hold each loss flag
-    for 2 frames to match the 20 ms packets of lpcnet_demo.
+    for 2 frames to match the 20 ms packets of lpcnet_demo. The non-causal
+    mode's output lags its input by 80 samples.
     """
 
     def __init__(self, fused, cfg: M.LPCNetConfig, plc_params, batch: int,
@@ -192,13 +202,13 @@ class BatchedPLC:
         """On CUDA the sample-rate work always runs through the kernels, at
         any batch. On the CPU `use_kernel=True` takes the same program with
         the kernels' plain versions; the default there is the step-by-step
-        float32 model (`models.lpcnet.synthesize_frame_masked`)."""
-        if non_causal:
-            raise NotImplementedError(
-                "the non-causal batched PLC step is not ported yet")
-        if not fused_step:
-            raise NotImplementedError(
-                "the unfused two-path PLC step is not ported yet")
+        float32 model (`models.lpcnet.synthesize_frame_masked`).
+        fused_step=False takes the two-path step, the reference of the fused
+        one."""
+        if non_causal and cfg.lookahead != 0:
+            raise ValueError("non-causal PLC needs a lookahead-0 model")
+        if remove_dc and not fused_step:
+            raise ValueError("batched remove_dc: fused step only")
         dev = resolve_device(device)
         if use_kernel is None:
             use_kernel = dev.type == "cuda"
@@ -210,6 +220,8 @@ class BatchedPLC:
         self.cfg = cfg
         self.batch = batch
         self.enable_blending = enable_blending
+        self.non_causal = non_causal
+        self.fused_step = fused_step
         self.plc_params = tree_to(plc_params, dev)
         self.plc_cfg = plc_cfg or PM.PLCConfig()
         self.delay = cfg.lookahead
@@ -220,11 +232,14 @@ class BatchedPLC:
                    if use_kernel else None)
         self.remove_dc = remove_dc
         self.flags = current_flags()
+        # the causal fused step's PLC-net chain (K4)
         self._cw = (PC.plc_chain_weights(self.plc_params)
-                    if use_kernel and self.flags.fastchain else None)
+                    if use_kernel and self.flags.fastchain and fused_step
+                    and not non_causal else None)
         # frames whose sample-rate section ran compacted / fell through to
         # the full batch because the active streams exceeded the capacity /
-        # ran at the full batch because compaction is off
+        # ran at the full batch because compaction is off (the fused steps;
+        # the non-causal step's deferred resync compacts too, uncounted)
         self.stats = {"compacted": 0, "overflowed": 0, "full": 0}
         self.state = self.init_state()
 
@@ -263,7 +278,11 @@ class BatchedPLC:
         have=False counts an unknown frame (the C's NULL call) unless
         `unknown` narrows that set: pass unknown=np.zeros(B, bool) to leave
         such streams untouched (a pool, where an absent stream should not
-        use up a time slot)."""
+        use up a time slot). Causal fused step only: the reference's
+        non-causal PLC has no FEC either."""
+        if self.non_causal or not self.fused_step:
+            raise ValueError("FEC queues: causal fused step only (the "
+                             "reference's non-causal PLC has no FEC either)")
         b, dev = self.batch, self.device
         feats = torch.as_tensor(np.asarray(features, np.float32)
                                 [:, :NB_FEATURES], device=dev)
@@ -283,11 +302,23 @@ class BatchedPLC:
         """One frame on tensors that already lie on the device: pcm [B, 160]
         float, lost [B] bool -> [B, 160] float."""
         with torch.no_grad():
-            self.state, out = _plc_frame_step_fused(
-                self.state, self.fused, self.plc_params, pcm, lost, self.cfg,
-                self.enable_blending, self.delay, self.plc_buf_size, self.kw,
-                remove_dc=self.remove_dc, flags=self.flags, cw=self._cw,
-                stats=self.stats)
+            if not self.fused_step:
+                step = _plc_frame_step_nc if self.non_causal else _plc_frame_step
+                self.state, out = step(
+                    self.state, self.fused, self.plc_params, pcm, lost,
+                    self.cfg, self.enable_blending, self.delay,
+                    self.plc_buf_size, self.kw, flags=self.flags)
+            elif self.non_causal:
+                self.state, out = _plc_frame_step_nc_fused(
+                    self.state, self.fused, self.plc_params, pcm, lost,
+                    self.cfg, self.kw, remove_dc=self.remove_dc,
+                    flags=self.flags, stats=self.stats)
+            else:
+                self.state, out = _plc_frame_step_fused(
+                    self.state, self.fused, self.plc_params, pcm, lost,
+                    self.cfg, self.enable_blending, self.delay,
+                    self.plc_buf_size, self.kw, remove_dc=self.remove_dc,
+                    flags=self.flags, cw=self._cw, stats=self.stats)
         return out
 
     def step(self, pcm: np.ndarray, lost: np.ndarray) -> np.ndarray:
@@ -354,18 +385,24 @@ def _tail_masked(fused, s: BatchedPLCState, preload, preload_mask,
     return s._replace(sstate=new_ss), pcm
 
 
-def _tf_prefix(fused, s: BatchedPLCState, ca, cb, lpc, targets, count, cfg,
-               kw):
-    """Teacher-forced prefix of `count` steps on explicit conditioning,
-    through the masked tail with the sampler off (the step without `fasttf`;
-    with it the drain is K3's, inside `_section_body`). The warmup gate is
-    already folded into `count`."""
-    adv = (torch.arange(targets.shape[-1], device=targets.device)[None, :]
-           < count[:, None])
-    s2 = s._replace(cond_a=ca, cond_b=cb, lpc=lpc)
-    s2, _ = _tail_masked(fused, s2, targets, adv, adv, cfg, kw, sampled=False,
-                         live=torch.ones_like(count, dtype=torch.bool))
-    return s._replace(sstate=s2.sstate)
+def _tf_prefix(fused, sstate: M.SampleState, ca, cb, lpc, targets, count,
+               kw, fasttf):
+    """`count[i]` teacher-forced steps of stream i on explicit conditioning
+    (count 0 freezes it); the warmup gate is already folded into `count`.
+    With `kw` and `fasttf` one block of K3, else the masked tail with the
+    sampler off (K2 with `kw`, the float32 model without). Returns the new
+    sample state."""
+    n = targets.shape[-1]
+    if kw is not None and fasttf:
+        return _launch(K.teacher_force_blocks_kernel, kw, sstate, ca[:, None],
+                       cb[:, None], lpc[:, None], targets, count[:, None], n)
+    adv = torch.arange(n, device=targets.device)[None, :] < count[:, None]
+    if kw is None:
+        return M.synthesize_frame_masked(fused, sstate, ca, cb, lpc, targets,
+                                         adv, adv)[0]
+    return _launch(K.synthesize_frame_masked_kernel, kw, sstate,
+                   ca.contiguous(), cb.contiguous(), lpc.contiguous(), targets,
+                   adv, adv, n, False)[0]
 
 
 def _fec_row(s: BatchedPLCState, read):
@@ -550,24 +587,34 @@ def _section_body(kw, sec, enable_blending, remove_dc):
     return ss, head, tail, pcm80
 
 
-def _run_sample_section(kw, sec, enable_blending, remove_dc, compact, stats):
-    """`_section_body` at the full batch, or compacted to the streams that
-    are lost or blending when their number fits the capacity.
+def _compacted(body, sec, mask, into, compact, stats=None):
+    """`body(sec)` at the full batch, or on the sub-batch of `mask`'s
+    streams when their number fits the capacity (`_compact_capacity`).
 
-    The gather pads every tensor with a zero sentinel row, so the unused
-    slots of the sub-batch (index b) read zeros, stay frozen and scatter
-    into a row that is dropped. The branch needs the number of active
-    streams on the host: one read of a device scalar a frame."""
-    b = sec["L"].shape[0]
+    `sec` holds the body's per-stream inputs ([B, ...] tensors in nested
+    tuples and dicts). `into` is shaped like the body's outputs: the
+    full-batch values the sub-batch's outputs are scattered into, so rows
+    outside `mask` keep them. The body must leave a stream whose inputs are
+    all zeros and whose masks are off as it is: the gather pads every
+    tensor with a zero sentinel row, so the unused slots of the sub-batch
+    (index B) read zeros and scatter into a row that is dropped. The branch
+    needs the number of `mask`'s streams on the host: one read of a device
+    scalar. `stats` counts the branch taken."""
+    b = mask.shape[0]
     cap = _compact_capacity(b, compact)
+
+    def tally(branch):
+        if stats is not None:
+            stats[branch] += 1
+
     if not cap or cap >= b:
-        stats["full"] += 1
-        return _section_body(kw, sec, enable_blending, remove_dc)
-    idx = torch.nonzero(sec["L"] | sec["bl"])[:, 0]
+        tally("full")
+        return body(sec)
+    idx = torch.nonzero(mask)[:, 0]
     if idx.shape[0] > cap:
-        stats["overflowed"] += 1
-        return _section_body(kw, sec, enable_blending, remove_dc)
-    stats["compacted"] += 1
+        tally("overflowed")
+        return body(sec)
+    tally("compacted")
     idx = torch.cat([idx, idx.new_full((cap - idx.shape[0],), b)])
 
     def gather(x):
@@ -578,12 +625,17 @@ def _run_sample_section(kw, sec, enable_blending, remove_dc, compact, stats):
         fp[idx] = comp
         return fp[:b]
 
-    ss_c, head_c, tail_c, pcm80_c = _section_body(
-        kw, tree_map(gather, sec), enable_blending, remove_dc)
-    new_ss = tree_map(scatter, sec["sstate"], ss_c)
+    return tree_map(scatter, into, body(tree_map(gather, sec)))
+
+
+def _run_sample_section(kw, sec, enable_blending, remove_dc, compact, stats):
+    """The causal `_section_body`, compacted to the streams that are lost or
+    blending when their number fits the capacity."""
     zeros = torch.zeros_like(sec["pcm80"])
-    return (new_ss, scatter(zeros, head_c), scatter(zeros, tail_c),
-            scatter(sec["pcm80"], pcm80_c))
+    return _compacted(
+        lambda c: _section_body(kw, c, enable_blending, remove_dc), sec,
+        sec["L"] | sec["bl"], (sec["sstate"], zeros, zeros, sec["pcm80"]),
+        compact, stats)
 
 
 def _push_plc_ring(s: BatchedPLCState, active):
@@ -661,6 +713,17 @@ def _syn_dc_step(syn0, pcm):
     """syn_dc += c*(pcm[i]-syn_dc) over a frame, closed form."""
     tail = torch.as_tensor(_DC_TAIL, device=pcm.device)
     return syn0 * float(np.float32(_DC_POWS[FRAME_SIZE])) + pcm @ tail
+
+
+_DC_TAIL80 = (DC_CONST * np.power(1.0 - DC_CONST, _TO - 1 - np.arange(_TO))
+              ).astype(np.float32)
+
+
+def _syn_dc_step80(syn0, pcm80):
+    """The same recurrence over a half frame (the non-causal mode's
+    TRAINING_OFFSET-long accumulations, src/lpcnet_plc.c:385-387, 425)."""
+    tail = torch.as_tensor(_DC_TAIL80, device=pcm80.device)
+    return syn0 * float(np.float32(_DC_POWS[_TO])) + pcm80 @ tail
 
 
 def _att_of(lc):
@@ -872,7 +935,9 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
             if k == MAX_DRAIN - 1 and enable_blending:
                 saved = (saved_f[0], s.sstate, saved_f[1], saved_f[2],
                          saved_f[3])
-            s = _tf_prefix(fused, s, ca_k, cb_k, lpc_k, output, count, cfg, kw)
+            s = s._replace(sstate=_tf_prefix(fused, s.sstate, ca_k, cb_k,
+                                             lpc_k, output, count, kw,
+                                             flags.fasttf))
 
         # ---- shared sampled call 1: conceal head (lost) | update tmp ------
         # (codec mode has no tmp and resync synthesis: only lost streams
@@ -973,3 +1038,567 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
     else:
         out = torch.where(L[:, None], pcm_c, pcm)
     return s, torch.clamp(out, -32768, 32767)
+
+
+# --------------------------------------------------------------------------
+# The non-causal mode (src/lpcnet_plc.c:342-492)
+# --------------------------------------------------------------------------
+
+def _enc_step_masked(s: BatchedPLCState, pcm, active):
+    """One feature-extraction step that only `active` streams keep."""
+    new_enc, feats = F.compute_single_frame_features(s.enc, pcm)
+    return s._replace(enc=_bwhere(active, new_enc, s.enc)), feats
+
+
+def _queued_body(fused, cfg, kw, fasttf, sec):
+    """The deferred resync queued by a recovery frame (src/lpcnet_plc.c:
+    277-281) on explicit per-stream inputs: the frame net on the current
+    features, then the queued samples teacher-forced, for the streams of
+    `q` only."""
+    q = sec["q"]
+    new_f, _, caf, cbf, lpf = M.frame_network(fused, sec["fstate"],
+                                              _pad36(sec["features"]), cfg)
+    fst = _bwhere(q, new_f, sec["fstate"])
+    ca, cb, lp = (torch.where(q[:, None], n, o) for n, o in
+                  ((caf, sec["ca"]), (cbf, sec["cb"]), (lpf, sec["lpc"])))
+    live = fst.frame_count > cfg.lookahead
+    n = sec["queued_samples"].shape[-1]
+    count = torch.where(q & live, n, 0).to(torch.int32)
+    sst = _tf_prefix(fused, sec["sstate"], ca, cb, lp, sec["queued_samples"],
+                     count, kw, fasttf)
+    return dict(fstate=fst, sstate=sst, ca=ca, cb=cb, lpc=lp)
+
+
+def _process_queued_update(fused, s: BatchedPLCState, cfg, kw, flags,
+                           compact=False):
+    """`_queued_body` for the queued streams, at the full batch, or with
+    `compact` on the kernels' program compacted to them (a small share of a
+    steady pool: the last frame's recoveries). Clears the queued flags."""
+    fast = compact and kw is not None and flags.fasttf
+    sec = dict(q=s.queued, fstate=s.fstate, sstate=s.sstate,
+               features=s.features, ca=s.cond_a, cb=s.cond_b, lpc=s.lpc,
+               queued_samples=s.queued_samples)
+    into = dict(fstate=s.fstate, sstate=s.sstate, ca=s.cond_a, cb=s.cond_b,
+                lpc=s.lpc)
+    out = _compacted(lambda c: _queued_body(fused, cfg, kw,
+                                            flags.fasttf, c),
+                     sec, s.queued, into, flags.compact if fast else "0")
+    return s._replace(fstate=out["fstate"], sstate=out["sstate"],
+                      cond_a=out["ca"], cond_b=out["cb"], lpc=out["lpc"],
+                      queued=torch.zeros_like(s.queued))
+
+
+def _nc_section_body(fused, cfg, kw, sec):
+    """The non-causal step's sample-rate chain for the lost and recovering
+    streams (L | rec) on explicit per-stream inputs: the conceal head or the
+    recovery's forward tail (K2, 80 sampled steps, the buffered lookahead
+    teacher-forced on a first loss); the recovery's frame net and its
+    reverse-time resynthesis from a fresh sample state, RNG kept (K3, 160
+    steps); the conceal tail or the recovery's reverse tail (K2, 80 sampled
+    steps). Other streams are frozen by the masks, which is what makes
+    compaction sound; the caller restores the recovering streams' frame
+    state, conditioning and sample state after the section, so only the
+    lost streams' sample state and the two tails carry forward."""
+    b = sec["L"].shape[0]
+    dev = sec["L"].device
+    L, rec, first = sec["L"], sec["rec"], sec["first"]
+    act = L | rec
+    fst = sec["fstate"]
+    ca, cb, lp = sec["ca"], sec["cb"], sec["lpc"]
+    adv = (act & (fst.frame_count > cfg.lookahead))[:, None].expand(b, _TO)
+    sst, t1 = _launch(
+        K.synthesize_frame_masked_kernel, kw, sec["sstate"], ca.contiguous(),
+        cb.contiguous(), lp.contiguous(), sec["buf_head"].contiguous(),
+        first[:, None] & adv, adv, _TO)
+    fresh = M.init_sample_state(b, cfg, dev)._replace(rng=sst.rng)
+    sst = _bwhere(rec, fresh, sst)
+    new_f, _, caf, cbf, lpf = M.frame_network(fused, fst,
+                                              _pad36(sec["features"]), cfg)
+    fst = _bwhere(rec, new_f, fst)
+    ca2, cb2, lp2 = (torch.where(rec[:, None], n, o) for n, o in
+                     ((caf, ca), (cbf, cb), (lpf, lp)))
+    live = fst.frame_count > cfg.lookahead
+    count = torch.where(rec & live, FRAME_SIZE, 0).to(torch.int32)
+    sst = _tf_prefix(fused, sst, ca2, cb2, lp2, sec["rev"], count, kw, True)
+    adv80 = (act & live)[:, None].expand(b, _N1)
+    sst, t2 = _launch(
+        K.synthesize_frame_masked_kernel, kw, sst, ca2.contiguous(),
+        cb2.contiguous(), lp2.contiguous(),
+        torch.zeros((b, _N1), dtype=torch.float32, device=dev),
+        torch.zeros((b, _N1), dtype=torch.bool, device=dev), adv80, _N1)
+    return dict(sstate=sst, fstate=fst, ca=ca2, cb=cb2, lpc=lp2, t1=t1, t2=t2)
+
+
+def _run_nc_section(fused, cfg, kw, s: BatchedPLCState, L, rec, first, pcm,
+                    compact, stats):
+    """`_nc_section_body`, compacted to the L | rec streams when their
+    number fits the capacity. Returns (state, t1, t2)."""
+    b = L.shape[0]
+    sec = dict(L=L, rec=rec, first=first, sstate=s.sstate, fstate=s.fstate,
+               features=s.features, ca=s.cond_a, cb=s.cond_b, lpc=s.lpc,
+               buf_head=s.pcm_buf[:, FRAME_SIZE - _TO:FRAME_SIZE],
+               rev=torch.flip(pcm, (1,)))
+    zeros = torch.zeros((b, _TO), dtype=torch.float32, device=pcm.device)
+    into = dict(sstate=s.sstate, fstate=s.fstate, ca=s.cond_a, cb=s.cond_b,
+                lpc=s.lpc, t1=zeros, t2=zeros)
+    out = _compacted(lambda c: _nc_section_body(fused, cfg, kw, c), sec,
+                     L | rec, into, compact, stats)
+    s = s._replace(sstate=out["sstate"], fstate=out["fstate"],
+                   cond_a=out["ca"], cond_b=out["cb"], lpc=out["lpc"])
+    return s, out["t1"], out["t2"]
+
+
+def _set_head(buf, head):
+    """buf with `head` in the buffer's head slot [80:160] (the lookahead
+    half-frame)."""
+    return torch.cat([buf[:, :FRAME_SIZE - _TO], head, buf[:, FRAME_SIZE:]],
+                     dim=1)
+
+
+def _plc_frame_step_nc_fused(state: BatchedPLCState, fused, plc_params, pcm,
+                             lost, cfg, kw=None, remove_dc=False,
+                             flags: Optional[PLCFlags] = None,
+                             stats: Optional[dict] = None):
+    """The non-causal PLC step as one interleaved program over a single
+    state (the twin of `_plc_frame_step_fused`).
+
+    The per-stream order of sub-operations and the RNG's lockstep are those
+    of the two-path `_plc_frame_step_nc`; shared work: the deferred resync
+    runs once instead of twice, the conceal head and the recovery's forward
+    tail share one sampled call, the conceal tail and the recovery's
+    reverse tail another, and the buffer re-analysis (continued loss,
+    recovery) is one feature step. With the kernels and `fasttf` (and
+    without the DC filter, which interleaves full-batch DC passes between
+    the calls) the lost and recovering streams' sample-rate chain runs as
+    one section, compacted to them (`_run_nc_section`).
+
+    remove_dc adds the reference's non-causal DC variant (src/lpcnet_plc.c:
+    383-393, 404-426, 437-441): the processing runs DC-free; on recovery the
+    tracker rewinds and runs again with the synthesised forward tail folded
+    in; the half-frame output delay adds the offsets back through `dc_buf`.
+
+    Returns (new state, output [B, 160] float, clipped to int16 range).
+    """
+    flags = flags or current_flags()
+    stats = stats if stats is not None else {"compacted": 0, "overflowed": 0,
+                                              "full": 0}
+    b = pcm.shape[0]
+    dev = pcm.device
+    s = state
+    L = lost
+    G = ~lost
+    pcm = pcm.to(torch.float32)
+    pcm_in = pcm
+
+    # ---- shared: the deferred resync queued by a previous recovery -------
+    s = _process_queued_update(fused, s, cfg, kw, flags, compact=True)
+
+    # ---- DC removal, pass 1, on the incoming audio (good streams,
+    # src/lpcnet_plc.c:404-412): the pending synthesis DC folds into the
+    # tracker first; delta keeps its truncated residue for the blend --------
+    if remove_dc:
+        delta = torch.trunc(s.syn_dc)
+        dc_out = torch.floor(0.5 + s.dc_mem)       # the conceal's offset
+        mem_bak = s.dc_mem + s.syn_dc
+        lp, dcm1 = _dc_path(mem_bak, pcm)
+        pcm = torch.where(G[:, None], pcm - lp, pcm)
+        s = s._replace(dc_mem=torch.where(G, dcm1, s.dc_mem),
+                       syn_dc=torch.where(G, torch.zeros_like(s.syn_dc),
+                                          s.syn_dc))
+    pcm_save = pcm
+
+    burg_feats = burg_cepstral_analysis(pcm)
+    rec = G & (s.loss_count > 0)       # the first good frame after a loss
+    gd = G & ~rec
+    first = L & (s.loss_count == 0)    # the first lost frame
+
+    # ---- shared PLC-net step: conceal (zero input) | recovery (Burg) ------
+    inp = _good_input(burg_feats)
+    s = _plc_pred_masked(plc_params, s,
+                         torch.where(L[:, None], torch.zeros_like(inp), inp),
+                         L | rec)
+    # conceal: the attenuation takes the loss count before its increment
+    # (src/lpcnet_plc.c:466 against :494)
+    f0 = torch.clamp(s.features[:, 0] + _att_of(s.loss_count), min=-10.0)
+    s = s._replace(features=torch.where(
+        L[:, None], torch.cat([f0[:, None], s.features[:, 1:]], dim=1),
+        s.features))
+
+    saved = (s.fstate, s.sstate, s.cond_a, s.cond_b, s.lpc)
+
+    # ---- shared frame net, then the L | rec sample-rate chain -------------
+    s = _fnet_masked(fused, s, _pad36(s.features), L | rec, cfg)
+    buf_head = s.pcm_buf[:, FRAME_SIZE - _TO:FRAME_SIZE]
+    # recovery keeps its forward tail in the buffer head; a continued loss
+    # refreshes the head with its own continuation
+    keeps_t1 = (rec | (L & ~first))[:, None]
+    if kw is not None and flags.fasttf and not remove_dc:
+        s, t1, t2 = _run_nc_section(fused, cfg, kw, s, L, rec, first, pcm,
+                                    flags.compact, stats)
+        head = torch.where(first[:, None], buf_head, t1)
+        s = s._replace(pcm_buf=torch.where(keeps_t1, _set_head(s.pcm_buf, t1),
+                                           s.pcm_buf))
+    else:
+        adv = (L | rec)[:, None].expand(b, _TO)
+        s, t1 = _tail_masked(fused, s, buf_head, first[:, None] & adv, adv,
+                             cfg, kw)
+        head = torch.where(first[:, None], buf_head, t1)
+        s = s._replace(pcm_buf=torch.where(keeps_t1, _set_head(s.pcm_buf, t1),
+                                           s.pcm_buf))
+
+        # ---- DC removal, pass 2 (recovery streams, src/lpcnet_plc.c:
+        # 414-426): rewind the tracker, fold in the forward tail's
+        # synthesis DC, remove again
+        if remove_dc:
+            syn_t1 = _syn_dc_step80(torch.zeros_like(s.syn_dc), t1)
+            delta = torch.where(rec, torch.trunc(delta + syn_t1), delta)
+            lp2, dcm2 = _dc_path(mem_bak + syn_t1, pcm_in)
+            pcm = torch.where(rec[:, None], pcm_in - lp2, pcm)
+            lp = torch.where(rec[:, None], lp2, lp)
+            s = s._replace(dc_mem=torch.where(rec, dcm2, s.dc_mem))
+            pcm_save = torch.where(rec[:, None], pcm, pcm_save)
+
+        # recovery: reverse-time synthesis from the incoming audio
+        fresh = M.init_sample_state(b, cfg, dev)._replace(rng=s.sstate.rng)
+        s = s._replace(sstate=_bwhere(rec, fresh, s.sstate))
+        s = _fnet_masked(fused, s, _pad36(s.features), rec, cfg)
+        live = s.fstate.frame_count > cfg.lookahead
+        s = s._replace(sstate=_tf_prefix(
+            fused, s.sstate, s.cond_a, s.cond_b, s.lpc, torch.flip(pcm, (1,)),
+            torch.where(rec & live, FRAME_SIZE, 0).to(torch.int32), kw,
+            flags.fasttf))
+
+        # ---- shared call 2 (80): conceal tail | recovery reverse tail ----
+        adv80 = (L | rec)[:, None].expand(b, _N1)
+        s, t2 = _tail_masked(
+            fused, s, torch.zeros((b, _N1), dtype=torch.float32, device=dev),
+            torch.zeros((b, _N1), dtype=torch.bool, device=dev), adv80, cfg,
+            kw)
+    pcm_c = torch.cat([head, t2], dim=1)
+
+    # recovery: blend the reversed tail into the buffered forward tail, then
+    # restore (with remove_dc the reverse synthesis carries the residual
+    # DC, offset by the truncated delta, src/lpcnet_plc.c:437-441)
+    w = torch.flip(0.5 - 0.5 * torch.cos(
+        np.pi * torch.arange(_TO, dtype=torch.float32, device=dev) / _TO), (0,))
+    fwd_head = s.pcm_buf[:, FRAME_SIZE - _TO:FRAME_SIZE]
+    t2_rev = torch.flip(t2, (1,))
+    if remove_dc:
+        t2_rev = t2_rev + delta[:, None]
+    blended = torch.floor(0.5 + w * fwd_head + (1 - w) * t2_rev)
+    s = s._replace(pcm_buf=torch.where(
+        rec[:, None], _set_head(s.pcm_buf, blended), s.pcm_buf))
+    restored = _bwhere(rec, saved,
+                       (s.fstate, s.sstate, s.cond_a, s.cond_b, s.lpc))
+    s = s._replace(fstate=restored[0], sstate=restored[1], cond_a=restored[2],
+                   cond_b=restored[3], lpc=restored[4])
+    qs = torch.cat([s.pcm_buf[:, FRAME_SIZE - _TO:FRAME_SIZE], pcm[:, :_N1]],
+                   dim=1)
+    s = s._replace(queued=s.queued | rec,
+                   queued_samples=torch.where(rec[:, None], qs,
+                                              s.queued_samples))
+
+    # ---- shared buffer re-analysis: continued-loss conceal | recovery -----
+    new_enc, _ = F.compute_single_frame_features(
+        s.enc, s.pcm_buf[:, :FRAME_SIZE])
+    s = s._replace(enc=_bwhere(rec | (L & ~first), new_enc, s.enc))
+
+    # ---- good-frame analysis and the steady streams' resync ---------------
+    s, enc_feats = _enc_step_masked(s, pcm, G)
+    s = _plc_pred_masked(plc_params, s,
+                         _good_input(burg_feats, enc_feats[:, :NB_FEATURES]),
+                         gd)
+    s = _fnet_masked(fused, s, enc_feats, gd, cfg)
+    tf_target = torch.cat([s.pcm_buf[:, FRAME_SIZE - _TO:FRAME_SIZE],
+                           pcm[:, :_N1]], dim=1)
+    live = s.fstate.frame_count > cfg.lookahead
+    s = s._replace(sstate=_tf_prefix(
+        fused, s.sstate, s.cond_a, s.cond_b, s.lpc, tf_target,
+        torch.where(gd & live, FRAME_SIZE, 0).to(torch.int32), kw,
+        flags.fasttf))
+
+    # ---- outputs, buffer and counters -------------------------------------
+    out_u = torch.cat([s.pcm_buf[:, _TO:FRAME_SIZE], pcm[:, :_TO]], dim=1)
+    conceal_buf = torch.cat([pcm_c[:, _TO:], s.pcm_buf[:, FRAME_SIZE - _TO:]],
+                            dim=1)
+    update_buf = torch.cat([pcm_save, s.pcm_buf[:, FRAME_SIZE:]], dim=1)
+    s = s._replace(
+        pcm_buf=torch.where(L[:, None], conceal_buf, update_buf),
+        loss_count=torch.where(L, s.loss_count + 1,
+                               torch.zeros_like(s.loss_count)))
+    if remove_dc:
+        # conceal tracks the synthesised signal's DC (the tail only on a
+        # first loss, whose head is the buffered lookahead, src/lpcnet_plc.c:
+        # 384-390); the half-frame delay adds offsets back via dc_buf
+        syn_c = torch.where(first, _syn_dc_step80(s.syn_dc, t2),
+                            _syn_dc_step(s.syn_dc, pcm_c))
+        s = s._replace(syn_dc=torch.where(L, syn_c, s.syn_dc))
+        out_c = pcm_c + torch.cat([s.dc_buf, dc_out[:, None].expand(b, _N1)],
+                                  dim=1)
+        out_u = out_u + torch.cat([s.dc_buf, lp[:, :_N1]], dim=1)
+        s = s._replace(dc_buf=torch.where(
+            L[:, None], dc_out[:, None].expand(b, _TO),
+            lp[:, FRAME_SIZE - _TO:]))
+        out = torch.where(L[:, None], out_c, out_u)
+    else:
+        out = torch.where(L[:, None], pcm_c, out_u)
+    return s, torch.clamp(out, -32768, 32767)
+
+
+# --------------------------------------------------------------------------
+# The two-path steps (fused_step=False): each path on its own copy of the
+# state, merged per stream. The reference the fused steps are held to.
+# --------------------------------------------------------------------------
+
+def _conceal_path(fused, plc_params, s: BatchedPLCState, cfg, kw=None):
+    """src/lpcnet_plc.c:293-337 for every stream, the drain unrolled and
+    masked (no FEC: the two-path step has no queue)."""
+    b = s.features.shape[0]
+    dev = s.features.device
+    ones = torch.ones(b, dtype=torch.bool, device=dev)
+    for i in range(MAX_DEFER):
+        s = _fnet_masked(fused, s, s.feat_ring[:, i], i < s.feat_count, cfg)
+    s = s._replace(feat_count=torch.zeros_like(s.feat_count))
+    zeros_in = torch.zeros((b, PM.PLC_INPUT_SIZE), device=dev)
+    steps = torch.arange(FRAME_SIZE, device=dev)[None, :]
+    for _ in range(MAX_DRAIN):
+        active = s.pcm_fill > 0
+        count = torch.clamp(s.pcm_fill, max=FRAME_SIZE)
+        output = s.pcm_buf[:, :FRAME_SIZE]
+        s = _push_plc_ring(s, active)
+        s = _plc_pred_masked(plc_params, s, zeros_in, active)
+        s = _fnet_masked(fused, s, _pad36(s.features), active, cfg)
+        adv = active[:, None] & (steps < count[:, None])
+        s, _ = _tail_masked(fused, s, output, adv, adv, cfg, kw, sampled=False)
+        s = s._replace(
+            pcm_buf=torch.where(active[:, None], _shift_buf(s.pcm_buf),
+                                s.pcm_buf),
+            pcm_fill=torch.where(active, s.pcm_fill - count, s.pcm_fill),
+            skip_analysis=torch.where(active, s.skip_analysis + 1,
+                                      s.skip_analysis))
+    s = _push_plc_ring(s, ones)
+    z80 = torch.zeros((b, _N1), dtype=torch.float32, device=dev)
+    zm80 = torch.zeros((b, _N1), dtype=torch.bool, device=dev)
+    s, head = _tail_masked(fused, s, z80, zm80, ~zm80, cfg, kw)
+    s = _plc_pred_masked(plc_params, s, zeros_in, ones)
+    lc = s.loss_count + 1            # incremented before the attenuation
+    f0 = torch.clamp(s.features[:, 0] + _att_of(lc), min=-10.0)
+    s = s._replace(features=torch.cat([f0[:, None], s.features[:, 1:]], dim=1),
+                   loss_count=lc)
+    s = _fnet_masked(fused, s, _pad36(s.features), ones, cfg)
+    s, tail = _tail_masked(fused, s, z80, zm80, ~zm80, cfg, kw)
+    pcm = torch.cat([head, tail], dim=1)
+    s, _ = _enc_step(s, pcm)
+    s = s._replace(blend=torch.ones_like(s.blend))
+    return s, torch.clamp(pcm, -32768, 32767)
+
+
+def _update_path(fused, plc_params, s: BatchedPLCState, pcm, cfg,
+                 enable_blending, delay, plc_buf_size, kw=None):
+    """src/lpcnet_plc.c:188-290 for every stream (causal, no DC, no FEC)."""
+    b = pcm.shape[0]
+    dev = pcm.device
+    burg_feats = burg_cepstral_analysis(pcm)
+    skip = s.skip_analysis > 0
+    bl = skip & s.blend
+    if enable_blending:
+        # restore the PLC net of before the loss and predict across the gap
+        s = s._replace(plc_net=_bwhere(
+            bl, tree_map(lambda x: x[delay], s.plc_ring), s.plc_net))
+        s = _plc_pred_masked(plc_params, s, _good_input(burg_feats), bl)
+        for _ in range(delay):
+            s = _push_feat_ring(s, _pad36(s.features), bl)
+        saved = (s.fstate, s.sstate, s.cond_a, s.cond_b, s.lpc)
+        s = _fnet_masked(fused, s, _pad36(s.features), bl, cfg)
+        adv = bl[:, None].expand(b, _N1)
+        s, tmp = _tail_masked(
+            fused, s, torch.zeros((b, _N1), dtype=torch.float32, device=dev),
+            torch.zeros((b, _N1), dtype=torch.bool, device=dev), adv, cfg, kw)
+        w = 0.5 - 0.5 * torch.cos(
+            np.pi * torch.arange(_N1, dtype=torch.float32, device=dev) / _N1)
+        blended = torch.floor(0.5 + w * pcm[:, :_N1] + (1 - w) * tmp)
+        pcm = torch.cat([torch.where(bl[:, None], blended, pcm[:, :_N1]),
+                         pcm[:, _N1:]], dim=1)
+        # rewind and teacher-force the blended audio back in
+        restored = _bwhere(bl, saved,
+                           (s.fstate, s.sstate, s.cond_a, s.cond_b, s.lpc))
+        s = s._replace(fstate=restored[0], sstate=restored[1],
+                       cond_a=restored[2], cond_b=restored[3], lpc=restored[4])
+        s = _fnet_masked(fused, s, _pad36(s.features), bl, cfg)
+        s, _ = _tail_masked(fused, s, pcm[:, :_N1], adv, adv, cfg, kw,
+                            sampled=False)
+    else:
+        # codec mode: rewind the PLC net one frame and clear the AR state
+        if delay > 0:
+            s = s._replace(plc_net=_bwhere(
+                bl, tree_map(lambda x: x[delay - 1], s.plc_ring), s.plc_net))
+        fresh = M.init_sample_state(b, cfg, dev)._replace(rng=s.sstate.rng)
+        s = s._replace(sstate=_bwhere(bl, fresh, s.sstate))
+    # blending streams restart the queue from the unblended half-frame
+    restart = torch.cat([pcm[:, _N1:], s.pcm_buf[:, _TO:]], dim=1)
+    s = s._replace(
+        pcm_buf=torch.where(bl[:, None], restart, s.pcm_buf),
+        pcm_fill=torch.where(bl, torch.full_like(s.pcm_fill, _TO), s.pcm_fill))
+    # skipping streams that do not blend queue this frame for later teacher
+    # forcing
+    nbs = skip & ~s.blend
+    s = s._replace(
+        pcm_buf=torch.where(nbs[:, None], _write_frame(s.pcm_buf, pcm,
+                                                       s.pcm_fill), s.pcm_buf),
+        pcm_fill=torch.where(nbs, s.pcm_fill + FRAME_SIZE, s.pcm_fill))
+    s, enc_feats = _enc_step(s, pcm)
+    s = _plc_pred_masked(plc_params, s,
+                         _good_input(burg_feats, enc_feats[:, :NB_FEATURES]),
+                         ~s.blend)
+    # steady streams run the deferred frame net and advance the queue;
+    # skipping streams defer too, but only in blending mode (the codec
+    # mode's frame net is resynchronised from scratch after a loss instead)
+    steady = ~skip
+    s = _push_feat_ring(s, enc_feats,
+                        torch.ones_like(steady) if enable_blending else steady)
+    buf_app = torch.cat([s.pcm_buf[:, :plc_buf_size], pcm], dim=1)
+    s = s._replace(
+        pcm_buf=torch.where(steady[:, None], _shift_buf(buf_app), s.pcm_buf),
+        skip_analysis=torch.where(skip, s.skip_analysis - 1, s.skip_analysis),
+        loss_count=torch.zeros_like(s.loss_count),
+        blend=torch.zeros_like(s.blend))
+    return s, torch.clamp(pcm, -32768, 32767)
+
+
+def _conceal_path_nc(fused, plc_params, s: BatchedPLCState, cfg, kw=None,
+                     flags: Optional[PLCFlags] = None):
+    """lpcnet_plc_conceal_non_causal (src/lpcnet_plc.c:452-492) for every
+    stream."""
+    b = s.features.shape[0]
+    dev = s.features.device
+    ones = torch.ones(b, dtype=torch.bool, device=dev)
+    s = _process_queued_update(fused, s, cfg, kw, flags or current_flags())
+    s = _plc_pred_masked(plc_params, s,
+                         torch.zeros((b, PM.PLC_INPUT_SIZE), device=dev), ones)
+    # the non-causal mode attenuates with the count before its increment
+    f0 = torch.clamp(s.features[:, 0] + _att_of(s.loss_count), min=-10.0)
+    s = s._replace(features=torch.cat([f0[:, None], s.features[:, 1:]], dim=1))
+    first = s.loss_count == 0
+    buf_head = s.pcm_buf[:, FRAME_SIZE - _TO:FRAME_SIZE]
+    s = _fnet_masked(fused, s, _pad36(s.features), ones, cfg)
+    adv = ones[:, None].expand(b, _TO)
+    # a first loss teacher-forces the buffered lookahead; later ones run free
+    s, t1 = _tail_masked(fused, s, buf_head, first[:, None] & adv, adv, cfg,
+                         kw)
+    head = torch.where(first[:, None], buf_head, t1)
+    s, tail = _tail_masked(
+        fused, s, torch.zeros((b, _N1), dtype=torch.float32, device=dev),
+        torch.zeros((b, _N1), dtype=torch.bool, device=dev),
+        ones[:, None].expand(b, _N1), cfg, kw)
+    pcm = torch.cat([head, tail], dim=1)
+    # a continued loss refreshes the buffer head and analyses it again
+    s = s._replace(pcm_buf=torch.where(first[:, None], s.pcm_buf,
+                                       _set_head(s.pcm_buf, t1)))
+    new_enc, _ = F.compute_single_frame_features(s.enc,
+                                                 s.pcm_buf[:, :FRAME_SIZE])
+    s = s._replace(enc=_bwhere(~first, new_enc, s.enc))
+    s = s._replace(
+        pcm_buf=torch.cat([pcm[:, _TO:], s.pcm_buf[:, FRAME_SIZE - _TO:]],
+                          dim=1),
+        loss_count=s.loss_count + 1)
+    return s, torch.clamp(pcm, -32768, 32767)
+
+
+def _update_path_nc(fused, plc_params, s: BatchedPLCState, pcm, cfg, kw=None,
+                    flags: Optional[PLCFlags] = None):
+    """lpcnet_plc_update_non_causal (src/lpcnet_plc.c:349-450) for every
+    stream, without the DC filter."""
+    flags = flags or current_flags()
+    b = pcm.shape[0]
+    dev = pcm.device
+    s = _process_queued_update(fused, s, cfg, kw, flags)
+    pcm_save = pcm
+    burg_feats = burg_cepstral_analysis(pcm)
+    rec = s.loss_count > 0          # the first good frame after a loss
+    # ---- recovery: predict across the gap, blend backwards into the buffer
+    inp = _good_input(burg_feats)
+    s = _plc_pred_masked(plc_params, s, inp, rec)
+    saved = (s.fstate, s.sstate, s.cond_a, s.cond_b, s.lpc)
+    s = _fnet_masked(fused, s, _pad36(s.features), rec, cfg)
+    adv_to = rec[:, None].expand(b, _TO)
+    z80 = torch.zeros((b, _TO), dtype=torch.float32, device=dev)
+    zm80 = torch.zeros((b, _TO), dtype=torch.bool, device=dev)
+    s, fwd = _tail_masked(fused, s, z80, zm80, adv_to, cfg, kw)
+    s = s._replace(pcm_buf=torch.where(rec[:, None], _set_head(s.pcm_buf, fwd),
+                                       s.pcm_buf))
+    # reverse-time synthesis from the incoming audio back toward the gap
+    fresh = M.init_sample_state(b, cfg, dev)._replace(rng=s.sstate.rng)
+    s = s._replace(sstate=_bwhere(rec, fresh, s.sstate))
+    adv160 = rec[:, None].expand(b, FRAME_SIZE)
+    s = _fnet_masked(fused, s, _pad36(s.features), rec, cfg)
+    s, _ = _tail_masked(fused, s, torch.flip(pcm, (1,)), adv160, adv160, cfg,
+                        kw, sampled=False)
+    s, rev_tail = _tail_masked(fused, s, z80, zm80, adv_to, cfg, kw)
+    w = torch.flip(0.5 - 0.5 * torch.cos(
+        np.pi * torch.arange(_TO, dtype=torch.float32, device=dev) / _TO), (0,))
+    head = s.pcm_buf[:, FRAME_SIZE - _TO:FRAME_SIZE]
+    blended = torch.floor(0.5 + w * head + (1 - w) * torch.flip(rev_tail, (1,)))
+    s = s._replace(pcm_buf=torch.where(rec[:, None],
+                                       _set_head(s.pcm_buf, blended),
+                                       s.pcm_buf))
+    restored = _bwhere(rec, saved,
+                       (s.fstate, s.sstate, s.cond_a, s.cond_b, s.lpc))
+    s = s._replace(fstate=restored[0], sstate=restored[1], cond_a=restored[2],
+                   cond_b=restored[3], lpc=restored[4])
+    qs = torch.cat([s.pcm_buf[:, FRAME_SIZE - _TO:FRAME_SIZE], pcm[:, :_N1]],
+                   dim=1)
+    s = s._replace(queued=s.queued | rec,
+                   queued_samples=torch.where(rec[:, None], qs,
+                                              s.queued_samples))
+    new_enc, _ = F.compute_single_frame_features(s.enc,
+                                                 s.pcm_buf[:, :FRAME_SIZE])
+    s = s._replace(enc=_bwhere(rec, new_enc, s.enc))
+    # ---- every stream: analyse the incoming frame
+    s, enc_feats = _enc_step(s, pcm)
+    good = ~rec
+    s = _plc_pred_masked(plc_params, s,
+                         _good_input(burg_feats, enc_feats[:, :NB_FEATURES]),
+                         good)
+    s = _fnet_masked(fused, s, enc_feats, good, cfg)
+    adv_g = good[:, None].expand(b, _TO)
+    s, _ = _tail_masked(fused, s, s.pcm_buf[:, FRAME_SIZE - _TO:FRAME_SIZE],
+                        adv_g, adv_g, cfg, kw, sampled=False)
+    s, _ = _tail_masked(fused, s, pcm[:, :_N1], adv_g, adv_g, cfg, kw,
+                        sampled=False)
+    out = torch.cat([s.pcm_buf[:, _TO:FRAME_SIZE], pcm[:, :_TO]], dim=1)
+    s = s._replace(
+        pcm_buf=torch.cat([pcm_save, s.pcm_buf[:, FRAME_SIZE:]], dim=1),
+        loss_count=torch.zeros_like(s.loss_count))
+    return s, torch.clamp(out, -32768, 32767)
+
+
+def _merge_paths(lost, s_c, out_c, s_u, out_u):
+    """Per stream: the conceal path's state and output where lost, else the
+    update path's (the ring's leaves are [R, B, H])."""
+    ring = tree_map(lambda c, u: torch.where(lost[None, :, None], c, u),
+                    s_c.plc_ring, s_u.plc_ring)
+    merged = _bwhere(lost, s_c._replace(plc_ring=None),
+                     s_u._replace(plc_ring=None))
+    return (merged._replace(plc_ring=ring),
+            torch.where(lost[:, None], out_c, out_u))
+
+
+def _plc_frame_step(state: BatchedPLCState, fused, plc_params, pcm, lost,
+                    cfg, enable_blending, delay, plc_buf_size, kw=None,
+                    flags: Optional[PLCFlags] = None):
+    """The causal step as two paths on copies of the state, merged."""
+    pcm = pcm.to(torch.float32)
+    s_c, out_c = _conceal_path(fused, plc_params, state, cfg, kw)
+    s_u, out_u = _update_path(fused, plc_params, state, pcm, cfg,
+                              enable_blending, delay, plc_buf_size, kw)
+    return _merge_paths(lost, s_c, out_c, s_u, out_u)
+
+
+def _plc_frame_step_nc(state: BatchedPLCState, fused, plc_params, pcm, lost,
+                       cfg, enable_blending, delay, plc_buf_size, kw=None,
+                       flags: Optional[PLCFlags] = None):
+    """The non-causal step as two paths on copies of the state, merged."""
+    pcm = pcm.to(torch.float32)
+    s_c, out_c = _conceal_path_nc(fused, plc_params, state, cfg, kw, flags)
+    s_u, out_u = _update_path_nc(fused, plc_params, state, pcm, cfg, kw, flags)
+    return _merge_paths(lost, s_c, out_c, s_u, out_u)

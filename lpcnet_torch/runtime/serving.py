@@ -103,18 +103,20 @@ class PLCStreamPool:
 
     Every 10 ms tick takes {stream_id: [160] pcm or None (lost)} and returns
     concealed audio for every attached stream; each stream follows its own
-    loss pattern inside the one batched frame step.
+    loss pattern inside the one batched frame step. The non-causal mode
+    (a lookahead-0 vocoder) hands back audio 80 samples late and has no FEC
+    queue; `remove_dc` runs the reference's DC filter in either mode.
     """
 
     def __init__(self, fused, cfg: M.LPCNetConfig, plc_params,
                  capacity: int = 256, enable_blending: bool = True,
                  non_causal: bool = False, device=None,
-                 use_kernel: Optional[bool] = None):
+                 use_kernel: Optional[bool] = None, remove_dc: bool = False):
         self.capacity = capacity
         self.plc = BatchedPLC(fused, cfg, plc_params, batch=capacity,
                               enable_blending=enable_blending,
                               non_causal=non_causal, device=device,
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, remove_dc=remove_dc)
         self.free = list(range(capacity))[::-1]
         self.slot_of: Dict[str, int] = {}
         self._init_slot_state = None
@@ -161,7 +163,10 @@ class PLCStreamPool:
         """Queue one 10 ms redundancy feature frame per stream: feats[sid] a
         [>=20] feature row, or None for a slot known to be missing (keeps the
         stream's FEC queue aligned in time). Streams that are not in the
-        dict are untouched."""
+        dict are untouched. Causal pools only."""
+        if self.plc.non_causal:
+            raise ValueError("FEC queues: causal pools only (the reference's "
+                             "non-causal PLC has no FEC either)")
         f = np.zeros((self.capacity, 20), np.float32)
         have = np.zeros(self.capacity, bool)
         unknown = np.zeros(self.capacity, bool)

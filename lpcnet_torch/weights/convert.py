@@ -111,6 +111,34 @@ def plc_state_to_torch(state, device="cpu"):
         "plc_ring": plain(PLCNetState)}, device)
 
 
+def host_plc_state_to_torch(src, dst) -> None:
+    """The state of a JAX host PLC (`lpcnet_tpu/plc/plc.py::PLC`, or any
+    object with its fields) into the port's `plc.plc.PLC` `dst`, in place:
+    the core's frame and sample state, conditioning and deferred feature
+    buffer; the encoder and PLC-net states and the ring of PLC-net copies;
+    the PLC's own buffers, counters, DC trackers and FEC queue."""
+    from ..models.lpcnet import FrameState
+    from ..models.plc import PLCNetState
+    dev = dst.device
+    plain = lambda cls, v: _fields_to_torch(v, cls, {}, dev)
+    c, d = src.core, dst.core
+    d.fstate = plain(FrameState, c.fstate)
+    d.sstate = sample_state_to_torch(c.sstate, dev)
+    d.cond_a, d.cond_b, d.lpc = (array_to_torch(x, dev)
+                                 for x in (c.cond_a, c.cond_b, c.lpc))
+    d.feature_buffer = [np.array(f, np.float32) for f in c.feature_buffer]
+    dst.enc = encoder_state_to_torch(src.enc, dev)
+    dst.plc_net = plain(PLCNetState, src.plc_net)
+    dst.plc_copy = [plain(PLCNetState, x) for x in src.plc_copy]
+    for f in ("pcm", "features", "dc_mem", "syn_dc", "dc_buf",
+              "queued_samples"):
+        setattr(dst, f, np.array(getattr(src, f)))
+    for f in ("pcm_fill", "skip_analysis", "blend", "loss_count",
+              "queued_update", "fec_keep_pos", "fec_read_pos", "fec_skip"):
+        setattr(dst, f, getattr(src, f))
+    dst.fec = [np.array(x) for x in src.fec]
+
+
 def state_to_numpy(state) -> Any:
     """Any of the port's states (nested NamedTuples of tensors) -> nested
     dicts of numpy arrays keyed by field name, KISS99 words as uint32: what

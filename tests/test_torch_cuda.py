@@ -1,7 +1,7 @@
 """The CUDA kernels (the sample loop K1, its masked form K2, its merged form
 K6, the teacher-forced run K3, the PLC-net chain K4, the GRU training
-recurrence K5) vs their plain PyTorch versions, on a card, and the packet
-decode pool's launches; and, without a card, that the trainer and the PLC
+recurrence K5) vs their plain PyTorch versions, on a card, the packet
+decode pool's launches, the non-causal PLC pool's and the host PLC's; and, without a card, that the trainer and the PLC
 entry points refuse to start rather than run on the host.
 
 Imports neither JAX nor the JAX package, so it runs on the GPU machine:
@@ -482,6 +482,131 @@ def test_cuda_plc_pool_counts_its_launches(cuda):
         pool.attach("again")
         assert torch.equal(pool.plc.state.sstate.gru_a[1], keep)
         assert not bool(pool.plc.state.sstate.gru_a[0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bf16", "f32"])
+def test_cuda_teacher_force_one_block_at_256(cuda, form):
+    """K3 as the non-causal step's good-stream resync runs it: 256 streams,
+    one block of 160 teacher-forced steps, all but a few streams running
+    every step. Launch shape from `tf_launch_config` (every stream in a
+    cluster); RNG and signal state equal to the plain version's; streams
+    that run no step bit-equal; one step within 1e-4 (bf16 GRU-B 1e-2); over
+    the block f32 within 2e-2, bf16 finite with a mean |h| error within
+    1e-2 (test_cuda_teacher_force_kernel_matches_plain's bars)."""
+    b, n = 256, 160
+    cfg = M.LPCNetConfig()
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda), cfg)
+    kw = K.masked_kernel_weights(K.kernel_weights(
+        fused, cfg, dtype={"f32": torch.float32, "bf16": torch.bfloat16}[form]))
+    s0, ca, cb, lpc, tg, _ = _tf_case(fused, cfg, b, n, 1, cuda)
+    counts = torch.full((b, 1), n, dtype=torch.int32, device=cuda)
+    counts[::37] = 0
+    f = K.ML.FORMS[form]
+    lc = K.ML.tf_launch_config(b, cfg.rnn_units1, cfg.rnn_units2, f, 1,
+                               K._max_clusters(cuda, f, cfg.rnn_units1, K.KIND_TF))
+    assert lc["clusters"] * lc["streams"] >= b
+    one = torch.clamp(counts, max=1)
+    s1k = K.teacher_force_blocks_kernel(kw, s0, ca, cb, lpc, tg, one, n)
+    s1p = K.teacher_force_blocks_plain(kw, s0, ca, cb, lpc, tg, one, n)
+    assert float((s1k.gru_a - s1p.gru_a).abs().max()) <= 1e-4
+    assert float((s1k.gru_b - s1p.gru_b).abs().max()) <= (
+        1e-2 if form == "bf16" else 1e-4)
+    sk = K.teacher_force_blocks_kernel(kw, s0, ca, cb, lpc, tg, counts, n)
+    torch.cuda.synchronize()
+    sp = K.teacher_force_blocks_plain(kw, s0, ca, cb, lpc, tg, counts, n)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert all(torch.equal(a, c) for a, c in zip(sk[2:5], sp[2:5]))
+    frozen = counts[:, 0] == 0
+    assert all(torch.equal(a[frozen], c[frozen]) for a, c in
+               zip(sk[:5] + tuple(sk.rng), s0[:5] + tuple(s0.rng)))
+    d = torch.cat([(sk.gru_a - sp.gru_a).abs().flatten(),
+                   (sk.gru_b - sp.gru_b).abs().flatten()])
+    assert bool(torch.isfinite(d).all())
+    if form == "f32":
+        assert float(d.max()) <= 2e-2
+    else:
+        assert float(d.mean()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_host_plc_core_one_stream_preload(cuda):
+    """The host PLC's vocoder core on the card: its tail is K2 at one
+    stream, 80 steps, the whole span teacher-forced (the preload the
+    non-causal conceal and resync use) or none. Teacher-forced PCM equal to
+    the plain model's on the same state, RNG in lockstep, GRU-A within
+    2e-2 (the bf16 bundle); a warmup stream emits silence and stays put;
+    one launch a call. Then the causal host PLC hands clean packets back."""
+    from lpcnet_torch.plc.core import LPCNetCore
+    from lpcnet_torch.plc.driver import make_plc, run_plc_stream
+    cfg = M.LPCNetConfig()
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=6, device=cuda), cfg)
+    core = LPCNetCore(fused, cfg, batch=1, device=cuda)
+    rs = np.random.RandomState(9)
+    feats = lambda: (rs.normal(size=(1, 36)) * 0.3).astype(np.float32)
+    before = K.synthesize_frame_masked_kernel.launches
+    assert not core.synthesize(feats(), 80).any()          # warmup
+    assert not core.sstate.gru_a.any()
+    for _ in range(cfg.lookahead):
+        core.frame_network(feats())
+    for preload in (True, False, True):
+        core.frame_network(feats())
+        target = (rs.normal(size=(1, 80)) * 2000).astype(np.float32)
+        s0 = core.sstate
+        pcm = core.synthesize_tail(80, target if preload else None)
+        assert pcm.shape == (1, 80) and np.isfinite(pcm).all()
+        if preload:
+            ss, want = M.synthesize_frame(
+                core.fused, s0, core.cond_a, core.cond_b, core.lpc, n_samples=80,
+                preload=torch.from_numpy(target).to(cuda))
+            assert np.array_equal(pcm, want.cpu().numpy())
+            assert all(torch.equal(a, c) for a, c in zip(core.sstate.rng, ss.rng))
+            assert float((core.sstate.gru_a - ss.gru_a).abs().max()) <= 2e-2
+    assert K.synthesize_frame_masked_kernel.launches == before + 4
+    plc = make_plc("causal", device=cuda)
+    tone = (3000 * np.sin(np.arange(160 * 8) * 0.08)).astype(np.int16)
+    out = run_plc_stream(plc, tone, np.zeros(4, np.int32))
+    assert np.array_equal(out, tone.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remove_dc", [False, True], ids=["nc", "nc_dc"])
+def test_cuda_non_causal_pool_first_frames(cuda, remove_dc):
+    """The non-causal pool on the card (lookahead 0, a small vocoder, 5
+    streams): K2 twice and K3 three times a frame, whatever the losses; a
+    never-lost stream comes back 80 samples late (within 1 with the DC
+    filter); then the two-path step runs the same traffic with that stream
+    exact."""
+    cfg = M.LPCNetConfig(**SMALL, lookahead=0)
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=1, device=cuda), cfg)
+    plc_params = api.load_plc_model(None, seed=2, device=cuda)
+    rs = np.random.RandomState(3)
+    frames = (rs.normal(size=(8, 5, 160)) * 2000).round().astype(np.float32)
+    if remove_dc:
+        frames += 300.0
+    pool = PLCStreamPool(fused, cfg, plc_params, capacity=5, non_causal=True,
+                         remove_dc=remove_dc)
+    K.synthesize_frame_masked_kernel.launches = 0
+    K.teacher_force_blocks_kernel.launches = 0
+    lost = np.zeros((8, 5), bool)
+    lost[4:6, :2] = True
+    for k in range(8):
+        out = pool.step({f"s{i}": (None if lost[k, i] else frames[k, i])
+                         for i in range(5)})
+        if k:
+            want = np.concatenate([frames[k - 1, 4, 80:], frames[k, 4, :80]])
+            assert np.abs(out["s4"] - want).max() <= (1.0 if remove_dc else 0.0)
+    assert K.synthesize_frame_masked_kernel.launches == 16
+    assert K.teacher_force_blocks_kernel.launches == 24
+    assert bool(pool.plc.state.loss_count[:2].eq(0).all())
+    with pytest.raises(ValueError, match="FEC"):
+        pool.fec_add({"s0": np.zeros(20, np.float32)})
+    if not remove_dc:
+        two = BatchedPLC(fused, cfg, plc_params, batch=5, non_causal=True,
+                         fused_step=False)
+        out = two.run(frames.transpose(1, 0, 2), lost.T)
+        flat = frames[:, 4].reshape(-1)
+        assert np.array_equal(out[4].reshape(-1)[80:], flat[:-80])
 
 
 def _gru_case(n, nin, b, t, dev, seed=5):

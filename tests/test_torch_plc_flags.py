@@ -226,10 +226,11 @@ def test_pool_attach_reset_detach_leave_other_slots_alone(models):
 
 def test_entry_points_default_to_cuda_and_later_modes_raise(models, monkeypatch):
     tf, tpp = models
-    with pytest.raises(NotImplementedError, match="non-causal"):
+    with pytest.raises(ValueError, match="lookahead-0"):
         B.BatchedPLC(tf, TCFG, tpp, 2, non_causal=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="two-path"):
-        B.BatchedPLC(tf, TCFG, tpp, 2, fused_step=False, device="cpu")
+    with pytest.raises(ValueError, match="fused step only"):
+        B.BatchedPLC(tf, TCFG, tpp, 2, fused_step=False, remove_dc=True,
+                     device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         B.BatchedPLC(tf, TCFG, tpp, 2)

@@ -136,5 +136,5 @@ def test_load_plc_model_reads_the_shipped_checkpoint(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         api.load_plc_model(api.DEMO_PLC_MODEL_PATH)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         api.load_plc_model("plc.bin", device="cpu")
