@@ -93,7 +93,19 @@ Needs one CUDA card and nvcc. Phases:
      the main shapes from the K6 pool's state (one step, and the share of
      exact PCM over the 160-step frame), their timings, bounds and the
      tick's split; the C fixture's speech encoded on the card (packets
-     bit-exact against C counted) and one `cli encode` -> `cli decode`.
+     bit-exact against C counted) and one `cli encode` -> `cli decode`;
+ 15. DRED (no TPU kernel of its own: its products are float32 matmuls):
+     the demo RDO-VAE on features computed on the card from 1024 streams of
+     the seeded signal, 200 frames; the served step (one encode_dframe and
+     one decode_qframe a stream a 20 ms dframe) at 1024 streams for 100
+     dframes, held against the same functions on the CPU for 8 streams,
+     timed and profiled; payloads of 16 streams entropy-coded and decoded
+     back exactly; decode_all at 1024 streams; PLCStreamPool at 256 streams
+     for 100 frames, 64 of its streams fed their DRED-decoded redundancy
+     through fec_add (K2 twice and K3 once a frame asserted); `cli
+     fec-encode` of the C fixture's speech through the host PLC (K2 at one
+     stream) with no prediction used. A {"dred": ...} line carries its
+     numbers.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
@@ -150,6 +162,12 @@ NC_DC_FRAMES = 20
 TWO_PATH_FRAMES = 10
 CODEC_STREAMS = 1024
 CODEC_SUPERFRAMES = 10
+DRED_STREAMS = 1024
+DRED_FRAMES = 200
+DRED_CPU_STREAMS = 8
+DRED_PAYLOAD_STREAMS = 16
+DRED_PLC_STREAMS = 256
+DRED_PLC_FRAMES = 100
 
 
 def log(msg):
@@ -1049,7 +1067,8 @@ def clip_holds(params):
 def profile_step(step, label, smi):
     """One more step (`step()`) of a path under torch.profiler: the device's
     busy share of the step and the kernels that take most of it. Fails where
-    the profiler records no device time."""
+    the profiler records no device time. Returns (device busy ms, the step's
+    ms on the host's clock)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1069,6 +1088,7 @@ def profile_step(step, label, smi):
         f"clock (with the profiler's cost), device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f} %), idle {100 - 100 * busy / wall_ms:.1f}"
         f" %; top kernels: {top}; card: {smi}")
+    return busy, wall_ms
 
 
 def drive_training(dev, smi, workdir):
@@ -2430,6 +2450,326 @@ def time_k6(runs, parts, dev, smi):
             "k1_f32_ms_same_inputs": res["f32"]["k1_ms"]}
 
 
+# --------------------------------------------------------------------------
+# DRED
+# --------------------------------------------------------------------------
+
+def dred_features(pcm, dev):
+    """Per-frame features of [B, frames, 160] pcm, computed on the card by
+    the port's encoder: [B, frames, 36] on the host, and ms a frame."""
+    b, n, _ = pcm.shape
+    # one frame on a throwaway encoder first: cuFFT plans, cuBLAS handles
+    api.lpcnet_compute_single_frame_features(
+        api.lpcnet_encoder_create(batch=b, device=dev), pcm[:, 0])
+    enc = api.lpcnet_encoder_create(batch=b, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = [api.lpcnet_compute_single_frame_features(enc, pcm[:, t])
+            for t in range(n)]
+    return np.stack(rows, axis=1), 1e3 * (time.perf_counter() - t0) / n
+
+
+def dred_served(params, rcfg, feats, dev):
+    """The served step over every dframe of `feats` [B, frames, 20] (a
+    tensor on `dev`): DREDEncoder.add_feature_frame twice, then
+    decode_qframe of the new latent from the running decoder state. Returns
+    (the encoder, decoded frames [B, dframes, 4, 20], ms of each dframe on
+    the host's clock, with a synchronise on a card)."""
+    from lpcnet_torch.dred.coder import DREDEncoder
+    from lpcnet_torch.models import rdovae as RV
+    b, n, _ = feats.shape
+    sync = torch.cuda.synchronize if feats.is_cuda else (lambda: None)
+    enc = DREDEncoder(params, rcfg, batch=b, max_latents=n // 2, device=dev)
+    dstate = RV.init_decoder_stream(
+        enc.params, torch.zeros(b, rcfg.state_dim, device=dev), rcfg)
+    frames, ms = [], []
+    with torch.no_grad():
+        for d in range(n // 2):
+            sync()
+            t0 = time.perf_counter()
+            enc.add_feature_frame(feats[:, 2 * d])
+            enc.add_feature_frame(feats[:, 2 * d + 1])
+            dstate, f4 = RV.decode_qframe(enc.params, dstate, enc.z_window[-1], rcfg)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            frames.append(f4)
+    return enc, torch.stack(frames, dim=1), ms
+
+
+def dred_redundancy(enc, dec, rows, n_frames, q0=9):
+    """The redundancy a .fec packet file carries (`cli fec-encode`): each
+    dframe's latent quantized at level q0 and decoded alone from its own
+    init state; frames [rows, n_frames, 20] in time order."""
+    from lpcnet_torch.dred.coder import quantize_latents
+    n_d = n_frames // 2
+    z = torch.stack(enc.z_window[:n_d], dim=1)[rows]              # [R, n_d, 80]
+    st = torch.stack(enc.state_window[:n_d], dim=1)[rows]
+    q = np.array([q0], np.int32)
+    zq, _ = quantize_latents(enc.params, z.reshape(-1, 1, z.shape[-1]),
+                             torch.as_tensor(q, device=z.device), enc.cfg)
+    out = dec.decode_all(zq, q, st.reshape(-1, st.shape[-1]))       # [R*n_d, 4, 20]
+    # one latent's frames run newest first: [1, 0] are its dframe's two
+    return out.reshape(len(rows), n_d, 4, -1)[:, :, [1, 0]].reshape(
+        len(rows), n_frames, -1)
+
+
+def drive_dred(dev, smi):
+    """DRED at full width on the card (the demo RDO-VAE, cond 256/256,
+    latent 80, state 24): the served step at 1024 streams against the CPU,
+    payloads, decode_all, the redundancy into a PLC pool's FEC queues and
+    `cli fec-encode` into the host PLC. Returns the {"dred": ...} numbers."""
+    from lpcnet_torch.dred import entropy as DE
+    from lpcnet_torch.dred.coder import (DREDDecoder, DREDEncoder,
+                                         quantize_latents)
+    from lpcnet_torch.models import rdovae as RV
+    from lpcnet_torch.weights.convert import tree_to
+    params, rcfg = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device=dev)
+    b, n = DRED_STREAMS, DRED_FRAMES
+    pcm, lost, _ = plc_traffic(b, n, SEED + 51)
+    pcm = np.clip(pcm, -32768, 32767)
+    feats, feat_ms = dred_features(pcm, dev)
+    nf = rcfg.num_features
+    feats_dev = torch.from_numpy(feats[..., :nf]).to(dev)
+    log(f"DRED features: LPCNetEncoder B={b}, {n} frames on the card: "
+        f"{feat_ms:.3f} ms/frame (set-up of this phase); card: {smi}")
+
+    # the served step at 1024 streams; one throwaway dframe first
+    dred_served(params, rcfg, feats_dev[:, :2], dev)
+    enc, dec_frames, step_ms = dred_served(params, rcfg, feats_dev, dev)
+    n_d = n // 2
+    z_all = torch.stack(enc.z_window, dim=1)                     # [B, n_d, 80]
+    st_all = torch.stack(enc.state_window, dim=1)
+    assert z_all.shape == (b, n_d, rcfg.latent_dim)
+    assert dec_frames.shape == (b, n_d, rcfg.dec_frames_per_step, nf)
+    for x in (z_all, st_all, dec_frames):
+        assert bool(torch.isfinite(x).all())
+    assert float(st_all.abs().max()) <= 1.0
+    steady = step_ms[1:]
+    dframe_ms = float(np.median(steady))
+    est = RV.init_encoder_stream(b, rcfg, dev)
+    f2 = feats_dev[:, :2].reshape(b, -1)
+    z0 = enc.z_window[-1]
+    dst = RV.init_decoder_stream(enc.params, st_all[:, -1], rcfg)
+    with torch.no_grad():
+        enc_ms = time_cuda(lambda: RV.encode_dframe(enc.params, est, f2, rcfg), reps=50)
+        dec_ms = time_cuda(lambda: RV.decode_qframe(enc.params, dst, z0, rcfg), reps=50)
+
+    def ten_dframes():
+        with torch.no_grad():
+            for _ in range(10):
+                RV.encode_dframe(enc.params, est, f2, rcfg)
+                RV.decode_qframe(enc.params, dst, z0, rcfg)
+    busy, wall = profile_step(ten_dframes, f"DRED, 10 dframes at B={b}", smi)
+    log(f"DRED served step: B={b}, {n_d} dframes (encode_dframe through "
+        f"DREDEncoder.add_feature_frame + decode_qframe): {dframe_ms:.3f} ms/dframe "
+        f"(median of dframes 2-{n_d}, host clock, a synchronise each; mean "
+        f"{np.mean(steady):.3f}, max {max(steady):.3f}; first {step_ms[0]:.3f}) "
+        f"against the 20 ms limit, {20.0 / dframe_ms * b:.1f} streams x real time; "
+        f"encode_dframe {enc_ms:.4f} ms, decode_qframe {dec_ms:.4f} ms (CUDA "
+        f"events, alone); card: {smi}")
+
+    # the same functions on the CPU for the first 8 streams, the same inputs
+    c = DRED_CPU_STREAMS
+    cpu_params = tree_to(params, "cpu")
+    cenc, cframes, _ = dred_served(cpu_params, rcfg, feats_dev[:c].cpu(), "cpu")
+    err = {
+        "latents": float((z_all[:c].cpu() - torch.stack(cenc.z_window, 1)).abs().max()),
+        "init_states": float((st_all[:c].cpu()
+                              - torch.stack(cenc.state_window, 1)).abs().max()),
+        "decoded_features": float((dec_frames[:c].cpu() - cframes).abs().max())}
+    log(f"DRED card vs CPU, {c} streams, all {n_d} dframes: max abs err latents "
+        f"{err['latents']:.3e}, init states {err['init_states']:.3e}, decoded "
+        f"features {err['decoded_features']:.3e} (tol 1e-4)")
+    assert max(err.values()) <= 1e-4, err
+
+    # payloads of 16 streams: entropy-coded and decoded back exactly
+    p = DRED_PAYLOAD_STREAMS
+    penc = DREDEncoder(params, rcfg, batch=p, device=dev)
+    for t in range(n):
+        penc.add_feature_frame(feats_dev[:p, t])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = penc.produce_payload(52, q0=9, q1=15)
+    pay_enc_ms = 1e3 * (time.perf_counter() - t0) / p
+    dec = DREDDecoder(params, rcfg, device=dev)
+    batch_feats = dec.decode_all(out["zq"], out["q_ids"], out["state"])
+    sizes, pay_dec_ms, batch_err = [], 0.0, 0.0
+    for i, payload in enumerate(out["payloads"]):
+        zq, pulses, q_ids = DE.decode_payload(payload, penc.fixed_stats,
+                                              rcfg.state_dim, rcfg.pvq_num_pulses)
+        assert np.array_equal(zq, out["zq"][i]) and np.array_equal(pulses, out["pulses"][i])
+        assert np.array_equal(q_ids, out["q_ids"])
+        t0 = time.perf_counter()
+        got = dec.decode_payload(payload)
+        pay_dec_ms += 1e3 * (time.perf_counter() - t0) / p
+        want = dec.decode_all(out["zq"][i:i + 1], out["q_ids"], out["state"][i:i + 1])
+        assert np.array_equal(got, want), i
+        batch_err = max(batch_err, float(np.abs(got[0] - batch_feats[i]).max()))
+        sizes.append(len(payload))
+    assert batch_err <= 1e-5, batch_err
+    log(f"DRED payloads: {p} streams, 52 frames (26 latents, q 9..15): "
+        f"{np.mean(sizes):.1f} bytes mean ({min(sizes)}-{max(sizes)}), estimate "
+        f"{float(np.mean(out['bits'])) / 8:.1f}; symbols and PVQ pulses decoded "
+        f"back exactly, decode_payload's features equal decode_all's of the same "
+        f"symbols (against the {p}-stream decode_all {batch_err:.1e}); "
+        f"{pay_enc_ms:.3f} ms a payload to encode (produce_payload / {p}), "
+        f"{pay_dec_ms:.3f} ms to decode, host clock; card: {smi}")
+
+    # decode_all at 1024 streams on the newest 26 latents
+    q_ids = DE.payload_q_ids(26, 9, 15)
+    zq_all, _ = quantize_latents(enc.params, z_all[:, -26:],
+                                 torch.as_tensor(q_ids, device=dev), rcfg)
+    st_last = st_all[:, -1]
+    dec.decode_all(zq_all, q_ids, st_last)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    all_out = dec.decode_all(zq_all, q_ids, st_last)
+    decode_all_ms = 1e3 * (time.perf_counter() - t0)
+    z_rev = torch.flip(zq_all, dims=(1,))
+    with torch.no_grad():
+        lat_ms = time_cuda(lambda: dec.decode_latents(z_rev, st_last), reps=5)
+    assert all_out.shape == (b, 26 * 4, nf) and np.isfinite(all_out).all()
+    log(f"DRED decode_all B={b}, 26 latents: {decode_all_ms:.3f} ms a call (host "
+        f"clock, features on the host), {lat_ms:.3f} ms on the device (CUDA "
+        f"events, decode_latents); card: {smi}")
+
+    plc = dred_into_plc(enc, dec, pcm, lost, dev, smi)
+    host = dred_cli_on_card(smi)
+    return {"card": smi, "streams": b, "frames": n, "dframes": n_d,
+            "features_ms_per_frame": feat_ms, "ms_per_dframe": dframe_ms,
+            "ms_per_dframe_mean": float(np.mean(steady)),
+            "ms_per_dframe_max": float(max(steady)), "limit_ms": 20.0,
+            "encode_dframe_ms": enc_ms, "decode_qframe_ms": dec_ms,
+            "device_busy_ms_10_dframes": busy, "profiled_10_dframes_ms": wall,
+            "device_busy_share": busy / wall,
+            "cpu_streams": c, "card_vs_cpu_max_abs_err": err,
+            "payload_streams": p, "payload_bytes_mean": float(np.mean(sizes)),
+            "payload_roundtrip_exact": True, "payload_encode_ms": pay_enc_ms,
+            "payload_decode_ms": pay_dec_ms, "decode_all_ms": decode_all_ms,
+            "decode_all_device_ms": lat_ms, "plc": plc, "host_plc": host}
+
+
+def dred_into_plc(enc, dec, pcm, lost, dev, smi):
+    """PLCStreamPool at 256 streams over the first 256 DRED streams' pcm and
+    the PLC phase's kind of losses, 100 frames; every fourth stream gets its
+    DRED-decoded redundancy through fec_add, two rows a 20 ms packet, in
+    place of the PLC phase's seeded rows. The loss count after each lost
+    frame says how many were concealed from the redundancy (0) and not
+    predicted."""
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
+    plc_params = api.load_plc_model(api.DEMO_PLC_MODEL_PATH, device=dev)
+    s, n = DRED_PLC_STREAMS, DRED_PLC_FRAMES
+    pcm, lost = pcm[:s, :n], lost[:s, :n]
+    sids = [f"call-{i}" for i in range(s)]
+    with_fec = [i for i in range(s) if i % 4 == 0]
+    red = dred_redundancy(enc, dec, with_fec, n)                   # [64, n, 20]
+    pool = PLCStreamPool(fused, cfg, plc_params, capacity=s, device=dev)
+    for sid in sids:
+        pool.attach(sid)
+    fec_rows = torch.tensor(with_fec, device=dev)
+    lost_fec = torch.from_numpy(lost[with_fec]).to(dev)
+    hits = torch.zeros(len(with_fec), dtype=torch.int64, device=dev)
+    outs = []
+    reset_plc_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n):
+        if k % 2 == 0:
+            for j in (k, k + 1):
+                pool.fec_add({sids[i]: red[r, j] for r, i in enumerate(with_fec)})
+        got = pool.step({sid: (None if lost[i, k] else pcm[i, k])
+                         for i, sid in enumerate(sids)})
+        outs.append(np.stack([got[sid] for sid in sids]))
+        # a lost frame concealed from the queue leaves the loss count at 0
+        hits += (lost_fec[:, k] & (pool.plc.state.loss_count[fec_rows] == 0)).long()
+    torch.cuda.synchronize()
+    frame_ms = 1e3 * (time.perf_counter() - t0) / n
+    counts = plc_counts()
+    out = np.stack(outs, axis=1)
+    clean = ~lost.any(axis=1)
+    assert np.array_equal(out[clean], pcm[clean]), "passthrough"
+    assert np.isfinite(out).all()
+    assert counts == (2 * n, n, 0), counts
+    st = pool.plc.state
+    had_loss = lost[with_fec].any(axis=1)
+    read = st.fec_read[fec_rows].cpu().numpy()
+    assert (read[had_loss] > 0).all(), read
+    n_hits, n_lost = int(hits.sum()), int(lost[with_fec].sum())
+    reset_plc_counts()
+    log(f"DRED into concealment: PLCStreamPool {s} streams, {n} frames, "
+        f"{100 * lost.mean():.2f} % of frames lost, {len(with_fec)} streams fed "
+        f"their DRED-decoded redundancy through fec_add: {frame_ms:.3f} ms/frame "
+        f"(host clock); {n_hits} of the FEC streams' {n_lost} lost frames "
+        f"concealed from the redundancy (loss count held at 0); fec_read advanced "
+        f"on all {int(had_loss.sum())} FEC streams with a loss; {int(clean.sum())} "
+        f"never-lost streams exact; K2 launches {counts[0]}, K3 {counts[1]}, K4 "
+        f"{counts[2]}; card: {smi}")
+    return {"streams": s, "frames": n, "fec_streams": len(with_fec),
+            "lost_share": float(lost.mean()), "ms_per_frame": frame_ms,
+            "fec_lost_frames": n_lost, "fec_hits": n_hits,
+            "k2_launches": counts[0], "k3_launches": counts[1],
+            "k4_launches": counts[2], "never_lost_exact": int(clean.sum())}
+
+
+def dred_cli_on_card(smi):
+    """`cli fec-encode` of the C fixture's speech on the card with the demo
+    RDO-VAE, then the .fec through the host PLC (K2 at one stream) with a
+    seeded 10 % of the packets lost, the last one received (as the JAX
+    package's test's pattern ends): loss_count 0 at the end, as that test
+    asserts. Each packet's redundancy is queued just before the packet
+    (`run_plc_fec_stream`), so a concealment's drain can run the queue dry;
+    the loss count after each concealed frame says how many of the lost
+    frames were concealed from the redundancy."""
+    from lpcnet_torch import cli
+    from lpcnet_torch.dred.fec_file import read_fec_packets
+    from lpcnet_torch.plc.driver import make_plc, run_plc_fec_stream
+    fix = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "fixtures", "codec.npz"))
+    speech = fix["pcm"].astype(np.int16)
+    with tempfile.TemporaryDirectory() as d:
+        pin, fec = os.path.join(d, "in.pcm"), os.path.join(d, "x.fec")
+        speech.tofile(pin)
+        t0 = time.perf_counter()
+        cli.main(["fec-encode", pin, fec, "--model", api.DEMO_RDOVAE_MODEL_PATH])
+        enc_s = time.perf_counter() - t0
+        packets, rates = read_fec_packets(fec)
+    # the zero history the alignment prepends (63 packets of 20 ms): the
+    # packets after it line up with the speech's, 69 samples apart
+    n_all, packets = len(packets), packets[63:]
+    n_pk = len(speech) // 320
+    assert len(packets) >= n_pk and all(np.isfinite(x).all() for x in packets)
+    losses = (np.random.RandomState(SEED + 53).rand(n_pk) < 0.10).astype(np.int32)
+    losses[:2] = 0
+    losses[-1] = 0
+    plc = make_plc("causal", model_path=api.DEMO_MODEL_PATH)
+    counts_after = []
+    conceal = plc.conceal
+
+    def conceal_and_read():
+        pcm = conceal()
+        counts_after.append(plc.loss_count)
+        return pcm
+    plc.conceal = conceal_and_read
+    before = K.synthesize_frame_masked_kernel.launches
+    t0 = time.perf_counter()
+    out = run_plc_fec_stream(plc, speech.astype(np.float32), losses, packets)
+    plc_s = time.perf_counter() - t0
+    launches = K.synthesize_frame_masked_kernel.launches - before
+    assert out.shape == speech.shape and np.isfinite(out).all()
+    assert plc.loss_count == 0 and plc.fec_read_pos > 0 and launches > 0
+    hits = int(sum(c == 0 for c in counts_after))
+    log(f"cli fec-encode on the card: {n_all} packets ({enc_s:.2f} s, mean "
+        f"{np.mean(rates):.0f} bits a packet estimated); the host PLC over "
+        f"{int(losses.sum())} of {n_pk} packets lost ({len(counts_after)} frames "
+        f"concealed, {hits} of them from the redundancy): loss_count 0 at the end, "
+        f"fec_read_pos {plc.fec_read_pos}, K2 launches {launches}, {plc_s:.2f} s; "
+        f"card: {smi}")
+    return {"packets": n_all, "fec_encode_s": enc_s, "lost_packets":
+            int(losses.sum()), "concealed_frames": len(counts_after),
+            "concealed_from_redundancy": hits, "loss_count": plc.loss_count,
+            "k2_launches": launches, "plc_s": plc_s}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2570,7 +2910,14 @@ def main():
     k6_entry["codec_fixture_bit_exact"] = codec_fixture_on_card(smi)
     entries.append(k6_entry)
     assert len(entries) == 10 and all(e["launches"] > 0 for e in entries), entries
+    torch.cuda.empty_cache()
 
+    # 15. DRED, its redundancy into the PLC pool's FEC queues and the host PLC
+    t0 = time.perf_counter()
+    dred = drive_dred(dev, smi)
+    log(f"DRED phase: {time.perf_counter() - t0:.1f} s")
+
+    print(json.dumps({"dred": dred}))
     print(json.dumps({"kernels": entries}))
     print(smi)          # nvidia-smi: name, power limit
     print(json.dumps({"ok": True, "device": {

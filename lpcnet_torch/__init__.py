@@ -12,13 +12,16 @@ forward and backward, with optional scheduled sampling through the masked
 form of the sample loop), batched packet-loss concealment, causal and
 non-causal (`runtime.serving.PLCStreamPool`), the reference's host PLC state
 machine (`plc.plc.PLC`, `cli plc`), the reference's DNNw weight blobs
-(`weights.lpcnet_arrays`, `weights.aux_arrays`) and the 1.6 kb/s codec (`codec.encoder`,
+(`weights.lpcnet_arrays`, `weights.aux_arrays`), the 1.6 kb/s codec (`codec.encoder`,
 packet decode through `runtime.serving.StreamPool`, whose sample loop can be
-the merged-product kernel).
+the merged-product kernel) and DRED (`models.rdovae`, the RDO-VAE;
+`dred.coder`, its streaming encoder and decoder; `dred.entropy`, the
+redundancy payloads).
 
 Entry points (`api.load_model`, `api.Synthesizer`, `api.StreamPool`,
 `api.PLCStreamPool`, `api.lpcnet_encoder_create`,
 `api.lpcnet_decoder_create`, `codec.decoder.LPCNetDecoder.from_fused`,
+`api.load_rdovae_model`, `dred.coder.DREDEncoder` / `DREDDecoder`,
 `cli`, `train.train_lpcnet.Trainer` and its `main`,
 `train.data.DeviceLPCNetLoader`) run on the GPU unless the caller passes
 `device="cpu"`; without CUDA and without that request they raise.

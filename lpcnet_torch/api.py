@@ -15,11 +15,17 @@ the serving pools, with the C API's shape where the reference has one
     pool = PLCStreamPool(fused, cfg, plc_params, capacity=256)
     out = pool.step({"caller-7": frame, "caller-9": None})   # None: lost
 
+    rdovae, rcfg = load_rdovae_model(DEMO_RDOVAE_MODEL_PATH)  # DRED
+    dred = DREDEncoder(rdovae, rcfg, batch=256)   # dred.add_feature_frame(f)
+    red = dred.produce_payload(52)["payloads"]    # 256 byte strings
+    feats = DREDDecoder(rdovae, rcfg).decode_payload(red[0])
+
 Everything runs on CUDA unless `device="cpu"` is passed.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Optional
 
@@ -29,20 +35,25 @@ import torch
 
 from .codec.decoder import LPCNetDecoder
 from .codec.encoder import LPCNetEncoder
+from .dred.coder import DREDDecoder, DREDEncoder  # noqa: F401 (public)
 from .dsp.constants import NB_BANDS, NB_TOTAL_FEATURES
 from .dsp.lpc import lpc_from_cepstrum
 from .models import lpcnet as M
+from .models import rdovae as RV
 from .nn.quantized import quantize_fused
 from .runtime.serving import PLCStreamPool, StreamPool  # noqa: F401 (public)
 from .utils.device import resolve_device
-from .weights.aux_arrays import load_plc_blob
+from .weights.aux_arrays import load_plc_blob, load_rdovae_blob
 from .weights.checkpoint import load_checkpoint
+from .weights.convert import params_to_torch
 from .weights.lpcnet_arrays import load_lpcnet_blob
 
 # the shipped demo vocoder, read by path from the JAX package's data folder
 DEMO_MODEL_PATH = str(Path(__file__).resolve().parent.parent / "lpcnet_tpu"
                       / "data" / "demo_model.npz")
 DEMO_PLC_MODEL_PATH = str(Path(DEMO_MODEL_PATH).parent / "demo_plc_model.npz")
+DEMO_RDOVAE_MODEL_PATH = str(Path(DEMO_MODEL_PATH).parent
+                             / "demo_rdovae_model.npz")
 
 
 def load_model(path: Optional[str] = None, seed: int = 0, int8: bool = False,
@@ -87,6 +98,28 @@ def load_plc_model(path: Optional[str] = None, seed: int = 0, device=None):
             return load_plc_blob(f.read(), device=dev)
     params, _ = load_checkpoint(path, dev)
     return params
+
+
+def load_rdovae_model(path: Optional[str] = None, seed: int = 0,
+                      cfg: Optional[RV.RDOVAEConfig] = None, device=None):
+    """DRED's RDO-VAE: (params on `device`, RDOVAEConfig) from a `.npz`
+    checkpoint (its leaves cast to float32: the demo model stores float16;
+    the config from its `__config__`, else `cfg` or the default), a DNNw
+    weight blob (any other path, read at `cfg`), or (path=None) a random
+    init from numpy's RandomState(seed)."""
+    dev = resolve_device(device)
+    if path is not None and path.endswith(".npz"):
+        with np.load(path) as d:
+            raw = d["__config__"].tobytes().decode() if "__config__" in d else "{}"
+            flat = {k: d[k] for k in d.files if k != "__config__"}
+        cfg_dict = json.loads(raw)
+        cfg = RV.RDOVAEConfig(**cfg_dict) if cfg_dict else (cfg or RV.RDOVAEConfig())
+        return params_to_torch(flat, dev, torch.float32), cfg
+    cfg = cfg or RV.RDOVAEConfig()
+    if path is None:
+        return RV.init_params(cfg, seed, dev), cfg
+    with open(path, "rb") as f:
+        return load_rdovae_blob(f.read(), cfg, dev), cfg
 
 
 class Synthesizer:

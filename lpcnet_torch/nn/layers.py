@@ -170,12 +170,19 @@ def mdense_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
 # Sequence forms (the training graph)
 # --------------------------------------------------------------------------
 
-def conv1d_seq(params: Params, x: torch.Tensor, activation: str = "tanh"):
-    """'valid' sequence conv1d over [..., T, in] -> [..., T - k + 1, out], as
-    one matmul over the unfolded windows (the training graph's convs,
-    training_tf2/lpcnet.py:243-245)."""
+def conv1d_seq(params: Params, x: torch.Tensor, activation: str = "tanh",
+               padding: str = "valid"):
+    """Sequence conv1d over [..., T, in] -> [..., T', out], as one matmul
+    over the unfolded windows. 'valid' (T' = T - k + 1) is the training
+    graph's (training_tf2/lpcnet.py:243-245); 'causal' (T' = T) left-pads
+    k - 1 zero frames, as the streaming C ring buffer started from zero
+    (src/nnet.c:452-470)."""
     kernel = params["kernel"]                                  # [k, in, out]
     k, cin, cout = kernel.shape
+    if padding == "causal":
+        x = torch.cat([x.new_zeros(x.shape[:-2] + (k - 1, cin)), x], dim=-2)
+    elif padding != "valid":
+        raise ValueError(f"unknown padding {padding}")
     win = x.unfold(-2, k, 1)                                   # [..., T', in, k]
     win = win.transpose(-1, -2).reshape(win.shape[:-2] + (k * cin,))
     y = torch.matmul(win, kernel.reshape(k * cin, cout)) + params["bias"]
