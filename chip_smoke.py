@@ -105,7 +105,22 @@ Needs one CUDA card and nvcc. Phases:
      through fec_add (K2 twice and K3 once a frame asserted); `cli
      fec-encode` of the C fixture's speech through the host PLC (K2 at one
      stream) with no prediction used. A {"dred": ...} line carries its
-     numbers.
+     numbers;
+ 16. the factored q8 embedding (LPCNET_EMB=factored, `set_emb`): the demo
+     vocoder loaded int8 from its .npz, its factored bundle asserted to carry
+     the factored operands; K1 in that form vs its plain version at 1024
+     streams, 160 steps, and at 130 streams, 32 steps, at the composed q8
+     form's bars, timed beside the composed form with its bound and layout;
+ 17. K2 in that form at (64 streams, 80 steps) and (128, 160), the sampler
+     on and off, and K3 at 64 streams over 3 x 160 and 256 over one block
+     of 160, each at the composed q8 form's bars and timed beside it;
+ 18. the served paths on the int8 factored vocoder: Synthesizer at 1024
+     streams for 10 frames (K1 once a frame), PLCStreamPool at 256 streams
+     for 20 frames of the PLC traffic (K2 twice and K3 once a frame,
+     never-lost streams exact); their launches are the kernels line's;
+ 19. `cli synthesis --sampling pdf` (the full-PDF sampler, plain PyTorch)
+     on the card: 10 frames at one stream, int16, silent for the lookahead
+     and not after; a {"pdf_sampling": ...} line carries its numbers.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
@@ -208,26 +223,43 @@ def time_cuda(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def gru_step_macs(kw, cfg):
+    """Multiply-adds of one GRU-A and GRU-B step of a stream; the factored
+    q8 embedding adds its rows' product with the input kernel, 384 x 3Na."""
+    na, nb = cfg.rnn_units1, cfg.rnn_units2
+    macs = na * 3 * na + na * 3 * nb + nb * 3 * nb
+    return macs + (K.ML.FACT_K * 3 * na if K.is_factored(kw) else 0)
+
+
+def weight_bytes(kw, skip=()):
+    """Bytes of the bundle's operands the kernel reads: K2's packs are the
+    same bytes as the matrices they pack, and the factored form reads its
+    own embedding operands in place of the composed table."""
+    if K.is_factored(kw):
+        skip = tuple(skip) + ("emb_q8", "emb_scale")
+    return sum(v.numel() * v.element_size() for k, v in kw.items()
+               if not k.startswith(("k2_",) + tuple(skip)))
+
+
 def k1_bound_ms(kw, cfg, batch, n, masked=False):
     """Least time for one launch: the larger of the bytes it must move over
     HBM bandwidth and its multiply-adds over the peak rate of their type.
     `masked` adds K2's preload and mode words."""
     na, nb = cfg.rnn_units1, cfg.rnn_units2
-    gru_macs = na * 3 * na + na * 3 * nb + nb * 3 * nb
+    gru_macs = gru_step_macs(kw, cfg)
     dual_macs = nb * 512
     steps = batch * n
     gru_type = ("int8" if K.is_q8_bundle(kw) else
                 "bf16" if kw["emb_cat"].dtype == torch.bfloat16 else "f32")
     op_s = (2 * gru_macs * steps / PEAK[gru_type]
             + 2 * dual_macs * steps / PEAK["f32"])
-    weight_bytes = sum(v.numel() * v.element_size() for k, v in kw.items()
-                       if not k.startswith("k2_"))     # K2's packs: the same bytes
+    weight_bytes_ = weight_bytes(kw)
     per_stream = 4 * (3 * na + 3 * nb + 16          # cond_a, cond_b, lpc
                       + 2 * (na + nb + 16 + 1 + 1)  # state in and out
                       + n) + 2 * (4 * 8 + 4)        # rng, exc in/out
     if masked:
         per_stream += 8 * n
-    byte_s = (weight_bytes + batch * per_stream) / HBM_BPS
+    byte_s = (weight_bytes_ + batch * per_stream) / HBM_BPS
     return 1e3 * max(op_s, byte_s), ("operations" if op_s >= byte_s else "bytes")
 
 
@@ -363,7 +395,7 @@ def check_k1_main_shape(kw, st, ca, cb, lpc, form):
         f"{err_b:.3e}; frame: exact pcm {same:.4f}, streams apart {apart}, "
         f"rms {rms_k:.1f} vs {rms_p:.1f}, rng equal {rng_eq}, finite {finite}")
     assert err_a <= 1e-4 and rng_eq and finite, form
-    if form == "q8":
+    if form.startswith("q8"):
         assert err_b <= 1e-4 and same > 0.90, form
     else:
         assert err_b <= 1e-2 and abs(rms_k - rms_p) / max(rms_p, 1.0) < 0.5, form
@@ -1587,21 +1619,20 @@ def drive_plc(dev, smi):
 
 def k3_bound_ms(kw, cfg, counts, n_blocks, blk):
     """Least time for one K3 launch on this run's counts: the multiply-adds
-    of the steps that run (0.46 M a step and stream at full width) over the
-    peak of their type, against the bytes: the weights once, and per stream
+    of the steps that run (0.46 M a step and stream at full width, 0.90 M in
+    the factored q8 form) over the peak of their type, against the bytes:
+    the weights once, and per stream
     the conditioning blocks, three code bytes a step, the counts and the
     state in and out."""
     na, nb = cfg.rnn_units1, cfg.rnn_units2
-    macs = na * 3 * na + na * 3 * nb + nb * 3 * nb
+    macs = gru_step_macs(kw, cfg)
     steps = int(counts.sum())
     typ = ("int8" if K.is_q8_bundle(kw) else
            "bf16" if kw["emb_cat"].dtype == torch.bfloat16 else "f32")
     op_s = 2 * macs * steps / PEAK[typ]
-    used = [v for k_, v in kw.items() if not k_.startswith(("dual", "logit", "k2_"))]
-    weight_bytes = sum(v.numel() * v.element_size() for v in used)
     per_stream = (n_blocks * (4 * (3 * na + 3 * nb) + 3 * blk + 4)
                   + 2 * (4 * (na + nb) + 32))
-    byte_s = (weight_bytes + counts.shape[0] * per_stream) / HBM_BPS
+    byte_s = (weight_bytes(kw, ("dual", "logit")) + counts.shape[0] * per_stream) / HBM_BPS
     return 1e3 * max(op_s, byte_s), ("operations" if op_s >= byte_s else "bytes")
 
 
@@ -2770,6 +2801,307 @@ def dred_cli_on_card(smi):
             "k2_launches": launches, "plc_s": plc_s}
 
 
+# --------------------------------------------------------------------------
+# The factored q8 embedding (LPCNET_EMB=factored) in K1, K2 and K3, and the
+# full-PDF sampler behind `cli synthesis --sampling pdf`
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def factored_mode():
+    """`kernel_weights` builds factored q8 bundles while active."""
+    prev = K.set_emb("factored")
+    try:
+        yield
+    finally:
+        K.set_emb(prev)
+
+
+def q8_bundles(dev):
+    """The demo vocoder loaded int8 from its .npz, and its q8 bundles with
+    K2's packs: (fused, cfg, composed, factored). Fails unless the factored
+    bundle carries its operands, so no phase can run the composed form in
+    its place."""
+    fq, cfg = api.load_model(api.DEMO_MODEL_PATH, int8=True, device=dev)
+    comp = K.masked_kernel_weights(K.kernel_weights(fq, cfg))
+    with factored_mode():
+        fact = K.masked_kernel_weights(K.kernel_weights(fq, cfg))
+    assert K.is_factored(fact) and fact["k2_f"] is not None, "no factored operands"
+    assert not K.is_factored(comp)
+    return fq, cfg, comp, fact
+
+
+def fact_layout(kind, b, cfg, dev, nblk=1):
+    """The factored form's launch at `b` streams, in words."""
+    na, nb = cfg.rnn_units1, cfg.rnn_units2
+    if kind == "free":
+        c = K.ML.free_launch_config(b, na, nb, 2, K._max_clusters(dev, 2, na, K.KIND_FREE),
+                                    fact=True)
+    elif kind == "masked":
+        c = K.ML.masked_launch_config(b, na, nb, 2, K._max_clusters(dev, 2, na), fact=True)
+    else:
+        c = K.ML.tf_launch_config(b, na, nb, 2, nblk,
+                                  K._max_clusters(dev, 2, na, K.KIND_TF), fact=True)
+    res = "+".join(k for k, on in (("GRU-A", c["res_a"]), ("GRU-B", c["res_b"]),
+                                   ("input kernel", c["res_f"])) if on)
+    return (f"S={c['streams']}, {c['clusters']} clusters of {c['cluster']} blocks in "
+            f"{c['waves']} wave(s), {c['smem']} bytes a block, in shared memory: "
+            f"{res or 'none'}")
+
+
+def check_k1_factored(cfg, comp, fact, fq, dev, smi):
+    """K1 in the factored form vs its plain version at the main shape
+    (B=1024, n=160, from a live state) at check_k1_main_shape's q8 bars, and
+    at the ragged B=130, 32 steps at check_k1_batches' (one step within
+    1e-4, RNG equal, >90 % exact PCM); then timed beside the composed form
+    on the same inputs. Returns the kernels line's entry (launches filled
+    in by the served path)."""
+    ca, cb, lpc = conditioning(fq, cfg, MAIN_BATCH, dev)
+    st, _ = K.synthesize_frame_kernel(fact, M.init_sample_state(MAIN_BATCH, cfg, dev),
+                                      ca, cb, lpc)
+    step_err = check_k1_main_shape(fact, st, ca, cb, lpc, "q8 factored")
+    b = 130
+    ca_r, cb_r, lpc_r = conditioning(fq, cfg, b, dev)
+    s0 = M.init_sample_state(b, cfg, dev)
+    s1k, _ = K.synthesize_frame_kernel(fact, s0, ca_r, cb_r, lpc_r, 1)
+    s1p, _ = K.sample_loop_plain(fact, s0, ca_r, cb_r, lpc_r, 1)
+    e1 = max(float((s1k.gru_a - s1p.gru_a).abs().max()),
+             float((s1k.gru_b - s1p.gru_b).abs().max()))
+    sk, pk = K.synthesize_frame_kernel(fact, s0, ca_r, cb_r, lpc_r, CHECK_STEPS)
+    sp, pp = K.sample_loop_plain(fact, s0, ca_r, cb_r, lpc_r, CHECK_STEPS)
+    same = float((pk == pp).float().mean())
+    rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+    finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+    log(f"K1[q8 factored] vs plain, B={b} n={CHECK_STEPS} ({fact_layout('free', b, cfg, dev)}): "
+        f"one step max|h| err {e1:.3e}; exact pcm {same:.4f}, rng equal {rng_eq}")
+    assert e1 <= 1e-4 and rng_eq and finite and same > 0.90, (e1, same)
+    ms_f = time_cuda(lambda: K.synthesize_frame_kernel(fact, st, ca, cb, lpc), reps=20)
+    ms_c = time_cuda(lambda: K.synthesize_frame_kernel(comp, st, ca, cb, lpc), reps=20)
+    p_ms = time_cuda(lambda: K.sample_loop_plain(fact, st, ca, cb, lpc), reps=2, warmup=1)
+    bound, by = k1_bound_ms(fact, cfg, MAIN_BATCH, 160)
+    layout = fact_layout("free", MAIN_BATCH, cfg, dev)
+    log(f"K1[q8 factored] B={MAIN_BATCH} n=160: kernel {ms_f:.4f} ms/launch, the "
+        f"composed q8 form on the same inputs {ms_c:.4f} ms, plain "
+        f"{p_ms:.2f} ms, bound {bound:.4f} ms ({by}); launch {layout}; library: no "
+        f"single PyTorch call computes K1; card: {smi}")
+    return {"name": "sample_loop[q8_factored]", "route": "cuda",
+            "source": "lpcnet_torch/kernels/csrc/masked_loop.cu",
+            "replaces": "lpcnet_tpu/kernels/sample_loop.py:461",
+            "launches": 0, "max_abs_err": step_err, "ms": ms_f, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None, "pass": True,
+            "composed_ms_same_inputs": ms_c,
+            "design": "masked_loop_kernel<FORM_Q8, NT, KIND_FREE> with the factored "
+                      "operands: the rows g gathered after the codes' barrier, their "
+                      "product on the tensor cores before the gate phase; " + layout}
+
+
+def check_k2_factored(cfg, comp, fact, fq, dev, smi):
+    """K2 in the factored form vs its plain version at B=64, n=80 (the PLC's
+    compacted section) and B=128, n=160, random mode words, the sampler on
+    and off, at check_k2's q8 bars (RNG equal, frozen streams untouched with
+    PCM 0; sampler off: PCM and state exact; on: >90 % exact PCM, gru_a
+    within 5e-2) and one step from the start within 1e-4; each shape timed
+    beside the composed form. Returns the kernels line's entry."""
+    res = {}
+    for b, n in ((64, 80), (128, 160)):
+        ca, cb, lpc = conditioning(fq, cfg, b, dev)
+        s0 = M.init_sample_state(b, cfg, dev)
+        fro = slice(0, b // 4)
+        errs = []
+        for sampled in (True, False):
+            tg, tf, adv = k2_masks(b, n, dev, SEED + 70 + b, all_tf=not sampled)
+            one = (fact, s0, ca, cb, lpc, tg[:, :1].contiguous(), tf[:, :1].contiguous(),
+                   adv[:, :1].contiguous(), 1, sampled)
+            s1k, _ = K.synthesize_frame_masked_kernel(*one)
+            s1p, _ = K.sample_loop_masked_plain(*one)
+            e1 = max(float((s1k.gru_a - s1p.gru_a).abs().max()),
+                     float((s1k.gru_b - s1p.gru_b).abs().max()))
+            args = (fact, s0, ca, cb, lpc, tg, tf, adv, n, sampled)
+            sk, pk = K.synthesize_frame_masked_kernel(*args)
+            sp, pp = K.sample_loop_masked_plain(*args)
+            same = float((pk == pp).float().mean())
+            rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+            frozen = state_equal(sk, s0, fro) and not bool(pk[~adv].any())
+            err = float((sk.gru_a - sp.gru_a).abs().max())
+            finite = bool(torch.isfinite(pk).all() and torch.isfinite(sk.gru_a).all())
+            log(f"K2[q8 factored] vs plain, B={b} n={n} sampled={sampled}: one step "
+                f"max|h| err {e1:.3e}; exact pcm {same:.4f}, rng equal {rng_eq}, frozen "
+                f"streams untouched {frozen}, max|gru_a| err {err:.3e}")
+            assert e1 <= 1e-4 and rng_eq and frozen and finite, (b, n, sampled)
+            if sampled:
+                assert same > 0.90 and err <= 5e-2, (b, n, same, err)
+            else:
+                assert same == 1.0 and err == 0.0 and state_equal(sk, sp), (b, n)
+            errs.append(e1)
+            if sampled:
+                timed = args[:-1]
+        ms_f = time_cuda(lambda: K.synthesize_frame_masked_kernel(*timed), reps=20)
+        ms_c = time_cuda(lambda: K.synthesize_frame_masked_kernel(comp, *timed[1:]),
+                         reps=20)
+        p_ms = time_cuda(lambda: K.sample_loop_masked_plain(*timed), reps=1, warmup=1)
+        bound, by = k1_bound_ms(fact, cfg, b, n, masked=True)
+        res[(b, n)] = dict(ms=ms_f, comp=ms_c, plain=p_ms, bound=bound, by=by,
+                           err=max(errs))
+        log(f"K2[q8 factored] B={b} n={n}: kernel {ms_f:.4f} ms/launch, the composed "
+            f"q8 form on the same inputs {ms_c:.4f} ms, plain {p_ms:.2f} ms, bound "
+            f"{bound:.5f} ms ({by}); launch {fact_layout('masked', b, cfg, dev)}; "
+            f"library: no single PyTorch call computes K2; card: {smi}")
+    r = res[(64, 80)]
+    return {"name": "sample_loop_masked[q8_factored]", "route": "cuda",
+            "source": "lpcnet_torch/kernels/csrc/masked_loop.cu",
+            "replaces": "lpcnet_tpu/kernels/sample_loop.py:461",
+            "launches": 0, "max_abs_err": max(v["err"] for v in res.values()),
+            "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"],
+            "bound_by": r["by"], "library_ms": None, "pass": True,
+            "composed_ms_same_inputs": r["comp"],
+            "b128_n160": {k: res[(128, 160)][k] for k in ("ms", "comp", "plain", "bound")},
+            "design": "masked_loop_kernel<FORM_Q8, NT, KIND_MASKED> with the factored "
+                      "operands; " + fact_layout("masked", 64, cfg, dev)}
+
+
+def check_k3_factored(cfg, comp, fact, fq, dev, smi):
+    """K3 in the factored form vs its plain version at B=64 over 3 x 160
+    (drain-shaped counts) and B=256 over one block of 160, at check_k3's q8
+    bars (RNG and the signal state equal, frozen streams bit-equal, one step
+    within 1e-4, the run within 5e-2); each timed beside the composed form,
+    the call and the launch alone. Returns the kernels line's entry."""
+    res = {}
+    n = 160
+    for b, nblk in ((64, 3), (256, 1)):
+        s0, ca, cb, lpc, tg, counts = tf_case(fq, cfg, b, n, nblk, dev, SEED + 23)
+        one = torch.clamp(counts[:, :1], max=1)
+        first = (ca[:, :1].contiguous(), cb[:, :1].contiguous(), lpc[:, :1], tg[:, :n],
+                 one, n)
+        s1k = K.teacher_force_blocks_kernel(fact, s0, *first)
+        s1p = K.teacher_force_blocks_plain(fact, s0, *first)
+        e1 = max(float((s1k.gru_a - s1p.gru_a).abs().max()),
+                 float((s1k.gru_b - s1p.gru_b).abs().max()))
+        args = (s0, ca, cb, lpc, tg, counts, n)
+        sk = K.teacher_force_blocks_kernel(fact, *args)
+        sp = K.teacher_force_blocks_plain(fact, *args)
+        rng_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk.rng, sp.rng))
+        sig_eq = all(bool(torch.equal(a, c)) for a, c in zip(sk[2:5], sp[2:5]))
+        inert = state_equal(sk, s0, counts.sum(1) == 0)
+        err = max(float((sk.gru_a - sp.gru_a).abs().max()),
+                  float((sk.gru_b - sp.gru_b).abs().max()))
+        log(f"K3[q8 factored] vs plain, B={b}, {nblk} x {n}: one step max|h| err "
+            f"{e1:.3e}; run: rng equal {rng_eq}, signal state equal {sig_eq}, frozen "
+            f"streams untouched {inert}, max|h| err {err:.3e}")
+        assert e1 <= 1e-4 and rng_eq and sig_eq and inert and err <= 5e-2, (b, e1, err)
+        codes, _ = K.tf_codes(s0, lpc, tg, counts, n)
+        call_f = time_cuda(lambda: K.teacher_force_blocks_kernel(fact, *args), reps=10)
+        call_c = time_cuda(lambda: K.teacher_force_blocks_kernel(comp, *args), reps=10)
+        kern_f = time_cuda(lambda: K.tf_launch(fact, s0, ca, cb, counts, codes, n), reps=20)
+        kern_c = time_cuda(lambda: K.tf_launch(comp, s0, ca, cb, counts, codes, n), reps=20)
+        p_ms = time_cuda(lambda: K.teacher_force_blocks_plain(fact, *args), reps=1,
+                         warmup=0)
+        bound, by = k3_bound_ms(fact, cfg, counts, nblk, n)
+        res[b] = dict(ms=call_f, kernel_ms=kern_f, comp=call_c, comp_kernel=kern_c,
+                      plain=p_ms, bound=bound, by=by, err=err, step_err=e1)
+        log(f"K3[q8 factored] B={b} {nblk} x {n} ({int(counts.sum())} steps to run): "
+            f"the call {call_f:.4f} ms, the launch alone {kern_f:.4f} ms; the composed "
+            f"q8 form on the same inputs {call_c:.4f} / {kern_c:.4f} ms; plain "
+            f"{p_ms:.2f} ms, bound {bound:.5f} ms ({by}); launch "
+            f"{fact_layout('tf', b, cfg, dev, nblk)}; library: no single PyTorch call "
+            f"computes K3; card: {smi}")
+    r = res[64]
+    return {"name": "teacher_force[q8_factored]", "route": "cuda",
+            "source": "lpcnet_torch/kernels/csrc/masked_loop.cu",
+            "replaces": "lpcnet_tpu/kernels/sample_loop.py:785",
+            "launches": 0, "max_abs_err": max(v["err"] for v in res.values()),
+            "one_step_err": max(v["step_err"] for v in res.values()),
+            "ms": r["ms"], "kernel_ms": r["kernel_ms"], "plain_ms": r["plain"],
+            "bound_ms": r["bound"], "bound_by": r["by"], "library_ms": None,
+            "pass": True, "composed_ms_same_inputs": r["comp"],
+            "composed_kernel_ms_same_inputs": r["comp_kernel"],
+            "b256_1x160": {k: res[256][k] for k in ("ms", "kernel_ms", "comp",
+                                                     "comp_kernel", "plain", "bound")},
+            "design": "masked_loop_kernel<FORM_Q8, NT, KIND_TF> with the factored "
+                      "operands: the rows g gathered a step ahead, their product "
+                      "beside GRU-A's; " + fact_layout("tf", 64, cfg, dev, 3)}
+
+
+def drive_factored_paths(dev, smi, feats, composed_frame_ms):
+    """The served paths on the int8 vocoder under the factored embedding:
+    Synthesizer at 1024 streams for 10 frames (K1 once a frame), then
+    PLCStreamPool at 256 streams for 20 frames of the PLC phase's traffic
+    (K2 twice and K3 once a frame; never-lost streams exact). Each path's
+    counts are set to 0 just before it and read just after. Returns ((K1,
+    K2, K3) launches, the synthesis frame ms, the PLC frame ms)."""
+    with factored_mode():
+        pcm, secs, k1_launches, kw, synth = drive_main_path(True, dev, feats)
+    assert K.is_factored(kw), "the Synthesizer's bundle is not factored"
+    frame_ms = 1e3 * secs / MAIN_FRAMES
+    log(f"main path [q8 factored]: Synthesizer B={MAIN_BATCH}, {MAIN_FRAMES} frames: "
+        f"{frame_ms:.3f} ms/frame (the composed q8 form in this run "
+        f"{composed_frame_ms:.3f}), "
+        f"{MAIN_FRAMES * MAIN_BATCH * 160 / secs / 1e6:.3f} Msamples/s, K1 launches "
+        f"{k1_launches}; warmup silent, int16, non-zero after; card: {smi}")
+    del synth
+    frames = 20
+    fq, cfg = api.load_model(api.DEMO_MODEL_PATH, int8=True, device=dev)
+    plc_params = api.load_plc_model(api.DEMO_PLC_MODEL_PATH, device=dev)
+    with factored_mode():
+        pool = PLCStreamPool(fq, cfg, plc_params, capacity=PLC_STREAMS, device=dev)
+    assert K.is_factored(pool.plc.kw) and pool.plc.use_kernel
+    pcm_in, lost, _ = plc_traffic(PLC_STREAMS, frames, SEED + 27)
+    sids = [f"call-{i}" for i in range(PLC_STREAMS)]
+    for sid in sids:
+        pool.attach(sid)
+    tick = plc_ticker(pool, pcm_in, lost, sids)
+    reset_plc_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = np.stack([tick(k) for k in range(frames)], axis=1)
+    torch.cuda.synchronize()
+    plc_ms = 1e3 * (time.perf_counter() - t0) / frames
+    counts = plc_counts()
+    reset_plc_counts()
+    clean = ~lost.any(axis=1)
+    concealed = out[lost]
+    assert counts == (2 * frames, frames, 0), counts
+    assert np.isfinite(out).all() and clean[np.arange(PLC_STREAMS) % 16 == 15].all()
+    assert np.array_equal(out[clean], pcm_in[clean]), "passthrough"
+    assert concealed.any() and np.array_equal(concealed, np.round(concealed))
+    log(f"PLC path [q8 factored]: PLCStreamPool {PLC_STREAMS} streams, {frames} frames, "
+        f"{100 * lost.mean():.2f} % of frames lost: {plc_ms:.3f} ms/frame (host clock); "
+        f"K2 launches {counts[0]}, K3 {counts[1]}; the {int(clean.sum())} streams "
+        f"that lost nothing pass through exactly; card: {smi}")
+    return (k1_launches, counts[0], counts[1]), frame_ms, plc_ms
+
+
+def cli_pdf_on_card(dev, smi):
+    """`cli synthesis --sampling pdf` on the card (its default device): 10
+    frames of the seeded features at one stream with the demo vocoder; the
+    output int16, not silent after the lookahead. Returns (seconds for the
+    call, model load included; ms a frame of the sampler's step-by-step
+    synthesis alone, CUDA events)."""
+    from lpcnet_torch import cli
+    f = features(1, MAIN_FRAMES, SEED + 5)[:, 0]
+    with tempfile.TemporaryDirectory() as d:
+        fin, fout = os.path.join(d, "f.f32"), os.path.join(d, "o.pcm")
+        f.astype(np.float32).tofile(fin)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["synthesis", fin, fout, "--sampling", "pdf"])
+        secs = time.perf_counter() - t0
+        out = np.fromfile(fout, np.int16)
+    la = M.LPCNetConfig().lookahead
+    assert out.shape == (MAIN_FRAMES * 160,)
+    assert not out[:la * 160].any() and out[la * 160:].any()
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
+    ca, cb, lpc = conditioning(fused, cfg, 1, dev)
+    corr = torch.full((1,), 0.4, device=dev)
+    s0 = M.init_sample_state(1, cfg, dev)
+    frame_ms = time_cuda(lambda: M.synthesize_frame(fused, s0, ca, cb, lpc,
+                                                    pdf_corr=corr), reps=3, warmup=1)
+    log(f"cli synthesis --sampling pdf on the card: {MAIN_FRAMES} frames at one stream "
+        f"in {secs:.2f} s (model load included), int16, silent for the {la} lookahead "
+        f"frames, non-zero after (rms {float(np.sqrt(np.mean(out[la * 160:] ** 2.0))):.1f}); "
+        f"the step-by-step frame with the full-PDF sampler alone {frame_ms:.2f} ms "
+        f"(plain PyTorch, no kernel, as in the JAX package); card: {smi}")
+    return secs, frame_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2800,9 +3132,11 @@ def main():
     # 3. the main path, then 4. timings on its own inputs
     feats = features(MAIN_BATCH, MAIN_FRAMES, SEED)
     entries = []
+    main_frame_ms = {}
     for int8 in (False, True):
         form = "q8" if int8 else "bf16"
         pcm, secs, launches, kw, synth = drive_main_path(int8, dev, feats)
+        main_frame_ms[form] = 1e3 * secs / MAIN_FRAMES
         samples = MAIN_FRAMES * MAIN_BATCH * 160
         log(f"main path [{form}]: Synthesizer B={MAIN_BATCH}, {MAIN_FRAMES} "
             f"frames: {1e3 * secs / MAIN_FRAMES:.3f} ms/frame, "
@@ -2917,7 +3251,27 @@ def main():
     dred = drive_dred(dev, smi)
     log(f"DRED phase: {time.perf_counter() - t0:.1f} s")
 
+    # 16-19. the factored q8 embedding: K1, K2 and K3 vs their plain
+    # versions and timed beside the composed form; the served paths on the
+    # int8 factored vocoder; `cli synthesis --sampling pdf`
+    t0 = time.perf_counter()
+    fq, cfg_q, comp, fact = q8_bundles(dev)
+    fact_entries = [check(cfg_q, comp, fact, fq, dev, smi) for check in
+                    (check_k1_factored, check_k2_factored, check_k3_factored)]
+    del comp, fact
+    launches, syn_ms, plc_ms = drive_factored_paths(dev, smi, feats, main_frame_ms["q8"])
+    for entry, n in zip(fact_entries, launches):
+        entry["launches"] = n
+    fact_entries[0]["ms_frame_synthesis"] = syn_ms
+    fact_entries[1]["ms_frame_plc"] = fact_entries[2]["ms_frame_plc"] = plc_ms
+    entries.extend(fact_entries)
+    assert len(entries) == 13 and all(e["launches"] > 0 for e in entries), entries
+    pdf_secs, pdf_frame_ms = cli_pdf_on_card(dev, smi)
+    log(f"factored and pdf phases: {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"dred": dred}))
+    print(json.dumps({"pdf_sampling": {"cli_s": pdf_secs, "frame_ms": pdf_frame_ms,
+                                       "frames": MAIN_FRAMES, "streams": 1}}))
     print(json.dumps({"kernels": entries}))
     print(smi)          # nvidia-smi: name, power limit
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@
     python -m lpcnet_torch.cli decode    <compressed.lpcnet> <output.pcm>
     python -m lpcnet_torch.cli features  <input.pcm> <features.f32>
     python -m lpcnet_torch.cli synthesis <features.f32> <output.pcm>
+                                         [--sampling tree|pdf]
     python -m lpcnet_torch.cli addlpc    <features.f32> <features_lpc.f32>
     python -m lpcnet_torch.cli plc <causal|causal_dc|noncausal|noncausal_dc>
                                    <percent|pattern.txt> <input.pcm> <output.pcm>
@@ -17,7 +18,11 @@
 
 File formats are the C demo's: .pcm raw 16 kHz s16le mono, .f32 raw float32
 feature rows of 36, .lpcnet 8-byte packets (40 ms each); a loss pattern is
-one 0/1 flag per 20 ms packet. Sampling is the C bit tree. The model
+one 0/1 flag per 20 ms packet. Sampling is the C bit tree, but for
+`synthesis --sampling pdf`: the full-PDF sampler with the voicing
+temperature of the reference's Python synthesis, one stream through the
+frame network and the plain sample loop (no kernel: the sampler is plain
+PyTorch, as in the JAX package). The model
 (decode, synthesis, the causal plc modes) defaults to the shipped demo
 vocoder (lpcnet_tpu/data/demo_model.npz, read as a file); the non-causal
 plc modes need a lookahead-0 model and default to a seeded random one. The
@@ -52,6 +57,31 @@ def _read_features(path):
     feats = np.fromfile(path, dtype=np.float32)
     n = len(feats) // NB_TOTAL_FEATURES
     return feats[:n * NB_TOTAL_FEATURES].reshape(n, NB_TOTAL_FEATURES)
+
+
+def _synthesize_pdf(feats, model, device):
+    """One stream through the frame network and the step-by-step sample
+    loop with the full-PDF sampler (pdf_corr = feature 19), the state
+    frozen and the output zero until the lookahead has filled, as the JAX
+    package's cli. Returns the frames' PCM, int16 [160] each."""
+    import torch
+
+    from .models import lpcnet as M
+    fused, cfg = api.load_model(model, device=device)
+    dev = fused["embed_sig_a"].device
+    fstate = M.init_frame_state(1, cfg, dev)
+    sstate = M.init_sample_state(1, cfg, dev)
+    out = []
+    for f in feats:
+        f = torch.from_numpy(np.ascontiguousarray(f[None])).to(dev)
+        fstate, _, ca, cb, lpc = M.frame_network(fused, fstate, f, cfg)
+        if int(fstate.frame_count[0]) > cfg.lookahead:
+            sstate, pcm = M.synthesize_frame(fused, sstate, ca, cb, lpc,
+                                             pdf_corr=f[:, 19])
+            out.append(pcm[0].cpu().numpy().astype(np.int16))
+        else:
+            out.append(np.zeros(FRAME_SIZE, np.int16))
+    return out
 
 
 _DRED_MODES = ("dred-encode", "dred-decode", "dred-payload",
@@ -186,6 +216,10 @@ def main(argv=None):
                          "RandomState(0), which cannot reproduce the JAX "
                          "package's jax.random.PRNGKey(0) weights")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--sampling", choices=["tree", "pdf"], default="tree",
+                    help="synthesis: the C bit-tree sampler (default) or the "
+                         "full-PDF voicing-temperature sampler of the "
+                         "reference's Python synthesis")
     ap.add_argument("--dred-frames", type=int, default=52,
                     help="redundancy depth in 10 ms frames for dred-payload")
     ap.add_argument("--q0", type=int, default=9)
@@ -256,9 +290,12 @@ def main(argv=None):
 
     elif ns.mode == "synthesis":
         feats = _read_features(src)
-        synth = api.Synthesizer(model, batch=1, device=ns.device)
-        out = [np.zeros(0, np.int16)] + [
-            synth.synthesize(f[None])[0] for f in feats]
+        if ns.sampling == "pdf":
+            out = [np.zeros(0, np.int16)] + _synthesize_pdf(feats, model, ns.device)
+        else:
+            synth = api.Synthesizer(model, batch=1, device=ns.device)
+            out = [np.zeros(0, np.int16)] + [
+                synth.synthesize(f[None])[0] for f in feats]
         np.concatenate(out).astype(np.int16).tofile(dst)
         print(f"synthesized {len(feats)} frames "
               f"({len(feats) * FRAME_SIZE} samples)")

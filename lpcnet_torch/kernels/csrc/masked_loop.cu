@@ -130,6 +130,27 @@
 //   inside the cluster barrier's wait;
 // * the KISS99 words, which nothing in the loop reads, advance after it by
 //   twice the stream's total count, in the tail's owner only.
+//
+// The factored q8 embedding (p.fact; replaces the LPCNET_EMB=factored
+// operand form of _ar_kernel and _tf_kernel, sample_loop.py:265 and :775,
+// whose _gru_ab, :291-303, gathers three rows of the shared 128-wide int8
+// embedding and multiplies them by GRU-A's input kernel with the
+// embedding's scales folded in): in every kind, a step's gate input is
+// cond + (g . W_in) * t, g [S, 384] the three gathered int8 rows of a
+// stream, W_in the rank's [384, 3U] int8 slice of the input kernel, t its
+// column scales. The product is m16n8k32 s8 on the tensor cores into int32,
+// exact, as GRU-A's own, over the same (column tile, stream tile) tasks,
+// into its own sums (eacc); the slice sits in shared memory beside GRU-A's
+// (55.3 KB at Na = 384, packed by masked_loop.py::pack_embf) where it fits,
+// and the 32 KB table is read from L2 in 16-byte rows. What it changes on
+// the chain: K1 and K2 learn a step's codes only at its start (from the
+// previous step's tail), so they gather g and run its product between the
+// codes' barrier and the gate phase, two block barriers more a step, in
+// place of the gate phase's nine scattered reads of the composed [768, 3Na]
+// table (884 KB in int8); K3 knows its codes before the launch, so it
+// gathers g a step ahead in the cluster barrier's window (a block barrier
+// after the wait makes the rows visible) and runs the product beside
+// GRU-A's on the same nine warps.
 
 #include <cooperative_groups.h>
 
@@ -151,11 +172,12 @@ enum { KIND_MASKED = 0, KIND_FREE = 1, KIND_TF = 2 };
 struct K2Args {
   int batch, na, nb, n_samples, sampled, cluster;
   int res_a, res_b;         // GRU-A's slice, GRU-B's weights in shared memory
+  int fact, res_f;          // q8: the factored embedding; its input kernel's slice in shared memory
   int n_blocks, blk;        // K3: conditioning blocks, steps a block
   const int* counts;        // K3: [B, n_blocks] steps to run
   const uint8_t* codes;     // K3: [B, n_blocks * blk, 3] sig_u, pred_u, exc
-  const void* emb;          // [768, 3Na] f32 / bf16 / int8
-  const float* emb_scale;   // [3Na] (q8)
+  const void* emb;          // [768, 3Na] f32 / bf16 / int8; factored: the shared embedding [256, 128] int8
+  const float* emb_scale;   // [3Na] (q8; factored: the input kernel's column scales)
   const void* a_w;          // bf16 / q8: packed slices [C][3U/16][ceil(Na/KS)][32][16 bytes]; f32: a_rec [Na, 3Na]
   const float* a_diag;      // [3Na] (q8)
   const float* a_bias1;     // [3Na]
@@ -163,6 +185,7 @@ struct K2Args {
   const float* b_in;        // f32 form: [Na, 3Nb]
   const float* b_rec;       // f32 form: [Nb, 3Nb]
   const float* b_bias1;     // [3Nb]
+  const void* f_w;          // factored: the input kernel's packed slices [C][3U/16][FACT_K/32][32][16 bytes]
   const float* dual_w;      // [Nb, 512]
   const float* dual_bias;   // [512]
   const float* dual_factor; // [512]
@@ -178,6 +201,12 @@ struct K2Args {
   const float* preload;     // [B, n_samples] target, de-emphasised domain
   const int* mode;          // [B, n_samples] advance | teacher_force << 1
 };
+
+// The factored q8 embedding: a stream's three gathered rows of the shared
+// 128-wide embedding, [sig_u | pred_u | exc], the depth of the input
+// kernel's product; FACT_LD the row of their operand in shared memory
+// (padded as the q8 h_a operand, conflict-free fragment loads).
+constexpr int FACT_E = 128, FACT_K = 3 * FACT_E, FACT_LD = FACT_K + 16;
 
 // Per-form constants: KS the k depth of one MMA, XPAD the padding of the
 // operand rows in shared memory (conflict-free fragment loads), ESZ the
@@ -207,14 +236,18 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // The teacher-forced form (K3) splits the tail as the free-running one
 // does, has no node logits, threshold table or codes, and keeps the counts
 // of its S streams for each of n_blocks blocks and each block's largest.
+// The factored q8 embedding adds its rank's slice of the input kernel
+// (where res_f), the gathered rows g [S][FACT_LD] and their products
+// [S][ldz] int32.
 struct K2Layout {
   int u, nbp, ksa, ksbr, ldx, ldb, ldz, ldg, hrows;
-  size_t wa, wb, hop, hbop, zacc, gacc, haown, hbf, logits, code, table, flags, total;
+  size_t wa, wb, hop, hbop, zacc, gacc, haown, hbf, logits, code, table, wf, gop, eacc, flags,
+      total;
 };
 
 __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int cluster, int s,
                                               bool res_a, bool res_b, int kind,
-                                              int n_blocks) {
+                                              int n_blocks, bool fact, bool res_f) {
   const int ks = form_ks(form), esz = form_esz(form);
   const bool mma = form != FORM_F32;
   const bool free_ = kind == KIND_FREE, tf = kind == KIND_TF;
@@ -244,6 +277,9 @@ __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int clus
   L.code = off;
   off += align16((size_t)(tf ? n_blocks * (s + 1) : (free_ ? 4 : 3) * s + tr) * 4);
   L.table = off; off += tf ? 0 : 256 * 4;
+  L.wf = off; off += fact && res_f ? align16((size_t)3 * L.u * FACT_K) : 0;
+  L.gop = off; off += fact ? align16((size_t)s * FACT_LD) : 0;
+  L.eacc = off; off += fact ? align16((size_t)s * L.ldz * 4) : 0;
   L.flags = off; off += 16;
   L.total = off;
   return L;
@@ -365,7 +401,9 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   const int C = p.cluster;
   const int rank = (int)cluster.block_rank();
   const int na = p.na, nb = p.nb, na3 = 3 * na, nb3 = 3 * nb;
-  const K2Layout L = k2_layout(FORM, na, nb, C, S, p.res_a, p.res_b, KIND, p.n_blocks);
+  const bool fact = FORM == FORM_Q8 && p.fact;   // the factored q8 embedding
+  const K2Layout L = k2_layout(FORM, na, nb, C, S, p.res_a, p.res_b, KIND, p.n_blocks, fact,
+                               p.res_f);
   const int U = L.u, u0 = rank * U, n = p.n_samples, nbp = L.nbp;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b0 = (blockIdx.x / C) * S;
@@ -405,6 +443,14 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   unsigned* flags = reinterpret_cast<unsigned*>(smem + L.flags); // live, sampler needed
   float* table = reinterpret_cast<float*>(smem + L.table); // [256] threshold logits
   const int hstride = L.hrows * L.ldx;                     // one operand buffer
+  // the factored embedding: this rank's input-kernel slice (shared memory
+  // or L2), the gathered rows g and their products
+  constexpr int KSF = FACT_K / 32;
+  const size_t nf_words = (size_t)3 * U * FACT_K / 16;
+  const uint4* wf_g = reinterpret_cast<const uint4*>(p.f_w) + (size_t)rank * nf_words;
+  uint4* wf_s = reinterpret_cast<uint4*>(smem + L.wf);
+  int8_t* gop = reinterpret_cast<int8_t*>(smem + L.gop);  // [S][FACT_LD]
+  int* eacc = reinterpret_cast<int*>(smem + L.eacc);       // [S][ldz]
 
   // K3: the steps the cluster runs (0 when no stream of it has any)
   const int nbk = p.n_blocks;
@@ -431,6 +477,8 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
     for (size_t i = tid; i < na_words; i += K2_THREADS) wa_s[i] = wa_g[i];
   if (F::MMA && p.res_b && total > 0)
     for (size_t i = tid; i < nb_words; i += K2_THREADS) wb_s[i] = wb_g[i];
+  if (fact && p.res_f && total > 0)
+    for (size_t i = tid; i < nf_words; i += K2_THREADS) wf_s[i] = wf_g[i];
   for (int i = tid; i < hstride; i += K2_THREADS) {
     const int s = i / L.ldx, k = i % L.ldx;
     const float h = (s < nact && k < na) ? p.ha_in[(size_t)(b0 + s) * na + k] : 0.f;
@@ -485,6 +533,38 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       }
     }
   };
+  // the factored embedding: the rows g [S, 384] of the shared embedding at
+  // each live stream's three codes (code(s, r), r = 0 sig_u, 1 pred_u, 2
+  // exc; zero for the others), 16 bytes a load and a store
+  auto gather_g = [&](auto code, auto live) {
+    const int8_t* tab = (const int8_t*)p.emb;
+    constexpr int WPS = FACT_K / 16, WPR = FACT_E / 16;   // words a stream, a row
+    for (int i = tid; i < S * WPS; i += K2_THREADS) {
+      const int s = i / WPS, w = i % WPS;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (live(s))
+        v = __ldg(reinterpret_cast<const uint4*>(tab + (size_t)code(s, w / WPR) * FACT_E) + w % WPR);
+      *reinterpret_cast<uint4*>(gop + s * FACT_LD + w * 16) = v;
+    }
+  };
+  // g's product with this rank's 3U columns of the input kernel, into eacc:
+  // the (column tile, stream tile) tasks of GRU-A's product, k in order,
+  // int32 sums
+  auto emb_product = [&](int pt, int npt) {
+    if constexpr (FORM == FORM_Q8) {
+      const int mta = 3 * U / 16;
+      for (int task = pt >> 5; task < mta * NT; task += npt >> 5) {
+        const int mt = task % mta, nt = task / mta;
+        const size_t w0 = (size_t)mt * KSF * 32;
+        if (p.res_f)
+          tile_mma<FORM_Q8>(wf_s + w0, KSF, gop + nt * 8 * FACT_LD, FACT_LD,
+                            eacc + nt * 8 * L.ldz + mt * 16, L.ldz, lane);
+        else
+          tile_mma<FORM_Q8>(wf_g + w0, KSF, gop + nt * 8 * FACT_LD, FACT_LD,
+                            eacc + nt * 8 * L.ldz + mt * 16, L.ldz, lane);
+      }
+    }
+  };
   // this rank's slice of the new operand to the other blocks, 16 bytes a store
   auto send_slice = [&](OT* nxt) {
     constexpr int EPW = 16 / F::ESZ;                 // operand elements a word
@@ -534,8 +614,10 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
           cd[pp][q] = 0;
         }
       }
-      // the code bytes of step (k, t) for the live pairs
+      // the code bytes of step (k, t) for the live pairs (the factored
+      // embedding gathers its rows by stream instead, gather_g)
       auto load_codes = [&](int k, int t) {
+        if (fact) return;
 #pragma unroll
         for (int pp = 0; pp < NT; ++pp) {
           const int s = (tid + pp * K2_THREADS) / U;
@@ -545,17 +627,26 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
           for (int r = 0; r < 3; ++r) cd[pp][r] = __ldg(c3 + r);
         }
       };
-      // the raw gate inputs of a pair at step (k, t) on codes c
+      // the raw gate inputs of a pair at step (k, t) on codes c (factored:
+      // the conditioning only; the embedding's part is the product eacc)
       auto gather = [&](GateRaw<FORM>& g, int s, int u, int k, const int* c) {
         const float* ca = p.cond_a + ((size_t)(b0 + s) * nbk + k) * na3;
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           const int col = q * na + u;
           g.ca[q] = __ldg(ca + col);
+          if (fact) continue;
 #pragma unroll
           for (int r = 0; r < 3; ++r) g.e[r][q] = __ldg(emb + (size_t)(256 * r + c[r]) * na3 + col);
         }
       };
+      // the codes of step (k, t) for gather_g, and its live streams
+      auto tf_code = [&](int k, int t) {
+        return [=, &p](int s, int r) {
+          return (int)__ldg(p.codes + ((size_t)(b0 + s) * nstep + (size_t)k * p.blk + t) * 3 + r);
+        };
+      };
+      auto tf_live = [&](int k, int t) { return [=, &live_at](int s) { return live_at(s, k, t); }; };
       auto gather_all = [&](int k, int t) {
 #pragma unroll
         for (int pp = 0; pp < NT; ++pp) {
@@ -563,11 +654,12 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
           if (pair_on(pp) && live_at(s, k, t)) gather(raw[pp], s, u0 + i % U, k, cd[pp]);
         }
       };
-      // gate q's input: the embedding rows and the conditioning summed in
-      // K2's order
-      auto gate_in = [&](const GateRaw<FORM>& g, int q, float sc) {
+      // gate q's input: the embedding rows (factored: the product e of
+      // stream s, column q U + j) and the conditioning summed in K2's order
+      auto gate_in = [&](const GateRaw<FORM>& g, int q, float sc, int s, int j) {
         if constexpr (FORM == FORM_Q8) {
-          const int e = (int)g.e[0][q] + (int)g.e[1][q] + (int)g.e[2][q];
+          const int e = fact ? eacc[s * L.ldz + q * U + j]
+                             : (int)g.e[0][q] + (int)g.e[1][q] + (int)g.e[2][q];
           return __fadd_rn(g.ca[q], __fmul_rn((float)e, sc));
         } else {
           const float e = __fadd_rn(__fadd_rn(wf(g.e[0][q]), wf(g.e[1][q])),
@@ -582,7 +674,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           const Acc acc = zacc[s * L.ldz + q * U + j];
-          gi[q] = gate_in(g, q, sc[q]);
+          gi[q] = gate_in(g, q, sc[q], s, j);
           if (FORM == FORM_Q8)
             zr[q] = __fadd_rn(__fadd_rn(__fmul_rn((float)acc, Q8_SCALE), __fmul_rn(dg[q], h)), bs[q]);
           else
@@ -661,6 +753,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       load_codes(k, t);
       gather_all(k, t);
       load_codes(k1, t1);
+      if (fact) gather_g(tf_code(k, t), tf_live(k, t));
       const bool gru_b_warp = (warp & 3) == 0;
       cluster.sync();   // every block runs and is set up before remote stores
 
@@ -668,7 +761,10 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         const OT* cur = hop + (j & 1) * hstride;
         // ---- GRU-A's product of step j beside GRU-B's products of step j-1
         if (!gru_b_warp) {
-          if (j < total) gru_a_product(cur, (warp - 1 - warp / 4) * 32 + lane, 288);
+          if (j < total) {
+            gru_a_product(cur, (warp - 1 - warp / 4) * 32 + lane, 288);
+            if (fact) emb_product((warp - 1 - warp / 4) * 32 + lane, 288);
+          }
         } else if (j > 0) {
           gru_b_products(cur, warp >> 2);
         }
@@ -696,7 +792,8 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
           float h = haown[i];
           if (u < na && live_at(s, k, t)) {
             const uint8_t* c3 = p.codes + ((size_t)(b0 + s) * nstep + (size_t)k * p.blk + t) * 3;
-            const int c[3] = {__ldg(c3), __ldg(c3 + 1), __ldg(c3 + 2)};
+            const int c[3] = {fact ? 0 : __ldg(c3), fact ? 0 : __ldg(c3 + 1),
+                              fact ? 0 : __ldg(c3 + 2)};
             GateRaw<FORM> g;
             gather(g, s, u, k, c);
             float bs[3], dg[3], sc[3];
@@ -716,7 +813,8 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         // the cluster barrier: the new operand complete in every block, and
         // the buffer the next step writes no longer read. Between its arrive
         // and its wait, GRU-B's update of step j-1 (warps 0, 4, 8) and the
-        // loads of step j+1's gate inputs and step j+2's codes.
+        // loads of step j+1's gate inputs and step j+2's codes (factored:
+        // step j+1's rows g, which step j's product no longer reads).
         asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
         if (gru_b_warp && j > 0) {
           gru_b_update(kb, tb, (warp >> 2) * 32 + lane, 96);
@@ -728,7 +826,11 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         step_after(k2, t2);
         gather_all(k, t);
         load_codes(k1, t1);
+        if (fact) gather_g(tf_code(k, t), tf_live(k, t));
         asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+        // the wait orders what was written before the arrive only: the rows
+        // g written in the window need a block barrier of their own
+        if (fact) __syncthreads();
       }
       // GRU-B's update of the last step
       __syncthreads();
@@ -881,6 +983,15 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
     const unsigned need = FREE ? 0u : flags[1];
     auto is_live = [&](int s) { return FREE ? s < nact : ((live >> s) & 1u) != 0u; };
 
+    // ---- the factored embedding: the step's codes are here; the live
+    // streams' rows g, then their product with the rank's input kernel
+    if (fact) {
+      gather_g([&](int s, int r) { return code[CW * s + r]; }, is_live);
+      __syncthreads();
+      emb_product(tid, K2_THREADS);
+      __syncthreads();
+    }
+
     // ---- gate phase: thread (stream, unit) forms its new h_a and its operand
     // copy, then the block sends its slice to every block of the cluster
     OT* nxt = hop + ((t + 1) & 1) * hstride;
@@ -900,7 +1011,8 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         for (int q = 0; q < 3; ++q) {
           const int col = q * na + u;
           if (FORM == FORM_Q8) {
-            const int e = ldw(emb, r0 + col) + ldw(emb, r1 + col) + ldw(emb, r2 + col);
+            const int e = fact ? eacc[s * L.ldz + q * U + i % U]
+                               : ldw(emb, r0 + col) + ldw(emb, r1 + col) + ldw(emb, r2 + col);
             g[pp][q] = __fadd_rn(__ldg(ca + col), __fmul_rn((float)e, __ldg(p.emb_scale + col)));
             diag[pp][q] = __ldg(p.a_diag + col);
           } else {
@@ -1118,6 +1230,11 @@ int k2_launch(K2Kernel k, const K2Args& a, int nt, int smem, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// the factored embedding's arguments: q8 only, with its packed input kernel
+bool fact_ok(int form, int fact, int res_f, const void* f_w) {
+  return fact ? form == FORM_Q8 && f_w != nullptr : !res_f;
+}
+
 }  // namespace
 
 // The most clusters of `cluster` blocks with `smem` bytes each that the card
@@ -1145,11 +1262,12 @@ extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int kind, int c
 // With free_ (K1: the free-running form) preload and mode are not read and
 // may be null, and sampled must be 1.
 extern "C" int lpcnet_masked_loop(
-    int form, int nt, int free_, int cluster, int smem, int res_a, int res_b, int batch, int na,
-    int nb,
+    int form, int nt, int free_, int cluster, int smem, int res_a, int res_b, int fact, int res_f,
+    int batch, int na, int nb,
     int n_samples, int sampled, const void* emb, const void* emb_scale, const void* a_w,
     const void* a_diag, const void* a_bias1, const void* b_w, const void* b_in,
-    const void* b_rec, const void* b_bias1, const void* dual_w, const void* dual_bias,
+    const void* b_rec, const void* b_bias1, const void* f_w, const void* dual_w,
+    const void* dual_bias,
     const void* dual_factor, const void* logit_table, const void* cond_a, const void* cond_b,
     const void* lpc, const void* ha_in, const void* hb_in, const void* sig_in,
     const void* exc_in, const void* de_in, const void* rng_in, void* ha_out, void* hb_out,
@@ -1159,17 +1277,19 @@ extern "C" int lpcnet_masked_loop(
   const K2Kernel k = kernel_for(form, nt, kind);
   if (!k || batch <= 0 || n_samples <= 0 || (!free_ && (!preload || !mode)) || cluster < 1 ||
       cluster > 8 || na <= 0 || nb <= 0 || (form == FORM_F32 && (res_a || res_b)) ||
-      (free_ && (!sampled || (8 * nt + cluster - 1) / cluster > 8)))
+      (free_ && (!sampled || (8 * nt + cluster - 1) / cluster > 8)) ||
+      !fact_ok(form, fact, res_f, f_w))
     return (int)cudaErrorInvalidValue;
-  if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b, kind, 0).total)
+  if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b, kind, 0, fact,
+                                res_f).total)
     return (int)cudaErrorInvalidValue;
   K2Args a = {};
   a.batch = batch; a.na = na; a.nb = nb; a.n_samples = n_samples; a.sampled = sampled;
-  a.cluster = cluster; a.res_a = res_a; a.res_b = res_b;
+  a.cluster = cluster; a.res_a = res_a; a.res_b = res_b; a.fact = fact; a.res_f = res_f;
   a.emb = emb; a.emb_scale = (const float*)emb_scale;
   a.a_w = a_w; a.a_diag = (const float*)a_diag; a.a_bias1 = (const float*)a_bias1;
   a.b_w = b_w; a.b_in = (const float*)b_in; a.b_rec = (const float*)b_rec;
-  a.b_bias1 = (const float*)b_bias1;
+  a.b_bias1 = (const float*)b_bias1; a.f_w = f_w;
   a.dual_w = (const float*)dual_w; a.dual_bias = (const float*)dual_bias;
   a.dual_factor = (const float*)dual_factor; a.logit_table = (const float*)logit_table;
   a.cond_a = (const float*)cond_a; a.cond_b = (const float*)cond_b; a.lpc = (const float*)lpc;
@@ -1189,22 +1309,23 @@ extern "C" int lpcnet_masked_loop(
 // [B, n_blocks * blk_samples, 3] uint8; h_a, h_b and the KISS99 words
 // ([B, 4] int64) in and out.
 extern "C" int lpcnet_teacher_force(
-    int form, int nt, int cluster, int smem, int res_a, int res_b, int batch, int na, int nb,
-    int n_blocks, int blk_samples, const void* emb, const void* emb_scale, const void* a_w,
-    const void* a_diag, const void* a_bias1, const void* b_w, const void* b_in,
-    const void* b_rec, const void* b_bias1, const void* cond_a, const void* cond_b,
+    int form, int nt, int cluster, int smem, int res_a, int res_b, int fact, int res_f, int batch,
+    int na, int nb, int n_blocks, int blk_samples, const void* emb, const void* emb_scale,
+    const void* a_w, const void* a_diag, const void* a_bias1, const void* b_w, const void* b_in,
+    const void* b_rec, const void* b_bias1, const void* f_w, const void* cond_a, const void* cond_b,
     const void* counts, const void* codes, const void* ha_in, const void* hb_in,
     const void* rng_in, void* ha_out, void* hb_out, void* rng_out, void* stream) {
   const K2Kernel k = kernel_for(form, nt, KIND_TF);
   if (!k || batch <= 0 || n_blocks <= 0 || blk_samples <= 0 || cluster < 1 || cluster > 8 ||
       na <= 0 || nb <= 0 || (form == FORM_F32 && (res_a || res_b)) ||
-      (8 * nt + cluster - 1) / cluster > 8)
+      (8 * nt + cluster - 1) / cluster > 8 || !fact_ok(form, fact, res_f, f_w))
     return (int)cudaErrorInvalidValue;
   if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b, KIND_TF,
-                                n_blocks).total)
+                                n_blocks, fact, res_f).total)
     return (int)cudaErrorInvalidValue;
   K2Args a = {};
   a.batch = batch; a.na = na; a.nb = nb; a.cluster = cluster; a.res_a = res_a; a.res_b = res_b;
+  a.fact = fact; a.res_f = res_f; a.f_w = f_w;
   a.n_blocks = n_blocks; a.blk = blk_samples;
   a.counts = (const int*)counts; a.codes = (const uint8_t*)codes;
   a.emb = emb; a.emb_scale = (const float*)emb_scale;

@@ -25,7 +25,14 @@ they are.
   the card in one wave of clusters.
 * `fragment_index(ks)`: which element of a tile each lane's fragment holds.
 * `pack_gru_a`, `pack_gru_b`: the packed operands, built once per weight
-  bundle by `sample_loop.masked_kernel_weights`.
+  bundle by `sample_loop.masked_kernel_weights`; `pack_embf` the factored
+  q8 embedding's input kernel, each rank's 3U columns as `pack_gru_a`'s.
+
+The factored q8 embedding (`fact`) adds three regions to a block: its rank's
+[384, 3U] slice of GRU-A's input kernel (resident where it fits, `res_f`),
+the gathered rows g [S, 384] of its streams as the product's operand, and
+that product's int32 sums [S, 3U]. The tiers of `_layout` then drop GRU-B's
+weights first, the input kernel's slice next, GRU-A's slice last.
 """
 
 from __future__ import annotations
@@ -39,11 +46,17 @@ STREAM_TILES = (1, 2, 4)     # S / 8: warp 0 holds a cluster's streams in its la
 _KS = {0: 16, 1: 16, 2: 32}          # k depth of one MMA
 _ESZ = {0: 4, 1: 2, 2: 1}            # operand bytes
 _XPAD = {0: 4, 1: 8, 2: 16}          # row padding of the operands
+FACT_K = 384                         # the factored embedding's depth: 3 x 128
 
 
 def check_widths(na: int, nb: int) -> None:
     if na <= 0 or nb <= 0:
         raise ValueError(f"masked sample loop kernel: Na={na}, Nb={nb}")
+
+
+def check_fact(form: int, fact: bool) -> None:
+    if fact and form != FORMS["q8"]:
+        raise ValueError("the factored embedding is a q8 operand form")
 
 
 def _up(x: int, m: int) -> int:
@@ -63,7 +76,8 @@ def padded_nb(nb: int) -> int:
 
 def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
                       res_a: bool = True, res_b: bool = True,
-                      free: bool = False, tf_blocks: int = 0) -> int:
+                      free: bool = False, tf_blocks: int = 0,
+                      fact: bool = False, res_f: bool = False) -> int:
     """Shared memory of one block, bytes: the csrc K2Layout's total. `res_a`
     and `res_b` keep GRU-A's slice and GRU-B's weights in shared memory
     (bf16 and q8 only). `free` is K1's free-running form, whose tail arrays
@@ -72,7 +86,9 @@ def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
     8 rows more. `tf_blocks` > 0 is K3's teacher-forced form over that many
     conditioning blocks: the tail and the operand buffers as the
     free-running form's, no node logits, codes or threshold table, and the
-    counts of the S streams for each block with each block's largest."""
+    counts of the S streams for each block with each block's largest.
+    `fact` adds the factored q8 embedding's regions, `res_f` its input
+    kernel's slice in shared memory."""
     s = 8 * nt
     tf = tf_blocks > 0
     free = free or tf
@@ -100,24 +116,38 @@ def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
         0 if tf else 256 * 4,                            # threshold logits
         16,                                              # flags
     ]
+    if fact:
+        regions += [
+            3 * u * FACT_K if res_f else 0,              # input kernel's slice
+            s * (FACT_K + 16),                           # gathered rows g
+            s * ldz * 4,                                 # g's products
+        ]
     return sum(_up(r, 16) for r in regions)
 
 
 def _layout(form: int, na: int, nb: int, nt: int, free: bool = False,
-            tf_blocks: int = 0):
-    """(smem, res_a, res_b) of the first of: both weight sets resident,
-    GRU-A's slice only, neither, that fits a block; None if none does."""
-    for res_a, res_b in ((True, True), (True, False), (False, False)):
-        smem = masked_smem_bytes(form, na, nb, nt, res_a, res_b, free, tf_blocks)
+            tf_blocks: int = 0, fact: bool = False):
+    """(smem, res_a, res_b, res_f) of the first of: every weight set
+    resident, GRU-A's slice (and the factored input kernel's) only, ...,
+    none, that fits a block; None if none does. res_f is False unless
+    `fact` (the factored q8 embedding)."""
+    tiers = (((True, True, True), (True, False, True), (True, False, False),
+              (False, False, False)) if fact else
+             ((True, True, False), (True, False, False), (False, False, False)))
+    for res_a, res_b, res_f in tiers:
+        smem = masked_smem_bytes(form, na, nb, nt, res_a, res_b, free, tf_blocks,
+                                 fact, res_f)
         if smem <= SMEM_LIMIT:
-            return smem, res_a and form != 0, res_b and form != 0
+            return smem, res_a and form != 0, res_b and form != 0, res_f
     return None
 
 
-def masked_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
+def masked_launch_config(batch: int, na: int, nb: int, form: int, max_clusters,
+                         fact: bool = False):
     """The launch for `batch` streams: {"cluster": C, "units": U, "nt": S / 8,
     "streams": S, "clusters": ceil(batch / S), "smem": bytes a block,
-    "res_a", "res_b": weights resident in shared memory, "waves"}.
+    "res_a", "res_b", "res_f": weights resident in shared memory (res_f:
+    the factored q8 embedding's input kernel, `fact`), "waves"}.
 
     `max_clusters(nt, smem)` is the number of clusters the card holds at
     once in that shape (the card's answer on CUDA; 15 clusters of 8 blocks
@@ -125,11 +155,12 @@ def masked_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
     whose ceil(batch / S) clusters fit in one wave; where none does, S = 32
     and the launch runs in waves (3 at 1024 streams on an H100)."""
     check_widths(na, nb)
+    check_fact(form, fact)
     if batch <= 0:
         raise ValueError(f"masked sample loop kernel: batch {batch}")
     cluster, units = cluster_shape(na)
     fits = [(nt, lay) for nt in STREAM_TILES
-            if (lay := _layout(form, na, nb, nt)) is not None]
+            if (lay := _layout(form, na, nb, nt, fact=fact)) is not None]
     if not fits:
         raise ValueError(f"masked sample loop kernel: Na={na}, Nb={nb} needs "
                          f"{masked_smem_bytes(form, na, nb, 1, False, False)} "
@@ -139,17 +170,18 @@ def masked_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
         held = max_clusters(nt, lay[0])
         if -(-batch // s) <= held or nt == fits[-1][0]:
             break
-    smem, res_a, res_b = lay
+    smem, res_a, res_b, res_f = lay
     clusters = -(-batch // s)
     return {"cluster": cluster, "units": units, "nt": nt, "streams": s,
             "clusters": clusters, "smem": smem, "res_a": res_a, "res_b": res_b,
-            "waves": -(-clusters // held)}
+            "res_f": res_f, "waves": -(-clusters // held)}
 
 
 FREE_STREAM_TILES = (1, 2, 4, 5)     # S / 8 of the free-running form (K1)
 
 
-def free_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
+def free_launch_config(batch: int, na: int, nb: int, form: int, max_clusters,
+                       fact: bool = False):
     """K1's launch, the free-running form of K2's kernel, for `batch`
     streams (bf16 or q8): the keys of `masked_launch_config`. Rank r of a
     cluster runs
@@ -158,8 +190,10 @@ def free_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
     too. `max_clusters(nt, smem)` as in `masked_launch_config`. S is the
     smallest of 8, 16, 32 and 40 whose clusters fit one wave; where none
     does, the one with the fewest waves (the smaller on a tie): at 1024
-    streams on an H100 (15 clusters) S = 40, 26 clusters in two waves."""
+    streams on an H100 (15 clusters) S = 40, 26 clusters in two waves.
+    `fact`: the factored q8 embedding's layout."""
     check_widths(na, nb)
+    check_fact(form, fact)
     if batch <= 0:
         raise ValueError(f"sample loop kernel: batch {batch}")
     if form == 0:
@@ -169,7 +203,8 @@ def free_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
     best = None
     for nt in FREE_STREAM_TILES:
         s = 8 * nt
-        if -(-s // cluster) > 8 or (lay := _layout(form, na, nb, nt, True)) is None:
+        if -(-s // cluster) > 8 or (lay := _layout(form, na, nb, nt, True,
+                                                   fact=fact)) is None:
             continue
         held = max_clusters(nt, lay[0])
         clusters = -(-batch // s)
@@ -182,14 +217,14 @@ def free_launch_config(batch: int, na: int, nb: int, form: int, max_clusters):
         raise ValueError(f"sample loop kernel: Na={na}, Nb={nb} needs "
                          f"{masked_smem_bytes(form, na, nb, 1, False, False, True)} "
                          f"bytes of shared memory a block")
-    waves, nt, (smem, res_a, res_b), clusters = best
+    waves, nt, (smem, res_a, res_b, res_f), clusters = best
     return {"cluster": cluster, "units": units, "nt": nt, "streams": 8 * nt,
             "clusters": clusters, "smem": smem, "res_a": res_a, "res_b": res_b,
-            "waves": waves}
+            "res_f": res_f, "waves": waves}
 
 
 def tf_launch_config(batch: int, na: int, nb: int, form: int, n_blocks: int,
-                     max_clusters):
+                     max_clusters, fact: bool = False):
     """K3's launch, the teacher-forced form of K2's kernel, for `batch`
     streams over `n_blocks` conditioning blocks: the keys of
     `masked_launch_config`. Rank r of a cluster runs GRU-B for streams
@@ -197,14 +232,17 @@ def tf_launch_config(batch: int, na: int, nb: int, form: int, n_blocks: int,
     does. `max_clusters(nt, smem)` as in `masked_launch_config`. S is the
     smallest of 8, 16 and 32 whose clusters fit one wave; where none does,
     32 in waves. On an H100 (15 clusters): 64 streams (the PLC path's
-    compacted drain) take 8 clusters of 8, 256 take 8 of 32."""
+    compacted drain) take 8 clusters of 8, 256 take 8 of 32. `fact`: the
+    factored q8 embedding's layout."""
     check_widths(na, nb)
+    check_fact(form, fact)
     if batch <= 0 or n_blocks <= 0:
         raise ValueError(f"teacher-force kernel: batch {batch}, {n_blocks} blocks")
     cluster, units = cluster_shape(na)
     fits = [(nt, lay) for nt in STREAM_TILES
             if -(-8 * nt // cluster) <= 8
-            and (lay := _layout(form, na, nb, nt, tf_blocks=n_blocks)) is not None]
+            and (lay := _layout(form, na, nb, nt, tf_blocks=n_blocks,
+                                fact=fact)) is not None]
     if not fits:
         raise ValueError(f"teacher-force kernel: Na={na}, Nb={nb}, {n_blocks} "
                          f"blocks need more shared memory than a block has")
@@ -212,11 +250,11 @@ def tf_launch_config(batch: int, na: int, nb: int, form: int, n_blocks: int,
         held = max_clusters(nt, lay[0])
         if -(-batch // (8 * nt)) <= held or nt == fits[-1][0]:
             break
-    smem, res_a, res_b = lay
+    smem, res_a, res_b, res_f = lay
     clusters = -(-batch // (8 * nt))
     return {"cluster": cluster, "units": units, "nt": nt, "streams": 8 * nt,
             "clusters": clusters, "smem": smem, "res_a": res_a, "res_b": res_b,
-            "waves": -(-clusters // held)}
+            "res_f": res_f, "waves": -(-clusters // held)}
 
 
 def tf_step_budget(counts, streams: int, blk: int):
@@ -314,6 +352,16 @@ def pack_gru_a(a_rec: torch.Tensor) -> torch.Tensor:
     ks = 32 if a_rec.dtype == torch.int8 else 16
     cols = rank_columns(na).to(a_rec.device)
     return pack_tiles(_pad_units(a_rec, na, c * u).t()[cols], ks)
+
+
+def pack_embf(w: torch.Tensor) -> torch.Tensor:
+    """The factored embedding's input kernel [384, 3Na] int8 ->
+    [C, 3U / 16, 384 / 32, 32, 16], rank r's 3U columns (`rank_columns`)
+    contiguous, as `pack_gru_a` packs GRU-A's recurrent matrix."""
+    na = w.shape[1] // 3
+    c, u = cluster_shape(na)
+    cols = rank_columns(na).to(w.device)
+    return pack_tiles(_pad_units(w, na, c * u).t()[cols], 32)
 
 
 def pack_gru_b(b_in: torch.Tensor, b_rec: torch.Tensor) -> torch.Tensor:

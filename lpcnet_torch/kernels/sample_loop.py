@@ -15,7 +15,12 @@ h_b, last_sig, last_exc, deemph, rng).
 
 * `kernel_weights` builds the kernel's weight bundle (f32/bf16 operands, or
   the q8 form with the per-column-scaled int8 embedding), as the JAX
-  package does.
+  package does. Under `LPCNET_EMB=factored` (read at import, `set_emb` at
+  run time) a q8 bundle built from fused params that carry the embedding's
+  factors also holds the factored operands (`embf_q8`, `embf_w_q8`,
+  `embf_scale`): K1, K2 and K3 then gather three rows of the shared
+  128-wide int8 embedding and apply GRU-A's input kernel as one more
+  exact int8 product, in place of the composed [768, 3Na] table's rows.
 * `sample_loop_plain` is the kernel's plain PyTorch version: the same
   numerics, step by step. The CPU tests use it and the chip check holds the
   kernel against it.
@@ -58,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import warnings
 
 import torch
 
@@ -72,6 +78,29 @@ from . import masked_loop as ML
 _FORMS = {torch.float32: 0, torch.bfloat16: 1}
 _FORM_Q8 = 2
 
+# the q8 embedding's form: "v1" the composed [768, 3Na] table, "factored"
+# the shared [256, 128] embedding and GRU-A's [384, 3Na] input kernel
+EMB_MODES = ("v1", "factored")
+_EMB = os.environ.get("LPCNET_EMB", "v1")
+
+
+def set_emb(mode: str) -> str:
+    """Select the q8 embedding's form that `kernel_weights` builds ("v1"
+    or "factored"); returns the previous one. The default comes from
+    LPCNET_EMB at import ("v1" unless set)."""
+    global _EMB
+    if mode not in EMB_MODES:
+        raise ValueError(f"embedding mode {mode!r}: one of {EMB_MODES}")
+    prev, _EMB = _EMB, mode
+    return prev
+
+
+def _per_column_q8(x):
+    """float [K, N] -> (int8 [K, N], scale [N]): the largest magnitude of a
+    column maps to 127, rounding half to even."""
+    scale = torch.clamp(x.abs().amax(dim=0), min=1e-10) / 127.0
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+
 
 def kernel_weights(fused, cfg: LPCNetConfig, dtype=torch.bfloat16,
                    quantized: bool | None = None):
@@ -83,7 +112,13 @@ def kernel_weights(fused, cfg: LPCNetConfig, dtype=torch.bfloat16,
     numerics for the GRU matrices (round(128*w) weights on floor(0.5+127*h)
     activations, int32 sums, float GRU-A diagonal) and an int8 embedding
     table with per-column scales. It defaults to True when the fused params
-    are already int8 (nn.quantized.quantize_fused).
+    are already int8 (nn.quantized.quantize_fused). Under the factored
+    embedding mode (`set_emb`) a q8 bundle whose fused params carry
+    `embed_table` and `gru_a_in_kernel` adds the factored operands: the
+    embedding e in int8 with per-column scales s_e (`embf_q8`), GRU-A's
+    input kernel with s_e folded into its rows, in int8 with per-column
+    scales (`embf_w_q8`, `embf_scale`). Without the factors (a DNNw blob)
+    the bundle stays composed.
     """
     was_q = Q.is_quantized(fused)
     if quantized is None:
@@ -129,15 +164,19 @@ def kernel_weights(fused, cfg: LPCNetConfig, dtype=torch.bfloat16,
             a_off_q8 = Q.quantize_weights_int8(off)
             b_in_q8 = Q.quantize_weights_int8(fused["gru_b_in"])
             b_rec_q8 = Q.quantize_weights_int8(fused["gru_b_rec"]["recurrent"])
-        emb = emb_cat.to(torch.float32)
-        emb_scale = torch.clamp(emb.abs().amax(dim=0), min=1e-10) / 127.0
-        emb_q8 = torch.clamp(torch.round(emb / emb_scale), -127, 127
-                             ).to(torch.int8)
+        emb_q8, emb_scale = _per_column_q8(emb_cat.to(torch.float32))
         kw.update(emb_q8=emb_q8.contiguous(), emb_scale=emb_scale[None, :],
                   a_rec_q8=a_off_q8.contiguous(),
                   a_diag=f32(a_diag)[None, :],
                   b_in_q8=b_in_q8.contiguous(), b_rec_q8=b_rec_q8.contiguous())
         del kw["b_rec"]
+        if _EMB == "factored":
+            if "embed_table" in fused:
+                kw.update(_factored_operands(fused))
+            else:
+                warnings.warn("LPCNET_EMB=factored: the fused params carry no "
+                              "embedding factors (a DNNw blob); the q8 bundle "
+                              "stays composed")
     else:
         kw.update(emb_cat=emb_cat.to(dtype).contiguous(),
                   a_rec=fused["gru_a_rec"]["recurrent"].to(dtype).contiguous(),
@@ -145,8 +184,27 @@ def kernel_weights(fused, cfg: LPCNetConfig, dtype=torch.bfloat16,
     return kw
 
 
+def _factored_operands(fused):
+    """The factored embedding's operands, in the JAX package's arithmetic:
+    e [256, 128] to int8 with per-column scales s_e; GRU-A's input kernel
+    [384, 3Na] times s_e tiled over its three 128-row blocks, to int8 with
+    per-column scales t. A step's gate input is then the exact int32
+    product of the three gathered int8 rows [B, 384] with that kernel,
+    times t."""
+    e_q8, s_e = _per_column_q8(fused["embed_table"].to(torch.float32))
+    ka = fused["gru_a_in_kernel"].to(torch.float32)
+    ka_q8, t = _per_column_q8(ka * s_e.repeat(3)[:, None])
+    return {"embf_q8": e_q8.contiguous(), "embf_w_q8": ka_q8.contiguous(),
+            "embf_scale": t[None, :].contiguous()}
+
+
 def is_q8_bundle(kw) -> bool:
     return "emb_q8" in kw
+
+
+def is_factored(kw) -> bool:
+    """Whether K1, K2 and K3 run the bundle's factored embedding."""
+    return "embf_q8" in kw
 
 
 # --------------------------------------------------------------------------
@@ -179,11 +237,16 @@ def _gru_ab_plain(kw):
     """The kernels' GRU-A and GRU-B step, as a function (h_a, h_b, cond_a,
     cond_b, sig_u, pred_u, exc) -> (new h_a, new h_b) on int64 codes. The
     operands are widened once (exact); a step then gathers three embedding
-    rows and multiplies."""
+    rows (factored: three rows of the shared int8 embedding, then their
+    exact product with GRU-A's input kernel) and multiplies."""
     q8 = is_q8_bundle(kw)
+    fact = is_factored(kw)
     na = kw["a_bias1"].shape[-1] // 3
     nb = kw["b_bias1"].shape[-1] // 3
-    if q8:
+    if fact:
+        emb = kw["embf_q8"]
+        emb_w = kw["embf_w_q8"]
+    elif q8:
         emb = kw["emb_q8"].to(torch.int32)
     else:
         emb = kw["emb_cat"].to(torch.float32)
@@ -192,13 +255,18 @@ def _gru_ab_plain(kw):
                               for k in ("a_rec", "b_in", "b_rec"))
 
     def step(ha, hb, cond_a, cond_b, sig_u, pred_u, exc):
-        esum = emb[sig_u] + emb[256 + pred_u] + emb[512 + exc]
+        if fact:
+            # the three gathered int8 rows [B, 384], one exact product
+            g = torch.cat([emb[sig_u], emb[pred_u], emb[exc]], dim=1)
+            gate_a = cond_a + Q.imatmul(g, emb_w) * kw["embf_scale"]
+        else:
+            esum = emb[sig_u] + emb[256 + pred_u] + emb[512 + exc]
+            gate_a = cond_a + (esum.to(torch.float32) * kw["emb_scale"]
+                               if q8 else esum)
         if q8:
-            gate_a = cond_a + esum.to(torch.float32) * kw["emb_scale"]
             zrec = (_qdot(ha, kw["a_rec_q8"]) + kw["a_diag"]
                     * torch.cat([ha, ha, ha], dim=1) + kw["a_bias1"])
         else:
-            gate_a = cond_a + esum
             zrec = _fdot(ha, a_rec, wdt) + kw["a_bias1"]
         ha_new = _gru(ha, gate_a, zrec, na)
         if q8:
@@ -320,11 +388,11 @@ def _masked_lib():
         from ._build import load_library
         lib = load_library("masked_loop")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lpcnet_masked_loop.argtypes = [ci] * 12 + [vp] * 31 + [vp]
+        lib.lpcnet_masked_loop.argtypes = [ci] * 14 + [vp] * 32 + [vp]
         lib.lpcnet_masked_loop.restype = ci
         lib.lpcnet_masked_loop_max_clusters.argtypes = [ci] * 5
         lib.lpcnet_masked_loop_max_clusters.restype = ci
-        lib.lpcnet_teacher_force.argtypes = [ci] * 11 + [vp] * 20
+        lib.lpcnet_teacher_force.argtypes = [ci] * 13 + [vp] * 21
         lib.lpcnet_teacher_force.restype = ci
         _MASKED_LIB = lib
     return _MASKED_LIB
@@ -370,13 +438,18 @@ def _check(name, t, shape, dtype, device):
 def _gru_operands(kw, na, nb, dev):
     """The bundle's GRU operands, checked: (form, emb, emb_scale, a_rec,
     a_diag, b_in, b_rec); the scale and the diagonal are None in the float
-    forms. What K1, K2 and K3 all read."""
+    forms. What K1, K2 and K3 all read. In the factored q8 form `emb` is the
+    shared embedding `embf_q8` [256, 128] and `emb_scale` the input
+    kernel's column scales `embf_scale`."""
     f32 = torch.float32
     if is_q8_bundle(kw):
         form, wdt = _FORM_Q8, torch.int8
         emb, a_rec, b_in, b_rec = (kw["emb_q8"], kw["a_rec_q8"],
                                    kw["b_in_q8"], kw["b_rec_q8"])
         emb_scale, a_diag = kw["emb_scale"], kw["a_diag"]
+        if is_factored(kw):
+            emb, emb_scale = kw["embf_q8"], kw["embf_scale"]
+            _check("embf_q8", emb, (256, ML.FACT_K // 3), wdt, dev)
         _check("emb_scale", emb_scale, (1, 3 * na), f32, dev)
         _check("a_diag", a_diag, (1, 3 * na), f32, dev)
     else:
@@ -387,7 +460,8 @@ def _gru_operands(kw, na, nb, dev):
             raise TypeError(f"sample loop kernel: operand dtype {wdt}")
         form = _FORMS[wdt]
         emb_scale = a_diag = None
-    _check("emb", emb, (768, 3 * na), wdt, dev)
+    if not is_factored(kw):
+        _check("emb", emb, (768, 3 * na), wdt, dev)
     _check("a_rec", a_rec, (na, 3 * na), wdt, dev)
     _check("b_in", b_in, (na, 3 * nb), wdt, dev)
     _check("b_rec", b_rec, (nb, 3 * nb), wdt, dev)
@@ -397,15 +471,21 @@ def _gru_operands(kw, na, nb, dev):
 
 
 def _cluster_operands(kw, form, a_rec, na, nb, dev):
-    """The cluster kernel's GRU operands (a_w, b_w): in f32 the recurrent
-    matrix as it is and no pack; in bf16 and q8 K2's packs, checked."""
+    """The cluster kernel's GRU operands (a_w, b_w, f_w): in f32 the
+    recurrent matrix as it is and no pack; in bf16 and q8 K2's packs,
+    checked; f_w the factored embedding's packed input kernel, else None."""
     if form == 0:
-        return a_rec, None
+        return a_rec, None, None
     a_w, b_w = kw["k2_a"], kw["k2_b"]
     shape_a, shape_b = ML.packed_shapes(form, na, nb)
     _check("k2_a", a_w, shape_a, a_rec.dtype, dev)
     _check("k2_b", b_w, shape_b, a_rec.dtype, dev)
-    return a_w, b_w
+    f_w = None
+    if is_factored(kw):
+        f_w = kw["k2_f"]
+        c, u = ML.cluster_shape(na)
+        _check("k2_f", f_w, (c, 3 * u // 16, ML.FACT_K // 32, 32, 16), torch.int8, dev)
+    return a_w, b_w, f_w
 
 
 def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
@@ -463,19 +543,21 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
             err = _lib().lpcnet_sample_loop(*args, stream)
         else:
             emb, emb_scale, a_rec, a_diag, a_bias1, b_in, b_rec, b_bias1 = weights
+            fact = is_factored(kw)
             if free:
                 preload, mode, sampled = None, None, True
                 cfg = ML.free_launch_config(b, na, nb, form,
-                                            _max_clusters(dev, form, na, KIND_FREE))
+                                            _max_clusters(dev, form, na, KIND_FREE),
+                                            fact)
             else:
                 cfg = ML.masked_launch_config(b, na, nb, form,
-                                              _max_clusters(dev, form, na))
-            a_w, b_w = _cluster_operands(kw, form, a_rec, na, nb, dev)
+                                              _max_clusters(dev, form, na), fact)
+            a_w, b_w, f_w = _cluster_operands(kw, form, a_rec, na, nb, dev)
             err = _masked_lib().lpcnet_masked_loop(
                 form, cfg["nt"], int(free), cfg["cluster"], cfg["smem"], int(cfg["res_a"]),
-                int(cfg["res_b"]), b, na, nb, n_samples,
+                int(cfg["res_b"]), int(fact), int(cfg["res_f"]), b, na, nb, n_samples,
                 int(bool(sampled)), *(ptr(t) for t in (
-                    emb, emb_scale, a_w, a_diag, a_bias1, b_w, b_in, b_rec, b_bias1)),
+                    emb, emb_scale, a_w, a_diag, a_bias1, b_w, b_in, b_rec, b_bias1, f_w)),
                 *tail, ptr(preload), ptr(mode), stream)
     if err != 0:
         raise RuntimeError(f"sample loop kernel launch failed: CUDA error {err}")
@@ -536,16 +618,21 @@ def masked_kernel_weights(kw):
     """K2's bundle: `kw` (`kernel_weights`) with GRU-A's and GRU-B's
     matrices packed in the tensor cores' fragment order
     (`masked_loop.pack_gru_a` as `k2_a`, `pack_gru_b` as `k2_b`; None in
-    the f32 form, which reads the matrices as they are). Every other kernel
-    and plain version takes it as it takes `kw`. Build it once per weight
-    bundle: the trainer once per step, the PLC pool and the decoder once."""
+    the f32 form, which reads the matrices as they are), and in the
+    factored q8 form the input kernel `embf_w_q8` packed as `k2_f`
+    (`masked_loop.pack_embf`). Every other kernel and plain version takes
+    it as it takes `kw`. Build it once per weight bundle: the trainer once
+    per step, the PLC pool and the decoder once."""
     if is_q8_bundle(kw):
         a_rec, b_in, b_rec = kw["a_rec_q8"], kw["b_in_q8"], kw["b_rec_q8"]
     elif kw["a_rec"].dtype == torch.float32:
         return dict(kw, k2_a=None, k2_b=None)
     else:
         a_rec, b_in, b_rec = kw["a_rec"], kw["b_in"], kw["b_rec"]
-    return dict(kw, k2_a=ML.pack_gru_a(a_rec), k2_b=ML.pack_gru_b(b_in, b_rec))
+    packs = dict(k2_a=ML.pack_gru_a(a_rec), k2_b=ML.pack_gru_b(b_in, b_rec))
+    if is_factored(kw):
+        packs["k2_f"] = ML.pack_embf(kw["embf_w_q8"])
+    return dict(kw, **packs)
 
 
 def synthesize_frame_masked_kernel(kw, state: SampleState, cond_a, cond_b,
@@ -727,7 +814,8 @@ def tf_launch(kw, state: SampleState, cond_a_blocks, cond_b_blocks, counts,
     counts = counts.to(torch.int32).contiguous()
     form, emb, emb_scale, a_rec, a_diag, b_in, b_rec = _gru_operands(
         kw, na, nb, dev)
-    a_w, b_w = _cluster_operands(kw, form, a_rec, na, nb, dev)
+    a_w, b_w, f_w = _cluster_operands(kw, form, a_rec, na, nb, dev)
+    fact = is_factored(kw)
     ca = cond_a_blocks.contiguous()
     cb = cond_b_blocks.contiguous()
     _check("cond_a_blocks", ca, (b, n_blocks, 3 * na), f32, dev)
@@ -741,14 +829,15 @@ def tf_launch(kw, state: SampleState, cond_a_blocks, cond_b_blocks, counts,
     _check("rng", rng_in, (b, 4), torch.int64, dev)
     ha, hb, rng = (torch.empty_like(x) for x in (ha_in, hb_in, rng_in))
     cfg = ML.tf_launch_config(b, na, nb, form, n_blocks,
-                              _max_clusters(dev, form, na, KIND_TF))
+                              _max_clusters(dev, form, na, KIND_TF), fact)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = _masked_lib().lpcnet_teacher_force(
             form, cfg["nt"], cfg["cluster"], cfg["smem"], int(cfg["res_a"]),
-            int(cfg["res_b"]), b, na, nb, n_blocks, blk_samples,
+            int(cfg["res_b"]), int(fact), int(cfg["res_f"]), b, na, nb, n_blocks,
+            blk_samples,
             *(ptr(t) for t in (emb, emb_scale, a_w, a_diag, kw["a_bias1"], b_w,
-                               b_in, b_rec, kw["b_bias1"], ca, cb, counts, codes,
+                               b_in, b_rec, kw["b_bias1"], f_w, ca, cb, counts, codes,
                                ha_in, hb_in, rng_in, ha, hb, rng)),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -124,7 +124,9 @@ def fuse_inference_params(params: Dict[str, Any], cfg: LPCNetConfig
                           ) -> Dict[str, Any]:
     """Precompute embedding x GRU-A-kernel tables and conditioning matrices
     (dump_lpcnet.py:333-350): embed_{sig,pred,exc}_a [256, 3Na], cond_to_a,
-    cond_to_b, gru_a_rec, gru_b_in, gru_b_rec; frame-net params unchanged."""
+    cond_to_b, gru_a_rec, gru_b_in, gru_b_rec; frame-net params unchanged;
+    and the tables' factors embed_table [256, 128] and gru_a_in_kernel
+    [384, 3Na]."""
     e = params["embed_sig"]["table"]
     ka = params["gru_a"]["kernel"]
     return {
@@ -136,6 +138,11 @@ def fuse_inference_params(params: Dict[str, Any], cfg: LPCNetConfig
         "embed_sig_a": e @ ka[:EMBED_SIZE],
         "embed_pred_a": e @ ka[EMBED_SIZE:2 * EMBED_SIZE],
         "embed_exc_a": e @ ka[2 * EMBED_SIZE:3 * EMBED_SIZE],
+        # the composed tables' factors, for the factored q8 embedding
+        # (kernels.sample_loop, LPCNET_EMB=factored); a model loaded from a
+        # DNNw blob has only the composed tables, so both keys are optional
+        "embed_table": e,
+        "gru_a_in_kernel": ka[:3 * EMBED_SIZE],
         "cond_to_a": {"kernel": ka[3 * EMBED_SIZE:],
                       "bias": params["gru_a"]["bias"][0]},
         "cond_to_b": {"kernel": params["gru_b"]["kernel"][cfg.rnn_units1:],
@@ -347,6 +354,38 @@ def sample_excitation(dual_fc, gru_b_state: torch.Tensor, rng: Kiss99State):
     return val.to(torch.int32), rng
 
 
+def excitation_pdf(dual_fc, gru_b_state: torch.Tensor, corr: torch.Tensor):
+    """The full-PDF sampler's distribution [B, 256]: the bit tree's pdf
+    raised to 1 + max(0, 1.5 corr - 0.5), renormalised, 0.002 cut from
+    every entry (clipped at 0), renormalised."""
+    from ..train.losses import tree_to_pdf
+    pdf = tree_to_pdf(nn.mdense(dual_fc, gru_b_state))
+    power = torch.clamp(1.5 * corr - 0.5, min=0.0)[..., None]
+    pdf = pdf * torch.pow(torch.clamp(pdf, 1e-18, 1.0), power)
+    pdf = pdf / (1e-18 + pdf.sum(-1, keepdim=True))
+    pdf = torch.clamp(pdf - 0.002, min=0.0)
+    return pdf / (1e-8 + pdf.sum(-1, keepdim=True))
+
+
+def sample_excitation_pdf(dual_fc, gru_b_state: torch.Tensor, rng: Kiss99State,
+                          corr: torch.Tensor):
+    """Full-PDF sampling with a voicing temperature and a tail cut, the
+    sampling of the reference's Python synthesis
+    (training_tf2/test_lpcnet.py:107-114): pdf ~ p^(1 + max(0, 1.5 corr -
+    0.5)), then p = max(p - 0.002, 0), renormalised, sampled by one KISS99
+    draw's uniform.
+
+    corr [B] is the pitch-correlation feature (features[..., 19]).
+    Returns (exc [B] int32, new_rng).
+    """
+    pdf = excitation_pdf(dual_fc, gru_b_state, corr)
+    r, rng = kiss99_step(rng)
+    u = (r.to(torch.float32) + 0.5) / float(2 ** 32)
+    cdf = torch.cumsum(pdf, dim=-1)
+    exc = (cdf < u[..., None]).sum(-1)
+    return torch.clamp(exc, 0, 255).to(torch.int32), rng
+
+
 def _gru_layers(fused, state: SampleState, cond_a, cond_b, sig_u, pred_u):
     """GRU-A and GRU-B of one sample step -> (h_a, h_b)."""
     gate_a = (cond_a + fused["embed_sig_a"][sig_u.long()]
@@ -366,20 +405,28 @@ def _gru_layers(fused, state: SampleState, cond_a, cond_b, sig_u, pred_u):
 
 
 def sample_network_step(fused, state: SampleState, cond_a, cond_b,
-                        sig_u, pred_u):
+                        sig_u, pred_u, pdf_corr=None):
     """One sample step given the u-law codes of the last signal and of the
-    prediction; float or q8 (nn.quantized.quantize_fused) params."""
+    prediction; float or q8 (nn.quantized.quantize_fused) params. `pdf_corr`
+    [B] selects the full-PDF sampler (`sample_excitation_pdf`) in place of
+    the C bit-tree sampler."""
     h_a, h_b = _gru_layers(fused, state, cond_a, cond_b, sig_u, pred_u)
-    exc, rng = sample_excitation(fused["dual_fc"], h_b, state.rng)
+    if pdf_corr is None:
+        exc, rng = sample_excitation(fused["dual_fc"], h_b, state.rng)
+    else:
+        exc, rng = sample_excitation_pdf(fused["dual_fc"], h_b, state.rng,
+                                         pdf_corr)
     return h_a, h_b, exc, rng
 
 
 def synthesize_frame(fused, state: SampleState, cond_a, cond_b, lpc,
-                     n_samples: int = 160, preload=None):
+                     n_samples: int = 160, preload=None, pdf_corr=None):
     """One frame of audio for a batch of streams, step by step.
 
     preload: optional [B, n_samples] target waveform for teacher forcing
     (src/lpcnet.c:256-259): the excitation fed back comes from the target.
+    pdf_corr: optional [B] pitch correlation; selects the full-PDF sampler
+    with its voicing temperature and tail cut (`sample_excitation_pdf`).
     Returns (new_state, pcm [B, n_samples] float, rounded, in +-32767).
     Matches lpcnet_synthesize_tail_impl (src/lpcnet.c:235-271).
     """
@@ -391,14 +438,16 @@ def synthesize_frame(fused, state: SampleState, cond_a, cond_b, lpc,
         pred_u = mulaw.lin2ulaw(pred)
         if preload is not None:
             # the target's excitation replaces the sampled one, so the
-            # sampler only has to advance the RNG by its two draws
+            # sampler only has to advance the RNG by its draws (two for the
+            # tree, one for the full-PDF sampler)
             h_a, h_b = _gru_layers(fused, st, cond_a, cond_b, sig_u, pred_u)
-            _, rng = draw_threshold_bytes(st.rng)
+            rng = (draw_threshold_bytes(st.rng)[1] if pdf_corr is None
+                   else kiss99_step(st.rng)[1])
             pcm = preload[..., t] - PREEMPHASIS * st.deemph
             exc = mulaw.lin2ulaw(pcm - pred)
         else:
             h_a, h_b, exc, rng = sample_network_step(
-                fused, st, cond_a, cond_b, sig_u, pred_u)
+                fused, st, cond_a, cond_b, sig_u, pred_u, pdf_corr=pdf_corr)
             pcm = pred + mulaw.ulaw2lin(exc)
         sig = torch.cat([pcm[..., None], st.last_sig[..., :-1]], dim=-1)
         o = pcm + PREEMPHASIS * st.deemph

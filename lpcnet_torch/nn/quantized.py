@@ -28,8 +28,9 @@ def quantize_act_int8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.floor(0.5 + 127.0 * x), -128, 127).to(torch.int8)
 
 
-def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
-    """int8 x int8 -> exact int32 sum, rescaled to float by SCALE_1.
+def imatmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 -> the exact int32 sum, as float32 (exact below 2^24,
+    which every product of these widths stays under).
 
     CUDA has no int32 matmul; there the sum runs in float64, whose 53-bit
     mantissa holds every such sum exactly.
@@ -38,7 +39,12 @@ def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
         acc = torch.matmul(x_q.to(torch.float64), w_q.to(torch.float64))
     else:
         acc = torch.matmul(x_q.to(torch.int32), w_q.to(torch.int32))
-    return acc.to(torch.float32) * SCALE_1
+    return acc.to(torch.float32)
+
+
+def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 -> exact int32 sum, rescaled to float by SCALE_1."""
+    return imatmul(x_q, w_q) * SCALE_1
 
 
 def gru_precomputed_step_q8(params: Dict[str, Any], h, gate_in,

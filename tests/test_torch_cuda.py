@@ -1,6 +1,8 @@
 """The CUDA kernels (the sample loop K1, its masked form K2, its merged form
 K6, the teacher-forced run K3, the PLC-net chain K4, the GRU training
-recurrence K5) vs their plain PyTorch versions, on a card, the packet
+recurrence K5; K1, K2 and K3 also in the factored q8 embedding's form) vs
+their plain PyTorch versions, on a card, `cli synthesis --sampling pdf` on
+the card, the packet
 decode pool's launches, the non-causal PLC pool's and the host PLC's; and, without a card, that the trainer and the PLC
 entry points refuse to start rather than run on the host.
 
@@ -848,3 +850,115 @@ def test_cuda_free_running_k1_ragged_batches(cuda, form, b):
     else:
         rk, rp = (float(v.square().mean().sqrt()) for v in (pk, pp))
         assert abs(rk - rp) / max(rp, 1.0) < 0.5
+
+
+def _factored_bundle(cfg, cuda):
+    """A q8 bundle of the factored embedding (K2's packs built), from
+    seeded weights at `cfg`; asserted to carry the factored operands."""
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda), cfg)
+    prev = K.set_emb("factored")
+    try:
+        kw = K.masked_kernel_weights(K.kernel_weights(Q.quantize_fused(fused), cfg))
+    finally:
+        K.set_emb(prev)
+    assert K.is_factored(kw) and kw["k2_f"].is_cuda
+    return fused, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 130, 1024])
+def test_cuda_factored_k1_matches_plain(cuda, b):
+    """K1 in the factored q8 form at one stream, one wave and two waves of
+    clusters: one launch counted, one step within 1e-4, RNG equal, >90 %
+    exact PCM over 32 steps (the composed q8 form's bars)."""
+    cfg = M.LPCNetConfig()
+    fused, kw = _factored_bundle(cfg, cuda)
+    ca, cb, lpc, s0 = _inputs(fused, cfg, b, cuda)
+    s1k, _ = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, 1)
+    s1p, _ = K.sample_loop_plain(kw, s0, ca, cb, lpc, 1)
+    assert float((s1k.gru_a - s1p.gru_a).abs().max()) <= 1e-4
+    assert float((s1k.gru_b - s1p.gru_b).abs().max()) <= 1e-4
+    before = K.synthesize_frame_kernel.launches
+    sk, pk = K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, 32)
+    torch.cuda.synchronize()
+    assert K.synthesize_frame_kernel.launches == before + 1
+    sp, pp = K.sample_loop_plain(kw, s0, ca, cb, lpc, 32)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert bool(torch.isfinite(pk).all())
+    assert float((pk == pp).float().mean()) > 0.90
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [True, False], ids=["sampled", "unsampled"])
+@pytest.mark.parametrize("b", [37, 130])
+def test_cuda_factored_k2_matches_plain(cuda, b, sampled):
+    """K2 in the factored q8 form under random mode words: RNG equal, frozen
+    streams bit-equal with PCM 0, >=98 % exact PCM; with every advanced
+    step teacher-forced PCM, h_a and the excitation exact."""
+    cfg = M.LPCNetConfig()
+    fused, kw = _factored_bundle(cfg, cuda)
+    n = 32
+    ca, cb, lpc, s0 = _inputs(fused, cfg, b, cuda)
+    rs = np.random.RandomState(23)
+    target = torch.from_numpy((rs.normal(size=(b, n)) * 1000).astype(np.float32)).to(cuda)
+    adv = rs.rand(b, n) < 0.7
+    adv[:5] = False
+    tf = adv.copy() if not sampled else rs.rand(b, n) < 0.5
+    adv, tf = torch.from_numpy(adv).to(cuda), torch.from_numpy(tf).to(cuda)
+    sk, pk = K.synthesize_frame_masked_kernel(kw, s0, ca, cb, lpc, target, tf, adv, n,
+                                              sampled)
+    torch.cuda.synchronize()
+    sp, pp = K.sample_loop_masked_plain(kw, s0, ca, cb, lpc, target, tf, adv, n, sampled)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert torch.equal(sk.gru_a[:5], s0.gru_a[:5]) and not bool(pk[~adv].any())
+    same = float((pk == pp).float().mean())
+    if sampled:
+        assert same >= 0.98, same
+    else:
+        assert same == 1.0 and torch.equal(sk.gru_a, sp.gru_a)
+        assert torch.equal(sk.last_exc, sp.last_exc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,nblk", [(37, 32, 3), (64, 160, 3), (256, 160, 1)])
+def test_cuda_factored_k3_matches_plain(cuda, b, n, nblk):
+    """K3 in the factored q8 form: one launch counted, RNG and the signal
+    state equal, streams that run no step bit-equal, one step within 1e-4,
+    the run within 5e-2 (the composed q8 form's bars)."""
+    cfg = M.LPCNetConfig()
+    fused, kw = _factored_bundle(cfg, cuda)
+    s0, ca, cb, lpc, tg, counts = _tf_case(fused, cfg, b, n, nblk, cuda)
+    one = torch.clamp(counts, max=1)
+    first = (ca[:, :1].contiguous(), cb[:, :1].contiguous(), lpc[:, :1], tg[:, :n],
+             one[:, :1], n)
+    s1k = K.teacher_force_blocks_kernel(kw, s0, *first)
+    s1p = K.teacher_force_blocks_plain(kw, s0, *first)
+    assert float((s1k.gru_a - s1p.gru_a).abs().max()) <= 1e-4
+    assert float((s1k.gru_b - s1p.gru_b).abs().max()) <= 1e-4
+    before = K.teacher_force_blocks_kernel.launches
+    sk = K.teacher_force_blocks_kernel(kw, s0, ca, cb, lpc, tg, counts, n)
+    torch.cuda.synchronize()
+    assert K.teacher_force_blocks_kernel.launches == before + 1
+    sp = K.teacher_force_blocks_plain(kw, s0, ca, cb, lpc, tg, counts, n)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert all(torch.equal(a, c) for a, c in zip(sk[2:5], sp[2:5]))
+    frozen = counts.sum(1) == 0
+    assert all(torch.equal(a[frozen], c[frozen]) for a, c in
+               zip(sk[:5] + tuple(sk.rng), s0[:5] + tuple(s0.rng)))
+    assert float((sk.gru_a - sp.gru_a).abs().max()) <= 5e-2
+    assert float((sk.gru_b - sp.gru_b).abs().max()) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_cuda_cli_synthesis_pdf_runs_on_the_card(cuda, tmp_path):
+    """`cli synthesis --sampling pdf` on its default device (the card): int16
+    output, silent while the lookahead fills, not after."""
+    from lpcnet_torch import cli
+    rs = np.random.RandomState(3)
+    f = (rs.normal(size=(4, 36)) * 0.3).astype(np.float32)
+    f[:, 19] = 0.5
+    fin, fout = tmp_path / "f.f32", tmp_path / "o.pcm"
+    f.tofile(fin)
+    cli.main(["synthesis", str(fin), str(fout), "--sampling", "pdf"])
+    out = np.fromfile(fout, np.int16)
+    assert out.shape == (640,) and not out[:320].any() and out[320:].any()

@@ -62,9 +62,9 @@ PROBES = [
     ("        __syncthreads();\n        send_slice(nxt);\n        // the cluster barrier:",
      "        TR(2) __syncthreads(); TR(3)\n        send_slice(nxt);\n        TR(4)\n"
      "        // the cluster barrier:"),
-    ("        load_codes(k1, t1);\n"
+    ("        if (fact) gather_g(tf_code(k, t), tf_live(k, t));\n"
      "        asm volatile(\"barrier.cluster.wait.acquire.aligned;\\n\" ::: \"memory\");\n",
-     "        load_codes(k1, t1);\n        TR(5)\n"
+     "        if (fact) gather_g(tf_code(k, t), tf_live(k, t));\n        TR(5)\n"
      "        asm volatile(\"barrier.cluster.wait.acquire.aligned;\\n\" ::: \"memory\");\n"
      "        TR(6)\n"),
 ]
