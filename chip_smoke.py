@@ -1,14 +1,16 @@
 """GPU smoke check of lpcnet_torch: builds every kernel, holds each against its
 plain PyTorch version on the card, drives vocoder synthesis, vocoder
-training, batched packet-loss concealment and the 1.6 kb/s codec (encode,
-packet decode through StreamPool) end to end through the public entry
-points, and times them.
+training, batched packet-loss concealment, the 1.6 kb/s codec (encode,
+packet decode through StreamPool), DRED and the training pipeline (corpus,
+dump_data, the PLC and RDO-VAE trainers, held-out validation) end to end
+through the public entry points, and times them.
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc. Phases:
+Needs one CUDA card, nvcc and g++. Phases:
   1. build every kernel from lpcnet_torch/kernels/csrc (one nvcc per source,
-     all at once);
+     all at once), then the native host runtime from
+     lpcnet_torch/runtime/native (g++);
   2. the free-running sample loop (K1: in bf16 and q8 the free-running form
      of csrc/masked_loop.cu's cluster kernel, in f32 the first design of
      csrc/sample_loop.cu) vs its plain version on the shipped demo vocoder
@@ -100,7 +102,9 @@ Needs one CUDA card and nvcc. Phases:
      one decode_qframe a stream a 20 ms dframe) at 1024 streams for 100
      dframes, held against the same functions on the CPU for 8 streams,
      timed and profiled; payloads of 16 streams entropy-coded and decoded
-     back exactly; decode_all at 1024 streams; PLCStreamPool at 256 streams
+     back exactly, through the native runtime's range coder (its bytes
+     equal to the Python coder's on the same latents, both timed);
+     decode_all at 1024 streams; PLCStreamPool at 256 streams
      for 100 frames, 64 of its streams fed their DRED-decoded redundancy
      through fec_add (K2 twice and K3 once a frame asserted); `cli
      fec-encode` of the C fixture's speech through the host PLC (K2 at one
@@ -120,7 +124,20 @@ Needs one CUDA card and nvcc. Phases:
      never-lost streams exact); their launches are the kernels line's;
  19. `cli synthesis --sampling pdf` (the full-PDF sampler, plain PyTorch)
      on the card: 10 frames at one stream, int16, silent for the lookahead
-     and not after; a {"pdf_sampling": ...} line carries its numbers.
+     and not after; a {"pdf_sampling": ...} line carries its numbers;
+ 20. the training pipeline: synth_corpus(1500 s, seed=61) through
+     dump_data_streams on the card (32 streams, Burg rows, the native
+     runtime's biquads, noise and teacher loop); PLCTrainer at PLCConfig()
+     / PLCTrainConfig() (batch 128, 1000 frames) for 5 steps on one batch,
+     eval_step twice, PLCDeviceLoader.sample_fn's contract; RDOVAETrainer at
+     RDOVAEConfig() / RDOVAETrainConfig() (batch 32, 256 frames) for 5
+     steps, eval_step at q 4 and 12; Trainer.fit at LPCNetConfig() (batch
+     128, EMA 0.999) for 4 steps with a HeldOutValidator on two 4 s clips
+     every 2 steps, its K1 (f32) launches counted (200 a frame track x 2
+     evaluations x raw and EMA), the log and the best checkpoint read back,
+     K1 at the validator's shapes against its plain version and the plain
+     synthesize_frame; a {"training_pipeline": ...} line carries its
+     numbers, and K1's kernels-line entry gains the validator's.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
@@ -183,6 +200,11 @@ DRED_CPU_STREAMS = 8
 DRED_PAYLOAD_STREAMS = 16
 DRED_PLC_STREAMS = 256
 DRED_PLC_FRAMES = 100
+PIPE_SECONDS = 1500.0
+PIPE_STREAMS = 32
+PIPE_STEPS = 5
+FIT_BATCHES = 4
+VAL_SECONDS = 4.0
 
 
 def log(msg):
@@ -1096,16 +1118,19 @@ def clip_holds(params):
     return True
 
 
-def profile_step(step, label, smi):
+def profile_step(step, label, smi, host_ops=True):
     """One more step (`step()`) of a path under torch.profiler: the device's
     busy share of the step and the kernels that take most of it. Fails where
-    the profiler records no device time. Returns (device busy ms, the step's
-    ms on the host's clock)."""
+    the profiler records no device time. `host_ops=False` records the
+    device's activity alone: a step of tens of thousands of launches then
+    costs seconds, not a minute, to gather. Returns (device busy ms, the
+    step's ms on the host's clock)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         step()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -2644,7 +2669,9 @@ def drive_dred(dev, smi):
         f"back exactly, decode_payload's features equal decode_all's of the same "
         f"symbols (against the {p}-stream decode_all {batch_err:.1e}); "
         f"{pay_enc_ms:.3f} ms a payload to encode (produce_payload / {p}), "
-        f"{pay_dec_ms:.3f} ms to decode, host clock; card: {smi}")
+        f"{pay_dec_ms:.3f} ms to decode, "
+        f"host clock; card: {smi}")
+    coder = payload_coders(out, penc.fixed_stats, rcfg, smi)
 
     # decode_all at 1024 streams on the newest 26 latents
     q_ids = DE.payload_q_ids(26, 9, 15)
@@ -2676,8 +2703,48 @@ def drive_dred(dev, smi):
             "cpu_streams": c, "card_vs_cpu_max_abs_err": err,
             "payload_streams": p, "payload_bytes_mean": float(np.mean(sizes)),
             "payload_roundtrip_exact": True, "payload_encode_ms": pay_enc_ms,
-            "payload_decode_ms": pay_dec_ms, "decode_all_ms": decode_all_ms,
+            "payload_decode_ms": pay_dec_ms, "payload_coder": coder,
+            "decode_all_ms": decode_all_ms,
             "decode_all_device_ms": lat_ms, "plc": plc, "host_plc": host}
+
+
+def payload_coders(out, stats, rcfg, smi):
+    """The payloads' latents coded by the native runtime's range coder (the
+    path encode_payload and decode_payload take) and by the Python coder
+    (the library hidden): the same bytes, each decoded back; ms a payload
+    of each, host clock."""
+    from lpcnet_torch.dred import entropy as DE
+    from lpcnet_torch.runtime import bindings as RB
+    assert RB.native_available(), "the native runtime did not build"
+    k, sd = rcfg.pvq_num_pulses, rcfg.state_dim
+    args = [(out["zq"][i].astype(np.int32), out["pulses"][i])
+            for i in range(len(out["payloads"]))]
+
+    def code():
+        t0 = time.perf_counter()
+        coded = [DE.encode_payload(z, s, 9, 15, stats, k) for z, s in args]
+        enc_ms = 1e3 * (time.perf_counter() - t0) / len(args)
+        t0 = time.perf_counter()
+        back = [DE.decode_payload(c, stats, sd, k) for c in coded]
+        dec_ms = 1e3 * (time.perf_counter() - t0) / len(args)
+        for (z, s), (zq, pulses, _) in zip(args, back):
+            assert np.array_equal(zq, z) and np.array_equal(pulses, s)
+        return coded, enc_ms, dec_ms
+
+    native, n_enc, n_dec = code()
+    saved, RB.runtime = RB.runtime, RB._Runtime(native=False)
+    try:
+        python, p_enc, p_dec = code()
+    finally:
+        RB.runtime = saved
+    assert native == python == list(out["payloads"]), "payload bytes"
+    log(f"DRED payload coder: native (runtime.bindings) and Python give the same "
+        f"bytes for {len(args)} payloads; encode {n_enc:.3f} ms a payload native, "
+        f"{p_enc:.3f} Python; decode {n_dec:.3f} native, {p_dec:.3f} Python (host "
+        f"clock); card: {smi}")
+    return {"native_equals_python": True, "payloads": len(args),
+            "encode_ms_native": n_enc, "encode_ms_python": p_enc,
+            "decode_ms_native": n_dec, "decode_ms_python": p_dec}
 
 
 def dred_into_plc(enc, dec, pcm, lost, dev, smi):
@@ -3102,6 +3169,344 @@ def cli_pdf_on_card(dev, smi):
     return secs, frame_ms
 
 
+# --------------------------------------------------------------------------
+# The training pipeline: corpus, dump_data, the PLC and RDO-VAE trainers, the
+# vocoder trainer with held-out validation through K1
+# --------------------------------------------------------------------------
+
+def loss_trace(frames, seed):
+    """A PLC loss trace in the trainer's format, int8 per frame, 0 = lost:
+    10 % of the 20 ms packets lost, the flag held for both frames of a
+    packet, as in plc_traffic."""
+    rs = np.random.RandomState(seed)
+    lost = rs.rand((frames + 1) // 2) < 0.10
+    return (~np.repeat(lost, 2)[:frames]).astype(np.int8)
+
+
+def timed_steps(step, n):
+    """step() n times, a synchronise after each: (results, ms of each)."""
+    out, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(step())
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, ms
+
+
+def build_native_runtime():
+    """The native host runtime built from lpcnet_torch/runtime/native with
+    g++ and loaded. Returns the seconds it took."""
+    from lpcnet_torch.runtime import bindings as RB
+    t0 = time.perf_counter()
+    assert RB.native_available(), "the native runtime did not build"
+    secs = time.perf_counter() - t0
+    log(f"native runtime: {RB.library_path().name} built with g++ "
+        f"{' '.join(RB.CXX_FLAGS)} and loaded in {secs:.2f} s")
+    return secs
+
+
+def pipeline_corpus(workdir, dev, smi):
+    """synth_corpus(PIPE_SECONDS, seed=61) dumped on the card by
+    dump_data_streams over PIPE_STREAMS streams with Burg rows through the
+    native runtime; the feature half written apart for the RDO-VAE and the
+    vocoder. Returns (numbers, {name: path})."""
+    from lpcnet_torch.runtime import native_available
+    from lpcnet_torch.train import corpus
+    from lpcnet_torch.train import dump_data as DD
+    assert native_available()
+    t0 = time.perf_counter()
+    audio = corpus.synth_corpus(PIPE_SECONDS, seed=61)
+    corpus_s = time.perf_counter() - t0
+    paths = {k: os.path.join(workdir, f) for k, f in (
+        ("rows72", "plc_features.f32"), ("pcm", "data.s16"),
+        ("rows36", "features.f32"), ("lost", "lost.s8"))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    DD.dump_data_streams(audio, paths["rows72"], paths["pcm"], seed=SEED,
+                         streams=PIPE_STREAMS, burg=True, device=dev)
+    dump_s = time.perf_counter() - t0
+    rows = np.fromfile(paths["rows72"], np.float32).reshape(-1, 72)
+    m = len(audio) // 160 // PIPE_STREAMS
+    assert rows.shape == (PIPE_STREAMS * m, 72) and np.isfinite(rows).all(), rows.shape
+    pairs = np.fromfile(paths["pcm"], np.int16).reshape(-1, 2)
+    assert pairs.shape == (rows.shape[0] * 160, 2)
+    rms_out = float(np.sqrt(np.mean(pairs[:, 1].astype(np.float64) ** 2)))
+    assert rms_out > 10.0 and rows[:, 36 + 18].min() >= 0.01 * (66 - 200) - 1e-5
+    np.ascontiguousarray(rows[:, 36:]).tofile(paths["rows36"])
+    loss_trace(rows.shape[0], SEED + 65).tofile(paths["lost"])
+    audio_s = len(audio) / 16000.0
+    log(f"training pipeline, corpus: synth_corpus({PIPE_SECONDS:.0f} s, seed=61) in "
+        f"{corpus_s:.1f} s; dump_data_streams on the card, {PIPE_STREAMS} streams x {m} "
+        f"frames: {rows.shape[0]} rows of 72 floats ({rows.nbytes / 1e6:.1f} MB) and "
+        f"{pairs.shape[0]} int16 pairs in {dump_s:.1f} s = {dump_s / audio_s:.4f} s a "
+        f"second of audio; sig_out rms {rms_out:.1f}; card: {smi}")
+    return {"corpus_seconds": audio_s, "corpus_s": corpus_s,
+            "streams": PIPE_STREAMS, "rows": int(rows.shape[0]), "row_floats": 72,
+            "dump_s": dump_s, "dump_s_per_audio_s": dump_s / audio_s}, paths
+
+
+def gru_clip_holds(params, names, c):
+    return all(float((params[g][leaf].detach().abs()[:, 0::2]
+                      + params[g][leaf].detach().abs()[:, 1::2]).max()) <= 2 * c + 1e-5
+               for g in names for leaf in ("kernel", "recurrent"))
+
+
+def pipeline_plc(paths, dev, smi):
+    """PLCTrainer at PLCConfig() / PLCTrainConfig() (batch 128, 1000
+    frames) on the dumped rows: PIPE_STEPS steps on one batch, eval_step on
+    the held-out batch twice, one profiled step; PLCDeviceLoader's batch on
+    the card against the host loader's contract."""
+    from lpcnet_torch.train import train_plc as TP
+    cfg, tc = PM.PLCConfig(), TP.PLCTrainConfig()
+    loader = TP.PLCLoader(paths["rows72"], paths["lost"], tc, seed=SEED, val_seqs=16)
+    assert len(loader) >= 1, "the corpus holds no training batch"
+    batch = loader[0]
+    tr = TP.PLCTrainer(cfg, tc, seed=SEED, device=dev)
+    assert tr.device.type == dev.type
+    metrics, ms = timed_steps(lambda: tr.train_step(batch), PIPE_STEPS)
+    losses = [float(m["loss"]) for m in metrics]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert gru_clip_holds(tr.params, ("plc_gru1", "plc_gru2"), 0.992)
+    val = loader.val_batch()
+    assert val["plc_input"].shape == (16, tc.seq_length, 57)
+    before = {k: v.clone() for k, v in flat_params(tr.params).items()}
+    e1, e2 = tr.eval_step(val), tr.eval_step(val)
+    assert e1 == e2 and np.isfinite(list(e1.values())).all(), (e1, e2)
+    assert all(torch.equal(before[k], v) for k, v in flat_params(tr.params).items())
+    busy, wall = profile_step(lambda: tr.train_step(batch), "PLC training step "
+                              f"(B={tc.batch_size}, T={tc.seq_length})", smi,
+                              host_ops=False)
+    step_ms = float(np.mean(ms[1:]))
+    log(f"training pipeline, PLC: PLCTrainer B={tc.batch_size} T={tc.seq_length}, "
+        f"{PIPE_STEPS} steps on one batch: losses " + " ".join(f"{v:.4f}" for v in losses)
+        + f"; {step_ms:.1f} ms/step after the first ({ms[0]:.1f} ms; host clock, "
+        f"synchronised), device busy {busy:.1f} ms of it ({100 * busy / step_ms:.1f} %); "
+        f"val loss {e1['loss']:.4f} twice, params unchanged; both GRUs within the "
+        f"0.992 clip; card: {smi}")
+
+    dl = TP.PLCDeviceLoader(paths["rows72"], paths["lost"], tc, seed=SEED,
+                            val_seqs=16, device=dev)
+    dv = dl.val_batch()
+    assert all(np.array_equal(dv[k], val[k]) for k in val), "val batch"
+    feats_d, lost_d = dl.device_arrays
+    assert feats_d.device.type == lost_d.device.type == dev.type
+    sel = torch.as_tensor(dl.indices[:tc.batch_size], device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 71)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = dl.sample_fn(feats_d, lost_d, sel, g)
+    torch.cuda.synchronize()
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+    x, f = b["plc_input"].cpu().numpy(), feats_d[sel].cpu().numpy()
+    flag = x[:, :, 56]
+    lost = np.abs(flag)
+    assert x.shape == (tc.batch_size, tc.seq_length, 57)
+    assert set(np.unique(flag)).issubset({-1.0, 0.0, 1.0})
+    assert np.array_equal(b["mask"].cpu().numpy()[:, :, 0], 1.0 - lost)
+    assert np.array_equal(x[:, :, 36:56], f[:, :, 36:56] * lost[:, :, None])
+    assert np.array_equal(x[:, :, :36], f[:, :, :36] * (lost * (flag + 1.0) / 2.0)[:, :, None])
+    assert np.array_equal(b["target"].cpu().numpy(), f[:, :, 36:])
+    lost_share = float(1.0 - lost.mean())
+    log(f"training pipeline, PLCDeviceLoader: sample_fn B={tc.batch_size} on the card "
+        f"{sample_ms:.2f} ms; mask, flag and target contract held; {100 * lost_share:.2f} "
+        f"% of frames lost; val batch equal to the host loader's; card: {smi}")
+    return {"batch": tc.batch_size, "seq_length": tc.seq_length, "steps": PIPE_STEPS,
+            "losses": losses, "ms_per_step": step_ms, "first_step_ms": ms[0],
+            "val_loss": e1["loss"], "device_busy_ms": busy, "profiled_step_ms": wall,
+            "device_busy_share": busy / wall,
+            "device_busy_share_of_step": busy / step_ms, "sample_fn_ms": sample_ms,
+            "sample_fn_lost_share": lost_share}
+
+
+def pipeline_rdovae(paths, dev, smi):
+    """RDOVAETrainer at RDOVAEConfig() / RDOVAETrainConfig() (batch 32, 256
+    frames) on the feature half: PIPE_STEPS steps on one batch with the same
+    noise draw each step, eval_step at q 4 and 12 twice each, one profiled
+    step."""
+    from lpcnet_torch.models import rdovae as RV
+    from lpcnet_torch.train import train_rdovae as TR
+    cfg, tc = RV.RDOVAEConfig(), TR.RDOVAETrainConfig()
+    ds = TR.RDOVAEDataset(paths["rows36"], tc, cfg, seed=SEED, val_seqs=8)
+    batch = next(iter(ds))
+    assert batch["features"].shape == (tc.batch_size, tc.sequence_length, cfg.num_features)
+    tr = TR.RDOVAETrainer(cfg, tc, seed=SEED, device=dev)
+    g = torch.Generator(device=dev)
+
+    def step():
+        g.manual_seed(SEED + 73)
+        return tr.train_step(batch, g)
+    metrics, ms = timed_steps(step, PIPE_STEPS)
+    losses = [float(m["total"]) for m in metrics]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    for k, v in flat_params(tr.params).items():
+        if v.dim() == 2:
+            w = v.abs()
+            assert float((w[:, 0::2] + w[:, 1::2]).max()) <= 2 * tc.weight_clip + 1e-5, k
+    evals = {}
+    for q in (4, 12):
+        vb = ds.val_batch(q)
+        a, b = tr.eval_step(vb), tr.eval_step(vb)
+        assert a == b and np.isfinite(list(a.values())).all(), (q, a, b)
+        evals[q] = a
+    busy, wall = profile_step(step, f"RDO-VAE training step (B={tc.batch_size}, "
+                              f"T={tc.sequence_length})", smi, host_ops=False)
+    step_ms = float(np.mean(ms[1:]))
+    log(f"training pipeline, RDO-VAE: RDOVAETrainer B={tc.batch_size} "
+        f"T={tc.sequence_length}, {PIPE_STEPS} steps on one batch: total "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f"; {step_ms:.1f} ms/step after the first ({ms[0]:.1f} ms), device busy "
+        f"{busy:.1f} ms of it ({100 * busy / step_ms:.1f} %); every 2-D leaf "
+        f"within the {tc.weight_clip} clip; eval_step deterministic: q=4 total "
+        f"{evals[4]['total']:.4f}, q=12 {evals[12]['total']:.4f}; card: {smi}")
+    return {"batch": tc.batch_size, "seq_length": tc.sequence_length,
+            "steps": PIPE_STEPS, "losses": losses, "ms_per_step": step_ms,
+            "first_step_ms": ms[0], "val_total_q4": evals[4]["total"],
+            "val_total_q12": evals[12]["total"], "device_busy_ms": busy,
+            "profiled_step_ms": wall, "device_busy_share": busy / wall,
+            "device_busy_share_of_step": busy / step_ms}
+
+
+def pipeline_fit(paths, dev, smi):
+    """Trainer.fit at LPCNetConfig() / TrainConfig(ema_decay=0.999), batch
+    128, on the first FIT_BATCHES batches of the dumped corpus, with a
+    HeldOutValidator on two 4 s clips of the seeded speech-like signal (4
+    segments of 200 frames) every 2 steps, a metrics log and a best
+    checkpoint. K5's and K1's counts are set to 0 just before fit and read
+    just after. Returns (numbers, K1's entry keys for the kernels line)."""
+    from lpcnet_torch.train.validation import HeldOutValidator
+    from lpcnet_torch.weights.checkpoint import load_checkpoint
+    cfg, tc = M.LPCNetConfig(), T.TrainConfig(ema_decay=0.999)
+    loader = LPCNetLoader(paths["pcm"], paths["rows36"], batch_size=tc.batch_size,
+                          chunk_frames=tc.chunk_frames, lookahead=tc.lookahead)
+    assert len(loader) >= FIT_BATCHES, len(loader)
+    batches = [loader[i] for i in range(FIT_BATCHES)]
+    sig, _, _ = plc_traffic(2, int(VAL_SECONDS * 100), SEED + 63)
+    clips = [np.clip(s.reshape(-1), -32767, 32767).astype(np.int16) for s in sig]
+    t0 = time.perf_counter()
+    val = HeldOutValidator(cfg, clips, seg_seconds=2.0, device=dev)
+    val_init_s = time.perf_counter() - t0
+    n_seg, n_frames = val.features.shape[:2]
+    assert (n_seg, n_frames) == (4, 200) and val.features.device.type == dev.type
+    eval_ms = []
+    evaluate = val.evaluate
+
+    def timed_evaluate(p):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = evaluate(p)
+        eval_ms.append(1e3 * (time.perf_counter() - t))
+        return r
+    val.evaluate = timed_evaluate
+    tr = T.Trainer(cfg, tc, seed=SEED, device=dev)
+    logdir = os.path.join(os.path.dirname(paths["pcm"]), "fitlog")
+    best = os.path.join(os.path.dirname(paths["pcm"]), "best.npz")
+    G.GruRecurrence.reset_launches()
+    K.synthesize_frame_kernel.launches = 0
+    K.synthesize_frame_masked_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.fit(batches, epochs=1, log_every=FIT_BATCHES, logdir=logdir, validator=val,
+           val_every=2, best_checkpoint_path=best)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k5 = dict(G.GruRecurrence.launches)
+    k1 = K.synthesize_frame_kernel.launches
+    k2 = K.synthesize_frame_masked_kernel.launches
+    val.evaluate = evaluate
+    n_evals = FIT_BATCHES // 2
+    na, nb = cfg.rnn_units1, cfg.rnn_units2
+    assert k5 == {("fwd", na): FIT_BATCHES, ("fwd", nb): FIT_BATCHES,
+                  ("bwd", na): FIT_BATCHES, ("bwd", nb): FIT_BATCHES}, k5
+    assert k1 == n_frames * n_evals * 2 and k2 == 0, (k1, k2)
+    recs = [json.loads(line) for line in open(os.path.join(logdir, "lpcnet_metrics.jsonl"))]
+    assert [r["step"] for r in recs if "loss" in r] == list(range(1, FIT_BATCHES + 1))
+    vals = [r for r in recs if "kind" in r]
+    assert [(r["step"], r["kind"]) for r in vals] == [
+        (s, k) for s in range(2, FIT_BATCHES + 1, 2) for k in ("val_raw", "val_ema")]
+    assert all(np.isfinite(r["band_lsd_db"]) for r in vals)
+    bparams, bcfg = load_checkpoint(best, dev)
+    assert bcfg == cfg and set(flat_params(bparams)) == set(flat_params(tr.params))
+
+    # on the card: deterministic, discriminating
+    m1, m2 = evaluate(tr.params), evaluate(tr.params)
+    assert m1 == m2, (m1, m2)
+    m3 = evaluate(M.init_params(cfg, SEED + 5, dev))
+    assert m3["band_lsd_db"] != m1["band_lsd_db"]
+    # K1 (f32) at the validator's shapes against its plain version, and the
+    # first 32 samples of every segment's first frame against the plain
+    # synthesize_frame on the card from the same state
+    with torch.no_grad():
+        fused = M.fuse_inference_params(tr.params, cfg)
+        kw = K.kernel_weights(fused, cfg, dtype=torch.float32)
+        fs, ss = M.init_frame_state(n_seg, cfg, dev), M.init_sample_state(n_seg, cfg, dev)
+        _, _, ca, cb, lpc = M.frame_network(fused, fs, val.features[:, 0], cfg)
+        ca, cb, lpc = ca.contiguous(), cb.contiguous(), lpc.contiguous()
+        s1k, _ = K.synthesize_frame_kernel(kw, ss, ca, cb, lpc, 1)
+        s1p, _ = K.sample_loop_plain(kw, ss, ca, cb, lpc, 1)
+        step_err = max(float((s1k.gru_a - s1p.gru_a).abs().max()),
+                       float((s1k.gru_b - s1p.gru_b).abs().max()))
+        _, pk = K.synthesize_frame_kernel(kw, ss, ca, cb, lpc)
+        _, pp = M.synthesize_frame(fused, ss, ca, cb, lpc)
+        first32 = [float((pk[i, :32] == pp[i, :32]).float().mean()) for i in range(n_seg)]
+        assert step_err <= 1e-4, step_err
+        assert min(first32) >= 0.98, first32
+        k_ms = time_cuda(lambda: K.synthesize_frame_kernel(kw, ss, ca, cb, lpc), reps=20)
+        p_ms = time_cuda(lambda: K.sample_loop_plain(kw, ss, ca, cb, lpc), reps=1, warmup=1)
+    bound, bound_by = k1_bound_ms(kw, cfg, n_seg, 160)
+    log(f"training pipeline, fit: Trainer B={tc.batch_size} T={tc.chunk_samples}, EMA "
+        f"0.999, {FIT_BATCHES} steps with HeldOutValidator({n_seg} segments x {n_frames} "
+        f"frames, set-up {val_init_s:.2f} s) every 2 steps: {fit_s:.2f} s; evaluations "
+        + " ".join(f"{v:.0f}" for v in eval_ms) + f" ms (host clock; raw and EMA); K5 "
+        f"launches {k5}, K1 (f32) {k1} = {n_frames} x {n_evals} x 2, K2 {k2}; "
+        f"val_raw/val_ema records and the best checkpoint written and loaded; "
+        f"band-LSD {m1['band_lsd_db']:.3f} dB twice, {m3['band_lsd_db']:.3f} on other "
+        f"params; card: {smi}")
+    log(f"K1[f32] at the validator's shapes (B={n_seg}, n=160): one step max|h| err "
+        f"{step_err:.3e} (tol 1e-4); first 32 samples of each segment's first frame "
+        f"exact against the plain synthesize_frame: {first32} (bar 0.98); kernel "
+        f"{k_ms:.4f} ms/launch, plain {p_ms:.2f} ms, bound {bound:.4f} ms ({bound_by}); "
+        f"card: {smi}")
+    numbers = {"batch": tc.batch_size, "chunk_samples": tc.chunk_samples,
+               "steps": FIT_BATCHES, "segments": n_seg, "segment_frames": n_frames,
+               "evaluations": n_evals * 2, "fit_s": fit_s, "evaluate_ms": eval_ms,
+               "validator_setup_s": val_init_s, "k1_launches": k1,
+               "k5_launches": FIT_BATCHES, "band_lsd_db": m1["band_lsd_db"],
+               "mcd_db": m1["mcd_db"], "fwsegsnr_db": m1["fwsegsnr_db"],
+               "first32_exact": first32}
+    k1_keys = {"launches_validator": k1, "f32_ms_validator": k_ms,
+               "f32_plain_ms_validator": p_ms, "f32_bound_ms_validator": bound,
+               "f32_bound_by_validator": bound_by,
+               "f32_max_abs_err_validator": step_err,
+               "f32_first32_exact_validator": min(first32)}
+    return numbers, k1_keys
+
+
+def drive_training_pipeline(dev, smi):
+    """Phase 20. Returns ({"training_pipeline": ...} numbers, K1's keys)."""
+    secs = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        out, paths = pipeline_corpus(workdir, dev, smi)
+        secs["corpus"] = time.perf_counter() - t0
+        out["card"] = smi
+        for name, part in (("plc", pipeline_plc), ("rdovae", pipeline_rdovae),
+                           ("fit", pipeline_fit)):
+            t0 = time.perf_counter()
+            out[name] = part(paths, dev, smi)
+            secs[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    out["fit"], k1_keys = out["fit"]
+    out["phase_s"] = secs
+    log("training pipeline, seconds by part (host clock, checks included): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + "; nothing is cut: the PLC batch and its 16 held-out sequences need "
+        "144,000 frames, 1440 s of the 1500 s corpus")
+    return out, k1_keys
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3123,6 +3528,7 @@ def main():
         for line in nvcc_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    native_s = build_native_runtime()
 
     # 2. K1 vs plain
     fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
@@ -3269,9 +3675,19 @@ def main():
     pdf_secs, pdf_frame_ms = cli_pdf_on_card(dev, smi)
     log(f"factored and pdf phases: {time.perf_counter() - t0:.1f} s")
 
+    # 20. the training pipeline: corpus, dump_data, the PLC and RDO-VAE
+    # trainers, the vocoder trainer with held-out validation through K1
+    t0 = time.perf_counter()
+    pipeline, k1_keys = drive_training_pipeline(dev, smi)
+    pipeline["native_build_s"] = native_s
+    entries[0].update(k1_keys)
+    assert len(entries) == 13 and all(e["launches"] > 0 for e in entries), entries
+    log(f"training pipeline phase: {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"dred": dred}))
     print(json.dumps({"pdf_sampling": {"cli_s": pdf_secs, "frame_ms": pdf_frame_ms,
                                        "frames": MAIN_FRAMES, "streams": 1}}))
+    print(json.dumps({"training_pipeline": pipeline}))
     print(json.dumps({"kernels": entries}))
     print(smi)          # nvidia-smi: name, power limit
     print(json.dumps({"ok": True, "device": {

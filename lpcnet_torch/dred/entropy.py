@@ -19,9 +19,11 @@ pipeline:
 * the framed payload of one redundancy packet.
 
 Host-side by design: entropy coding is bit-serial and branchy; the card
-computes the symbols and probabilities in batch, the host packs bits. This
-is the Python coder; the bytes are those of the JAX package's coder (its
-native C++ fast path gives the same bytes).
+computes the symbols and probabilities in batch, the host packs bits.
+`encode_payload` / `decode_payload` code the latents through the native
+runtime's range coder (`runtime.bindings`) where it loads and through the
+Python coder here otherwise; both give the same bytes, which are those of
+the JAX package's coder.
 """
 
 from __future__ import annotations
@@ -320,9 +322,13 @@ def encode_payload(zq: np.ndarray, state_pulses: np.ndarray, q0: int, q1: int,
     sbytes = sidx.to_bytes((sbits + 7) // 8, "big")
     q_ids = payload_q_ids(n_latents, q0, q1)
     p0, r = stats["p0_q15"][q_ids], stats["r_q15"][q_ids]
-    enc = RangeEncoder()
-    encode_latents(enc, zq, p0, r)
-    return header + sbytes + enc.finish()
+    from ..runtime.bindings import runtime
+    coded = runtime.dred_encode_latents(zq, p0, r)
+    if coded is None:                         # no native library: Python path
+        enc = RangeEncoder()
+        encode_latents(enc, zq, p0, r)
+        coded = enc.finish()
+    return header + sbytes + coded
 
 
 def decode_payload(payload: bytes, stats: dict, state_dim: int, state_k: int
@@ -340,5 +346,8 @@ def decode_payload(payload: bytes, stats: dict, state_dim: int, state_k: int
     state = pvq_decode_index(sidx, state_dim, state_k)
     q_ids = payload_q_ids(n_latents, q0, q1)
     p0, r = stats["p0_q15"][q_ids], stats["r_q15"][q_ids]
-    zq = decode_latents(RangeDecoder(payload[3 + nsb:]), p0, r)
+    from ..runtime.bindings import runtime
+    zq = runtime.dred_decode_latents(payload[3 + nsb:], p0, r)
+    if zq is None:                            # no native library: Python path
+        zq = decode_latents(RangeDecoder(payload[3 + nsb:]), p0, r)
     return zq, state, q_ids

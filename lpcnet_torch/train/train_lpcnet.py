@@ -31,6 +31,7 @@ import torch
 
 from ..models import lpcnet as M
 from ..utils.device import resolve_device
+from ..weights.convert import array_to_torch
 from . import losses as LL
 from .sparsify import SparsifySchedule, apply_schedules, weight_clip_constraint
 
@@ -205,6 +206,19 @@ def _assign(params, new) -> None:
             p.copy_(n)
 
 
+def _carry(p, n):
+    """A leaf `n` (a tensor or any array) on `p`'s device and type."""
+    n = n if isinstance(n, torch.Tensor) else array_to_torch(n)
+    return n.to(p.device, p.dtype)
+
+
+def _to_device(batch, device) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays or tensors as tensors on `device`."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.asarray(v))).to(device)
+            for k, v in batch.items()}
+
+
 class Trainer:
     """End-to-end trainer on one device."""
 
@@ -236,15 +250,9 @@ class Trainer:
         """Replace the parameters (e.g. from a checkpoint) and start the
         optimizer anew over them."""
         with torch.no_grad():
-            _assign(self.params, _map(lambda p, n: n.to(p.device, p.dtype),
-                                      self.params, params))
+            _assign(self.params, _map(_carry, self.params, params))
         self.optimizer, self.scheduler = make_optimizer(self.tc, self.params)
         self._set_schedule_step(self.step)
-
-    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: (v if isinstance(v, torch.Tensor)
-                    else torch.from_numpy(np.asarray(v))).to(self.device)
-                for k, v in batch.items()}
 
     def _zero_states(self, b: int):
         z = lambda n: torch.zeros((b, n), dtype=torch.float32,
@@ -256,7 +264,7 @@ class Trainer:
         """One update from `batch` (numpy arrays or tensors). Returns the
         metrics as device scalars: fetch them at log intervals, since a
         fetch every step makes the host wait for the card."""
-        batch = self._to_device(batch)
+        batch = _to_device(batch, self.device)
         if self._gru_states is None:
             self._gru_states = self._zero_states(batch["sig_in"].shape[0])
         self.optimizer.zero_grad(set_to_none=True)
@@ -290,7 +298,7 @@ class Trainer:
         params = self.params if params is None else params
         total, n = None, 0
         for batch in batches:
-            batch = self._to_device(batch)
+            batch = _to_device(batch, self.device)
             rng = torch.Generator(device=self.device)
             rng.manual_seed(0)
             with torch.no_grad():
@@ -376,27 +384,74 @@ class Trainer:
                 self.reset_ema()
 
     def fit(self, loader, epochs: Optional[int] = None, log_every: int = 50,
-            checkpoint_path: Optional[str] = None):
+            checkpoint_path: Optional[str] = None, logdir: Optional[str] = None,
+            validator=None, val_every: int = 0,
+            best_checkpoint_path: Optional[str] = None):
         """Training loop over `loader` (an LPCNetLoader or a
         DeviceLPCNetLoader); writes `<checkpoint_path>_<epoch>.npz` after
         each epoch. The metrics are fetched and printed every `log_every`
-        steps."""
+        steps, and with `logdir` written to `lpcnet_metrics.jsonl` there.
+        With `validator` (train.validation.HeldOutValidator) and
+        `val_every`, every `val_every` steps the raw params (and the EMA
+        when enabled) are evaluated on held-out audio; the one with the
+        lowest band-LSD so far is written to `best_checkpoint_path`."""
         from ..weights.checkpoint import save_checkpoint
+        metrics_log = None
+        if logdir is not None:
+            import os
+
+            from ..utils.profiling import MetricsLogger
+            metrics_log = MetricsLogger(os.path.join(logdir,
+                                                     "lpcnet_metrics.jsonl"))
+        best = None
+        if validator is not None and val_every:
+            from .validation import BestTracker
+            best = BestTracker()
         rng = torch.Generator(device=self.device)
         rng.manual_seed(123)
         epochs = epochs or self.tc.epochs
         for epoch in range(epochs):
             for i, batch in enumerate(loader):
                 metrics = self.train_step(batch, rng)
+                if metrics_log is not None:
+                    metrics_log.log_async(step=self.step, epoch=epoch,
+                                          **metrics)
                 if i % log_every == 0:
+                    if metrics_log is not None:
+                        metrics_log.flush_async()
                     msg = " ".join(f"{k}={float(v):.4f}"
                                    for k, v in metrics.items())
                     print(f"epoch {epoch} step {i}: {msg}", flush=True)
+                if best is not None and self.step % val_every == 0:
+                    cand = [("raw", self.params)]
+                    if self.ema_params is not None:
+                        cand.append(("ema", self.ema_params))
+                    results = {n: validator.evaluate(p) for n, p in cand}
+                    win = min(results,
+                              key=lambda k: results[k]["band_lsd_db"])
+                    if (best.update(self.step, results[win])
+                            and best_checkpoint_path):
+                        save_checkpoint(best_checkpoint_path,
+                                        dict(cand)[win], self.cfg)
+                    if metrics_log is not None:
+                        for n, r in results.items():
+                            metrics_log.log_async(step=self.step,
+                                                  kind=f"val_{n}", **r)
+                        metrics_log.flush_async()
+                    print(f"step {self.step}: val "
+                          + " ".join(f"{n}={r['band_lsd_db']:.3f}dB"
+                                     for n, r in results.items())
+                          + f" (best {best.best:.3f} @ {best.best_step})",
+                          flush=True)
+            if metrics_log is not None:
+                metrics_log.flush_async()
             if checkpoint_path:
                 save_checkpoint(f"{checkpoint_path}_{epoch + 1:02d}.npz",
                                 self.params, self.cfg)
             if hasattr(loader, "on_epoch_end"):
                 loader.on_epoch_end()
+        if metrics_log is not None:
+            metrics_log.close()
         return self.params
 
 
