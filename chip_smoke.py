@@ -1,8 +1,10 @@
 """GPU smoke check of lpcnet_torch: builds every kernel, holds each against its
 plain PyTorch version on the card, drives vocoder synthesis, vocoder
 training, batched packet-loss concealment, the 1.6 kb/s codec (encode,
-packet decode through StreamPool), DRED and the training pipeline (corpus,
-dump_data, the PLC and RDO-VAE trainers, held-out validation) end to end
+packet decode through StreamPool), DRED, the training pipeline (corpus,
+dump_data, the PLC and RDO-VAE trainers, held-out validation) and the last
+modules (codebook training, train_block, the trainers over
+torch.distributed, the PLC ablation sweep, the Pade fitter) end to end
 through the public entry points, and times them.
 
     python3 chip_smoke.py
@@ -137,7 +139,27 @@ Needs one CUDA card, nvcc and g++. Phases:
      evaluations x raw and EMA), the log and the best checkpoint read back,
      K1 at the validator's shapes against its plain version and the plain
      synthesize_frame; a {"training_pipeline": ...} line carries its
-     numbers, and K1's kernels-line entry gains the validator's.
+     numbers, and K1's kernels-line entry gains the validator's;
+ 21. the last modules, on phase 20's corpus: train_codebooks at full size
+     (149,984 frames, 37,495 endpoints; 3 x 1024 stage codes, 4096 diff
+     codes) with the runtime quantizers' MSE beside the shipped set's and
+     the diff book's group structure, then 8k frames at 64 / 64 codes on
+     the card against the CPU from one seed (1e-4); Trainer.train_block at
+     LPCNetConfig() / TrainConfig() through DeviceLPCNetLoader, a block of
+     4 against 4 train_step calls and against 2 x 2 blocks (bit-equal, or
+     where the card's step differs run to run, 1e-6 relative), the default
+     blocks under torch.cuda.set_sync_debug_mode (none may synchronise),
+     a block of 2 with ss_prob=0.25 and its synchronising calls counted;
+     PLCTrainer.train_block at PLCConfig() (B=128, T=1000), a block of 2
+     against 2 steps and 2 x 1 blocks; the vocoder Trainer over NCCL at
+     world size 1 (init_distributed, make_mesh) bit-equal to no mesh over
+     2 steps, the PLC and RDO-VAE trainers a step each with the mesh, the
+     one all_reduce a step timed; tools/profile_plc_torch.py's ablation
+     sweep at 256 streams, 10 frames a variant in each of 3 rounds (medians);
+     fit_pade_odd on the card
+     against the CPU (1e-9). K5's and K2's counts in the vocoder's blocks
+     join their kernels-line entries; a {"last_modules": ...} line carries
+     the numbers.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
@@ -205,6 +227,14 @@ PIPE_STREAMS = 32
 PIPE_STEPS = 5
 FIT_BATCHES = 4
 VAL_SECONDS = 4.0
+CB_SMALL_FRAMES = 8000
+CB_SMALL_CODES = 64
+BLOCK_STEPS = 4
+SS_BLOCK_STEPS = 2
+PLC_BLOCK_STEPS = 2
+MESH_STEPS = 2
+ABL_STREAMS = 256
+ABL_FRAMES = 10
 
 
 def log(msg):
@@ -1036,6 +1066,8 @@ def time_k2(case, fused, cfg, launches, step_err, smi):
     p_ms = time_cuda(lambda: K.sample_loop_masked_plain(
         kw, s0, ca, cb, lpc, tg, tf, adv), reps=1, warmup=1)
     bound, bound_by = k1_bound_ms(kw, cfg, b, 160, masked=True)
+    form_bounds = {form: k1_bound_ms(kf, cfg, b, 160, masked=True)
+                   for form, kf in bundles.items()}
     na, nb, dev = cfg.rnn_units1, cfg.rnn_units2, tg.device
     wide = {}
     for bw in (256, 1024):          # the checks' batch, and one that takes waves
@@ -1053,9 +1085,10 @@ def time_k2(case, fused, cfg, launches, step_err, smi):
         + f"); K1 on the same inputs, free-running (bf16, q8: the cluster kernel's "
         f"free-running form; f32: the first design): "
         f"bf16 {k1_ms['bf16']:.4f}, f32 {k1_ms['f32']:.4f}, q8 {k1_ms['q8']:.4f}; "
-        f"plain {p_ms:.2f} ms, bound {bound:.4f} ms ({bound_by}), 15 launches per "
-        f"training step with ss_prob > 0; library: no single PyTorch call "
-        f"computes K2; card: {smi}")
+        f"plain {p_ms:.2f} ms, bound {bound:.4f} ms ({bound_by}; by form: "
+        + ", ".join(f"{k} {v[0]:.4f} ({v[1]})" for k, v in form_bounds.items())
+        + f"), 15 launches per training step with ss_prob > 0; library: no single "
+        f"PyTorch call computes K2; card: {smi}")
     return {"name": "sample_loop_masked[bf16]", "route": "cuda",
             "source": "lpcnet_torch/kernels/csrc/masked_loop.cu",
             "replaces": "lpcnet_tpu/kernels/sample_loop.py:461",
@@ -1063,7 +1096,8 @@ def time_k2(case, fused, cfg, launches, step_err, smi):
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "pass": True, "f32_ms": ms["f32"], "q8_ms": ms["q8"],
             "k1_ms_same_inputs": k1_ms, "bf16_ms_b256": wide[256],
-            "bf16_ms_b1024": wide[1024]}
+            "bf16_ms_b1024": wide[1024],
+            "f32_bound_ms": form_bounds["f32"][0], "q8_bound_ms": form_bounds["q8"][0]}
 
 
 # --------------------------------------------------------------------------
@@ -1825,8 +1859,8 @@ def time_plc_kernels(calls, models, counts, chain_counts, frame_ms, smi):
     """K3, K4 and K2 alone, on arguments the PLC path gave them (the frame
     of the captured 50 whose drain ran the most steps): each held against
     its plain version there, then timed, with its bound; the unchained path
-    beside K4; the frame's split. Returns K2's times and one-step errors on
-    this path, and the kernels line's entries for K3 and K4."""
+    beside K4; the frame's split. Returns K2's times, one-step errors and
+    bound on this path, and the kernels line's entries for K3 and K4."""
     fused, cfg, plc_params = models
     k3_calls = calls["teacher_force_blocks_kernel"]
     k2_calls = calls["synthesize_frame_masked_kernel"]
@@ -1846,6 +1880,7 @@ def time_plc_kernels(calls, models, counts, chain_counts, frame_ms, smi):
     k2_ms = [time_cuda(lambda: K.synthesize_frame_masked_kernel(*a2), reps=10)
              for a2 in k2_pair]
     b2, n2 = k2_pair[0][5].shape
+    k2_bound, k2_by = k1_bound_ms(k2_pair[0][0], cfg, b2, n2, masked=True)
     cw, h1, h2, inputs, masks, k_steps = a4
     k4_ms = time_cuda(lambda: PC.plc_chain_kernel(*a4), reps=20)
     k4_plain = time_cuda(lambda: PC.plc_chain_plain(*a4), reps=3, warmup=1)
@@ -1879,13 +1914,14 @@ def time_plc_kernels(calls, models, counts, chain_counts, frame_ms, smi):
     kernels = k3_call + sum(k2_ms)
     log(f"PLC frame {frame_ms:.3f} ms = K3's call {k3_call:.3f} ms (kernel {k3_ms:.3f} "
         f"ms, closed forms in PyTorch {k3_call - k3_ms:.3f} ms) + K2 head "
-        f"{k2_ms[0]:.3f} ms + K2 tail {k2_ms[1]:.3f} ms (B={b2}, n={n2}; CUDA "
+        f"{k2_ms[0]:.3f} ms + K2 tail {k2_ms[1]:.3f} ms (B={b2}, n={n2}, bound "
+        f"{k2_bound:.5f} ms ({k2_by}) each; CUDA "
         f"events, alone, on the busiest captured frame's arguments) + frame-rate "
         f"rest and host {frame_ms - kernels:.3f} ms "
         f"({100 * (frame_ms - kernels) / frame_ms:.1f} %); card: {smi}")
     log_frame_rate_pieces(fused, cfg, plc_params, h1.shape[0], smi)
     src = "lpcnet_torch/kernels/csrc/"
-    return k2_ms, k2_errs, [
+    return k2_ms, k2_errs, k2_bound, [
         {"name": "teacher_force[bf16]", "route": "cuda",
          "source": src + "masked_loop.cu",
          "replaces": "lpcnet_tpu/kernels/sample_loop.py:785",
@@ -2471,7 +2507,8 @@ def time_k6(runs, parts, dev, smi):
                          reps=1, warmup=1)
         bound, by = k6_bound_ms(mw, cfg, CODEC_STREAMS, 160)
         k1_bound, _ = k1_bound_ms(kw, cfg, CODEC_STREAMS, 160)
-        res[form] = dict(err=err, ms=k6_ms, k1_ms=k1_ms, plain=p_ms, bound=bound, by=by)
+        res[form] = dict(err=err, ms=k6_ms, k1_ms=k1_ms, plain=p_ms, bound=bound, by=by,
+                         k1_bound=k1_bound)
         log(f"K6[{form}] B={CODEC_STREAMS} n=160: kernel {k6_ms:.4f} ms/launch, K1 "
             f"on the same inputs {k1_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
             f"{bound:.4f} ms ({by}; K1's {k1_bound:.4f}), 1 launch per 10 ms frame "
@@ -2503,7 +2540,9 @@ def time_k6(runs, parts, dev, smi):
             "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"],
             "bound_by": r["by"], "library_ms": None, "pass": True,
             "f32_ms": res["f32"]["ms"], "k1_ms_same_inputs": r["k1_ms"],
-            "k1_f32_ms_same_inputs": res["f32"]["k1_ms"]}
+            "k1_f32_ms_same_inputs": res["f32"]["k1_ms"],
+            "f32_bound_ms": res["f32"]["bound"], "k1_bound_ms": r["k1_bound"],
+            "k1_f32_bound_ms": res["f32"]["k1_bound"]}
 
 
 # --------------------------------------------------------------------------
@@ -3484,27 +3523,463 @@ def pipeline_fit(paths, dev, smi):
     return numbers, k1_keys
 
 
-def drive_training_pipeline(dev, smi):
-    """Phase 20. Returns ({"training_pipeline": ...} numbers, K1's keys)."""
+def drive_training_pipeline(dev, smi, workdir):
+    """Phase 20, its corpus written under `workdir`. Returns
+    ({"training_pipeline": ...} numbers, K1's keys, the corpus' paths)."""
     secs = {}
-    with tempfile.TemporaryDirectory() as workdir:
+    t0 = time.perf_counter()
+    out, paths = pipeline_corpus(workdir, dev, smi)
+    secs["corpus"] = time.perf_counter() - t0
+    out["card"] = smi
+    for name, part in (("plc", pipeline_plc), ("rdovae", pipeline_rdovae),
+                       ("fit", pipeline_fit)):
         t0 = time.perf_counter()
-        out, paths = pipeline_corpus(workdir, dev, smi)
-        secs["corpus"] = time.perf_counter() - t0
-        out["card"] = smi
-        for name, part in (("plc", pipeline_plc), ("rdovae", pipeline_rdovae),
-                           ("fit", pipeline_fit)):
-            t0 = time.perf_counter()
-            out[name] = part(paths, dev, smi)
-            secs[name] = time.perf_counter() - t0
-            torch.cuda.empty_cache()
+        out[name] = part(paths, dev, smi)
+        secs[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
     out["fit"], k1_keys = out["fit"]
     out["phase_s"] = secs
     log("training pipeline, seconds by part (host clock, checks included): "
         + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
         + "; nothing is cut: the PLC batch and its 16 held-out sequences need "
         "144,000 frames, 1440 s of the 1500 s corpus")
-    return out, k1_keys
+    return out, k1_keys, paths
+
+
+# ---------------------------------------------------------------------------
+# 21. the last modules
+# ---------------------------------------------------------------------------
+
+def rel_diff(a, b):
+    """The largest difference of two parameter trees' leaves over each
+    leaf's largest entry; 0.0 when they are bit-equal."""
+    fa, fb = flat_params(a), flat_params(b)
+    assert set(fa) == set(fb)
+    return max(float((fa[k] - fb[k]).abs().max()
+                     / fb[k].abs().max().clamp_min(1e-12)) for k in fb)
+
+
+def hold_equal(what, diff, rerun_diff):
+    """Bit-equality of `what`; where the card's step is not deterministic
+    run to run (`rerun_diff()`: two identical runs apart) it says so and
+    holds `diff` at 1e-6 relative instead. Returns the numbers."""
+    if diff == 0.0:
+        return {"bit_equal": True, "max_rel": 0.0}
+    again = rerun_diff()
+    log(f"{what}: {diff:.3e} apart (largest leaf difference over the leaf's "
+        f"largest entry); two identical runs are {again:.3e} apart")
+    assert again > 0.0, f"{what}: {diff} apart, and the step is deterministic"
+    log(f"{what}: the card's step is not deterministic run to run; held at "
+        f"1e-6 relative")
+    assert diff <= 1e-6, (what, diff)
+    return {"bit_equal": False, "max_rel": diff, "run_to_run_rel": again}
+
+
+@contextlib.contextmanager
+def sync_debug(mode):
+    """torch.cuda.set_sync_debug_mode(mode) while active; under "warn" the
+    synchronising calls' warnings are collected into the yielded list."""
+    import warnings
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+
+def sync_warnings(caught):
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def last_codebooks(paths, dev, smi):
+    """Codebook training at full size on phase 20's corpus (stage codes
+    1024, diff codes 4096), both MSEs beside the shipped set's, the diff
+    book's group structure; then a reduced size on the card and on the CPU
+    from one generator seed."""
+    from lpcnet_torch.codec import codebooks as CB
+    feats = np.fromfile(paths["rows36"], np.float32).reshape(-1, 36)
+    n_end = (feats.shape[0] - 4) // 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cb = CB.train_codebooks(feats, torch.Generator().manual_seed(SEED),
+                            device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    assert [tuple(b.shape) for b in cb] == [(1024, 17)] * 3 + [(4096, 18)]
+    assert all(bool(torch.isfinite(b).all()) for b in cb)
+    trained = CB.quantization_mse(feats, cb)
+    shipped = CB.quantization_mse(feats, CB.load_codebooks(device=dev))
+    # entry i serves predictor group i & 3: moving every entry to the next
+    # group (rows rolled within each set of four) must cost diff MSE
+    rolled = cb._replace(diff4=cb.diff4.view(-1, 4, 18).roll(1, dims=1)
+                         .reshape(-1, 18))
+    rolled_mse = CB.quantization_mse(feats, rolled)["diff_mse"]
+    ends, mid = CB._corpus(feats, dev)
+    _, recon = CB._beam_assign(ends[:, 1:], cb.stage1, cb.stage2, cb.stage3)
+    left, right = CB._neighbours(torch.cat([ends[:, :1], recon], 1),
+                                 mid.shape[0])
+    res = CB._diff_residuals(mid, left, right)
+    assert torch.equal(res[:, 0], res[:, 1]) and torch.equal(res[:, 2], mid - left)
+    entry, _ = CB.quantize_diff(mid, left, right, cb.diff4)
+    used = torch.bincount((entry % 4096).long() & 3, minlength=4).tolist()
+    assert trained["diff_mse"] < rolled_mse and min(used) > 0, (used, rolled_mse)
+    assert np.isfinite(list(trained.values())).all()
+    log(f"codebooks: train_codebooks on phase 20's corpus ({feats.shape[0]} frames, "
+        f"{n_end} endpoints; 3 x 1024 stage codes, 4096 diff codes, 4 m-best "
+        f"passes) on the card in {train_s:.2f} s; runtime-quantizer MSE trained "
+        f"stage {trained['stage_mse']:.5f} diff {trained['diff_mse']:.5f}, shipped "
+        f"stage {shipped['stage_mse']:.5f} diff {shipped['diff_mse']:.5f}; the diff "
+        f"book's entries rolled one group over: diff {rolled_mse:.5f}; groups used "
+        f"{used}; card: {smi}")
+    small = feats[:CB_SMALL_FRAMES]
+    kw = dict(stage_codes=CB_SMALL_CODES, diff_codes=CB_SMALL_CODES)
+    t0 = time.perf_counter()
+    on_card = CB.train_codebooks(small, torch.Generator().manual_seed(SEED),
+                                 device=dev, **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = CB.train_codebooks(small, torch.Generator().manual_seed(SEED),
+                                device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    log(f"codebooks, reduced ({CB_SMALL_FRAMES} frames, {CB_SMALL_CODES} / "
+        f"{CB_SMALL_CODES} codes, one generator seed): card {card_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s, books max|card - CPU| {err:.3e} (bar 1e-4); card: {smi}")
+    assert err <= 1e-4, err
+    return {"frames": int(feats.shape[0]), "endpoints": n_end, "train_s": train_s,
+            "trained": trained, "shipped": shipped, "rolled_diff_mse": rolled_mse,
+            "groups_used": used, "reduced_max_abs_err": err,
+            "reduced_card_s": card_s, "reduced_cpu_s": cpu_s}
+
+
+def k5_k2_counts():
+    """K5's launches keyed "fwd[N]" / "bwd[N]" and K2's under "k2"."""
+    out = {f"{d}[{n}]": c for (d, n), c in sorted(G.GruRecurrence.launches.items())}
+    out["k2"] = K.synthesize_frame_masked_kernel.launches
+    return out
+
+
+def reset_k5_k2():
+    G.GruRecurrence.reset_launches()
+    K.synthesize_frame_masked_kernel.launches = 0
+
+
+def last_vocoder_block(paths, dev, smi):
+    """Trainer.train_block at LPCNetConfig() / TrainConfig() (batch 128,
+    2400 samples) on phase 20's corpus through DeviceLPCNetLoader: a block of
+    BLOCK_STEPS against as many train_step calls and against blocks of 2,
+    from one start; the blocks under torch.cuda.set_sync_debug_mode; then a
+    block of SS_BLOCK_STEPS with ss_prob=0.25."""
+    from lpcnet_torch.utils.rng import fold_seed
+    cfg, tc = M.LPCNetConfig(), T.TrainConfig()
+    loader = DeviceLPCNetLoader(paths["pcm"], paths["rows36"], batch_size=tc.batch_size,
+                                chunk_frames=tc.chunk_frames, lookahead=tc.lookahead,
+                                seed=SEED, device=dev)
+    sels = next(loader.index_blocks(BLOCK_STEPS))
+    assert sels.shape == (BLOCK_STEPS, tc.batch_size) and sels.dtype == np.int32
+    new = lambda t=tc: T.Trainer(cfg, t, seed=SEED, device=dev)
+
+    def block(tr, parts, mode="error"):
+        reset_k5_k2()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        off, ms = 0, []
+        with sync_debug(mode) as caught:
+            for k in parts:
+                ms.append(tr.train_block(loader, sels[off:off + k]))
+                off += k
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return ms, secs, k5_k2_counts(), sync_warnings(caught)
+
+    def steps(tr):
+        reset_k5_k2()
+        out, times = [], []
+        for sel in sels:
+            g = torch.Generator(device=dev)
+            g.manual_seed(fold_seed(T.Trainer.BLOCK_SEED, tr.step))
+            batch = loader.sample(torch.as_tensor(sel, device=dev).long())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(tr.train_step(batch, g))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, times, k5_k2_counts()
+
+    a = new()
+    ma, a_s, a_counts, a_sync = block(a, [BLOCK_STEPS], mode="warn")
+    log(f"train_block [vocoder]: the default block of {BLOCK_STEPS} under "
+        f"set_sync_debug_mode('warn'): {len(a_sync)} synchronising calls"
+        + ("" if not a_sync else f": {sorted(set(a_sync))[:4]}"))
+    assert not a_sync, a_sync
+    b = new()
+    mb, b_times, b_counts = steps(b)
+    c = new()
+    mc, c_s, c_counts, c_sync = block(c, [2, 2], mode="error")
+    assert a.step == b.step == c.step == BLOCK_STEPS
+    la = ma[0]["loss"].cpu().numpy()
+    lb = np.array([float(m["loss"]) for m in mb])
+    lc = np.concatenate([m["loss"].cpu().numpy() for m in mc])
+    assert np.isfinite(la).all() and la.shape == (BLOCK_STEPS,)
+
+    def rerun():
+        d = new()
+        block(d, [BLOCK_STEPS])
+        return rel_diff(d.params, a.params)
+    vs_steps = hold_equal("train_block [vocoder], one block against its steps",
+                          rel_diff(a.params, b.params), rerun)
+    vs_split = hold_equal("train_block [vocoder], 1 x 4 against 2 x 2",
+                          rel_diff(a.params, c.params), rerun)
+    if vs_steps["bit_equal"]:
+        assert np.array_equal(la, lb), (la, lb)
+    if vs_split["bit_equal"]:
+        assert np.array_equal(la, lc), (la, lc)
+    na, nb = cfg.rnn_units1, cfg.rnn_units2
+    want = {f"{d}[{n}]": BLOCK_STEPS for d in ("bwd", "fwd") for n in (nb, na)}
+    want["k2"] = 0
+    assert a_counts == b_counts == c_counts == want, (a_counts, b_counts, c_counts)
+    block_ms = 1e3 * c_s / BLOCK_STEPS
+    step_ms = 1e3 * float(np.mean(b_times[1:]))
+    log(f"train_block [vocoder]: B={tc.batch_size} T={tc.chunk_samples}, losses "
+        + " ".join(f"{v:.4f}" for v in la) + f"; block {1e3 * a_s / BLOCK_STEPS:.1f} "
+        f"(first), {block_ms:.1f} ms/step (2 x 2, under 'error': nothing raised) "
+        f"against {step_ms:.1f} ms/step of train_step calls with a synchronise each "
+        f"(after the first, {1e3 * b_times[0]:.1f}); launches in a block of "
+        f"{BLOCK_STEPS}: {a_counts}; params "
+        f"{'bit-equal' if vs_steps['bit_equal'] else vs_steps['max_rel']} against "
+        f"the steps, {'bit-equal' if vs_split['bit_equal'] else vs_split['max_rel']} "
+        f"against 2 x 2; card: {smi}")
+    del a, b, c
+    torch.cuda.empty_cache()
+
+    s = new(dataclasses.replace(tc, ss_prob=0.25))
+    ms, s_s, s_counts, s_sync = block(s, [SS_BLOCK_STEPS], mode="warn")
+    ls = ms[0]["loss"].cpu().numpy()
+    assert np.isfinite(ls).all()
+    assert s_counts == dict({k: SS_BLOCK_STEPS for k in want if k != "k2"},
+                            k2=tc.chunk_frames * SS_BLOCK_STEPS), s_counts
+    log(f"train_block [vocoder, ss_prob=0.25]: a block of {SS_BLOCK_STEPS}, "
+        f"{1e3 * s_s / SS_BLOCK_STEPS:.1f} ms/step; K2 launches {s_counts['k2']}; "
+        f"{len(s_sync)} synchronising calls under 'warn'"
+        + ("" if not s_sync else f": {sorted(set(s_sync))[:4]}") + f"; card: {smi}")
+    del s
+    torch.cuda.empty_cache()
+    return {"block_steps": BLOCK_STEPS, "losses": la.tolist(),
+            "block_ms_per_step": block_ms, "first_block_ms_per_step": 1e3 * a_s / BLOCK_STEPS,
+            "train_step_ms": step_ms, "vs_steps": vs_steps, "vs_2x2": vs_split,
+            "launches": a_counts, "sync_calls_default": len(a_sync),
+            "ss_block_ms_per_step": 1e3 * s_s / SS_BLOCK_STEPS,
+            "ss_launches": s_counts, "sync_calls_ss": len(s_sync),
+            "sync_calls_ss_kinds": sorted(set(s_sync))}
+
+
+def last_plc_block(paths, dev, smi):
+    """PLCTrainer.train_block at PLCConfig() / PLCTrainConfig() (batch 128,
+    1000 frames) over PLCDeviceLoader: a block of PLC_BLOCK_STEPS against as
+    many train_step calls on the same batches and against blocks of 1."""
+    from lpcnet_torch.train import train_plc as TP
+    from lpcnet_torch.utils.rng import fold_seed
+    cfg, tc = PM.PLCConfig(), TP.PLCTrainConfig()
+    dl = TP.PLCDeviceLoader(paths["rows72"], paths["lost"], tc, seed=SEED, device=dev)
+    # the corpus holds one batch an epoch: a block's steps take two epochs'
+    rows = []
+    for _ in range(PLC_BLOCK_STEPS):
+        rows.append(next(dl.index_blocks(1)))
+        dl.on_epoch_end()
+    sels = np.concatenate(rows)
+    feats_d, lost_d = dl.device_arrays
+    new = lambda: TP.PLCTrainer(cfg, tc, seed=SEED, device=dev)
+
+    a = new()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sync_debug("warn") as caught:
+        ma = a.train_block(dl, sels)
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    a_sync = sync_warnings(caught)
+    b = new()
+    lb, b_times = [], []
+    for sel in sels:
+        g = torch.Generator(device=dev)
+        g.manual_seed(fold_seed(TP.PLCTrainer.BLOCK_SEED, b.step))
+        batch = dl.sample_fn(feats_d, lost_d, torch.as_tensor(sel, device=dev).long(), g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lb.append(float(b.train_step(batch)["loss"]))
+        torch.cuda.synchronize()
+        b_times.append(time.perf_counter() - t0)
+    c = new()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc = [c.train_block(dl, sels[k:k + 1])["loss"] for k in range(len(sels))]
+    torch.cuda.synchronize()
+    c_s = time.perf_counter() - t0
+    lc = [float(m[0]) for m in mc]
+    la = ma["loss"].cpu().numpy()
+    assert np.isfinite(la).all() and a.step == b.step == c.step == PLC_BLOCK_STEPS
+
+    def rerun():
+        d = new()
+        d.train_block(dl, sels)
+        return rel_diff(d.params, a.params)
+    vs_steps = hold_equal("train_block [PLC], one block against its steps",
+                          rel_diff(a.params, b.params), rerun)
+    vs_split = hold_equal("train_block [PLC], 1 x 2 against 2 x 1",
+                          rel_diff(a.params, c.params), rerun)
+    if vs_steps["bit_equal"]:
+        assert np.array_equal(la, np.float32(lb)), (la, lb)
+    if vs_split["bit_equal"]:
+        assert np.array_equal(la, np.float32(lc)), (la, lc)
+    block_ms = 1e3 * c_s / PLC_BLOCK_STEPS
+    step_ms = 1e3 * float(np.mean(b_times))
+    log(f"train_block [PLC]: B={tc.batch_size} T={tc.seq_length}, losses "
+        + " ".join(f"{v:.4f}" for v in la) + f"; block {1e3 * a_s / PLC_BLOCK_STEPS:.1f} "
+        f"(first), {block_ms:.1f} ms/step (2 x 1, after the steps) against "
+        f"{step_ms:.1f} ms/step of train_step calls; {len(a_sync)} synchronising "
+        f"calls under 'warn'; params "
+        f"{'bit-equal' if vs_steps['bit_equal'] else vs_steps['max_rel']} against the "
+        f"steps, {'bit-equal' if vs_split['bit_equal'] else vs_split['max_rel']} "
+        f"against 2 x 1; card: {smi}")
+    del a, b, c
+    torch.cuda.empty_cache()
+    return {"block_steps": PLC_BLOCK_STEPS, "losses": la.tolist(),
+            "block_ms_per_step": block_ms,
+            "first_block_ms_per_step": 1e3 * a_s / PLC_BLOCK_STEPS,
+            "train_step_ms": step_ms,
+            "vs_steps": vs_steps, "vs_2x1": vs_split, "sync_calls": len(a_sync)}
+
+
+def last_mesh(paths, dev, smi, workdir):
+    """The trainers over torch.distributed with NCCL at world size 1: the
+    vocoder's Trainer with a mesh for MESH_STEPS steps at full width against
+    one without, the PLC and RDO-VAE trainers one step each with the mesh,
+    and the time of the one all-reduce a step."""
+    import torch.distributed as dist
+    from lpcnet_torch.models import rdovae as RV
+    from lpcnet_torch.parallel import mesh as PX
+    from lpcnet_torch.train import train_plc as TP
+    from lpcnet_torch.train import train_rdovae as TR
+    PX.init_distributed("nccl", f"file://{os.path.join(workdir, 'nccl_store')}", 1, 0)
+    try:
+        mesh = PX.make_mesh()
+        assert mesh.group is not None and mesh.world_size == 1
+        assert mesh.device.type == dev.type
+        cfg, tc = M.LPCNetConfig(), T.TrainConfig()
+        loader = LPCNetLoader(paths["pcm"], paths["rows36"], batch_size=tc.batch_size,
+                              chunk_frames=tc.chunk_frames, lookahead=tc.lookahead)
+        batches = [loader[i] for i in range(MESH_STEPS)]
+
+        def run(m):
+            tr = T.Trainer(cfg, tc, seed=SEED, device=dev, mesh=m)
+            ms = []
+            for i, batch in enumerate(batches):
+                g = torch.Generator(device=dev)
+                g.manual_seed(SEED + 81 + i)
+                ms.append(float(tr.train_step(batch, g)["loss"]))
+            return tr, ms
+        with_mesh, lm = run(mesh)
+        without, l0 = run(None)
+        res = hold_equal("mesh [vocoder, NCCL, world size 1] against no mesh",
+                         rel_diff(with_mesh.params, without.params),
+                         lambda: rel_diff(run(None)[0].params, without.params))
+        if res["bit_equal"]:
+            assert lm == l0, (lm, l0)
+        grads = [p.grad for p in T._leaves(with_mesh.params)]
+        n_floats = sum(g.numel() for g in grads)
+        ar_ms = time_cuda(lambda: PX.all_reduce_mean(mesh, grads), reps=20)
+        del with_mesh, without
+        torch.cuda.empty_cache()
+
+        ptc = TP.PLCTrainConfig()
+        pl = TP.PLCLoader(paths["rows72"], paths["lost"], ptc, seed=SEED)
+        ptr = TP.PLCTrainer(PM.PLCConfig(), ptc, seed=SEED, mesh=mesh)
+        pm = float(ptr.train_step(pl[0])["loss"])
+        rcfg, rtc = RV.RDOVAEConfig(), TR.RDOVAETrainConfig()
+        ds = TR.RDOVAEDataset(paths["rows36"], rtc, rcfg, seed=SEED)
+        rtr = TR.RDOVAETrainer(rcfg, rtc, seed=SEED, mesh=mesh)
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 83)
+        rm = float(rtr.train_step(next(iter(ds)), g)["total"])
+        assert np.isfinite([pm, rm]).all(), (pm, rm)
+        assert all(bool(torch.isfinite(v).all()) for t in (ptr, rtr)
+                   for v in flat_params(t.params).values())
+        del ptr, rtr
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(f"mesh: init_distributed('nccl', file://, 1, 0) and make_mesh() on {mesh.device}; "
+        f"Trainer with the mesh, {MESH_STEPS} steps at full width: losses "
+        + " ".join(f"{v:.4f}" for v in lm) + f", params "
+        f"{'bit-equal' if res['bit_equal'] else res['max_rel']} against the trainer "
+        f"without one; the one all_reduce a step over {n_floats} floats "
+        f"({4 * n_floats / 1e6:.2f} MB) {ar_ms:.4f} ms (CUDA events); PLCTrainer and "
+        f"RDOVAETrainer one step each with the mesh: loss {pm:.4f}, total {rm:.4f}, "
+        f"finite. One card measures world size 1 only: the reduction's bus time "
+        f"across cards is not measured; card: {smi}")
+    return {"world_size": 1, "backend": "nccl", "vs_no_mesh": res, "losses": lm,
+            "all_reduce_ms": ar_ms, "all_reduce_floats": n_floats,
+            "plc_loss": pm, "rdovae_total": rm}
+
+
+def last_ablation(dev, smi):
+    """tools/profile_plc_torch.py's sweep at ABL_STREAMS streams on the demo
+    models: the causal frame with each ablation name and with all of them,
+    ABL_FRAMES frames a variant in each of the tool's rounds."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "profile_plc_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                          "tools", "profile_plc_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    bench = tool.FrameBench(ABL_STREAMS, dev)
+    res, saved = tool.ablation_sweep(bench, ABL_FRAMES)
+    assert BP._ABLATE == frozenset()
+    full = res["full"]
+    split = {n: saved[n] for n in BP.ABLATION_NAMES}
+    log(f"PLC ablation sweep ({ABL_STREAMS} streams, {ABL_FRAMES} frames a variant, "
+        f"medians of {tool.ROUNDS} rounds, CUDA events): full frame {full:.3f} ms; "
+        f"component share " + ", ".join(f"{n} {v:.3f}" for n, v in split.items())
+        + f"; all six ablated (the rump) {res['ALL']:.3f} ms; card: {smi}")
+    return {"streams": ABL_STREAMS, "frames": ABL_FRAMES, "rounds": tool.ROUNDS,
+            "ms": res, "component_ms": split}
+
+
+def last_pade(dev, smi):
+    from lpcnet_torch.utils import pade
+    p, q = pade.fit_pade_odd(device=dev)
+    pc, qc = pade.fit_pade_odd(device="cpu")
+    err = max(float((p.cpu() - pc).abs().max()), float((q.cpu() - qc).abs().max()))
+    e_card, e_cpu = pade.tanh_pade_error(device=dev), pade.tanh_pade_error(device="cpu")
+    log(f"pade: fit_pade_odd on the card against the CPU, coefficients max|diff| "
+        f"{err:.3e} (bar 1e-9); tanh max error {e_card:.6e} (card) {e_cpu:.6e} (CPU); "
+        f"card: {smi}")
+    assert err <= 1e-9, err
+    return {"coef_max_abs_err": err, "tanh_err_card": e_card, "tanh_err_cpu": e_cpu}
+
+
+def drive_last_modules(paths, dev, smi, workdir):
+    """Phase 21. Returns the {"last_modules": ...} numbers."""
+    out, secs = {"card": smi}, {}
+    for name, part in (("codebooks", lambda: last_codebooks(paths, dev, smi)),
+                       ("vocoder_block", lambda: last_vocoder_block(paths, dev, smi)),
+                       ("plc_block", lambda: last_plc_block(paths, dev, smi)),
+                       ("mesh", lambda: last_mesh(paths, dev, smi, workdir)),
+                       ("ablation", lambda: last_ablation(dev, smi)),
+                       ("pade", lambda: last_pade(dev, smi))):
+        t0 = time.perf_counter()
+        out[name] = part()
+        secs[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["phase_s"] = secs
+    log("last modules, seconds by part (host clock, checks included): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return out
 
 
 def main():
@@ -3620,13 +4095,14 @@ def main():
 
     # 10. the PLC path, then 11. timings on its own arguments
     counts, chain_counts, frame_ms, calls, models = drive_plc(dev, smi)
-    k2_plc_ms, k2_plc_err, plc_entries = time_plc_kernels(
+    k2_plc_ms, k2_plc_err, k2_plc_bound, plc_entries = time_plc_kernels(
         calls, models, counts, chain_counts, frame_ms, smi)
     entries.extend(plc_entries)
     k2_entry = next(e for e in entries if e["name"] == "sample_loop_masked[bf16]")
     k2_entry["launches_plc_path"] = counts[0] + chain_counts[0]
     k2_entry["ms_plc_path"] = k2_plc_ms
     k2_entry["max_abs_err_plc_path"] = max(k2_plc_err)
+    k2_entry["bound_ms_plc_path"] = k2_plc_bound
 
     # 12. the non-causal PLC path, K2 and K3 on its arguments, the two-path
     # steps and the host PLC behind `cli plc`
@@ -3675,19 +4151,34 @@ def main():
     pdf_secs, pdf_frame_ms = cli_pdf_on_card(dev, smi)
     log(f"factored and pdf phases: {time.perf_counter() - t0:.1f} s")
 
-    # 20. the training pipeline: corpus, dump_data, the PLC and RDO-VAE
-    # trainers, the vocoder trainer with held-out validation through K1
-    t0 = time.perf_counter()
-    pipeline, k1_keys = drive_training_pipeline(dev, smi)
-    pipeline["native_build_s"] = native_s
-    entries[0].update(k1_keys)
-    assert len(entries) == 13 and all(e["launches"] > 0 for e in entries), entries
-    log(f"training pipeline phase: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        # 20. the training pipeline: corpus, dump_data, the PLC and RDO-VAE
+        # trainers, the vocoder trainer with held-out validation through K1
+        t0 = time.perf_counter()
+        pipeline, k1_keys, paths = drive_training_pipeline(dev, smi, workdir)
+        pipeline["native_build_s"] = native_s
+        entries[0].update(k1_keys)
+        assert len(entries) == 13 and all(e["launches"] > 0 for e in entries), entries
+        log(f"training pipeline phase: {time.perf_counter() - t0:.1f} s")
+
+        # 21. the last modules: codebook training, train_block, the mesh,
+        # the PLC ablation sweep, the Pade fitter; K5's and K2's counts of
+        # the vocoder's blocks join their kernels-line entries
+        t0 = time.perf_counter()
+        last = drive_last_modules(paths, dev, smi, workdir)
+        block = last["vocoder_block"]
+        for e in entries:
+            if e["name"].startswith("gru_train_"):
+                e["launches_train_block"] = block["launches"][e["name"][10:]]
+            if e["name"] == "sample_loop_masked[bf16]":
+                e["launches_train_block_ss"] = block["ss_launches"]["k2"]
+        log(f"last modules phase: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"dred": dred}))
     print(json.dumps({"pdf_sampling": {"cli_s": pdf_secs, "frame_ms": pdf_frame_ms,
                                        "frames": MAIN_FRAMES, "streams": 1}}))
     print(json.dumps({"training_pipeline": pipeline}))
+    print(json.dumps({"last_modules": last}))
     print(json.dumps({"kernels": entries}))
     print(smi)          # nvidia-smi: name, power limit
     print(json.dumps({"ok": True, "device": {

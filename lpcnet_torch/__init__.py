@@ -16,14 +16,19 @@ machine (`plc.plc.PLC`, `cli plc`), the reference's DNNw weight blobs
 packet decode through `runtime.serving.StreamPool`, whose sample loop can be
 the merged-product kernel) and DRED (`models.rdovae`, the RDO-VAE;
 `dred.coder`, its streaming encoder and decoder; `dred.entropy`, the
-redundancy payloads).
+redundancy payloads), the training pipeline (`train.*`: the vocoder, PLC and
+RDO-VAE trainers, one step at a time or in device-gathered blocks
+(`train_block`), data-parallel over `torch.distributed` with
+`parallel.mesh`), codebook training (`codec.codebooks.train_codebooks`)
+and the Padé fitter (`utils.pade`).
 
 Entry points (`api.load_model`, `api.Synthesizer`, `api.StreamPool`,
 `api.PLCStreamPool`, `api.lpcnet_encoder_create`,
 `api.lpcnet_decoder_create`, `codec.decoder.LPCNetDecoder.from_fused`,
 `api.load_rdovae_model`, `dred.coder.DREDEncoder` / `DREDDecoder`,
 `cli`, `train.train_lpcnet.Trainer` and its `main`,
-`train.data.DeviceLPCNetLoader`) run on the GPU unless the caller passes
+`train.data.DeviceLPCNetLoader`, `codec.codebooks.train_codebooks` and its
+`main`, `parallel.mesh.make_mesh`, `utils.pade.fit_pade_odd`) run on the GPU unless the caller passes
 `device="cpu"`; without CUDA and without that request they raise.
 """
 

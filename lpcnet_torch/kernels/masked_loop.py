@@ -285,7 +285,7 @@ def tf_step_budget(counts, streams: int, blk: int):
     return cmax, [walk(cmax[c].tolist()) for c in range(clusters)]
 
 
-def fragment_index(ks: int):
+def fragment_index(ks: int, device="cpu"):
     """(m, k) [32, E] int64: lane l's fragment of a 16 x ks tile A (rows m,
     depth k) holds A[m[l, e], k[l, e]] at element e, in the order of the
     PTX ISA's A fragment (four 32-bit registers, low half first).
@@ -293,13 +293,13 @@ def fragment_index(ks: int):
     ks 16, bf16 (E = 8): register i holds rows g + 8 (i & 1), depth
     2t + 8 (i >> 1) + {0, 1}; ks 32, s8 (E = 16): register i holds row
     g + 8 (i & 1), depth 4t + 16 (i >> 1) + {0..3}; g = l // 4, t = l % 4."""
-    lane = torch.arange(32)
+    lane = torch.arange(32, device=device)
     g, t = (lane // 4)[:, None], (lane % 4)[:, None]
     if ks == 16:
-        e = torch.arange(8)[None, :]
+        e = torch.arange(8, device=device)[None, :]
         reg, part = e // 2, e % 2
         return g + 8 * (reg & 1), 2 * t + 8 * (reg >> 1) + part
-    e = torch.arange(16)[None, :]
+    e = torch.arange(16, device=device)[None, :]
     reg, part = e // 4, e % 4
     return g + 8 * (reg & 1), 4 * t + 16 * (reg >> 1) + part
 
@@ -312,8 +312,10 @@ def pack_tiles(at: torch.Tensor, ks: int) -> torch.Tensor:
     if kp != k:
         at = torch.cat([at, at.new_zeros(*lead, m, kp - k)], dim=-1)
     tiles = at.reshape(*lead, m // 16, 16, kp // ks, ks).transpose(-3, -2)
-    mi, ki = fragment_index(ks)
-    return tiles[..., mi.to(at.device), ki.to(at.device)].contiguous()
+    # the index is made on the operand's device: a host copy would make
+    # every pack (each training step packs K5's weights) wait for the card
+    mi, ki = fragment_index(ks, at.device)
+    return tiles[..., mi, ki].contiguous()
 
 
 def packed_shapes(form: int, na: int, nb: int):
@@ -335,12 +337,12 @@ def _pad_units(w: torch.Tensor, n: int, npad: int) -> torch.Tensor:
     return out.reshape(k, 3 * npad)
 
 
-def rank_columns(na: int) -> torch.Tensor:
+def rank_columns(na: int, device="cpu") -> torch.Tensor:
     """[C, 3U]: the column of GRU-A's unit-padded matrix [Na, 3 C U] that
     rank r's local column q U + j holds (gate q, unit r U + j)."""
     c, u = cluster_shape(na)
-    lc = torch.arange(3 * u)[None, :]
-    r = torch.arange(c)[:, None]
+    lc = torch.arange(3 * u, device=device)[None, :]
+    r = torch.arange(c, device=device)[:, None]
     return (lc // u) * (c * u) + r * u + lc % u
 
 
@@ -350,7 +352,7 @@ def pack_gru_a(a_rec: torch.Tensor) -> torch.Tensor:
     na = a_rec.shape[0]
     c, u = cluster_shape(na)
     ks = 32 if a_rec.dtype == torch.int8 else 16
-    cols = rank_columns(na).to(a_rec.device)
+    cols = rank_columns(na, a_rec.device)
     return pack_tiles(_pad_units(a_rec, na, c * u).t()[cols], ks)
 
 
@@ -360,7 +362,7 @@ def pack_embf(w: torch.Tensor) -> torch.Tensor:
     contiguous, as `pack_gru_a` packs GRU-A's recurrent matrix."""
     na = w.shape[1] // 3
     c, u = cluster_shape(na)
-    cols = rank_columns(na).to(w.device)
+    cols = rank_columns(na, w.device)
     return pack_tiles(_pad_units(w, na, c * u).t()[cols], 32)
 
 

@@ -33,7 +33,7 @@ from ..dsp import mulaw
 from ..dsp.constants import LPC_ORDER, NB_FEATURES, PREEMPHASIS
 from ..nn import layers as nn
 from ..nn import quantized as Q
-from ..utils.rng import Kiss99State, kiss99_srand, kiss99_step
+from ..utils.rng import Kiss99State, draw, kiss99_srand, kiss99_step
 
 PCM_LEVELS = 256
 EMBED_SIZE = 128
@@ -500,21 +500,55 @@ def synthesize_frame_masked(fused, state: SampleState, cond_a, cond_b, lpc,
 # Training graph (sequence form; training_tf2/lpcnet.py:234-313)
 # --------------------------------------------------------------------------
 
+class _FractionalLookup(torch.autograd.Function):
+    """(1 - alpha) table[i0] + alpha table[i1] by two row gathers, and the
+    table's gradient as the JAX package computes it: the soft one-hot rows
+    [N, 256] (1 - alpha at i0, alpha at i1) times the output's gradient, a
+    matrix product over row chunks summed in a fixed order. The card's
+    `embedding` backward adds the ~10^6 duplicates of each row in an order
+    that changes from run to run; this one gives the same bits every run."""
+
+    CHUNK = 1 << 16
+
+    @staticmethod
+    def forward(ctx, table, i0, i1, alpha):
+        ctx.save_for_backward(table, i0, i1, alpha)
+        lo = torch.nn.functional.embedding(i0, table)
+        hi = torch.nn.functional.embedding(i1, table)
+        return (1.0 - alpha) * lo + alpha * hi
+
+    @staticmethod
+    def backward(ctx, grad):
+        table, i0, i1, alpha = ctx.saved_tensors
+        d_alpha = None
+        if ctx.needs_input_grad[3]:
+            d_alpha = (grad * (torch.nn.functional.embedding(i1, table)
+                               - torch.nn.functional.embedding(i0, table))
+                       ).sum(-1, keepdim=True)
+        i0, i1, a = (t.reshape(-1, 1) for t in (i0, i1, alpha))
+        grad = grad.reshape(-1, grad.shape[-1])
+        d_table = grad.new_zeros(table.shape)
+        for s in range(0, grad.shape[0], _FractionalLookup.CHUNK):
+            c = slice(s, s + _FractionalLookup.CHUNK)
+            w = grad.new_zeros(grad[c].shape[0], table.shape[0])
+            w.scatter_add_(1, i0[c], 1.0 - a[c])
+            w.scatter_add_(1, i1[c], a[c])
+            d_table += w.T @ grad[c]
+        return d_table, None, None, d_alpha
+
+
 def diff_embed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Fractional embedding lookup (training_tf2/diffembed.py:35-41): weight
     1-alpha on row trunc(x) and alpha on row trunc(x)+1, both clamped to
     0..255, with alpha = x - floor(x). With the input noise on, x goes below
     0, where floor and trunc differ; the index arithmetic is the JAX
-    package's. Two row gathers and a lerp (the JAX package's soft one-hot
-    matmul computes the same value and gradient for the TPU's matrix unit).
+    package's. Two row gathers and a lerp; the table's gradient is
+    `_FractionalLookup`'s, the same every run on the card.
     """
     alpha = (x - torch.floor(x))[..., None]
     i0 = x.to(torch.int32).long()                  # trunc, like table[i0]
-    # embedding() and not table[idx]: its backward sums the many duplicates
-    # of each of the 256 rows by segments, not one scattered add per element
-    lo = torch.nn.functional.embedding(torch.clamp(i0, 0, 255), table)
-    hi = torch.nn.functional.embedding(torch.clamp(i0 + 1, 0, 255), table)
-    return (1.0 - alpha) * lo + alpha * hi
+    return _FractionalLookup.apply(table, torch.clamp(i0, 0, 255),
+                                   torch.clamp(i0 + 1, 0, 255), alpha)
 
 
 def frame_network_seq(params, features, periods, cfg: LPCNetConfig):
@@ -543,10 +577,10 @@ def _train_gru_impl(device: torch.device, gru_impl: str = "auto"):
     return gru_seq_kernel
 
 
-def _randn(shape, rng: torch.Generator, device) -> torch.Tensor:
-    """Standard normal draws from `rng`, made on the generator's device."""
-    return torch.randn(shape, generator=rng, device=rng.device,
-                       dtype=torch.float32).to(device)
+def _randn(shape, rng, device) -> torch.Tensor:
+    """Standard normal draws from `rng` (a torch.Generator or a
+    `utils.rng.ShardDraws`), made on the generator's device."""
+    return draw(torch.randn, shape, rng, dtype=torch.float32).to(device)
 
 
 def training_forward(params, cfg: LPCNetConfig, sig_in, features, periods,
@@ -581,7 +615,7 @@ def training_forward(params, cfg: LPCNetConfig, sig_in, features, periods,
             raise ValueError("training_forward: lpc is required unless cfg.e2e")
 
     weighting = torch.pow(
-        torch.tensor(cfg.lpc_gamma, dtype=torch.float32, device=dev),
+        torch.full((), cfg.lpc_gamma, dtype=torch.float32, device=dev),
         torch.arange(1, LPC_ORDER + 1, dtype=torch.float32, device=dev))
     real_preds = LL.diff_pred(sig_in, lpc, cfg.frame_size)
     tensor_preds = LL.diff_pred(sig_in, lpc * weighting, cfg.frame_size)
@@ -602,7 +636,7 @@ def training_forward(params, cfg: LPCNetConfig, sig_in, features, periods,
     emb = diff_embed(params["embed_sig"]["table"], cpcm).reshape(
         b, t, 3 * EMBED_SIZE)
 
-    rep = torch.repeat_interleave(cfeat, cfg.frame_size, dim=-2)  # [B, T, C]
+    rep = nn.repeat_frames(cfeat, cfg.frame_size)                 # [B, T, C]
     rnn_in = torch.cat([emb, rep], dim=-1)
     h_a0 = gru_states[0] if gru_states is not None else None
     h_b0 = gru_states[1] if gru_states is not None else None

@@ -33,6 +33,7 @@ import torch
 
 from ..nn import init as nn_init
 from ..nn import layers as nn
+from ..utils.rng import draw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,8 +195,8 @@ def noise_quantize(x, generator: torch.Generator | None = None,
     """x + U(-0.5, 0.5): the draw from `generator`, or `noise` (a U(0, 1)
     draw of x's shape) where given."""
     if noise is None:
-        noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
-                           device=x.device)
+        noise = draw(torch.rand, x.shape, generator, dtype=x.dtype
+                     ).to(x.device)
     return x + (noise - 0.5)
 
 
@@ -331,8 +332,8 @@ def training_forward(params, features, q_ids, generator: torch.Generator | None,
     z_n = noise_quantize(z, generator, noise) / stats["quant_scale"]
     states_q = soft_pvq(states, cfg.pvq_num_pulses)
     if state_dropout_rate > 0:
-        drop = torch.rand(states_q.shape[0], generator=generator,
-                          device=states_q.device) < state_dropout_rate
+        drop = draw(torch.rand, states_q.shape[:1], generator
+                    ).to(states_q.device) < state_dropout_rate
         states_q = states_q * (1.0 - drop.to(states_q.dtype))[:, None, None]
 
     outputs_hq, outputs_sq = [], []

@@ -170,6 +170,15 @@ def mdense_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
 # Sequence forms (the training graph)
 # --------------------------------------------------------------------------
 
+def repeat_frames(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x [..., F, C] -> [..., F n, C], each frame repeated n times. An
+    expand, not `repeat_interleave`: the backward then sums the n copies in
+    a fixed order, where `repeat_interleave`'s index_add adds them with
+    atomics on the card, in an order that changes from run to run."""
+    *lead, f, c = x.shape
+    return x[..., None, :].expand(*lead, f, n, c).reshape(*lead, f * n, c)
+
+
 def conv1d_seq(params: Params, x: torch.Tensor, activation: str = "tanh",
                padding: str = "valid"):
     """Sequence conv1d over [..., T, in] -> [..., T', out], as one matmul

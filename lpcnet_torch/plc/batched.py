@@ -32,8 +32,15 @@ Scope: the causal mode with or without blending (LPCNET_PLC_CAUSAL /
 LPCNET_PLC_CODEC) and its FEC queue of every stream (`fec_add`,
 `fec_clear`), the non-causal mode (LPCNET_PLC_NONCAUSAL, which needs a
 lookahead-0 vocoder and has no FEC, as in the reference), the DC filter
-(`remove_dc`, fused steps only) and the two-path steps. Not ported: the
-JAX package's profiling ablation set (`_abl`, `_consume`).
+(`remove_dc`, fused steps only) and the two-path steps.
+
+For profiling, `_ABLATE` names components (`ABLATION_NAMES`) that the step
+replaces by cheap stand-ins (`tools/profile_plc_torch.py` sweeps them, as
+the JAX package's tool does). A stand-in still consumes its inputs and
+perturbs what it would have written by a tiny amount that depends on them,
+keeping shapes and dtypes, so an ablated frame does the same bookkeeping
+and the same later launches. Serving never sets it; empty, every path is
+unchanged.
 """
 
 from __future__ import annotations
@@ -117,6 +124,34 @@ def _bwhere(mask, new, old):
 
 def _pad36(f):
     return torch.nn.functional.pad(f, (0, 36 - f.shape[-1]))
+
+
+# --------------------------------------------------------------------------
+# The profiling ablation set (tools/profile_plc_torch.py)
+# --------------------------------------------------------------------------
+
+ABLATION_NAMES = ("burg", "enc", "fnet", "plcnet", "tf", "tails")
+_ABLATE: frozenset = frozenset()
+
+
+def _abl(name: str) -> bool:
+    return name in _ABLATE
+
+
+def _tensors(xs):
+    for x in xs:
+        if isinstance(x, dict):
+            yield from _tensors(x.values())
+        elif isinstance(x, (list, tuple)):
+            yield from _tensors(x)
+        elif x is not None:
+            yield x
+
+
+def _consume(*xs):
+    """A device scalar that depends on every tensor of `xs` (nested
+    NamedTuples, dicts, lists or None), scaled by 1e-6."""
+    return sum(x.to(torch.float32).mean() for x in _tensors(xs)) * 1e-6
 
 
 # Set to a callable to see every kernel call the step makes, as
@@ -344,7 +379,15 @@ class BatchedPLC:
 # The frame step's pieces
 # --------------------------------------------------------------------------
 
+def _fnet_stand_in(s: BatchedPLCState, *inputs):
+    eps = _consume(*inputs)
+    return s._replace(cond_a=s.cond_a + eps, cond_b=s.cond_b + eps,
+                      lpc=s.lpc + eps)
+
+
 def _fnet_masked(fused, s: BatchedPLCState, feats36, active, cfg):
+    if _abl("fnet"):
+        return _fnet_stand_in(s, feats36)
     new_f, _, ca, cb, lpc = M.frame_network(fused, s.fstate, feats36, cfg)
     merged = _bwhere(active, (new_f, ca, cb, lpc),
                      (s.fstate, s.cond_a, s.cond_b, s.lpc))
@@ -355,6 +398,8 @@ def _fnet_masked(fused, s: BatchedPLCState, feats36, active, cfg):
 def _fnet_flush_masked(fused, s: BatchedPLCState, ring, count, cfg):
     """The deferred frame nets of every stream at once: count[i]
     frame_network steps of stream i over ring[:, :count[i]]."""
+    if _abl("fnet"):
+        return _fnet_stand_in(s, ring, count)
     new_f, ca, cb, lpc = M.frame_network_flush(fused, s.fstate, ring, count,
                                                cfg)
     merged = _bwhere(count > 0, (new_f, ca, cb, lpc),
@@ -373,6 +418,11 @@ def _tail_masked(fused, s: BatchedPLCState, preload, preload_mask,
     if live is None:
         live = s.fstate.frame_count > cfg.lookahead
     adv = advance_mask & live[:, None]
+    if _abl("tails"):
+        eps = _consume(s.cond_a, s.cond_b, s.lpc, preload, adv)
+        return (s._replace(sstate=s.sstate._replace(
+            gru_a=s.sstate.gru_a + eps)),
+            torch.zeros_like(preload, dtype=torch.float32) + eps)
     if kw is None:
         new_ss, pcm = M.synthesize_frame_masked(
             fused, s.sstate, s.cond_a, s.cond_b, s.lpc, preload,
@@ -392,6 +442,9 @@ def _tf_prefix(fused, sstate: M.SampleState, ca, cb, lpc, targets, count,
     With `kw` and `fasttf` one block of K3, else the masked tail with the
     sampler off (K2 with `kw`, the float32 model without). Returns the new
     sample state."""
+    if _abl("tf"):
+        return sstate._replace(
+            gru_a=sstate.gru_a + _consume(ca, cb, lpc, targets, count))
     n = targets.shape[-1]
     if kw is not None and fasttf:
         return _launch(K.teacher_force_blocks_kernel, kw, sstate, ca[:, None],
@@ -433,6 +486,15 @@ def _good_input(burg_feats, feats20=None):
     return inp
 
 
+def _plc_pred(plc_params, net, plc_in):
+    """The PLC net's step, or its stand-in under the `plcnet` ablation."""
+    if _abl("plcnet"):
+        eps = _consume(plc_in)
+        return (tree_map(lambda x: x + eps, net),
+                plc_in.new_zeros(plc_in.shape[0], NB_FEATURES) + eps)
+    return PM.compute_plc_pred(plc_params, net, plc_in)
+
+
 def _fec_or_pred_masked(plc_params, s: BatchedPLCState, active, delay):
     """Per-stream get_fec_or_pred (src/lpcnet_plc.c:147-166): a stream with
     a queued FEC frame consumes it (the PLC net is updated with the
@@ -440,8 +502,7 @@ def _fec_or_pred_masked(plc_params, s: BatchedPLCState, active, delay):
     predict. Returns (state, fec_hit mask)."""
     have = (s.fec_read != s.fec_len) & (s.fec_skip == 0)
     fec_row = _fec_row(s, s.fec_read)
-    new_net, out = PM.compute_plc_pred(plc_params, s.plc_net,
-                                       _fec_input(have, fec_row))
+    new_net, out = _plc_pred(plc_params, s.plc_net, _fec_input(have, fec_row))
     feats = torch.where(have[:, None], fec_row, out[:, :NB_FEATURES])
     read2 = torch.where(have, s.fec_read + 1, s.fec_read)
     keep2 = torch.where(
@@ -486,7 +547,7 @@ def _fec_add_op(s: BatchedPLCState, feats, have, unknown):
 
 def _plc_pred_masked(plc_params, s: BatchedPLCState, plc_in, active,
                      set_features=True):
-    new_net, out = PM.compute_plc_pred(plc_params, s.plc_net, plc_in)
+    new_net, out = _plc_pred(plc_params, s.plc_net, plc_in)
     s = s._replace(plc_net=_bwhere(active, new_net, s.plc_net))
     if set_features:
         s = s._replace(features=torch.where(active[:, None],
@@ -533,9 +594,15 @@ def _chain_causal(cw, s: BatchedPLCState, L, bl, burg_feats, delay,
         keep = torch.where(am, keep2, keep)
         skp = torch.where(active & ~have & (skp > 0), skp - 1, skp)
 
-    h1s, h2s, outs = _launch(
-        PC.plc_chain_kernel, cw, s.plc_net.gru1, s.plc_net.gru2, torch.stack(inputs, dim=1),
-        torch.stack(masks, dim=1), k_steps)
+    if _abl("plcnet"):
+        eps = _consume(inputs, masks)
+        rep = lambda h: h[:, None].expand(-1, k_steps, -1) + eps
+        h1s, h2s = rep(s.plc_net.gru1), rep(s.plc_net.gru2)
+        outs = inputs[0].new_zeros(L.shape[0], k_steps, NB_FEATURES) + eps
+    else:
+        h1s, h2s, outs = _launch(
+            PC.plc_chain_kernel, cw, s.plc_net.gru1, s.plc_net.gru2,
+            torch.stack(inputs, dim=1), torch.stack(masks, dim=1), k_steps)
     # the +0.1 correlation boost (models.plc.compute_plc_pred)
     outs[:, :, NB_FEATURES - 1] = torch.clamp(
         outs[:, :, NB_FEATURES - 1] + 0.1, max=0.5)
@@ -561,16 +628,27 @@ def _section_body(kw, sec, enable_blending, remove_dc):
     b = sec["L"].shape[0]
     dev = sec["L"].device
     L, bl = sec["L"], sec["bl"]
-    ss = _launch(
-        K.teacher_force_blocks_kernel, kw, sec["sstate"], sec["ca_blk"], sec["cb_blk"], sec["lpc_blk"],
-        sec["targets"], sec["counts"], FRAME_SIZE)
+    if _abl("tf"):
+        eps = _consume(sec["ca_blk"], sec["cb_blk"], sec["lpc_blk"],
+                       sec["targets"], sec["counts"])
+        ss = sec["sstate"]._replace(gru_a=sec["sstate"].gru_a + eps)
+    else:
+        ss = _launch(
+            K.teacher_force_blocks_kernel, kw, sec["sstate"], sec["ca_blk"],
+            sec["cb_blk"], sec["lpc_blk"], sec["targets"], sec["counts"],
+            FRAME_SIZE)
     act = L | bl
     adv1 = (act & sec["live1"])[:, None].expand(b, _N1)
     zp = torch.zeros((b, _N1), dtype=torch.float32, device=dev)
     zm = torch.zeros((b, _N1), dtype=torch.bool, device=dev)
-    ss, head = _launch(
-        K.synthesize_frame_masked_kernel, kw, ss, sec["ca1"].contiguous(), sec["cb1"].contiguous(),
-        sec["lpc1"].contiguous(), zp, zm, adv1, _N1)
+    if _abl("tails"):
+        eps = _consume(sec["ca1"], sec["cb1"], sec["lpc1"], adv1)
+        ss, head = ss._replace(gru_a=ss.gru_a + eps), zp + eps
+    else:
+        ss, head = _launch(
+            K.synthesize_frame_masked_kernel, kw, ss,
+            sec["ca1"].contiguous(), sec["cb1"].contiguous(),
+            sec["lpc1"].contiguous(), zp, zm, adv1, _N1)
     pcm80 = sec["pcm80"]
     if enable_blending:
         w = 0.5 - 0.5 * torch.cos(
@@ -581,9 +659,15 @@ def _section_body(kw, sec, enable_blending, remove_dc):
         ss = _bwhere(bl, sec["saved_ss"], ss)
     tf2 = bl[:, None].expand(b, _TO)
     adv2 = (act & sec["live2"])[:, None].expand(b, _TO)
-    ss, tail = _launch(
-        K.synthesize_frame_masked_kernel, kw, ss, sec["ca2"].contiguous(), sec["cb2"].contiguous(),
-        sec["lpc2"].contiguous(), pcm80 * tf2, tf2 & adv2, adv2, _TO)
+    if _abl("tails"):
+        eps = _consume(sec["ca2"], sec["cb2"], sec["lpc2"], adv2, pcm80)
+        ss = ss._replace(gru_a=ss.gru_a + eps)
+        tail = torch.zeros((b, _TO), dtype=torch.float32, device=dev) + eps
+    else:
+        ss, tail = _launch(
+            K.synthesize_frame_masked_kernel, kw, ss,
+            sec["ca2"].contiguous(), sec["cb2"].contiguous(),
+            sec["lpc2"].contiguous(), pcm80 * tf2, tf2 & adv2, adv2, _TO)
     return ss, head, tail, pcm80
 
 
@@ -665,7 +749,16 @@ def _push_feat_ring(s: BatchedPLCState, feats36, active):
                       feat_count=torch.where(active, count + 1, s.feat_count))
 
 
+def _burg(pcm):
+    """The frame's Burg cepstra [B, 36], or the `burg` stand-in."""
+    if _abl("burg"):
+        return pcm.new_zeros(pcm.shape[0], 2 * NB_BANDS) + _consume(pcm)
+    return burg_cepstral_analysis(pcm)
+
+
 def _enc_step(s: BatchedPLCState, pcm):
+    if _abl("enc"):
+        return s, pcm.new_zeros(pcm.shape[0], 36) + _consume(pcm)
     new_enc, feats = F.compute_single_frame_features(s.enc, pcm)
     return s._replace(enc=new_enc), feats
 
@@ -784,7 +877,7 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
                                           s.syn_dc))
 
     # ---- update-path frame-level prep (good streams) ----------------------
-    burg_feats = burg_cepstral_analysis(pcm)
+    burg_feats = _burg(pcm)
     skip = s.skip_analysis > 0
     bl = G & skip & s.blend
     blend_old = s.blend      # the update's final prediction masks on the flag
@@ -1207,7 +1300,7 @@ def _plc_frame_step_nc_fused(state: BatchedPLCState, fused, plc_params, pcm,
                                           s.syn_dc))
     pcm_save = pcm
 
-    burg_feats = burg_cepstral_analysis(pcm)
+    burg_feats = _burg(pcm)
     rec = G & (s.loss_count > 0)       # the first good frame after a loss
     gd = G & ~rec
     first = L & (s.loss_count == 0)    # the first lost frame
@@ -1398,7 +1491,7 @@ def _update_path(fused, plc_params, s: BatchedPLCState, pcm, cfg,
     """src/lpcnet_plc.c:188-290 for every stream (causal, no DC, no FEC)."""
     b = pcm.shape[0]
     dev = pcm.device
-    burg_feats = burg_cepstral_analysis(pcm)
+    burg_feats = _burg(pcm)
     skip = s.skip_analysis > 0
     bl = skip & s.blend
     if enable_blending:
@@ -1513,7 +1606,7 @@ def _update_path_nc(fused, plc_params, s: BatchedPLCState, pcm, cfg, kw=None,
     dev = pcm.device
     s = _process_queued_update(fused, s, cfg, kw, flags)
     pcm_save = pcm
-    burg_feats = burg_cepstral_analysis(pcm)
+    burg_feats = _burg(pcm)
     rec = s.loss_count > 0          # the first good frame after a loss
     # ---- recovery: predict across the gap, blend backwards into the buffer
     inp = _good_input(burg_feats)

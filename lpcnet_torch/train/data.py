@@ -8,11 +8,13 @@ them. A chunk is 15 frames with 4 context frames of features.
 
 `LPCNetLoader` serves numpy batches from the host. `DeviceLPCNetLoader`
 holds the whole corpus on the device and gathers each batch there, so a
-step ships only the chunk indices.
+step ships only the chunk indices; `Trainer.train_block` takes its
+`index_blocks` and gathers through `sample_fn`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Iterator
 
 import numpy as np
@@ -141,6 +143,30 @@ class LPCNetLoader(_ChunkIndex):
         return out
 
 
+def _sample(sig_in, sig_out, feats, sel, chunk_frames: int, lookahead: int,
+            e2e: bool) -> Dict[str, torch.Tensor]:
+    """The batch of the chunks `sel` [B] (int64, on the device) gathered
+    from the device-resident corpus arrays."""
+    nf, cf, la = NB_TOTAL_FEATURES, chunk_frames, lookahead
+    nxt = torch.clamp(sel + 1, max=feats.shape[0] - 1)
+    f = torch.cat([feats[sel], feats[nxt][:, :4 * nf]], dim=1
+                  ).reshape(sel.shape[0], cf + 4, nf)
+    periods = torch.clamp(
+        (0.1 + 50.0 * f[:, :, 18] + 100).to(torch.int32), 0, 255)
+    lw = f[:, 4 - la: cf + 4 - la, 20:20 + LPC_ORDER]
+    out = {
+        "sig_in": sig_in[sel].to(torch.float32),
+        "sig_out": sig_out[sel].to(torch.float32),
+        "features": f[:, :, :20],
+        "periods": periods,
+    }
+    if e2e:
+        out["rc"] = lpc2rc(lw)
+    else:
+        out["lpc"] = lw
+    return out
+
+
 class DeviceLPCNetLoader(_ChunkIndex):
     """Device-resident variant of LPCNetLoader: the whole corpus (int16 PCM
     and float32 features) is uploaded once, and each batch is gathered,
@@ -168,28 +194,28 @@ class DeviceLPCNetLoader(_ChunkIndex):
         self._features = put(np.reshape(
             feats[: n_rows * chunk_frames * nf], (n_rows, chunk_frames * nf)))
         self._init_index(nb_chunks, batch_size, seed, holdout_batches)
+        # the gather as a function of the corpus arrays, for a caller's
+        # loop of steps (Trainer.train_block)
+        self.sample_fn = functools.partial(
+            _sample, chunk_frames=chunk_frames, lookahead=lookahead, e2e=e2e)
+
+    @property
+    def device_arrays(self):
+        """(sig_in, sig_out, features): the device-resident corpus."""
+        return self._sig_in, self._sig_out, self._features
 
     def sample(self, sel: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The batch of the chunks `sel` [B] (int64, on the device)."""
-        nf, cf, la = NB_TOTAL_FEATURES, self.chunk_frames, self.lookahead
-        feats = self._features
-        nxt = torch.clamp(sel + 1, max=feats.shape[0] - 1)
-        f = torch.cat([feats[sel], feats[nxt][:, :4 * nf]], dim=1
-                      ).reshape(sel.shape[0], cf + 4, nf)
-        periods = torch.clamp(
-            (0.1 + 50.0 * f[:, :, 18] + 100).to(torch.int32), 0, 255)
-        lw = f[:, 4 - la: cf + 4 - la, 20:20 + LPC_ORDER]
-        out = {
-            "sig_in": self._sig_in[sel].to(torch.float32),
-            "sig_out": self._sig_out[sel].to(torch.float32),
-            "features": f[:, :, :20],
-            "periods": periods,
-        }
-        if self.e2e:
-            out["rc"] = lpc2rc(lw)
-        else:
-            out["lpc"] = lw
-        return out
+        return self.sample_fn(*self.device_arrays, sel)
+
+    def index_blocks(self, block_steps: int):
+        """Yield [block_steps, B] int32 index blocks covering one epoch
+        (the last partial block is dropped)."""
+        bs = self.batch_size
+        n = (self.nb_batches // block_steps) * block_steps
+        for i in range(0, n, block_steps):
+            sel = self.indices[i * bs:(i + block_steps) * bs]
+            yield np.reshape(sel, (block_steps, bs)).astype(np.int32)
 
     def __getitem__(self, index) -> Dict[str, torch.Tensor]:
         sel = self.indices[index * self.batch_size:

@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from ..nn.layers import repeat_frames
+
 LOG256 = math.log(256.0)
 _SCALE = 255.0 / 32768.0
 _SCALE_1 = 32768.0 / 255.0
@@ -34,7 +36,7 @@ def diff_pred(x: torch.Tensor, lpc: torch.Tensor, frame_size: int = 160
     target).
     """
     order = lpc.shape[-1]
-    lpc_rep = torch.repeat_interleave(lpc, frame_size, dim=-2)   # [B, T, 16]
+    lpc_rep = repeat_frames(lpc, frame_size)                     # [B, T, 16]
     xp = torch.nn.functional.pad(x, (order - 1, 0))
     # wins[t, j] = xp[t + j] = x[t - (order - 1 - j)]
     wins = xp.unfold(-1, order, 1)                               # [B, T, 16]

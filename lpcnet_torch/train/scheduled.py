@@ -23,6 +23,8 @@ Two passes inside a train step:
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from ..dsp import lpc as lpc_mod
@@ -31,7 +33,7 @@ from ..kernels.sample_loop import (kernel_weights, masked_kernel_weights,
                                    synthesize_frame_masked_kernel)
 from ..models import lpcnet as M
 from ..nn import layers as nn
-from ..utils.rng import Kiss99State
+from ..utils.rng import Kiss99State, draw
 
 
 def deemphasis_seq(x: torch.Tensor, block: int = 160) -> torch.Tensor:
@@ -47,7 +49,7 @@ def deemphasis_seq(x: torch.Tensor, block: int = 160) -> torch.Tensor:
     xb = xp.reshape(x.shape[:-1] + (nblk, block))
     i = torch.arange(block, device=x.device)
     expo = (i[:, None] - i[None, :]).clamp(min=0).to(x.dtype)
-    p = torch.tensor(PREEMPHASIS, dtype=x.dtype, device=x.device)
+    p = torch.full((), PREEMPHASIS, dtype=x.dtype, device=x.device)
     tri = torch.tril(torch.pow(p, expo))                      # [i, j] = P^(i-j)
     y = torch.matmul(xb, tri.T)
     ramp = torch.pow(p, (i + 1).to(x.dtype))                  # P^(i+1)
@@ -63,8 +65,8 @@ def deemphasis_seq(x: torch.Tensor, block: int = 160) -> torch.Tensor:
 def _kiss_seeds(b: int, rng: torch.Generator, device) -> Kiss99State:
     """Per-stream KISS99 words from the generator (jsr odd, so never 0),
     as int64 tensors holding uint32 values."""
-    bits = torch.randint(0, 1 << 32, (4, b), generator=rng,
-                         dtype=torch.int64, device=rng.device).to(device)
+    bits = draw(partial(torch.randint, 0, 1 << 32), (4, b), rng, axis=1,
+                dtype=torch.int64).to(device)
     return Kiss99State(bits[0], bits[1], bits[2] | 1, bits[3])
 
 

@@ -17,8 +17,15 @@ free-running pass through the masked sample-loop kernel. A step does not
 synchronise with the host: metrics come back as device scalars, to be
 fetched at log intervals.
 
-The JAX package's `train_block` (many steps in one device dispatch) has no
-counterpart: PyTorch dispatches eagerly, step by step.
+`Trainer.train_block` runs K steps whose batches are gathered on the device
+(`DeviceLPCNetLoader.sample_fn`) from a [K, B] block of chunk indices, each
+step's generator seeded from (base seed, step), so the result does not
+depend on the block size; it reads nothing back to the host. With
+`mesh=parallel.mesh.make_mesh()` the trainer is data-parallel over
+`torch.distributed`: parameters broadcast from rank 0, each batch split
+over the ranks, the gradients (and metrics) averaged by one all-reduce a
+step before the update, every random draw made at the global batch's shape
+and sliced (`utils.rng.ShardDraws`), so N ranks compute what one does.
 """
 
 from __future__ import annotations
@@ -30,7 +37,10 @@ import numpy as np
 import torch
 
 from ..models import lpcnet as M
+from ..parallel.mesh import (all_reduce_mean, rank_slice, replicated,
+                             shard_batch)
 from ..utils.device import resolve_device
+from ..utils.rng import ShardDraws, draw, fold_seed
 from ..weights.convert import array_to_torch
 from . import losses as LL
 from .sparsify import SparsifySchedule, apply_schedules, weight_clip_constraint
@@ -124,12 +134,11 @@ def loss_fn(params, cfg: M.LPCNetConfig, tc: TrainConfig, batch,
             raise ValueError("scheduled sampling (ss_prob > 0) needs an rng")
         b, t = sig_in.shape
         blk = max(1, tc.ss_block)
-        draws = torch.rand((b, (t + blk - 1) // blk), generator=rng,
-                           device=rng.device).to(dev)
+        draws = draw(torch.rand, (b, (t + blk - 1) // blk), rng).to(dev)
         tf_mask = (draws < 1.0 - tc.ss_prob).repeat_interleave(
             blk, dim=1)[:, :t]
         weighting = torch.pow(
-            torch.tensor(cfg.lpc_gamma, dtype=torch.float32, device=dev),
+            torch.full((), cfg.lpc_gamma, dtype=torch.float32, device=dev),
             torch.arange(1, 17, dtype=torch.float32, device=dev))
         s_hat = sampled_signal(params, cfg, batch, tf_mask, rng,
                                gru_states=gru_states, weighting=weighting)
@@ -219,18 +228,64 @@ def _to_device(batch, device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def _place_batch(batch, device, mesh) -> Dict[str, torch.Tensor]:
+    """The batch on `device`, or this rank's slice of it under `mesh`."""
+    return _to_device(batch, device) if mesh is None else shard_batch(mesh,
+                                                                      batch)
+
+
+def _shared_rng(rng, mesh):
+    """`rng` as the ranks share it: its draws at the global batch's shape."""
+    if mesh is None or rng is None:
+        return rng
+    return ShardDraws(rng, mesh.rank, mesh.world_size)
+
+
+def _block_sels(sels, device, mesh) -> torch.Tensor:
+    """A [K, B] block of batch indices as int64 on `device` (this rank's
+    columns under `mesh`). A host array goes up from pinned memory without
+    the host waiting for the card."""
+    sels = sels if isinstance(sels, torch.Tensor) else torch.from_numpy(
+        np.asarray(sels))
+    if mesh is not None:
+        sels = sels[:, rank_slice(mesh, sels.shape[1])]
+    sels = sels.to(torch.int64)
+    if device.type == "cuda" and sels.device.type == "cpu":
+        return sels.pin_memory().to(device, non_blocking=True)
+    return sels.to(device)
+
+
+def _stack_metrics(ms) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+
+def _mean_over_ranks(mesh, params, metrics) -> None:
+    """Under `mesh`, every gradient of `params` and every metric replaced by
+    its mean over the ranks, in one all-reduce, before the update."""
+    if mesh is not None:
+        all_reduce_mean(mesh, [p.grad for p in _leaves(params)]
+                        + list(metrics.values()))
+
+
 class Trainer:
-    """End-to-end trainer on one device."""
+    """End-to-end trainer on one device, or data-parallel over the ranks of
+    `mesh` (`parallel.mesh.make_mesh`; its device replaces `device`)."""
+
+    BLOCK_SEED = 917
 
     def __init__(self, cfg: Optional[M.LPCNetConfig] = None,
                  tc: Optional[TrainConfig] = None, seed: int = 0,
-                 device=None, gru_impl: str = "auto"):
+                 device=None, gru_impl: str = "auto", mesh=None):
         self.cfg = cfg or M.LPCNetConfig()
         self.tc = tc or TrainConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.gru_impl = gru_impl
         self.params = _map(lambda p: p.requires_grad_(True),
                            M.init_params(self.cfg, seed, self.device))
+        if mesh is not None:
+            replicated(mesh, self.params)
         self.optimizer, self.scheduler = make_optimizer(self.tc, self.params)
         self.step = 0
         sc = self.tc.schedule_scale
@@ -261,17 +316,43 @@ class Trainer:
 
     def train_step(self, batch, rng: Optional[torch.Generator]
                    ) -> Dict[str, torch.Tensor]:
-        """One update from `batch` (numpy arrays or tensors). Returns the
-        metrics as device scalars: fetch them at log intervals, since a
-        fetch every step makes the host wait for the card."""
-        batch = _to_device(batch, self.device)
+        """One update from `batch` (numpy arrays or tensors; the global
+        batch under a mesh). Returns the metrics as device scalars: fetch
+        them at log intervals, since a fetch every step makes the host wait
+        for the card."""
+        return self._update(_place_batch(batch, self.device, self.mesh), rng)
+
+    def train_block(self, loader, sels, base_seed: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """sels.shape[0] steps over a DeviceLPCNetLoader, from a [K, B]
+        block of chunk indices (`loader.index_blocks`). Each step gathers
+        its batch on the device (`loader.sample_fn`) and takes
+        `train_step`'s update with a generator seeded from
+        fold_seed(base_seed, step), so the result does not depend on the
+        block size (default base seed 917, as the JAX package's). Nothing
+        is read back to the host. Returns the metrics as [K] device
+        tensors."""
+        base = self.BLOCK_SEED if base_seed is None else base_seed
+        sels = _block_sels(sels, self.device, self.mesh)
+        arrays = loader.device_arrays
+        gen = torch.Generator(device=self.device)
+        ms = []
+        for sel in sels:
+            gen.manual_seed(fold_seed(base, self.step))
+            ms.append(self._update(loader.sample_fn(*arrays, sel), gen))
+        return _stack_metrics(ms)
+
+    def _update(self, batch, rng) -> Dict[str, torch.Tensor]:
+        """The update of one batch on the device (this rank's share)."""
         if self._gru_states is None:
             self._gru_states = self._zero_states(batch["sig_in"].shape[0])
         self.optimizer.zero_grad(set_to_none=True)
         loss, (metrics, new_states) = loss_fn(
-            self.params, self.cfg, self.tc, batch, rng, self._gru_states,
-            self.gru_impl)
+            self.params, self.cfg, self.tc, batch,
+            _shared_rng(rng, self.mesh), self._gru_states, self.gru_impl)
         loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        _mean_over_ranks(self.mesh, self.params, metrics)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
@@ -289,7 +370,7 @@ class Trainer:
                 for e, p in zip(_leaves(self._ema), _leaves(self.params)):
                     e.mul_(d).add_(p, alpha=1.0 - d)
         self._gru_states = tuple(h.detach() for h in new_states)
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     def eval_loss(self, batches, params=None) -> Dict[str, float]:
         """Mean teacher-forced loss over held-out batches (e.g.

@@ -13,13 +13,16 @@ plain per-step recurrence of `models.plc.predict_sequence`, as in the JAX
 package; no kernel. A step does not synchronise with the host: its metrics
 come back as device scalars, to be fetched at log intervals.
 
-The JAX package's `PLCTrainer.train_block` (many steps in one device
-dispatch over `PLCDeviceLoader.index_blocks`) has no counterpart yet.
+`PLCTrainer.train_block` runs K steps whose batches `PLCDeviceLoader.
+sample_fn` assembles on the device from a [K, B] block of sequence indices,
+each step's generator seeded from (base seed, step). With a `mesh` the
+trainer is data-parallel as `train_lpcnet.Trainer` is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Dict, Optional
 
 import numpy as np
@@ -27,9 +30,13 @@ import torch
 
 from ..dsp.spectrum import idct
 from ..models import plc as PM
+from ..parallel.mesh import replicated
 from ..utils.device import resolve_device
+from ..utils.rng import draw, fold_seed
 from .sparsify import weight_clip_constraint
-from .train_lpcnet import _assign, _carry, _leaves, _map, _to_device
+from .train_lpcnet import (_assign, _block_sels, _carry, _leaves, _map,
+                           _mean_over_ranks, _place_batch, _shared_rng,
+                           _stack_metrics, _to_device)
 
 NB_BURG = 36
 NB_USED = 20
@@ -215,15 +222,17 @@ class PLCDeviceLoader:
 
     @staticmethod
     def sample_fn(feats_d, lost_d, sel, generator: torch.Generator):
-        """One batch from the device arrays: `sel` [B] sequence indices."""
+        """One batch from the device arrays: `sel` [B] sequence indices.
+        `generator` may be a `utils.rng.ShardDraws` (this rank's share of
+        the global batch's draws)."""
         dev = feats_d.device
         f = feats_d.index_select(0, sel.to(dev))               # [B, T, 56]
         b, t = f.shape[0], f.shape[1]
         g = generator
-        burg_ok = (torch.rand((b, t, 1), generator=g, device=g.device)
-                   .to(dev) > 0.1).to(torch.float32)
-        rows = torch.randint(0, lost_d.shape[0], (b,), generator=g,
-                             device=g.device).to(dev)
+        burg_ok = (draw(torch.rand, (b, t, 1), g).to(dev) > 0.1
+                   ).to(torch.float32)
+        rows = draw(partial(torch.randint, 0, lost_d.shape[0]), (b,), g
+                    ).to(dev)
         lost_b = lost_d.index_select(0, rows)[:, :, None]      # [B, T, 1]
         in_feats = f * lost_b
         in_feats = torch.cat([in_feats[:, :, :NB_BURG] * burg_ok,
@@ -285,16 +294,23 @@ def clip_plc_grus(params):
 
 
 class PLCTrainer:
-    """The PLC network's trainer on one device."""
+    """The PLC network's trainer on one device, or data-parallel over the
+    ranks of `mesh` (its device replaces `device`)."""
+
+    BLOCK_SEED = 4242
 
     def __init__(self, plc_cfg: Optional[PM.PLCConfig] = None,
                  tc: Optional[PLCTrainConfig] = None, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = plc_cfg or PM.PLCConfig()
         self.tc = tc or PLCTrainConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.params = _map(lambda p: p.requires_grad_(True),
                            PM.init_params(seed, self.cfg, self.device))
+        if mesh is not None:
+            replicated(mesh, self.params)
         self.optimizer, self.scheduler = make_plc_optimizer(self.tc,
                                                             self.params)
         self.step = 0
@@ -316,21 +332,45 @@ class PLCTrainer:
         return loss, plc_metrics(batch["target"], batch["mask"], pred)
 
     def train_step(self, batch, rng=None) -> Dict[str, torch.Tensor]:
-        """One update from `batch` (numpy arrays or tensors). `rng` is
-        accepted for the JAX signature and unused: the reference's
-        GaussianNoise between the GRUs is not applied (as in JAX). Returns
-        the metrics as device scalars."""
-        batch = _to_device(batch, self.device)
+        """One update from `batch` (numpy arrays or tensors; the global
+        batch under a mesh). `rng` is accepted for the JAX signature and
+        unused: the reference's GaussianNoise between the GRUs is not
+        applied (as in JAX). Returns the metrics as device scalars."""
+        return self._update(_place_batch(batch, self.device, self.mesh))
+
+    def train_block(self, loader, sels, base_seed: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """sels.shape[0] steps over a PLCDeviceLoader from a [K, B] block
+        of sequence indices (`loader.index_blocks`): each step's batch is
+        assembled on the device by `loader.sample_fn` with a generator
+        seeded from fold_seed(base_seed, step) (default base seed 4242, as
+        the JAX package's), then `train_step`'s update. Nothing is read
+        back to the host. Returns the metrics as [K] device tensors."""
+        base = self.BLOCK_SEED if base_seed is None else base_seed
+        sels = _block_sels(sels, self.device, self.mesh)
+        feats_d, lost_d = loader.device_arrays
+        gen = torch.Generator(device=self.device)
+        ms = []
+        for sel in sels:
+            gen.manual_seed(fold_seed(base, self.step))
+            ms.append(self._update(loader.sample_fn(
+                feats_d, lost_d, sel, _shared_rng(gen, self.mesh))))
+        return _stack_metrics(ms)
+
+    def _update(self, batch) -> Dict[str, torch.Tensor]:
+        """The update of one batch on the device (this rank's share)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self._loss(self.params, batch)
         loss.backward()
+        metrics["loss"] = loss
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        _mean_over_ranks(self.mesh, self.params, metrics)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
         with torch.no_grad():
             _assign(self.params, clip_plc_grus(self.params))
-        metrics["loss"] = loss
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     def eval_step(self, batch) -> Dict[str, float]:
         """Masked loss and metrics on a held-out batch, no update; a batch

@@ -12,7 +12,8 @@ The trainer runs on one CUDA card unless the caller passes `device="cpu"`;
 without CUDA and without that request it raises. Its recurrences are the
 plain per-step GRUs of `models.rdovae`, as in the JAX package; no kernel.
 The soft-quantization noise and the state-dropout draws come from a
-`torch.Generator` where JAX passes a key.
+`torch.Generator` where JAX passes a key. With a `mesh` the trainer is
+data-parallel as `train_lpcnet.Trainer` is.
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ import numpy as np
 import torch
 
 from ..models import rdovae as RV
+from ..parallel.mesh import replicated, shard_batch
 from ..utils.device import resolve_device
 from .sparsify import weight_clip_constraint
-from .train_lpcnet import _assign, _carry, _leaves, _map, _to_device
+from .train_lpcnet import (_assign, _carry, _leaves, _map, _mean_over_ranks,
+                           _place_batch, _shared_rng, _to_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,16 +124,21 @@ def make_rdovae_optimizer(tc: RDOVAETrainConfig, params):
 
 
 class RDOVAETrainer:
-    """The RDO-VAE's trainer on one device."""
+    """The RDO-VAE's trainer on one device, or data-parallel over the ranks
+    of `mesh` (its device replaces `device`)."""
 
     def __init__(self, cfg: Optional[RV.RDOVAEConfig] = None,
                  tc: Optional[RDOVAETrainConfig] = None, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg or RV.RDOVAEConfig()
         self.tc = tc or RDOVAETrainConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.params = _map(lambda p: p.requires_grad_(True),
                            RV.init_params(self.cfg, seed, self.device))
+        if mesh is not None:
+            replicated(mesh, self.params)
         self.optimizer, self.scheduler = make_rdovae_optimizer(self.tc,
                                                                self.params)
         self.step = 0
@@ -161,21 +169,27 @@ class RDOVAETrainer:
                    ) -> Dict[str, torch.Tensor]:
         """One update. `rng` draws the soft-quantization noise and the state
         dropout; `noise` (a U(0, 1) draw of the latents' shape) replaces the
-        former where given. Returns the metrics as device scalars."""
-        batch = _to_device(batch, self.device)
+        former where given. Under a mesh `batch` and `noise` are the global
+        batch's. Returns the metrics as device scalars."""
+        batch = _place_batch(batch, self.device, self.mesh)
+        if noise is not None:
+            noise = (noise.to(self.device) if self.mesh is None
+                     else shard_batch(self.mesh, noise))
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = RV.rdovae_loss(
             self.params, batch["features"], batch["rate_lambda"],
-            batch["q_ids"], rng, self.cfg, self.tc.state_dropout_rate,
-            noise=None if noise is None else noise.to(self.device))
+            batch["q_ids"], _shared_rng(rng, self.mesh), self.cfg,
+            self.tc.state_dropout_rate, noise=noise)
         loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        _mean_over_ranks(self.mesh, self.params, metrics)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
         with torch.no_grad():
             _assign(self.params, clip_rdovae_weights(self.params,
                                                      self.tc.weight_clip))
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     def fit(self, loader, epochs: Optional[int] = None, log_every: int = 20,
             checkpoint_path: Optional[str] = None,

@@ -1,10 +1,15 @@
-"""KISS99 RNG, vectorized over streams, bit-exact with the C decoder.
+"""Random numbers: KISS99, vectorized over streams and bit-exact with the C
+decoder, and the training draws of `torch.Generator`s.
 
 The reference drives excitation sampling with KISS99 seeded from the string
 "LPCNet" (src/kiss99.c:32-81). PyTorch's CPU backend lacks `<<`, `>>` and
 `+` on uint32, so each state word is an int64 tensor holding a value in
 [0, 2**32) and every step masks with 0xFFFFFFFF. The CUDA kernel carries the
 same words as uint32 registers.
+
+The trainers draw their noise through `draw`, which under a data-parallel
+mesh (`ShardDraws`) makes each draw at the global batch's shape and keeps
+this rank's slice, and seed a block's steps with `fold_seed`.
 """
 
 from __future__ import annotations
@@ -15,6 +20,53 @@ import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
+_M64 = 0xFFFFFFFFFFFFFFFF
+
+
+class ShardDraws(NamedTuple):
+    """A generator shared by the ranks of a data-parallel step. Every draw
+    through `draw` is made at the global batch's shape (this rank's shape
+    with the batch axis times `world`) and sliced to this rank's share, so
+    every rank's generator advances alike and world size N sees the draws
+    of world size 1."""
+    generator: torch.Generator
+    rank: int
+    world: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+    def get_state(self):
+        return self.generator.get_state()
+
+    def set_state(self, state) -> None:
+        self.generator.set_state(state)
+
+
+def draw(fn, shape, rng, axis: int = 0, **kw) -> torch.Tensor:
+    """`fn(shape, generator=, device=, **kw)` on the generator's device:
+    `torch.rand`, `torch.randn` or a partial of `torch.randint`. `rng` is a
+    `torch.Generator` or a `ShardDraws`; under the latter the draw is made
+    at the global shape and this rank's slice of `axis` comes back."""
+    shape = tuple(shape)
+    if not isinstance(rng, ShardDraws):
+        return fn(shape, generator=rng, device=rng.device, **kw)
+    g, rank, world = rng
+    n = shape[axis]
+    full = shape[:axis] + (n * world,) + shape[axis + 1:]
+    return fn(full, generator=g, device=g.device, **kw).narrow(
+        axis, rank * n, n)
+
+
+def fold_seed(base: int, step: int) -> int:
+    """A generator seed from (base, step), the counterpart of
+    `jax.random.fold_in(key, step)`: splitmix64's finaliser of the two
+    words, so neighbouring steps get unrelated streams."""
+    z = (base * 0x9E3779B97F4A7C15 + step + 1) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
 
 
 class Kiss99State(NamedTuple):
