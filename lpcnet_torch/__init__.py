@@ -4,7 +4,8 @@ for NVIDIA Hopper (sm_90a).
 A port of `lpcnet_tpu` (JAX/Pallas) that imports neither JAX nor the JAX
 package. Module names mirror `lpcnet_tpu` so each counterpart is easy to
 find. It covers vocoder synthesis (per-frame features -> the frame-rate
-network -> the 160-step autoregressive sample loop, the CUDA kernel in
+network -> the 160-step autoregressive sample loop, the cluster kernel of
+`kernels/csrc/masked_loop.cu`, in f32 at large batches
 `kernels/csrc/sample_loop.cu` -> 16-bit PCM) and vocoder training
 (`train/train_lpcnet.py`: the teacher-forced training graph whose two GRU
 recurrences run through the CUDA kernels of `kernels/csrc/gru_train.cu`,

@@ -32,9 +32,33 @@
 //   for all n steps, and so are GRU-B's packed weights (38.4 KB in bf16).
 //   Where they do not fit beside the rest (GRU-B's at 32 streams; GRU-A's in
 //   bf16 at Na = 640, 307 KB a slice) the block reads them from L2 in place.
-//   The f32 form (221 KB a slice at Na = 384) always reads its weights from
-//   L2 and runs on the CUDA cores with K1's arithmetic: the tensor cores
-//   would change its numerics.
+// * The f32 form runs on the CUDA cores with K1's arithmetic (the tensor
+//   cores would change its numerics) on clusters of C = 16 blocks, the
+//   H100's non-portable cluster size (the card holds 7 such clusters):
+//   rank r owns U = 24 units at Na = 384 (a multiple of 4; no MMA tile),
+//   and its f32 slice, 110.6 KB as the bf16 slice at C = 8, stays in shared
+//   memory (at Na = 640, U = 40, 307 KB, it is read from L2). The slice is
+//   packed [k quad][3U | 1][4] (kernels/masked_loop.py::pack_gru_a; an odd
+//   row of 16-byte words keeps the lanes' loads conflict-free). A warp
+//   takes (stream tile, 4 local columns): lane l sums the k quads l,
+//   l + 32, ... into an 8 x 4 register tile, each loaded word used 4 or 8
+//   times (a 16-byte shared-memory load costs four cycles of the SM's
+//   port, so a column a thread, as in the first design, left the product
+//   bound by the loads at four times the FMAs' time; an 8 x 8 tile spills
+//   beside the rest of the kernel's registers), then the lanes meet in a
+//   fixed order, a reduce-scatter of five shuffles. In K1 (free-running), where
+//   each step's codes barrier sees every block's product done before any
+//   block sends its new slice, one operand buffer serves (a second would
+//   cap S at 32); GRU-B's input product, whose weights (73.7 KB) every
+//   block would otherwise read from L2 every step, is summed per rank over
+//   its own units right after the gate phase and sent with the slice to
+//   the owner of each stream's tail, who adds the ranks' parts in order.
+//   The first f32 design (sample_loop.cu's ar_kernel: a block of 4 streams
+//   sweeping the whole 1.77 MB matrix from L2 every step, 55 us a step at
+//   4 and at 1024 streams) keeps the batches above two waves of 16-block
+//   clusters (kernels/sample_loop.py::f32_route): the card holds 7 such
+//   clusters, and a wave costs about what that kernel takes for 1024
+//   streams.
 // * S is 8, 16 or 32, the smallest that fits the card in one wave of
 //   clusters (kernels/masked_loop.py::masked_launch_config, from the card's
 //   cluster occupancy). An H100 holds 15 clusters of 8 such blocks, so 128
@@ -75,8 +99,8 @@
 //   the kernel computes the free-running sample loop, K1's function.
 //
 // K1, the free-running loop (replaces _ar_kernel run with masked=False,
-// sample_loop.py:461, whose first port was ar_kernel<FORM, false> in
-// sample_loop.cu): the kind KIND_FREE. It reads no preload or mode
+// sample_loop.py:461, whose first port was ar_kernel<FORM> in
+// sample_loop.cu, which f32 keeps above two waves): the kind KIND_FREE. It reads no preload or mode
 // words, has no frozen or teacher-forced branch and always samples. Of the
 // two ways to serve 1024 streams in fewer waves, it splits the tail rather
 // than give warp 0's lanes two streams each: the per-stream tail (GRU-B, the
@@ -95,7 +119,7 @@
 // single wave (S = 72) does not fit: two h_a operand buffers of 72 streams
 // (113 KB in bf16) and the 110.6 KB slice exceed a block.
 //
-// K6 in bf16, the merged-product loop (replaces
+// K6, the merged-product loop (replaces
 // sample_loop.py::_sample_kernel_merged; its first port, ar_kernel<FORM,
 // true> in sample_loop.cu, read the merged matrices' zero blocks from L2
 // every step and is gone): the same function as K1, since a zero block adds
@@ -105,7 +129,7 @@
 // conditioning's merged 4N layout converted once a launch into K1's.
 //
 // K3, the teacher-forced run (replaces sample_loop.py::_tf_kernel,
-// teacher_force_blocks_pallas; its first port, tf_kernel in sample_loop.cu,
+// teacher_force_blocks_pallas; its first port, tf_kernel in a first design,
 // swept GRU-A's matrix from L2 every step with three block barriers, ~45 us
 // a dependent step, and is gone): the kind KIND_TF. Every input is known
 // before the launch: the u-law codes of every step (three bytes a stream
@@ -178,7 +202,7 @@ struct K2Args {
   const uint8_t* codes;     // K3: [B, n_blocks * blk, 3] sig_u, pred_u, exc
   const void* emb;          // [768, 3Na] f32 / bf16 / int8; factored: the shared embedding [256, 128] int8
   const float* emb_scale;   // [3Na] (q8; factored: the input kernel's column scales)
-  const void* a_w;          // bf16 / q8: packed slices [C][3U/16][ceil(Na/KS)][32][16 bytes]; f32: a_rec [Na, 3Na]
+  const void* a_w;          // packed slices: bf16 / q8 [C][3U/16][ceil(Na/KS)][32][16 bytes]; f32 [C][ceil(Na/4)][3U][4]
   const float* a_diag;      // [3Na] (q8)
   const float* a_bias1;     // [3Na]
   const void* b_w;          // bf16 / q8: packed [3Nbp/16][ceil(Na/KS) + ceil(Nb/KS)][32][16 bytes]
@@ -229,10 +253,15 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 
 // The shared-memory layout of one block, in bytes; the Python side
 // (masked_loop.py::masked_smem_bytes) computes the same total. U, the units
-// of a rank: 16 ceil(Na / (16 C)); Nbp = 16 ceil(Nb / 16). The free-running
-// form keeps its tail arrays for one tile of 8 streams (TR = 8, else S), its
-// codes four words a stream (one 16-byte store a block) and 8 rows more in
-// each h_a operand buffer (the GRU-B tile of the last rank reads past S).
+// of a rank: 16 ceil(Na / (16 C)) (f32: 4 ceil(Na / (4 C))); Nbp =
+// 16 ceil(Nb / 16). The free-running form keeps its tail arrays for one
+// tile of 8 streams (TR = 8, else S), its codes four words a stream (one
+// 16-byte store a block) and, in bf16 and q8, 8 rows more in each h_a
+// operand buffer (the GRU-B tile of the last rank reads past S). In f32 it
+// keeps one operand buffer (its codes barrier orders every block's product
+// before any block's new slice), the ranks' parts of GRU-B's input
+// product for its tail streams, gbin [C][SO][3Nb rounded up to 4], and the
+// rank's U rows of GRU-B's input matrix, brow [U][3Nb rounded up to 4].
 // The teacher-forced form (K3) splits the tail as the free-running one
 // does, has no node logits, threshold table or codes, and keeps the counts
 // of its S streams for each of n_blocks blocks and each block's largest.
@@ -240,9 +269,9 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // (where res_f), the gathered rows g [S][FACT_LD] and their products
 // [S][ldz] int32.
 struct K2Layout {
-  int u, nbp, ksa, ksbr, ldx, ldb, ldz, ldg, hrows;
-  size_t wa, wb, hop, hbop, zacc, gacc, haown, hbf, logits, code, table, wf, gop, eacc, flags,
-      total;
+  int u, nbp, ksa, ksbr, ldx, ldb, ldz, ldg, hrows, hbufs, kq, ncolp, nb3p;
+  size_t wa, wb, hop, hbop, zacc, gacc, haown, hbf, logits, code, table, wf, gop, eacc, gbin,
+      brow, flags, total;
 };
 
 __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int cluster, int s,
@@ -253,21 +282,27 @@ __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int clus
   const bool free_ = kind == KIND_FREE, tf = kind == KIND_TF;
   const int tr = free_ || tf ? 8 : s;
   K2Layout L;
-  L.u = round_up((na + cluster - 1) / cluster, 16);
+  L.u = round_up((na + cluster - 1) / cluster, mma ? 16 : 4);
   L.nbp = round_up(nb, 16);
   L.ksa = (na + ks - 1) / ks;
   L.ksbr = (nb + ks - 1) / ks;
+  L.kq = (na + 3) / 4;
+  L.ncolp = (3 * L.u) | 1;         // f32 pack's words a k quad: odd, conflict-free
+  L.nb3p = round_up(3 * nb, 4);
+  const bool k1_f32 = free_ && !mma;
+  L.hbufs = k1_f32 ? 1 : 2;
   L.ldx = round_up(cluster * L.u, 128 / esz) + form_xpad(form);
   L.ldb = mma ? L.ksbr * ks + form_xpad(form) : nb + form_xpad(form);
   L.ldz = 3 * L.u + 4;
   L.ldg = 3 * L.nbp + 4;
-  L.hrows = free_ || tf ? s + 8 : s;
-  const size_t wslice = mma && res_a ? (size_t)3 * L.u * L.ksa * ks * esz : 0;
+  L.hrows = (free_ || tf) && mma ? s + 8 : s;
+  const size_t wslice = !res_a ? 0
+                        : mma ? (size_t)3 * L.u * L.ksa * ks * esz : (size_t)L.kq * L.ncolp * 16;
   const size_t wbytes = mma && res_b ? (size_t)3 * L.nbp * (L.ksa + L.ksbr) * ks * esz : 0;
   size_t off = 0;
   L.wa = off; off += align16(wslice);
   L.wb = off; off += align16(wbytes);
-  L.hop = off; off += align16((size_t)2 * L.hrows * L.ldx * esz);
+  L.hop = off; off += align16((size_t)L.hbufs * L.hrows * L.ldx * esz);
   L.hbop = off; off += align16((size_t)tr * L.ldb * esz);
   L.zacc = off; off += align16((size_t)s * L.ldz * 4);
   L.gacc = off; off += align16((size_t)2 * tr * L.ldg * 4);
@@ -280,6 +315,9 @@ __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int clus
   L.wf = off; off += fact && res_f ? align16((size_t)3 * L.u * FACT_K) : 0;
   L.gop = off; off += fact ? align16((size_t)s * FACT_LD) : 0;
   L.eacc = off; off += fact ? align16((size_t)s * L.ldz * 4) : 0;
+  L.gbin = off;
+  off += k1_f32 ? align16((size_t)cluster * ((s + cluster - 1) / cluster) * L.nb3p * 4) : 0;
+  L.brow = off; off += k1_f32 ? align16((size_t)L.u * L.nb3p * 4) : 0;
   L.flags = off; off += 16;
   L.total = off;
   return L;
@@ -300,7 +338,7 @@ template <> struct OpT<FORM_Q8> {
   static __device__ __forceinline__ int8_t of(float h) { return (int8_t)operand<FORM_Q8>(h); }
 };
 
-// a weight through the read-only path, widened as wload does
+// a weight through the read-only path, widened to its sum's type
 __device__ __forceinline__ float ldw(const float* p, size_t i) { return __ldg(p + i); }
 __device__ __forceinline__ float ldw(const bf16* p, size_t i) { return __bfloat162float(__ldg(p + i)); }
 __device__ __forceinline__ int ldw(const int8_t* p, size_t i) { return (int)__ldg(p + i); }
@@ -376,6 +414,61 @@ __device__ __forceinline__ void tile_mma(const uint4* wf, int ksteps,
   out[(2 * t + 1) * ldo + g + 8] = acc[3];
 }
 
+// One warp's task of the f32 GRU-A product: the sums of 8 streams
+// (operand rows x, x + ldx, ...) for local columns [4 g, 4 g + 4) of the
+// rank's packed slice w [kq][ncolp] (16-byte words: four k of a column; in
+// shared memory or L2). Lane l takes the k quads l, l + 32, ...: an 8 x 4
+// tile of FMA chains in registers, each operand word read once a quad; the
+// 32 lanes' tiles then meet in a fixed-order reduce-scatter over five
+// shuffle levels, after which lane l holds the sum of tile entry l (stream
+// l / 4, column 4 g + l % 4) and stores it.
+template <bool SHARED>
+__device__ __forceinline__ void f32_tile(const float4* w, int ncolp, int ncol, int kq, int g,
+                                         const float* x, int ldx, float* out, int ldo,
+                                         int lane) {
+  float a[32];                                   // a[4 s + c]
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a[i] = 0.f;
+  const int c0 = 4 * g;
+  for (int q = lane; q < kq; q += 32) {
+    float4 wv[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c0 + c < ncol) {
+        const float4* wp = w + (size_t)q * ncolp + c0 + c;
+        wv[c] = SHARED ? *wp : __ldg(wp);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const float4 xv = *reinterpret_cast<const float4*>(x + s * ldx + 4 * q);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float& acc = a[4 * s + c];
+        acc = fmaf(xv.x, wv[c].x, acc);
+        acc = fmaf(xv.y, wv[c].y, acc);
+        acc = fmaf(xv.z, wv[c].z, acc);
+        acc = fmaf(xv.w, wv[c].w, acc);
+      }
+    }
+  }
+  // at mask m, a lane keeps the half of its n sums that its bit m selects
+  // and adds its partner's copy of that half
+#define F32_RS(M, H)                                                        \
+  {                                                                         \
+    const bool up = (lane & (M)) != 0;                                      \
+    _Pragma("unroll") for (int i = 0; i < (H); ++i) {                       \
+      const float keep = up ? a[(H) + i] : a[i], send = up ? a[i] : a[(H) + i]; \
+      a[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, (M)));     \
+    }                                                                       \
+  }
+  F32_RS(16, 16) F32_RS(8, 8) F32_RS(4, 4) F32_RS(2, 2) F32_RS(1, 1)
+#undef F32_RS
+  const int c = c0 + (lane & 3);
+  if (c < ncol) out[(lane >> 2) * ldo + c] = a[0];
+}
+
 // K3's gate inputs of one (stream, unit) pair as loaded, before any sum: the
 // three embedding rows' values of its three gate columns in the weights' own
 // type and the block's conditioning. Held in registers from the loads'
@@ -421,7 +514,8 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   // memory (wa_s, wb_s) where they fit, else read from L2 in place (wa_g,
   // wb_g). The products take one or the other in separate calls, so that
   // the resident case keeps its shared-memory loads.
-  const size_t na_words = (size_t)3 * U * L.ksa * F::KS * F::ESZ / 16;
+  const size_t na_words = F::MMA ? (size_t)3 * U * L.ksa * F::KS * F::ESZ / 16
+                                 : (size_t)L.kq * L.ncolp;
   const size_t nb_words = (size_t)3 * nbp * (L.ksa + L.ksbr) * F::KS * F::ESZ / 16;
   const uint4* wa_g = reinterpret_cast<const uint4*>(p.a_w) + (size_t)rank * na_words;
   const uint4* wb_g = reinterpret_cast<const uint4*>(p.b_w);
@@ -443,6 +537,9 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   unsigned* flags = reinterpret_cast<unsigned*>(smem + L.flags); // live, sampler needed
   float* table = reinterpret_cast<float*>(smem + L.table); // [256] threshold logits
   const int hstride = L.hrows * L.ldx;                     // one operand buffer
+  const int hnext = L.hbufs > 1 ? hstride : 0;             // the other one, if any
+  float* gbin = reinterpret_cast<float*>(smem + L.gbin);   // f32 K1: [C][SO][nb3p]
+  float* brow = reinterpret_cast<float*>(smem + L.brow);   // f32 K1: [U][nb3p]
   // the factored embedding: this rank's input-kernel slice (shared memory
   // or L2), the gathered rows g and their products
   constexpr int KSF = FACT_K / 32;
@@ -473,17 +570,22 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   }
 
   // ---- set-up: weights into shared memory, the carried state
-  if (F::MMA && p.res_a && total > 0)
+  if (p.res_a && total > 0)
     for (size_t i = tid; i < na_words; i += K2_THREADS) wa_s[i] = wa_g[i];
   if (F::MMA && p.res_b && total > 0)
     for (size_t i = tid; i < nb_words; i += K2_THREADS) wb_s[i] = wb_g[i];
   if (fact && p.res_f && total > 0)
     for (size_t i = tid; i < nf_words; i += K2_THREADS) wf_s[i] = wf_g[i];
+  if (FREE && !F::MMA)
+    for (int i = tid; i < U * L.nb3p; i += K2_THREADS) {
+      const int j = i / L.nb3p, c = i % L.nb3p;
+      brow[i] = u0 + j < na && c < nb3 ? __ldg(p.b_in + (size_t)(u0 + j) * nb3 + c) : 0.f;
+    }
   for (int i = tid; i < hstride; i += K2_THREADS) {
     const int s = i / L.ldx, k = i % L.ldx;
     const float h = (s < nact && k < na) ? p.ha_in[(size_t)(b0 + s) * na + k] : 0.f;
     hop[i] = OpT<FORM>::of(h);
-    hop[hstride + i] = OpT<FORM>::of(0.f);
+    if (L.hbufs > 1) hop[hstride + i] = OpT<FORM>::of(0.f);
   }
   for (int i = tid; i < S * U; i += K2_THREADS) {
     const int s = i / U, u = u0 + i % U;
@@ -512,24 +614,16 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
                          zacc + nt * 8 * L.ldz + mt * 16, L.ldz, lane);
       }
     } else {
-      // f32: thread (local column, stream tile), weights from L2, K1's sums
-      const float* a_rec = (const float*)p.a_w;
-      for (int task = pt; task < 3 * U * NT; task += npt) {
-        const int lc = task % (3 * U), nt = task / (3 * U);
-        if (u0 + lc % U >= na) continue;            // padding: never read
-        const int col = (lc / U) * na + u0 + lc % U;
-        float acc[8];
-#pragma unroll
-        for (int s = 0; s < 8; ++s) acc[s] = 0.f;
-        const float* x = cur + nt * 8 * L.ldx;
-#pragma unroll 16
-        for (int k = 0; k < na; ++k) {
-          const float w = __ldg(a_rec + (size_t)k * na3 + col);
-#pragma unroll
-          for (int s = 0; s < 8; ++s) acc[s] += x[s * L.ldx + k] * w;
-        }
-#pragma unroll
-        for (int s = 0; s < 8; ++s) zacc[(nt * 8 + s) * L.ldz + lc] = acc[s];
+      // f32: warp task (stream tile, group of 4 local columns), f32_tile
+      const int ngrp = (3 * U + 3) / 4;
+      for (int task = pt >> 5; task < ngrp * NT; task += npt >> 5) {
+        const int g = task % ngrp, nt = task / ngrp;
+        if (p.res_a)
+          f32_tile<true>(reinterpret_cast<const float4*>(wa_s), L.ncolp, 3 * U, L.kq, g,
+                         cur + nt * 8 * L.ldx, L.ldx, zacc + nt * 8 * L.ldz, L.ldz, lane);
+        else
+          f32_tile<false>(reinterpret_cast<const float4*>(wa_g), L.ncolp, 3 * U, L.kq, g,
+                          cur + nt * 8 * L.ldx, L.ldx, zacc + nt * 8 * L.ldz, L.ldz, lane);
       }
     }
   };
@@ -574,6 +668,31 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       const int off = s * L.ldx + u0 + w * EPW;
       *reinterpret_cast<uint4*>(cluster.map_shared_rank(nxt, c) + off) =
           *reinterpret_cast<const uint4*>(nxt + off);
+    }
+  };
+  // f32 K1: this rank's part of GRU-B's input product over its own units,
+  // for every stream s and 4 columns c: sum over j in order of
+  // h_a[s][u0 + j] b_in[u0 + j][c] (the rows in brow), 16 bytes to the
+  // tail's owner of s (gbin[rank][s - owner SO]), so that no block reads
+  // all of b_in a step
+  auto send_b_parts = [&](const OT* hn) {
+    const int nq = L.nb3p / 4, units = min(U, na - u0);
+    for (int i = tid; i < S * nq; i += K2_THREADS) {
+      const int s = i / nq, c0 = 4 * (i % nq);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int j = 0; j < units; ++j) {
+        const float h = (float)hn[s * L.ldx + u0 + j];
+        const float4 wv = *reinterpret_cast<const float4*>(brow + j * L.nb3p + c0);
+        acc[0] = fmaf(h, wv.x, acc[0]);
+        acc[1] = fmaf(h, wv.y, acc[1]);
+        acc[2] = fmaf(h, wv.z, acc[2]);
+        acc[3] = fmaf(h, wv.w, acc[3]);
+      }
+      const int owner = s / SO, sl = s - owner * SO;
+      *reinterpret_cast<float4*>(cluster.map_shared_rank(gbin, owner) +
+                                 (rank * SO + sl) * L.nb3p + c0) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
     }
   };
 
@@ -967,7 +1086,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       }
     } else if (t < n) {
       // ---- warps 1..: GRU-A's product of step t on the operand of h_a
-      const OT* cur = hop + (t & 1) * hstride;
+      const OT* cur = hop + (t & 1) * hnext;
       if constexpr (F::MMA) {
         // warps 4 and 8 share warp 0's scheduler, whose tree and codes are
         // the step's critical path: the other nine take the tiles
@@ -994,7 +1113,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
 
     // ---- gate phase: thread (stream, unit) forms its new h_a and its operand
     // copy, then the block sends its slice to every block of the cluster
-    OT* nxt = hop + ((t + 1) & 1) * hstride;
+    OT* nxt = hop + ((t + 1) & 1) * hnext;
     for (int i0 = tid; i0 < S * U; i0 += NT * K2_THREADS) {
       // this thread's pairs' reads from L2 first, all in flight together
       float g[NT][3], bias[NT][3], diag[NT][3];
@@ -1048,8 +1167,10 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
     }
     __syncthreads();
     send_slice(nxt);
+    if constexpr (FREE && !F::MMA) send_b_parts(nxt);
     // the new operand copy is complete in every block; nobody still reads the
-    // buffer the next step overwrites
+    // buffer the next step overwrites (f32 K1: the codes barrier saw every
+    // block's product of this step done before any slice was sent)
     cluster.sync();
 
     // ---- GRU-B's products on the new h_a and the old h_b, for the tail
@@ -1075,11 +1196,19 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         if (p.res_b) gru_b_tile(wb_s); else gru_b_tile(wb_g);
       }
     } else {
+      // f32: the input product, K1's the ranks' parts (gbin) added in rank
+      // order, K2's Na deep from L2; the recurrent product Nb deep from L2
       for (int o = tid; o < so * nb3; o += K2_THREADS) {
         const int sl = o / nb3, c = o % nb3, s = s0 + sl;
         float ai = 0.f, ar = 0.f;
+        if constexpr (FREE) {
+          ai = gbin[sl * L.nb3p + c];
+          for (int r = 1; r < C; ++r) ai = __fadd_rn(ai, gbin[(r * SO + sl) * L.nb3p + c]);
+        } else {
 #pragma unroll 16
-        for (int k = 0; k < na; ++k) ai += nxt[s * L.ldx + k] * __ldg(p.b_in + (size_t)k * nb3 + c);
+          for (int k = 0; k < na; ++k) ai += nxt[s * L.ldx + k] * __ldg(p.b_in + (size_t)k * nb3 + c);
+        }
+#pragma unroll 16
         for (int k = 0; k < nb; ++k) ar += hbop[sl * L.ldb + k] * __ldg(p.b_rec + (size_t)k * nb3 + c);
         const int pc = (c / nb) * nbp + c % nb;       // the padded layout's column
         gin[sl * L.ldg + pc] = ai;
@@ -1175,9 +1304,8 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
 typedef void (*K2Kernel)(K2Args);
 
 // the kernel of a form, a stream tiling (S = 8 nt) and a kind, null if
-// there is none. The free-running form (K1) has bf16 and q8 instantiations
-// only: in f32 K1 runs sample_loop.cu's kernel. The teacher-forced form
-// (K3) has all three forms at S = 8, 16 and 32.
+// there is none: K2 and K3 at S = 8, 16 and 32, K1 (free-running) at 8, 16,
+// 32 and 40, each in all three forms.
 K2Kernel kernel_for(int form, int nt, int kind) {
   switch (kind * 64 + form * 8 + nt) {
 #define K2_CASE(KIND, FORM, NT) \
@@ -1187,6 +1315,8 @@ K2Kernel kernel_for(int form, int nt, int kind) {
     K2_CASE(KIND_MASKED, FORM_BF16, 2) K2_CASE(KIND_MASKED, FORM_BF16, 4)
     K2_CASE(KIND_MASKED, FORM_Q8, 1) K2_CASE(KIND_MASKED, FORM_Q8, 2)
     K2_CASE(KIND_MASKED, FORM_Q8, 4)
+    K2_CASE(KIND_FREE, FORM_F32, 1) K2_CASE(KIND_FREE, FORM_F32, 2)
+    K2_CASE(KIND_FREE, FORM_F32, 4) K2_CASE(KIND_FREE, FORM_F32, 5)
     K2_CASE(KIND_FREE, FORM_BF16, 1) K2_CASE(KIND_FREE, FORM_BF16, 2)
     K2_CASE(KIND_FREE, FORM_BF16, 4) K2_CASE(KIND_FREE, FORM_BF16, 5)
     K2_CASE(KIND_FREE, FORM_Q8, 1) K2_CASE(KIND_FREE, FORM_Q8, 2)
@@ -1199,6 +1329,15 @@ K2Kernel kernel_for(int form, int nt, int kind) {
 #undef K2_CASE
     default: return nullptr;
   }
+}
+
+// the kernel's shared memory and, past the portable 8 blocks, its leave to
+// run on clusters of up to 16 (the f32 form)
+cudaError_t k2_attributes(K2Kernel k, int cluster, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
 }
 
 cudaLaunchConfig_t k2_config(int grid, int cluster, int smem, cudaStream_t stream,
@@ -1219,7 +1358,7 @@ cudaLaunchConfig_t k2_config(int grid, int cluster, int smem, cudaStream_t strea
 
 // launch the kernel k on clusters of `cluster` blocks, one per 8 nt streams
 int k2_launch(K2Kernel k, const K2Args& a, int nt, int smem, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = k2_attributes(k, a.cluster, smem);
   if (e != cudaSuccess) return (int)e;
   const int clusters = (a.batch + 8 * nt - 1) / (8 * nt);
   cudaLaunchAttribute attr;
@@ -1245,7 +1384,7 @@ extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int kind, int c
                                                int smem) {
   const K2Kernel k = kernel_for(form, nt, kind);
   if (!k) return -(int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = k2_attributes(k, cluster, smem);
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = k2_config(cluster * 64, cluster, smem, 0, &attr);
@@ -1254,13 +1393,20 @@ extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int kind, int c
   return e == cudaSuccess ? count : -(int)e;
 }
 
-// K2. a_w: bf16 / q8 packed GRU-A slices, f32 a_rec [Na, 3Na]; b_w: bf16 /
-// q8 packed GRU-B weights (null in f32); b_in, b_rec: f32 only; res_a,
-// res_b: keep the packed weights in shared memory; smem: the layout's total
-// (masked_loop.py::masked_smem_bytes); preload [B, n] f32, mode [B, n] int32
-// (advance | teacher_force << 1); the rest as K1's sample_loop.cu entries.
-// With free_ (K1: the free-running form) preload and mode are not read and
-// may be null, and sampled must be 1.
+// K2. a_w: the packed GRU-A slices (bf16 / q8 [C][3U/16][ceil(Na/KS)][32][16
+// bytes], f32 [C][ceil(Na/4)][3U][4]); b_w: bf16 / q8 packed GRU-B weights
+// (null in f32); b_in [Na, 3Nb], b_rec [Nb, 3Nb]: f32 only; cluster: C of
+// masked_loop.py::cluster_shape (up to 8, in f32 up to 16); res_a, res_b:
+// keep the packed weights in shared memory (res_b: not in f32); smem: the
+// layout's total (masked_loop.py::masked_smem_bytes); emb [768, 3Na],
+// emb_scale and a_diag [3Na] (q8), a_bias1 [3Na], b_bias1 [3Nb], the
+// sampler's dual_w [Nb, 512], dual_bias, dual_factor [512], logit_table
+// [256], cond_a [B, 3Na], cond_b [B, 3Nb], lpc [B, 16] and the carried state
+// (h_a, h_b, last_sig [B, 16], last_exc int32, deemph, the KISS99 words [B,
+// 4] int64) in and out, pcm [B, n] f32; preload [B, n] f32, mode [B, n]
+// int32 (advance | teacher_force << 1). With free_ (K1: the free-running
+// form) preload and mode are not read and may be null, and sampled must be
+// 1.
 extern "C" int lpcnet_masked_loop(
     int form, int nt, int free_, int cluster, int smem, int res_a, int res_b, int fact, int res_f,
     int batch, int na, int nb,
@@ -1276,7 +1422,8 @@ extern "C" int lpcnet_masked_loop(
   const int kind = free_ ? KIND_FREE : KIND_MASKED;
   const K2Kernel k = kernel_for(form, nt, kind);
   if (!k || batch <= 0 || n_samples <= 0 || (!free_ && (!preload || !mode)) || cluster < 1 ||
-      cluster > 8 || na <= 0 || nb <= 0 || (form == FORM_F32 && (res_a || res_b)) ||
+      cluster > (form == FORM_F32 ? 16 : 8) || na <= 0 || nb <= 0 ||
+      (form == FORM_F32 && res_b) ||
       (free_ && (!sampled || (8 * nt + cluster - 1) / cluster > 8)) ||
       !fact_ok(form, fact, res_f, f_w))
     return (int)cudaErrorInvalidValue;
@@ -1316,8 +1463,9 @@ extern "C" int lpcnet_teacher_force(
     const void* counts, const void* codes, const void* ha_in, const void* hb_in,
     const void* rng_in, void* ha_out, void* hb_out, void* rng_out, void* stream) {
   const K2Kernel k = kernel_for(form, nt, KIND_TF);
-  if (!k || batch <= 0 || n_blocks <= 0 || blk_samples <= 0 || cluster < 1 || cluster > 8 ||
-      na <= 0 || nb <= 0 || (form == FORM_F32 && (res_a || res_b)) ||
+  if (!k || batch <= 0 || n_blocks <= 0 || blk_samples <= 0 || cluster < 1 ||
+      cluster > (form == FORM_F32 ? 16 : 8) || na <= 0 || nb <= 0 ||
+      (form == FORM_F32 && res_b) ||
       (8 * nt + cluster - 1) / cluster > 8 || !fact_ok(form, fact, res_f, f_w))
     return (int)cudaErrorInvalidValue;
   if ((size_t)smem != k2_layout(form, na, nb, cluster, 8 * nt, res_a, res_b, KIND_TF,

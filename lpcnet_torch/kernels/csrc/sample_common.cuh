@@ -1,7 +1,7 @@
-// Scalar pieces shared by the sample-loop kernels (sample_loop.cu: f32 K1
-// and K6; masked_loop.cu: K2, K3, bf16 and q8 K1 and K6): the numeric
-// forms, the u-law maps, KISS99, the GRU operand copy and the reset-after
-// update. Scalar float code uses explicit _rn intrinsics where the plain
+// Scalar pieces shared by the sample-loop kernels (masked_loop.cu: K1, K2,
+// K3 and K6 in every form; sample_loop.cu: f32 K1 and K6 at the batches
+// that take more than two waves of f32 clusters): the numeric forms, the
+// u-law maps, KISS99, the GRU operand copy and the reset-after update. Scalar float code uses explicit _rn intrinsics where the plain
 // PyTorch version rounds each operation, so nvcc cannot contract it into
 // FMAs with a different rounding.
 

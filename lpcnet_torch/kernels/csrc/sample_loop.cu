@@ -1,11 +1,14 @@
-// K1 (f32): the LPCNet autoregressive sample loop, one frame per launch,
-// free-running. The masked form (K2) has a kernel of its own, redesigned for
-// Hopper: masked_loop.cu, whose free-running form is K1 in bf16 and q8 (in
-// f32 this first design is the faster at 1024 streams: K2's f32 form reads
-// GRU-A's weights from L2 on the CUDA cores for S streams a cluster) and
-// whose teacher-forced form is K3. K6, the merged-product loop, runs K1's
-// kernel of its form on the non-zero blocks of its merged matrices
-// (kernels/sample_loop.py::merged_packs): f32 K6 is this kernel.
+// K1 (f32) at large batches: the LPCNet autoregressive sample loop, one
+// frame per launch, free-running, in its first design. K1 is the
+// free-running form of masked_loop.cu's cluster kernel, f32 on clusters of
+// 16 blocks with GRU-A's f32 slice resident (5x faster at 4 streams); but
+// 16-block clusters fit the H100 7 at a time, and each wave of them costs
+// about a frame of this kernel, which keeps every block of 4 streams
+// resident at once: so f32 K1 runs here above two waves of clusters
+// (kernels/sample_loop.py::f32_route; on an H100 above 560 streams). K6,
+// the merged-product loop, runs K1's kernel on the non-zero blocks of its
+// merged matrices (kernels/sample_loop.py::merged_packs) and is routed the
+// same way.
 //
 // Replaces the TPU kernel lpcnet_tpu/kernels/sample_loop.py::_ar_kernel, run
 // free (masked=False, sampled=True: K1), with its helpers _gru_ab,

@@ -10,10 +10,16 @@ packed in the register order of the tensor cores' A fragments (`mma.sync`
 m16n8k16 for bf16, m16n8k32 s8 for q8): the product is out^T = W^T h^T, so
 the A operand is a 16-column by KS-deep tile of W^T (KS = 16 in bf16, 32 in
 q8, the depth zero-padded to a multiple of KS), and lane l's fragment is the
-16 bytes at [.., tile, k step, l, :]. The f32 form reads the weights as
-they are.
+16 bytes at [.., tile, k step, l, :]. The f32 form runs on the CUDA cores
+with K1's arithmetic on clusters of up to 16 blocks (the H100's
+non-portable cluster size), so that each rank's f32 slice is as small as a
+bf16 slice at C = 8 (110.6 KB at Na = 384: U = 24, a multiple of 4, not
+16: no MMA tile); its slice is packed [k quad][3U | 1][4], four k values
+of a column in one 16-byte word (`pack_gru_a`). In K1 the f32 form keeps
+one h_a operand buffer and the ranks' parts of GRU-B's input product for
+its tail streams (`masked_smem_bytes`).
 
-* `cluster_shape(na)`, `masked_smem_bytes`, `masked_launch_config`: the
+* `cluster_shape(na, form)`, `masked_smem_bytes`, `masked_launch_config`: the
   launch's shape; `free_launch_config` that of the free-running form
   (K1), `tf_launch_config` that of the teacher-forced form (K3), whose
   rank r runs GRU-B for streams [r SO, r SO + SO) as K1's does and keeps
@@ -39,7 +45,8 @@ from __future__ import annotations
 
 import torch
 
-MAX_CLUSTER = 8              # blocks a cluster (the portable limit)
+MAX_CLUSTER = 8              # blocks a cluster in bf16 and q8 (the portable limit)
+MAX_CLUSTER_F32 = 16         # in f32: the H100's non-portable cluster size
 SMEM_LIMIT = 232448          # shared memory a block can have on an H100
 FORMS = {"f32": 0, "bf16": 1, "q8": 2}
 STREAM_TILES = (1, 2, 4)     # S / 8: warp 0 holds a cluster's streams in its lanes
@@ -63,9 +70,15 @@ def _up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def cluster_shape(na: int) -> tuple[int, int]:
-    """(C, U): 8 blocks of U = 16 ceil(Na / 128) units each (U = 48 at
-    Na = 384), or at Na < 128 one block per 16 units."""
+def cluster_shape(na: int, form: int) -> tuple[int, int]:
+    """(C, U) of operand form `form`. bf16 and q8: 8 blocks of U = 16
+    ceil(Na / 128) units each (U = 48 at Na = 384), or at Na < 128 one
+    block per 16 units. f32: 16 blocks of U = 4 ceil(Na / 64) units (U = 24
+    at Na = 384, U = 40 at Na = 640), or at Na < 256 one block per 16
+    units."""
+    if form == FORMS["f32"]:
+        c = min(MAX_CLUSTER_F32, -(-na // 16))
+        return c, _up(-(-na // c), 4)
     c = min(MAX_CLUSTER, -(-na // 16))
     return c, _up(-(-na // c), 16)
 
@@ -79,32 +92,38 @@ def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
                       free: bool = False, tf_blocks: int = 0,
                       fact: bool = False, res_f: bool = False) -> int:
     """Shared memory of one block, bytes: the csrc K2Layout's total. `res_a`
-    and `res_b` keep GRU-A's slice and GRU-B's weights in shared memory
-    (bf16 and q8 only). `free` is K1's free-running form, whose tail arrays
-    hold one tile of 8 streams (each rank runs the tail of S / C streams),
-    whose codes take four words a stream and whose h_a operand buffers have
-    8 rows more. `tf_blocks` > 0 is K3's teacher-forced form over that many
-    conditioning blocks: the tail and the operand buffers as the
-    free-running form's, no node logits, codes or threshold table, and the
-    counts of the S streams for each block with each block's largest.
+    keeps GRU-A's slice in shared memory, `res_b` GRU-B's weights (bf16 and
+    q8 only). `free` is K1's free-running form, whose tail arrays hold one
+    tile of 8 streams (each rank runs the tail of S / C streams), whose
+    codes take four words a stream and whose h_a operand buffers have 8 rows
+    more in bf16 and q8 (the last rank's GRU-B tile reads past S; f32's
+    GRU-B reads its own rows only); in f32 it has one operand buffer, the
+    ranks' parts of GRU-B's input product, [C][SO][3Nb rounded up to 4],
+    and the rank's U rows of GRU-B's input matrix. `tf_blocks` > 0 is K3's
+    teacher-forced form over that many conditioning blocks: the tail and
+    the operand rows as the free-running form's (two buffers in every
+    form), no node logits, codes or threshold table, and the counts of the
+    S streams for each block with each block's largest.
     `fact` adds the factored q8 embedding's regions, `res_f` its input
     kernel's slice in shared memory."""
     s = 8 * nt
     tf = tf_blocks > 0
+    k1_f32 = free and not tf and form == FORMS["f32"]
     free = free or tf
     tr = 8 if free else s
     ks, esz, pad = _KS[form], _ESZ[form], _XPAD[form]
     mma = form != 0
-    c, u = cluster_shape(na)
+    c, u = cluster_shape(na, form)
     nbp = padded_nb(nb)
     ksa, ksbr = -(-na // ks), -(-nb // ks)
     ldx = _up(c * u, 128 // esz) + pad
     ldb = ksbr * ks + pad if mma else nb + pad
     ldz, ldg = 3 * u + 4, 3 * nbp + 4
+    slice_a = 3 * u * ksa * ks * esz if mma else -(-na // 4) * (3 * u | 1) * 16
     regions = [
-        3 * u * ksa * ks * esz if mma and res_a else 0,       # GRU-A slice
+        slice_a if res_a else 0,                         # GRU-A slice
         3 * nbp * (ksa + ksbr) * ks * esz if mma and res_b else 0,  # GRU-B weights
-        2 * (s + 8 if free else s) * ldx * esz,          # h_a operand, two buffers
+        (1 if k1_f32 else 2) * (s + 8 if free and mma else s) * ldx * esz,  # h_a operand
         tr * ldb * esz,                                  # h_b operand
         s * ldz * 4,                                     # GRU-A products
         2 * tr * ldg * 4,                                # GRU-B products
@@ -114,6 +133,8 @@ def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
         (tf_blocks * (s + 1) if tf else
          (4 if free else 3) * s + tr) * 4,               # codes, tree's top bits
         0 if tf else 256 * 4,                            # threshold logits
+        c * -(-s // c) * _up(3 * nb, 4) * 4 if k1_f32 else 0,  # GRU-B's input parts
+        u * _up(3 * nb, 4) * 4 if k1_f32 else 0,         # the rank's rows of b_in
         16,                                              # flags
     ]
     if fact:
@@ -130,7 +151,8 @@ def _layout(form: int, na: int, nb: int, nt: int, free: bool = False,
     """(smem, res_a, res_b, res_f) of the first of: every weight set
     resident, GRU-A's slice (and the factored input kernel's) only, ...,
     none, that fits a block; None if none does. res_f is False unless
-    `fact` (the factored q8 embedding)."""
+    `fact` (the factored q8 embedding); res_b is False in f32, whose GRU-B
+    reads its weights from L2."""
     tiers = (((True, True, True), (True, False, True), (True, False, False),
               (False, False, False)) if fact else
              ((True, True, False), (True, False, False), (False, False, False)))
@@ -138,8 +160,21 @@ def _layout(form: int, na: int, nb: int, nt: int, free: bool = False,
         smem = masked_smem_bytes(form, na, nb, nt, res_a, res_b, free, tf_blocks,
                                  fact, res_f)
         if smem <= SMEM_LIMIT:
-            return smem, res_a and form != 0, res_b and form != 0, res_f
+            return smem, res_a, res_b and form != 0, res_f
     return None
+
+
+def _tilings(form: int, na: int, nb: int, tiles, **kind):
+    """[(nt, layout)] of the stream tilings `tiles` whose layout fits a
+    block. In f32, where any of them keeps GRU-A's slice in shared memory,
+    only those that do: an f32 product that reads its slice from L2 is the
+    first design's bottleneck, so the width, not the wave count, decides
+    where the slice lives (bf16 and q8 trade residency for waves)."""
+    fits = [(nt, lay) for nt in tiles
+            if (lay := _layout(form, na, nb, nt, **kind)) is not None]
+    if form == FORMS["f32"] and any(lay[1] for _, lay in fits):
+        fits = [(nt, lay) for nt, lay in fits if lay[1]]
+    return fits
 
 
 def masked_launch_config(batch: int, na: int, nb: int, form: int, max_clusters,
@@ -158,9 +193,8 @@ def masked_launch_config(batch: int, na: int, nb: int, form: int, max_clusters,
     check_fact(form, fact)
     if batch <= 0:
         raise ValueError(f"masked sample loop kernel: batch {batch}")
-    cluster, units = cluster_shape(na)
-    fits = [(nt, lay) for nt in STREAM_TILES
-            if (lay := _layout(form, na, nb, nt, fact=fact)) is not None]
+    cluster, units = cluster_shape(na, form)
+    fits = _tilings(form, na, nb, STREAM_TILES, fact=fact)
     if not fits:
         raise ValueError(f"masked sample loop kernel: Na={na}, Nb={nb} needs "
                          f"{masked_smem_bytes(form, na, nb, 1, False, False)} "
@@ -183,29 +217,27 @@ FREE_STREAM_TILES = (1, 2, 4, 5)     # S / 8 of the free-running form (K1)
 def free_launch_config(batch: int, na: int, nb: int, form: int, max_clusters,
                        fact: bool = False):
     """K1's launch, the free-running form of K2's kernel, for `batch`
-    streams (bf16 or q8): the keys of `masked_launch_config`. Rank r of a
-    cluster runs
+    streams: the keys of `masked_launch_config`. Rank r of a cluster runs
     the tail (GRU-B to PCM) of streams [r SO, r SO + SO), SO = ceil(S / C)
     <= 8, so S is not capped at 32 by warp 0's lanes: S = 40 fits a block
     too. `max_clusters(nt, smem)` as in `masked_launch_config`. S is the
     smallest of 8, 16, 32 and 40 whose clusters fit one wave; where none
     does, the one with the fewest waves (the smaller on a tie): at 1024
-    streams on an H100 (15 clusters) S = 40, 26 clusters in two waves.
+    streams on an H100 (15 clusters of 8 blocks) bf16 takes S = 40, 26
+    clusters in two waves. f32 runs on clusters of 16 (`cluster_shape`)
+    and, at Na = 384, on the tilings that keep its slice resident
+    (`_tilings`: all four; at 8 streams ranks 8-15 own no tail; 1024
+    streams on an H100, 7 such clusters, take S = 40 in four waves).
     `fact`: the factored q8 embedding's layout."""
     check_widths(na, nb)
     check_fact(form, fact)
     if batch <= 0:
         raise ValueError(f"sample loop kernel: batch {batch}")
-    if form == 0:
-        raise ValueError("the free-running cluster kernel has no f32 form "
-                         "(f32 K1 runs csrc/sample_loop.cu)")
-    cluster, units = cluster_shape(na)
+    cluster, units = cluster_shape(na, form)
+    tiles = [nt for nt in FREE_STREAM_TILES if -(-8 * nt // cluster) <= 8]
     best = None
-    for nt in FREE_STREAM_TILES:
+    for nt, lay in _tilings(form, na, nb, tiles, free=True, fact=fact):
         s = 8 * nt
-        if -(-s // cluster) > 8 or (lay := _layout(form, na, nb, nt, True,
-                                                   fact=fact)) is None:
-            continue
         held = max_clusters(nt, lay[0])
         clusters = -(-batch // s)
         waves = -(-clusters // held)
@@ -230,19 +262,18 @@ def tf_launch_config(batch: int, na: int, nb: int, form: int, n_blocks: int,
     `masked_launch_config`. Rank r of a cluster runs GRU-B for streams
     [r SO, r SO + SO), SO = ceil(S / C) <= 8, as the free-running form
     does. `max_clusters(nt, smem)` as in `masked_launch_config`. S is the
-    smallest of 8, 16 and 32 whose clusters fit one wave; where none does,
-    32 in waves. On an H100 (15 clusters): 64 streams (the PLC path's
-    compacted drain) take 8 clusters of 8, 256 take 8 of 32. `fact`: the
-    factored q8 embedding's layout."""
+    smallest of 8, 16 and 32 (in f32 those that keep the slice resident,
+    `_tilings`) whose clusters fit one wave; where none does, the largest
+    in waves. On an H100 (15 clusters of 8 blocks): 64 streams (the PLC
+    path's compacted drain) take 8 clusters of 8, 256 take 8 of 32.
+    `fact`: the factored q8 embedding's layout."""
     check_widths(na, nb)
     check_fact(form, fact)
     if batch <= 0 or n_blocks <= 0:
         raise ValueError(f"teacher-force kernel: batch {batch}, {n_blocks} blocks")
-    cluster, units = cluster_shape(na)
-    fits = [(nt, lay) for nt in STREAM_TILES
-            if -(-8 * nt // cluster) <= 8
-            and (lay := _layout(form, na, nb, nt, tf_blocks=n_blocks,
-                                fact=fact)) is not None]
+    cluster, units = cluster_shape(na, form)
+    fits = _tilings(form, na, nb, [nt for nt in STREAM_TILES if -(-8 * nt // cluster) <= 8],
+                    tf_blocks=n_blocks, fact=fact)
     if not fits:
         raise ValueError(f"teacher-force kernel: Na={na}, Nb={nb}, {n_blocks} "
                          f"blocks need more shared memory than a block has")
@@ -320,9 +351,12 @@ def pack_tiles(at: torch.Tensor, ks: int) -> torch.Tensor:
 
 def packed_shapes(form: int, na: int, nb: int):
     """The shapes of `pack_gru_a` and `pack_gru_b` in form 1 (bf16) or 2
-    (q8)."""
+    (q8); in form 0 (f32) `pack_gru_a`'s [C, ceil(Na / 4), 3U | 1, 4] and no
+    GRU-B pack (None)."""
+    c, u = cluster_shape(na, form)
+    if form == FORMS["f32"]:
+        return (c, -(-na // 4), 3 * u | 1, 4), None
     ks, e = _KS[form], 16 // _ESZ[form]
-    c, u = cluster_shape(na)
     ksa, ksbr = -(-na // ks), -(-nb // ks)
     return ((c, 3 * u // 16, ksa, 32, e),
             (3 * padded_nb(nb) // 16, ksa + ksbr, 32, e))
@@ -337,23 +371,36 @@ def _pad_units(w: torch.Tensor, n: int, npad: int) -> torch.Tensor:
     return out.reshape(k, 3 * npad)
 
 
-def rank_columns(na: int, device="cpu") -> torch.Tensor:
+def rank_columns(na: int, form: int, device="cpu") -> torch.Tensor:
     """[C, 3U]: the column of GRU-A's unit-padded matrix [Na, 3 C U] that
-    rank r's local column q U + j holds (gate q, unit r U + j)."""
-    c, u = cluster_shape(na)
+    rank r's local column q U + j holds (gate q, unit r U + j), for the
+    cluster shape of `form`."""
+    c, u = cluster_shape(na, form)
     lc = torch.arange(3 * u, device=device)[None, :]
     r = torch.arange(c, device=device)[:, None]
     return (lc // u) * (c * u) + r * u + lc % u
 
 
 def pack_gru_a(a_rec: torch.Tensor) -> torch.Tensor:
-    """GRU-A's recurrent matrix [Na, 3Na] (bf16, or q8's int8 off-diagonal
-    part) -> [C, 3U / 16, ceil(Na / KS), 32, E], rank r's slice contiguous."""
+    """GRU-A's recurrent matrix [Na, 3Na] -> each rank's slice, contiguous.
+    bf16, or q8's int8 off-diagonal part: [C, 3U / 16, ceil(Na / KS), 32,
+    E] in fragment order. f32: [C, ceil(Na / 4), 3U | 1, 4], element (r, q,
+    lc, i) = a_rec[4 q + i, column of local column lc] (zero past Na, for
+    the padding units and in the last word of a quad where 3U is even): a
+    warp's lanes read one column's 16-byte words of 32 consecutive k quads,
+    an odd number of words apart, so without bank conflicts."""
     na = a_rec.shape[0]
-    c, u = cluster_shape(na)
-    ks = 32 if a_rec.dtype == torch.int8 else 16
-    cols = rank_columns(na, a_rec.device)
-    return pack_tiles(_pad_units(a_rec, na, c * u).t()[cols], ks)
+    form = (FORMS["f32"] if a_rec.dtype == torch.float32 else
+            FORMS["q8"] if a_rec.dtype == torch.int8 else FORMS["bf16"])
+    c, u = cluster_shape(na, form)
+    cols = rank_columns(na, form, a_rec.device)
+    w = _pad_units(a_rec, na, c * u)
+    if form == FORMS["f32"]:
+        kp, ncolp = _up(na, 4), 3 * u | 1
+        w = torch.cat([w, w.new_zeros(kp - na, w.shape[1])])[:, cols]  # [Kp, C, 3U]
+        w = torch.cat([w, w.new_zeros(kp, c, ncolp - 3 * u)], dim=2)
+        return w.reshape(kp // 4, 4, c, ncolp).permute(2, 0, 3, 1).contiguous()
+    return pack_tiles(w.t()[cols], _KS[form])
 
 
 def pack_embf(w: torch.Tensor) -> torch.Tensor:
@@ -361,8 +408,8 @@ def pack_embf(w: torch.Tensor) -> torch.Tensor:
     [C, 3U / 16, 384 / 32, 32, 16], rank r's 3U columns (`rank_columns`)
     contiguous, as `pack_gru_a` packs GRU-A's recurrent matrix."""
     na = w.shape[1] // 3
-    c, u = cluster_shape(na)
-    cols = rank_columns(na, w.device)
+    c, u = cluster_shape(na, FORMS["q8"])
+    cols = rank_columns(na, FORMS["q8"], w.device)
     return pack_tiles(_pad_units(w, na, c * u).t()[cols], 32)
 
 

@@ -2,9 +2,11 @@
 per stream, as one CUDA kernel launch, free-running (K1) or under
 per-stream, per-sample control masks (K2). K2 is the cluster kernel of
 `csrc/masked_loop.cu`, redesigned for Hopper (launch shape and weight
-packing in `masked_loop.py`); K1 in bf16 and q8 is that kernel's
-free-running form, in f32 the first design's kernel (`csrc/sample_loop.cu`);
-K3 is its teacher-forced form; K6 runs K1's kernel of its form.
+packing in `masked_loop.py`); K1 is that kernel's free-running form (f32 on
+clusters of 16 blocks, bf16 and q8 of 8), except f32 at batches that take
+more than `F32_CLUSTER_WAVES` waves of clusters, which run the first
+design's kernel (`csrc/sample_loop.cu`); K3 is its teacher-forced form; K6
+runs K1's kernel on its merged matrices.
 
 Port of `lpcnet_tpu/kernels/sample_loop.py::_ar_kernel`, run free
 (masked=False, sampled=True) and masked (masked=True). Each step: LPC
@@ -25,8 +27,8 @@ h_b, last_sig, last_exc, deemph, rng).
   numerics, step by step. The CPU tests use it and the chip check holds the
   kernel against it.
 * `synthesize_frame_kernel` is the wrapper: on a CPU tensor it runs the
-  plain version; on a CUDA tensor it launches the kernel of the bundle's
-  form (`FREE_FORMS`) or raises.
+  plain version; on a CUDA tensor it launches the cluster kernel's
+  free-running form (f32 by `f32_route`) or raises.
 * `sample_loop_masked_plain` / `synthesize_frame_masked_kernel` are the same
   pair for K2; `masked_kernel_weights` adds K2's packed operands to a
   bundle, once, for the callers that launch it many times. An advance mask freezes a stream's whole state (its KISS99
@@ -50,8 +52,8 @@ h_b, last_sig, last_exc, deemph, rng).
   recurrent products merged into one product over a `[k_in+k_rec, 4N]`
   matrix, the conditioning remapped to that layout with the recurrent bias
   folded in (`cond4`). A zero block adds nothing to a float32 sum, so K6
-  runs K1's kernel of its form (bf16: the cluster kernel's free-running
-  form; f32: the first design's) on the merged matrices' non-zero blocks,
+  runs K1's kernel (the cluster kernel's free-running form; f32 routed as
+  K1's) on the merged matrices' non-zero blocks,
   the padding checked to be zero (`merged_packs`), with the conditioning's
   4N layout converted once a launch into K1's. `synthesize_frame_auto`
   picks K6 when
@@ -405,8 +407,9 @@ KIND_MASKED, KIND_FREE, KIND_TF = 0, 1, 2
 def _max_clusters(dev, form, na, kind=KIND_MASKED):
     """`max_clusters(nt, smem)` of the cluster kernel's kind `kind` (K2, K1
     or K3) on the card `dev`: how many clusters of that shape the card holds
-    at once (the CUDA occupancy query, remembered per card and shape)."""
-    cluster = ML.cluster_shape(na)[0]
+    at once (the CUDA occupancy query, remembered per card and shape), on
+    the form's clusters (`masked_loop.cluster_shape`: 16 blocks in f32)."""
+    cluster = ML.cluster_shape(na, form)[0]
 
     def ask(nt, smem):
         key = (dev.index, form, nt, kind, cluster, smem)
@@ -471,29 +474,50 @@ def _gru_operands(kw, na, nb, dev):
 
 
 def _cluster_operands(kw, form, a_rec, na, nb, dev):
-    """The cluster kernel's GRU operands (a_w, b_w, f_w): in f32 the
-    recurrent matrix as it is and no pack; in bf16 and q8 K2's packs,
-    checked; f_w the factored embedding's packed input kernel, else None."""
-    if form == 0:
-        return a_rec, None, None
+    """The cluster kernel's GRU operands (a_w, b_w, f_w), checked: K2's
+    pack of GRU-A's slices, of GRU-B's weights (None in f32, whose GRU-B
+    reads b_in and b_rec as they are), and f_w the factored embedding's
+    packed input kernel, else None."""
     a_w, b_w = kw["k2_a"], kw["k2_b"]
     shape_a, shape_b = ML.packed_shapes(form, na, nb)
     _check("k2_a", a_w, shape_a, a_rec.dtype, dev)
+    if form == 0:
+        return a_w, None, None
     _check("k2_b", b_w, shape_b, a_rec.dtype, dev)
     f_w = None
     if is_factored(kw):
         f_w = kw["k2_f"]
-        c, u = ML.cluster_shape(na)
+        c, u = ML.cluster_shape(na, form)
         _check("k2_f", f_w, (c, 3 * u // 16, ML.FACT_K // 32, 32, 16), torch.int8, dev)
     return a_w, b_w, f_w
 
 
+# f32 K1 (and K6) run the cluster kernel while its launch takes at most
+# this many waves of clusters, the first design (csrc/sample_loop.cu, a
+# block of 4 streams, every block resident at once) above: on an H100 (7
+# clusters of 16 blocks) a wave takes about 4 ms a frame at S = 40, and
+# the first design 9-11 ms at any batch up to 1024, so two waves stay
+# below it and four do not (chip_smoke.py's f32 sweep, PERF.md)
+F32_CLUSTER_WAVES = 2
+
+
+def f32_route(batch: int, na: int, nb: int, max_clusters) -> str:
+    """The kernel of f32 K1 at `batch` streams: "cluster" (the cluster
+    kernel's free-running form) while its launch shape
+    (`masked_loop.free_launch_config`, `max_clusters(nt, smem)` as there)
+    takes at most `F32_CLUSTER_WAVES` waves, else "first" (the first
+    design). On an H100 the cluster kernel serves up to 560 streams."""
+    cfg = ML.free_launch_config(batch, na, nb, ML.FORMS["f32"], max_clusters)
+    return "cluster" if cfg["waves"] <= F32_CLUSTER_WAVES else "first"
+
+
 def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
-            masked=None, free=False):
-    """Check the operands, allocate the outputs and launch the kernel on the
-    current stream; `masked` is None (K1, K6) or (preload, mode, sampled)
-    (K2); `free` launches K2's kernel in its free-running form (K1 on K2's
-    cluster design), `kw` then carrying K2's packs."""
+            masked=None, route=None):
+    """Check the operands, allocate the outputs and launch on the current
+    stream: `masked` None the free-running loop (K1, K6), (preload, mode,
+    sampled) the masked one (K2), both on the cluster kernel with `kw`
+    carrying K2's packs, except an f32 free-running launch whose `route`
+    (default `f32_route`) is "first": the first design's kernel."""
     dev = cond_a.device
     b = cond_a.shape[0]
     na = kw["a_bias1"].shape[-1] // 3
@@ -536,19 +560,21 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
         kw["dual_w"], kw["dual_bias"], kw["dual_factor"], kw["logit_table"],
         cond_a, cond_b, lpc, ha_in, hb_in, sig_in, exc_in, de_in, rng_in,
         ha, hb, sig, exc, de, rng, pcm))
-    args = (form, b, na, nb, n_samples) + tuple(ptr(t) for t in weights) + tail
+    emb, emb_scale, a_rec, a_diag, a_bias1, b_in, b_rec, b_bias1 = weights
+    fact = is_factored(kw)
+    free = masked is None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if masked is None and not free:
-            err = _lib().lpcnet_sample_loop(*args, stream)
+        if free and form == 0 and route is None:
+            route = f32_route(b, na, nb, _max_clusters(dev, form, na, KIND_FREE))
+        if free and form == 0 and route == "first":
+            err = _lib().lpcnet_sample_loop(form, b, na, nb, n_samples,
+                                            *(ptr(t) for t in weights), *tail, stream)
         else:
-            emb, emb_scale, a_rec, a_diag, a_bias1, b_in, b_rec, b_bias1 = weights
-            fact = is_factored(kw)
             if free:
                 preload, mode, sampled = None, None, True
                 cfg = ML.free_launch_config(b, na, nb, form,
-                                            _max_clusters(dev, form, na, KIND_FREE),
-                                            fact)
+                                            _max_clusters(dev, form, na, KIND_FREE), fact)
             else:
                 cfg = ML.masked_launch_config(b, na, nb, form,
                                               _max_clusters(dev, form, na), fact)
@@ -566,22 +592,6 @@ def _launch(kw, state: SampleState, cond_a, cond_b, lpc, n_samples,
     return new_state, pcm
 
 
-# the operand forms whose free-running loop (K1) is K2's cluster kernel in
-# its free-running form; the others run the first design, ar_kernel in
-# csrc/sample_loop.cu
-FREE_FORMS = (1, _FORM_Q8)
-
-
-def k1_form(kw) -> int:
-    """The form of a K1 bundle: 0 f32, 1 bf16, 2 q8."""
-    if is_q8_bundle(kw):
-        return _FORM_Q8
-    dt = kw["emb_cat"].dtype
-    if dt not in _FORMS:
-        raise TypeError(f"sample loop kernel: operand dtype {dt}")
-    return _FORMS[dt]
-
-
 def synthesize_frame_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
                             n_samples: int = 160):
     """One frame of the sample loop: (new_state, pcm [B, n_samples]).
@@ -589,24 +599,24 @@ def synthesize_frame_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
     On a CPU tensor this runs `sample_loop_plain`. On a CUDA tensor it
     launches the CUDA kernel (built on first use) and counts the launch in
     `synthesize_frame_kernel.launches`; any other device raises. The kernel
-    is chosen by the bundle's form, never by a failure: bf16 and q8
-    (`FREE_FORMS`) run K2's cluster kernel in its free-running form (its
-    packs from `masked_kernel_weights`, built here for this call when `kw`
-    lacks them), f32 the first design's kernel (`csrc/sample_loop.cu`),
-    which at 1024 streams is the faster of the two in f32. Any batch size
-    works: the kernels mask the ragged last cluster or block of streams.
+    is chosen by the bundle's form and the batch, never by a failure: K2's
+    cluster kernel in its free-running form (f32 on clusters of 16 blocks,
+    bf16 and q8 of 8), on the packs of `masked_kernel_weights`, built here
+    for this call when `kw` lacks them (callers that launch it every frame
+    build them once); in f32 above `F32_CLUSTER_WAVES` waves of clusters
+    (`f32_route`; on an H100 above 560 streams) the first design's kernel
+    (`csrc/sample_loop.cu`), which is the faster there. Any batch size
+    works: the kernels mask the ragged last cluster or block of streams. A
+    refused launch raises.
     """
     dev = cond_a.device
     if dev.type == "cpu":
         return sample_loop_plain(kw, state, cond_a, cond_b, lpc, n_samples)
     if dev.type != "cuda":
         raise ValueError(f"sample loop kernel: unsupported device {dev}")
-    if k1_form(kw) in FREE_FORMS:
-        if "k2_a" not in kw:
-            kw = masked_kernel_weights(kw)
-        out = _launch(kw, state, cond_a, cond_b, lpc, n_samples, free=True)
-    else:
-        out = _launch(kw, state, cond_a, cond_b, lpc, n_samples)
+    if "k2_a" not in kw:
+        kw = masked_kernel_weights(kw)
+    out = _launch(kw, state, cond_a, cond_b, lpc, n_samples)
     synthesize_frame_kernel.launches += 1
     return out
 
@@ -615,18 +625,19 @@ synthesize_frame_kernel.launches = 0
 
 
 def masked_kernel_weights(kw):
-    """K2's bundle: `kw` (`kernel_weights`) with GRU-A's and GRU-B's
-    matrices packed in the tensor cores' fragment order
-    (`masked_loop.pack_gru_a` as `k2_a`, `pack_gru_b` as `k2_b`; None in
-    the f32 form, which reads the matrices as they are), and in the
-    factored q8 form the input kernel `embf_w_q8` packed as `k2_f`
-    (`masked_loop.pack_embf`). Every other kernel and plain version takes
-    it as it takes `kw`. Build it once per weight bundle: the trainer once
-    per step, the PLC pool and the decoder once."""
+    """K2's bundle: `kw` (`kernel_weights`) with GRU-A's slices packed per
+    rank (`masked_loop.pack_gru_a` as `k2_a`: the tensor cores' fragment
+    order in bf16 and q8, [k quad][3U][4] in f32) and GRU-B's matrices
+    packed in fragment order (`pack_gru_b` as `k2_b`; None in f32, whose
+    GRU-B reads them as they are), and in the factored q8 form the input
+    kernel `embf_w_q8` packed as `k2_f` (`masked_loop.pack_embf`). Every
+    other kernel and plain version takes it as it takes `kw`. Build it once
+    per weight bundle: the trainer once per step, the PLC pool, the decoder
+    and the validator once."""
     if is_q8_bundle(kw):
         a_rec, b_in, b_rec = kw["a_rec_q8"], kw["b_in_q8"], kw["b_rec_q8"]
     elif kw["a_rec"].dtype == torch.float32:
-        return dict(kw, k2_a=None, k2_b=None)
+        return dict(kw, k2_a=ML.pack_gru_a(kw["a_rec"]), k2_b=None)
     else:
         a_rec, b_in, b_rec = kw["a_rec"], kw["b_in"], kw["b_rec"]
     packs = dict(k2_a=ML.pack_gru_a(a_rec), k2_b=ML.pack_gru_b(b_in, b_rec))
@@ -944,9 +955,8 @@ def merged_packs(mw):
     bundle in K1's layout whose `emb_cat`, `a_rec`, `b_in` and `b_rec` are
     the non-zero blocks of `a_merged` and `b_merged` (`_unmerge`: the
     padding blocks checked to be zero), whose recurrent biases are
-    `_h_bias`'s and whose sampler tensors are `mw`'s, with K2's fragment
-    packs (`masked_kernel_weights`; None in f32). K6 runs K1's kernel of its
-    form on it."""
+    `_h_bias`'s and whose sampler tensors are `mw`'s, with K2's packs
+    (`masked_kernel_weights`). K6 runs K1's kernel on it."""
     a_m, b_m = mw["a_merged"], mw["b_merged"]
     na, nb = a_m.shape[1] // 4, b_m.shape[1] // 4
     emb, a_rec = _unmerge(a_m, 768, na, "a_merged")
@@ -1031,8 +1041,9 @@ def synthesize_frame_merged_kernel(mw, state: SampleState, cond_a, cond_b,
     `merged_kernel_weights(kw)`, cond_a and cond_b in K1's 3N layout.
 
     On a CPU tensor this runs `sample_loop_merged_plain`. On a CUDA tensor
-    it launches K1's kernel of the operands' form (bf16: K2's cluster
-    kernel in its free-running form; f32: the first design's) on the
+    it launches K1's kernel (K2's cluster kernel in its free-running form,
+    f32 on clusters of 16 blocks or, by `f32_route`, the first design) on
+    the
     operands `merged_packs` built from `a_merged` and `b_merged` (here, for
     this call, when `mw` lacks them), and counts the launch in
     `synthesize_frame_merged_kernel.launches`; any other device raises. The
@@ -1049,8 +1060,7 @@ def synthesize_frame_merged_kernel(mw, state: SampleState, cond_a, cond_b,
     if dt not in _FORMS:
         raise TypeError(f"merged sample loop kernel: operand dtype {dt}")
     kw6, ca, cb = merged_as_k1(mw, cond_a, cond_b)
-    out = _launch(kw6, state, ca, cb, lpc, n_samples,
-                  free=_FORMS[dt] in FREE_FORMS)
+    out = _launch(kw6, state, ca, cb, lpc, n_samples)
     synthesize_frame_merged_kernel.launches += 1
     return out
 

@@ -15,7 +15,8 @@ sample loop. On the CPU the loop is the plain `models.lpcnet.
 synthesize_frame`, the counterpart of the JAX package's scan; on CUDA it is
 one launch of the sample-loop kernel a frame (`kernels.sample_loop.
 synthesize_frame_auto`) on a float32 bundle rebuilt from the params at each
-call, float32 so that it stays the counterpart of that float32 scan.
+call with its kernel packs (`masked_kernel_weights`, once a call, not once
+a frame), float32 so that it stays the counterpart of that float32 scan.
 """
 
 from __future__ import annotations
@@ -48,6 +49,9 @@ class HeldOutValidator:
 
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the sample loop: the plain synthesize_frame on the CPU, the kernel
+        # on CUDA
+        self.use_kernel = self.device.type != "cpu"
         seg_len = int(seg_seconds * 16000) // FRAME * FRAME
         segs = []
         self._clip_of_seg: List[int] = []
@@ -78,8 +82,8 @@ class HeldOutValidator:
         cfg, b, dev = self.cfg, self._b, self.device
         with torch.no_grad():
             fused = M.fuse_inference_params(params, cfg)
-            kw = (None if dev.type == "cpu" else
-                  K.kernel_weights(fused, cfg, dtype=torch.float32))
+            kw = (K.masked_kernel_weights(K.kernel_weights(fused, cfg, dtype=torch.float32))
+                  if self.use_kernel else None)
             fst = M.init_frame_state(b, cfg, dev)
             sst = M.init_sample_state(b, cfg, dev)
             out = []

@@ -852,6 +852,44 @@ def test_cuda_free_running_k1_ragged_batches(cuda, form, b):
         assert abs(rk - rp) / max(rp, 1.0) < 0.5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["cluster", "first"])
+@pytest.mark.parametrize("b", [4, 1024])
+def test_cuda_f32_k1_matches_plain(cuda, b, route):
+    """K1 in f32 on each of its kernels (the cluster kernel on 16-block
+    clusters with GRU-A's f32 slice resident; the first design) at the
+    validator's 4 streams and at 1024: one step within 1e-4, RNG equal,
+    >= 98 % exact PCM over 32 steps with max|gru_a| err <= 2e-2 (the JAX
+    bar), >= 95 % over a whole 160-step frame from a live state; the
+    wrapper takes `f32_route`'s kernel and counts one launch."""
+    cfg = M.LPCNetConfig()
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=4, device=cuda), cfg)
+    kw = K.masked_kernel_weights(K.kernel_weights(fused, cfg, dtype=torch.float32))
+    ca, cb, lpc, s0 = _inputs(fused, cfg, b, cuda)
+    run = lambda st, n: K._launch(kw, st, ca, cb, lpc, n, route=route)
+    s1k, _ = run(s0, 1)
+    s1p, _ = K.sample_loop_plain(kw, s0, ca, cb, lpc, 1)
+    assert float((s1k.gru_a - s1p.gru_a).abs().max()) <= 1e-4
+    assert float((s1k.gru_b - s1p.gru_b).abs().max()) <= 1e-4
+    sk, pk = run(s0, 32)
+    torch.cuda.synchronize()
+    sp, pp = K.sample_loop_plain(kw, s0, ca, cb, lpc, 32)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert float((pk == pp).float().mean()) >= 0.98
+    assert float((sk.gru_a - sp.gru_a).abs().max()) <= 2e-2
+    live, _ = K.sample_loop_plain(kw, s0, ca, cb, lpc)
+    sk, pk = run(live, 160)
+    torch.cuda.synchronize()
+    sp, pp = K.sample_loop_plain(kw, live, ca, cb, lpc)
+    assert all(torch.equal(a, c) for a, c in zip(sk.rng, sp.rng))
+    assert bool(torch.isfinite(pk).all()) and float((pk == pp).float().mean()) >= 0.95
+    before = K.synthesize_frame_kernel.launches
+    K.synthesize_frame_kernel(kw, s0, ca, cb, lpc, 8)
+    assert K.synthesize_frame_kernel.launches == before + 1
+    want = K.f32_route(b, 384, 16, K._max_clusters(cuda, 0, 384, K.KIND_FREE))
+    assert want in ("cluster", "first")
+
+
 def _factored_bundle(cfg, cuda):
     """A q8 bundle of the factored embedding (K2's packs built), from
     seeded weights at `cfg`; asserted to carry the factored operands."""

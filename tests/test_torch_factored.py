@@ -356,10 +356,10 @@ def test_pack_embf_fragments_read_back(na):
     rs = np.random.RandomState(na)
     w = torch.from_numpy(rs.randint(-127, 128, (ML.FACT_K, 3 * na)).astype(np.int8))
     pk = ML.pack_embf(w)
-    c, u = ML.cluster_shape(na)
+    c, u = ML.cluster_shape(na, ML.FORMS["q8"])
     assert tuple(pk.shape) == (c, 3 * u // 16, ML.FACT_K // 32, 32, 16)
     wp = ML._pad_units(w, na, c * u)
-    cols = ML.rank_columns(na)
+    cols = ML.rank_columns(na, ML.FORMS["q8"])
     mi, ki = ML.fragment_index(32)
     for r in range(c):
         for mt in range(3 * u // 16):
@@ -375,7 +375,7 @@ def test_factored_layouts_at_na384(kind):
     slice 3U x 384 bytes, the rows g S x 400, their sums S x ldz x 4) are
     what the layout adds to the composed one; K1 at 1024 streams keeps its
     S = 40 in two waves, GRU-B then read from L2."""
-    c, u = ML.cluster_shape(384)
+    c, u = ML.cluster_shape(384, ML.FORMS["q8"])
     for b in (64, 128, 256, 1024):
         if kind == "free":
             cfg = ML.free_launch_config(b, 384, 16, 2, _stub(15), fact=True)

@@ -67,9 +67,19 @@ def _numpy(t):
     return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
 
 
-# (Na, the cluster's (C, U)): the default GRU-A, a small one, the LPCNet
+# (Na, the cluster's (C, U)) in bf16 and q8, and in f32 (clusters of up to
+# 16 blocks, U a multiple of 4): the default GRU-A, a small one, the LPCNet
 # paper's 640 units, and widths that are not multiples of 16 C
 SHAPES = {384: (8, 48), 64: (4, 16), 640: (8, 80), 416: (8, 64), 100: (7, 16)}
+SHAPES_F32 = {384: (16, 24), 64: (4, 16), 640: (16, 40), 416: (16, 28), 100: (7, 16)}
+
+
+def _read_f32_pack(rank):
+    """A rank's f32 slice [3U | 1, ceil(Na/4) 4] from its pack [kq, 3U | 1,
+    4], read as the kernel's f32_tile does: the 16-byte word of (k quad q,
+    local column lc) at q (3U | 1) + lc holds k = 4 q .. 4 q + 3."""
+    kq, ncolp, _ = rank.shape
+    return rank.transpose(1, 0, 2).reshape(ncolp, 4 * kq)
 
 
 @pytest.mark.parametrize("na", [384, 64, 640, 416, 100])
@@ -77,29 +87,35 @@ SHAPES = {384: (8, 48), 64: (4, 16), 640: (8, 80), 416: (8, 64), 100: (7, 16)}
 def test_gru_a_slices_rebuild_the_recurrent_matrix(form, na):
     """Every rank of the cluster the launch picks: rank r's local column
     q U + j is gate column q Na + r U + j where r U + j < Na (the kernel's
-    gate phase and its f32 product; the units past Na are padding), and in
-    bf16 and q8 its packed slice read through the A fragment layout gives
-    back those columns of a_rec and zeros for the padding (q8: the int8
-    off-diagonal values; the diagonal is read as a_diag[q Na + r U + j]).
-    The ranks together cover every column once."""
+    gate phase; the units past Na are padding), and its packed slice read
+    as the kernel reads it (bf16 and q8 through the A fragment layout, f32
+    by k quads) gives back those columns of a_rec and zeros for the padding
+    and past Na (q8: the int8 off-diagonal values; the diagonal is read as
+    a_diag[q Na + r U + j]). The ranks together cover every column once."""
     kw = _bundle(form, na)
     a_rec = _a_operands(kw)[0]
-    c, u = ML.cluster_shape(na)
-    assert (c, u) == SHAPES[na]
+    c, u = ML.cluster_shape(na, ML.FORMS[form])
+    assert (c, u) == (SHAPES_F32 if form == "f32" else SHAPES)[na]
     ks = 32 if form == "q8" else 16
     ksa = -(-na // ks)
     want = _numpy(a_rec)
     got = np.full_like(want, 0)
     seen = np.zeros(3 * na, int)
     diag_got = np.zeros(3 * na, np.float32)
-    pack = None if form == "f32" else ML.pack_gru_a(a_rec)
+    pack = ML.pack_gru_a(a_rec)
+    assert tuple(pack.shape) == ML.packed_shapes(ML.FORMS[form], na, 16)[0]
     for r in range(c):
         units = [j for j in range(u) if r * u + j < na]
         cols = [q * na + r * u + j for q in range(3) for j in units]
         local = [q * u + j for q in range(3) for j in units]
         seen[cols] += 1
-        if pack is None:
-            got[:, cols] = want[:, cols]
+        if form == "f32":
+            assert tuple(pack.shape) == (c, -(-na // 4), 3 * u | 1, 4)
+            rank = _read_f32_pack(_numpy(pack[r]))
+            got[:, cols] = rank[local, :na].T
+            pad = [q * u + j for q in range(3) for j in range(u) if r * u + j >= na]
+            assert not rank[pad].any() and not rank[:, na:].any()
+            assert not rank[3 * u:].any()             # the odd row's spare word
             continue
         assert tuple(pack.shape) == (c, 3 * u // 16, ksa, 32, 16 if form == "q8" else 8)
         assert tuple(pack.shape) == ML.packed_shapes(ML.FORMS[form], na, 16)[0]
@@ -114,10 +130,11 @@ def test_gru_a_slices_rebuild_the_recurrent_matrix(form, na):
     assert np.array_equal(got, want)
     if form == "q8":
         assert np.array_equal(diag_got, kw["a_diag"][0].numpy())
-    if pack is not None:
-        assert pack.is_contiguous() and pack.dtype == a_rec.dtype
-        # one rank's slice is the 16-byte words the kernel copies
-        assert pack[0].numel() * pack.element_size() == 3 * u * ksa * ks * (1 if form == "q8" else 2)
+    assert pack.is_contiguous() and pack.dtype == a_rec.dtype
+    # one rank's slice is the 16-byte words the kernel copies
+    assert pack[0].numel() * pack.element_size() == (
+        (3 * u | 1) * -(-na // 4) * 16 if form == "f32" else
+        3 * u * ksa * ks * (1 if form == "q8" else 2))
 
 
 @pytest.mark.parametrize("na,nb", [(384, 16), (64, 16), (100, 10), (640, 24)])
@@ -176,7 +193,7 @@ def test_fragment_products_equal_the_plain_product(form):
     na = 64
     kw = _bundle(form, na)
     a_rec = _a_operands(kw)[0]
-    c, u = ML.cluster_shape(na)
+    c, u = ML.cluster_shape(na, ML.FORMS[form])
     ks = 32 if form == "q8" else 16
     pack = _numpy(ML.pack_gru_a(a_rec))
     rs = np.random.RandomState(3)
@@ -223,18 +240,24 @@ def test_launch_config_covers_each_stream_once(batch):
 @pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
 def test_shared_memory_fits_a_block(form, nt):
     """At Na=384, Nb=16 a block's shared memory is within the H100's
-    232,448 bytes in every form and stream tiling the launch can pick; the
-    bf16 and q8 forms hold their whole GRU-A slice there, and GRU-B's packed
-    weights too at 8 and 16 streams (bf16 at 32 streams reads GRU-B's from
-    L2: both would take 246,800 bytes)."""
+    232,448 bytes in every form and stream tiling the launch can pick; every
+    form holds its whole GRU-A slice there (f32: 112,128 bytes packed, on
+    clusters of 16, at 8 and 16 streams; at 32, 247,824 bytes would not
+    fit, so 480 streams take S = 16 in waves), and bf16 and q8 GRU-B's
+    packed weights too at 8 and 16 streams (bf16 at 32 streams reads
+    GRU-B's from L2: both would take 246,800 bytes)."""
     f = ML.FORMS[form]
     cfg = ML.masked_launch_config(8 * nt * 15, 384, 16, f, lambda n, smem: 15)
-    assert cfg["nt"] == nt
+    assert cfg["nt"] == (min(nt, 2) if form == "f32" else nt)
     smem = cfg["smem"]
-    assert smem == ML.masked_smem_bytes(f, 384, 16, nt, cfg["res_a"], cfg["res_b"])
+    assert smem == ML.masked_smem_bytes(f, 384, 16, cfg["nt"], cfg["res_a"], cfg["res_b"])
     assert smem <= ML.SMEM_LIMIT
-    if form != "f32":
-        assert cfg["res_a"] and smem > 3 * 48 * 384 * (2 if form == "bf16" else 1)
+    slice_a = 73 * 96 * 16 if form == "f32" else 3 * 48 * 384 * (2 if form == "bf16" else 1)
+    assert cfg["res_a"] and smem > slice_a
+    if form == "f32":
+        assert cfg["cluster"] == 16 and not cfg["res_b"]
+        assert ML.masked_smem_bytes(f, 384, 16, 4) == 247824
+    else:
         assert cfg["res_b"] == (nt < 4 or form == "q8")
     if form == "bf16" and nt == 4:
         assert ML.masked_smem_bytes(f, 384, 16, 4) == 246800
@@ -263,17 +286,19 @@ def test_widths_the_kernel_refuses(na, nb):
 @pytest.mark.parametrize("batch", [64, 128, 256])
 def test_widths_the_first_design_served(form, na, nb, batch):
     """Every width runs: where a block cannot hold its GRU-A slice beside
-    the rest (bf16 at Na = 640: 307,200 bytes a slice) it reads it from L2, and GRU-B's
-    weights likewise; the layout always fits a block."""
+    the rest (bf16 at Na = 640: 307,200 bytes a slice; f32 from Na = 512,
+    196,608 bytes on clusters of 16) it reads it from L2, and GRU-B's
+    weights likewise (f32's always); the layout always fits a block."""
     f = ML.FORMS[form]
     cfg = ML.masked_launch_config(batch, na, nb, f, lambda nt, smem: 15)
     assert cfg["smem"] <= ML.SMEM_LIMIT
     assert cfg["smem"] == ML.masked_smem_bytes(f, na, nb, cfg["nt"], cfg["res_a"],
                                                cfg["res_b"])
-    assert (cfg["cluster"], cfg["units"]) == ML.cluster_shape(na)
-    assert cfg["cluster"] * cfg["units"] >= na and cfg["units"] % 16 == 0
+    assert (cfg["cluster"], cfg["units"]) == ML.cluster_shape(na, f)
+    assert cfg["cluster"] * cfg["units"] >= na
+    assert cfg["units"] % (4 if form == "f32" else 16) == 0
     if form == "f32":
-        assert not cfg["res_a"] and not cfg["res_b"]
+        assert cfg["res_a"] == (na <= 416) and not cfg["res_b"]
     if form == "bf16" and na >= 640:
         assert not cfg["res_a"]
     if (na, form) in ((384, "bf16"), (384, "q8"), (640, "q8")) and batch <= 128:
@@ -282,16 +307,17 @@ def test_widths_the_first_design_served(form, na, nb, batch):
 
 @pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
 def test_masked_kernel_weights_hold_the_packs(form):
-    """K2's bundle is the bundle plus the packs (none in f32), built once;
-    the wrapper's plain version takes it as it takes the bundle."""
+    """K2's bundle is the bundle plus the packs (f32: GRU-A's rank pack and
+    no GRU-B pack), built once; the wrapper's plain version takes it as it
+    takes the bundle."""
     kw = _bundle(form, 64)
     mk = K.masked_kernel_weights(kw)
     assert all(mk[k] is v for k, v in kw.items())
+    a, bi, br = _a_operands(kw)
+    assert torch.equal(mk["k2_a"], ML.pack_gru_a(a))
     if form == "f32":
-        assert mk["k2_a"] is None and mk["k2_b"] is None
+        assert mk["k2_b"] is None
     else:
-        a, bi, br = _a_operands(kw)
-        assert torch.equal(mk["k2_a"], ML.pack_gru_a(a))
         assert torch.equal(mk["k2_b"], ML.pack_gru_b(bi, br))
     cfg = M.LPCNetConfig(rnn_units1=64, rnn_units2=16, cond_size=32, pitch_embed_dim=8)
     b, n = 3, 4
@@ -372,14 +398,164 @@ def test_free_launch_config_covers_each_stream_once(form, batch):
     assert (tail == 1).all() and (gate == c).all()
 
 
+# streams -> (S, waves) of the f32 free-running form on a card that holds 7
+# clusters of 16 blocks (an H100): the smallest S of 8, 16, 32 and 40 in
+# one wave, else the fewest waves
+F32_FREE_CASES = {1: (8, 1), 4: (8, 1), 37: (8, 1), 1024: (40, 4), 4097: (40, 15)}
+
+
+@pytest.mark.parametrize("batch", sorted(F32_FREE_CASES))
+def test_f32_free_launch_config_covers_each_stream_once(batch):
+    """K1 in f32 on clusters of 16 blocks (U = 24 at Na = 384), GRU-A's
+    slice resident: every stream in one cluster, its gate phase in every
+    rank and its tail in exactly one (SO = ceil(S / 16): at S = 8 ranks
+    8-15 own no tail, at 40 ranks 0-12 three each and rank 13 one); the
+    block's shared memory is the layout's (csrc k2_layout) and fits the
+    card."""
+    cfg = ML.free_launch_config(batch, 384, 16, 0, lambda nt, smem: 7)
+    s, c = cfg["streams"], cfg["cluster"]
+    assert (s, cfg["waves"]) == F32_FREE_CASES[batch] and s == 8 * cfg["nt"]
+    assert (c, cfg["units"]) == (16, 24) and cfg["res_a"] and not cfg["res_b"]
+    assert cfg["smem"] == ML.masked_smem_bytes(0, 384, 16, cfg["nt"], True, False, free=True)
+    assert cfg["smem"] <= ML.SMEM_LIMIT
+    assert cfg["clusters"] == -(-batch // s) and cfg["waves"] == -(-cfg["clusters"] // 7)
+    so = -(-s // c)
+    tail = np.zeros(batch, int)
+    gate = np.zeros(batch, int)
+    owners = 0
+    for k in range(cfg["clusters"]):
+        b0 = k * s
+        nact = min(s, batch - b0)
+        gate[b0:b0 + nact] += c
+        for r in range(c):
+            own = max(0, min(so, s - r * so, nact - r * so))
+            owners += own > 0
+            tail[b0 + r * so:b0 + r * so + own] += 1
+    assert (tail == 1).all() and (gate == c).all()
+    if s == 8:
+        assert so == 1 and all(max(0, min(so, s - r * so)) == 0 for r in range(8, 16))
+
+
+# streams -> the kernel f32 K1 takes on a card that holds 7 clusters of 16
+# blocks (an H100): the cluster kernel up to two waves (7 x 40 streams a
+# wave), the first design above
+F32_ROUTES = {1: "cluster", 4: "cluster", 37: "cluster", 280: "cluster", 560: "cluster",
+              561: "first", 1024: "first", 4097: "first"}
+
+
+@pytest.mark.parametrize("batch", sorted(F32_ROUTES))
+def test_f32_route_by_waves(batch):
+    """f32 K1 (and K6) run the cluster kernel while its launch takes at
+    most `F32_CLUSTER_WAVES` waves and the first design above: by the
+    launch shape the card's cluster count gives, never by a failure."""
+    stub = lambda nt, smem: 7
+    assert K.F32_CLUSTER_WAVES == 2
+    assert K.f32_route(batch, 384, 16, stub) == F32_ROUTES[batch]
+    waves = ML.free_launch_config(batch, 384, 16, 0, stub)["waves"]
+    assert (waves <= 2) == (F32_ROUTES[batch] == "cluster")
+
+
+@pytest.mark.parametrize("na", [16, 48, 64, 100, 256, 384, 416, 640, 1024])
+def test_cluster_shape_by_form(na):
+    """bf16 and q8 keep the portable 8 blocks a cluster and units in MMA
+    tiles of 16; f32 takes up to 16 blocks (the non-portable size) and
+    units in 16-byte words of 4; both cover Na with at most 16 units of
+    padding a rank's worth, and a rank of at least 16 units."""
+    for form in (0, 1, 2):
+        c, u = ML.cluster_shape(na, form)
+        assert 1 <= c <= (16 if form == 0 else 8)
+        assert u % (4 if form == 0 else 16) == 0 and c * u >= na and u >= 16
+        assert c == min(16 if form == 0 else 8, -(-na // 16))
+        assert c * (u - (4 if form == 0 else 16)) < na
+    assert ML.cluster_shape(384, 0) == (16, 24) and ML.cluster_shape(384, 1) == (8, 48)
+
+
+def _fma(x, w, acc):
+    """float32 x * w + acc, the product exact in float64 (fmaf)."""
+    return (x.astype(np.float64) * w.astype(np.float64) + acc.astype(np.float64)).astype(np.float32)
+
+
+def _f32_tile_sums(pack_rank, x, na, u, nt_tiles):
+    """The kernel's f32 GRU-A product for one rank (csrc f32_tile), in
+    float32: warp task (stream tile, group g of 4 local columns); lane l
+    runs FMA chains over the k quads l, l + 32, ... into an 8 x 4 tile
+    a[4 s + c] (columns past 3U read as zero); then the reduce-scatter: at
+    mask m = 16, 8, 4, 2, 1 with n sums left, lane l keeps the half its bit
+    m selects and adds its partner's (l ^ m) copy of that half; lane l then
+    holds entry l and stores it if within 3U. Returns (the sums [8 NT, 3U],
+    how often each was stored)."""
+    kq, ncolp, _ = pack_rank.shape
+    ncol = 3 * u
+    xp = np.zeros((x.shape[0], 4 * kq), np.float32)
+    xp[:, :na] = x
+    wp = np.zeros((kq, ncolp + 4, 4), np.float32)
+    wp[:, :ncol] = pack_rank[:, :ncol]
+    out = np.zeros((8 * nt_tiles, ncol), np.float32)
+    stores = np.zeros((8 * nt_tiles, ncol), int)
+    ngrp = -(-ncol // 4)
+    for task in range(ngrp * nt_tiles):
+        g, nt = task % ngrp, task // ngrp
+        a = np.zeros((32, 32), np.float32)
+        for lane in range(32):
+            tile = np.zeros((8, 4), np.float32)
+            for q in range(lane, kq, 32):
+                xs = xp[8 * nt:8 * nt + 8, 4 * q:4 * q + 4]          # [8 s, 4]
+                ws = wp[q, 4 * g:4 * g + 4]                          # [4 c, 4]
+                for i in range(4):
+                    tile = _fma(xs[:, i, None], ws[None, :, i], tile)
+            a[lane] = tile.reshape(32)
+        n = 32
+        for m in (16, 8, 4, 2, 1):
+            h = n // 2
+            up = (np.arange(32) & m) != 0
+            partner = np.arange(32) ^ m
+            keep = np.where(up[:, None], a[:, h:n], a[:, :h])
+            recv = np.where(up[:, None], a[partner, h:n], a[partner, :h])
+            a = (keep.astype(np.float64) + recv.astype(np.float64)).astype(np.float32)
+            n = h
+        for lane in range(32):
+            s, c = lane >> 2, 4 * g + (lane & 3)
+            if c < ncol:
+                out[8 * nt + s, c] = a[lane, 0]
+                stores[8 * nt + s, c] += 1
+    return out, stores
+
+
+@pytest.mark.parametrize("nt", [1, 2, 4, 5])
+def test_f32_product_tasks_equal_the_plain_product(nt):
+    """GRU-A's f32 product read from the rank pack as the kernel's warp
+    tasks read it (8 x 4 register tiles over k quads split by lane, met by
+    the reduce-scatter) stores every (stream, local column) sum once and
+    equals h . W on the rank's columns within float32 rounding (1e-5 of
+    the sums' scale), at every stream tiling of the f32 launch (18 NT
+    tasks)."""
+    na = 384
+    kw = _bundle("f32", na)
+    a_rec = kw["a_rec"]
+    c, u = ML.cluster_shape(na, 0)
+    pack = ML.pack_gru_a(a_rec).numpy()
+    rs = np.random.RandomState(nt)
+    x = np.tanh(rs.normal(size=(8 * nt, na))).astype(np.float32)
+    r = 5
+    got, stores = _f32_tile_sums(pack[r], x, na, u, nt)
+    assert (stores == 1).all() and -(-3 * u // 4) == 18
+    cols = [q * na + r * u + j for q in range(3) for j in range(u)]
+    want = x.astype(np.float64) @ a_rec.numpy().astype(np.float64)[:, cols]
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+
+
 @pytest.mark.parametrize("nt", [1, 2, 4, 5])
 @pytest.mark.parametrize("form", ["bf16", "q8"])
 def test_free_shared_memory_fits_a_block(form, nt):
-    """The free-running layout fits a block in both of its forms and every
-    tiling, GRU-A's slice resident; bf16 at S = 40 takes 224,176 bytes
-    with GRU-B's weights read from L2, and S = 48 would not fit with the
-    slice resident (243,120 bytes). There is no f32 form: f32 K1 runs the
-    first design's kernel."""
+    """The free-running layout fits a block in its bf16 and q8 forms and
+    every tiling, GRU-A's slice resident; bf16 at S = 40 takes 224,176
+    bytes with GRU-B's weights read from L2, and S = 48 would not fit with
+    the slice resident (243,120 bytes). The f32 form at the same batch runs
+    on clusters of 16 with its slice resident too, at every tiling: one h_a
+    operand buffer (S = 40: 211,248 bytes; a second buffer of 62,080 bytes
+    would not fit), the ranks' parts of GRU-B's input product
+    (16 x ceil(S / 16) x 48 floats) and the rank's 24 rows of its input
+    matrix."""
     f = ML.FORMS[form]
     cfg = ML.free_launch_config(8 * nt * 15, 384, 16, f, lambda n, smem: 15)
     assert cfg["nt"] == nt
@@ -387,8 +563,12 @@ def test_free_shared_memory_fits_a_block(form, nt):
                                                cfg["res_b"], free=True)
     assert cfg["smem"] <= ML.SMEM_LIMIT
     assert cfg["res_a"]
-    with pytest.raises(ValueError):
-        ML.free_launch_config(8 * nt * 15, 384, 16, 0, lambda n, smem: 15)
+    c32 = ML.free_launch_config(8 * nt * 15, 384, 16, 0, lambda n, smem: 15)
+    assert c32["nt"] == nt and c32["cluster"] == 16 and c32["res_a"]
+    assert c32["smem"] == ML.masked_smem_bytes(0, 384, 16, nt, True, False, free=True)
+    assert c32["smem"] <= ML.SMEM_LIMIT
+    if nt == 5:
+        assert c32["smem"] == 211248 and c32["smem"] + 40 * 388 * 4 > ML.SMEM_LIMIT
     if form == "bf16" and nt == 5:
         assert cfg["smem"] == 224176 and not cfg["res_b"]
         assert ML.masked_smem_bytes(f, 384, 16, 6, True, False, free=True) == 243120
@@ -407,13 +587,17 @@ def test_free_launch_config_at_other_widths(na, nb):
 
 @pytest.mark.parametrize("form", ["f32", "bf16", "q8"])
 def test_k1_dispatch_is_by_form(form):
-    """bf16 and q8 bundles run the free-running cluster kernel, f32 the
-    first design's kernel: `k1_form` reads the bundle, with or without K2's
-    packs."""
-    kw = _bundle(form, 64)
-    want = ML.FORMS[form]
-    assert K.k1_form(kw) == K.k1_form(K.masked_kernel_weights(kw)) == want
-    assert (want in K.FREE_FORMS) == (form != "f32")
+    """Every form runs the free-running cluster kernel; the bundle's form
+    picks its packs and its clusters: at Na = 384, 16 blocks in f32 (its
+    f32 rank pack, [C, Na / 4, 3U, 4]), 8 in bf16 and q8 (fragment packs),
+    each at the launch shape `free_launch_config` gives that form."""
+    f = ML.FORMS[form]
+    mk = K.masked_kernel_weights(_bundle(form, 384))
+    assert tuple(mk["k2_a"].shape) == ML.packed_shapes(f, 384, 16)[0]
+    assert (mk["k2_b"] is None) == (form == "f32")
+    cfg = ML.free_launch_config(1024, 384, 16, f, lambda n, smem: 8)
+    assert (cfg["cluster"], cfg["units"]) == ML.cluster_shape(384, f)
+    assert cfg["cluster"] == (16 if form == "f32" else 8) and cfg["res_a"]
 
 
 def test_decoder_holds_k1_packs_built_once(monkeypatch):
@@ -485,9 +669,9 @@ def test_tf_launch_config_covers_each_stream_once(form, batch):
     assert cfg["smem"] == ML.masked_smem_bytes(f, 384, 16, cfg["nt"], cfg["res_a"],
                                                cfg["res_b"], tf_blocks=3)
     assert cfg["smem"] <= ML.SMEM_LIMIT
-    assert cfg["res_a"] == (form != "f32")
+    assert cfg["res_a"]
     so = -(-s // c)
-    assert so <= 8 and c == 8
+    assert so <= 8 and c == (16 if form == "f32" else 8)
     tail = np.zeros(batch, int)
     gate = np.zeros(batch, int)
     for k in range(cfg["clusters"]):
@@ -507,9 +691,12 @@ def test_tf_shared_memory_layout(form, nt):
     """The teacher-forced layout at Na=384, Nb=16 against the masked one:
     the tail of 8 rows and the 8 extra operand rows of the free-running
     form, no node logits, codes or threshold table, and 4 (S + 1) bytes a
-    conditioning block for the counts; bf16 keeps GRU-A's slice resident at
-    every S and GRU-B's below 32 streams (the card's run at 64 streams read
-    184,704 bytes a block)."""
+    conditioning block for the counts; in f32, where K1 has one h_a operand
+    buffer and the ranks' parts of GRU-B's input product, K3 keeps two
+    buffers (its GRU-B reads step t-1's operand beside step t's product)
+    and neither the parts nor the rows of b_in; bf16 keeps GRU-A's slice resident at every S and GRU-B's
+    below 32 streams (the card's run at 64 streams read 184,704 bytes a
+    block)."""
     f = ML.FORMS[form]
     base = ML.masked_smem_bytes(f, 384, 16, nt, False, False, free=True)
     tf = {n: ML.masked_smem_bytes(f, 384, 16, nt, False, False, tf_blocks=n)
@@ -517,6 +704,8 @@ def test_tf_shared_memory_layout(form, nt):
     s = 8 * nt
     up = lambda x: -(-x // 16) * 16
     free_only = up(8 * 32 * 4) + up((4 * s + 8) * 4) + 256 * 4
+    if form == "f32":
+        free_only += up(16 * -(-s // 16) * 48 * 4) + 24 * 48 * 4 - s * 388 * 4
     assert tf[3] == base - free_only + up(3 * (s + 1) * 4)
     assert tf[20] - tf[1] == up(20 * (s + 1) * 4) - up((s + 1) * 4)
     if form == "bf16":

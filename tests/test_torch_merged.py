@@ -133,8 +133,10 @@ def test_merged_packs_hold_the_non_zero_blocks(fused, form):
     blocks of its own merged matrices: the embedding rows' [z | r | h_in],
     the recurrent rows' [z | r | h_rec], GRU-B's likewise, each equal to
     K1's matrix of the same bundle; the recurrent biases reduced to
-    [0 | 0 | bias_h]; in bf16 the fragment packs unpack to those blocks,
-    rank by rank, and equal K1's packs of the same bundle (f32 has none)."""
+    [0 | 0 | bias_h]; the packs equal K1's packs of the same bundle: in
+    bf16 the fragment packs unpack to those blocks, rank by rank; in f32
+    GRU-A's rank pack is the pack of the recurrent block, and GRU-B has
+    none."""
     _, tf = fused
     na, nb = TCFG.rnn_units1, TCFG.rnn_units2
     kw = K.masked_kernel_weights(K.kernel_weights(tf, TCFG,
@@ -152,10 +154,13 @@ def test_merged_packs_hold_the_non_zero_blocks(fused, form):
         assert not k6[k][:, :2 * n].any()
         assert torch.equal(k6[k][:, 2 * n:], kw[k][:, 2 * n:])
     if form == "f32":
-        assert k6["k2_a"] is None and k6["k2_b"] is None
+        # the f32 rank pack of the checked block, as K1's bundle has it; no
+        # GRU-B pack
+        assert torch.equal(k6["k2_a"], kw["k2_a"]) and k6["k2_b"] is None
+        assert torch.equal(k6["k2_a"], ML.pack_gru_a(blocks["a_rec"]))
         return
     assert torch.equal(k6["k2_a"], kw["k2_a"]) and torch.equal(k6["k2_b"], kw["k2_b"])
-    c, u = ML.cluster_shape(na)
+    c, u = ML.cluster_shape(na, ML.FORMS[form])
     at = _unpack_tiles(k6["k2_a"])                  # [C, 3U, ceil(Na/16) 16]
     for r in range(c):
         for q in range(3):

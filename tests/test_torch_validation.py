@@ -16,6 +16,8 @@ from lpcnet_tpu.models import lpcnet as JM
 from lpcnet_tpu.train.validation import HeldOutValidator as JHeldOutValidator
 from lpcnet_tpu.weights import checkpoint as JC
 
+from lpcnet_torch.kernels import masked_loop as ML
+from lpcnet_torch.kernels import sample_loop as K
 from lpcnet_torch.models import lpcnet as M
 from lpcnet_torch.train import train_lpcnet as T
 from lpcnet_torch.train.data import LPCNetLoader
@@ -110,6 +112,34 @@ def test_validator_rejects_short_clip_and_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         HeldOutValidator(TCFG, [_clip(1)], seg_seconds=0.25)
+
+
+def test_validator_packs_the_kernel_bundle_once_a_call(monkeypatch):
+    """The kernel path's f32 bundle carries the sample loop's packs
+    (`masked_kernel_weights`: GRU-A's f32 rank pack, no GRU-B pack), built
+    once a `synthesize` call and launched with every frame. Run on CPU
+    tensors, where the kernel wrapper takes its plain version."""
+    tv = HeldOutValidator(TCFG, [_clip(1)], seg_seconds=0.25, device="cpu")
+    tv.use_kernel = True
+    built, seen = [], []
+    real_pack, real_auto = K.masked_kernel_weights, K.synthesize_frame_auto
+    monkeypatch.setattr(K, "masked_kernel_weights",
+                        lambda kw: built.append(1) or real_pack(kw))
+
+    def auto(kw, *args, **kwargs):
+        seen.append(kw)
+        return real_auto(kw, *args, **kwargs)
+    monkeypatch.setattr(K, "synthesize_frame_auto", auto)
+    params = M.init_params(TCFG, seed=3)
+    syn = tv.synthesize(params)
+    tv.synthesize(params)
+    frames = syn.shape[1] // 160
+    assert len(built) == 2 and len(seen) == 2 * frames
+    assert all(kw is seen[0] for kw in seen[:frames]) and seen[frames] is not seen[0]
+    kw = seen[0]
+    assert kw["a_rec"].dtype == torch.float32 and kw["k2_b"] is None
+    assert tuple(kw["k2_a"].shape) == ML.packed_shapes(0, 32, 8)[0]
+    assert torch.equal(kw["k2_a"], ML.pack_gru_a(kw["a_rec"]))
 
 
 def test_best_tracker():

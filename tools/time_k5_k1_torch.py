@@ -11,7 +11,8 @@ gradients, 3 launches) and one K5 backward (`torch.autograd.grad` through
 it, 3 launches) at the training shape, B=128, T=2400, N=384, on seeded
 weights; and one K1 launch (`sample_loop.synthesize_frame_kernel`, 10
 launches) at B=1024, n=160 on the demo vocoder's bf16, q8 and f32 bundles
-(as the decoder builds them), and one K6 launch
+(as the decoder builds them), and at B=4 on the f32 bundle (the held-out
+validator's shape, 20 launches), and one K6 launch
 (`sample_loop.synthesize_frame_merged_kernel`, 10 launches) on the bf16
 and f32 bundles' merged operands, from a fresh state on seeded
 conditioning. It prints one JSON line {"label", "card", "ms": {...}}. Run
@@ -84,17 +85,19 @@ def main(argv=None):
     del hs, ht, gi, x
     torch.cuda.empty_cache()
 
-    # K1 at B=1024, n=160
+    # K1 at B=1024 and (f32, the validator's shape) B=4, n=160
     fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
-    b = 1024
-    rs = np.random.RandomState(1)
-    feats = torch.from_numpy((rs.normal(size=(3, b, 36)) * 0.3).astype(np.float32)).to(dev)
-    fs = M.init_frame_state(b, cfg, dev)
-    for k in range(3):
-        fs, _, ca, cb, lpc = M.frame_network(fused, fs, feats[k], cfg)
-    ca, cb, lpc = ca.contiguous(), cb.contiguous(), lpc.contiguous()
-    s0 = M.init_sample_state(b, cfg, dev)
     pack = getattr(K, "masked_kernel_weights", lambda kw: kw)
+
+    def inputs(b):
+        rs = np.random.RandomState(1)
+        feats = torch.from_numpy((rs.normal(size=(3, b, 36)) * 0.3).astype(np.float32)).to(dev)
+        fs = M.init_frame_state(b, cfg, dev)
+        for k in range(3):
+            fs, _, ca, cb, lpc = M.frame_network(fused, fs, feats[k], cfg)
+        return ca.contiguous(), cb.contiguous(), lpc.contiguous(), M.init_sample_state(b, cfg, dev)
+
+    ca, cb, lpc, s0 = inputs(1024)
     for form, kw in (("bf16", K.kernel_weights(fused, cfg)),
                      ("q8", K.kernel_weights(quantize_fused(fused), cfg)),
                      ("f32", K.kernel_weights(fused, cfg, dtype=torch.float32))):
@@ -105,6 +108,9 @@ def main(argv=None):
             mw = K.merged_kernel_weights(kw)
             ms[f"k6[{form}] B=1024 n=160"] = _time(
                 lambda: K.synthesize_frame_merged_kernel(mw, s0, ca, cb, lpc), 10, torch)
+    ca4, cb4, lpc4, s4 = inputs(4)
+    ms["k1[f32] B=4 n=160"] = _time(
+        lambda: K.synthesize_frame_kernel(kw, s4, ca4, cb4, lpc4), 20, torch)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
