@@ -3105,9 +3105,10 @@ def check_k1_factored(cfg, comp, fact, fq, dev, smi):
             "launches": 0, "max_abs_err": step_err, "ms": ms_f, "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None, "pass": True,
             "composed_ms_same_inputs": ms_c,
-            "design": "masked_loop_kernel<FORM_Q8, NT, KIND_FREE> with the factored "
-                      "operands: the rows g gathered after the codes' barrier, their "
-                      "product on the tensor cores before the gate phase; " + layout}
+            "design": "masked_loop_kernel<FORM_Q8, NT, KIND_FREE, true>: the rows g "
+                      "delivered with the codes by warps 0, 4 and 8, their product on the "
+                      "tensor cores fused with the gate phase (S >= 32; into an array "
+                      "below); " + layout}
 
 
 def check_k2_factored(cfg, comp, fact, fq, dev, smi):
@@ -3170,8 +3171,11 @@ def check_k2_factored(cfg, comp, fact, fq, dev, smi):
             "bound_by": r["by"], "library_ms": None, "pass": True,
             "composed_ms_same_inputs": r["comp"],
             "b128_n160": {k: res[(128, 160)][k] for k in ("ms", "comp", "plain", "bound")},
-            "design": "masked_loop_kernel<FORM_Q8, NT, KIND_MASKED> with the factored "
-                      "operands; " + fact_layout("masked", 64, cfg, dev)}
+            "design": "masked_loop_kernel<FORM_Q8, NT, KIND_MASKED, true>: S <= 16 the "
+                      "rows g gathered after the codes barrier, their product into an "
+                      "array; S >= 32 the rows loaded by warps 0, 4 and 8 once warp 0 has "
+                      "the codes, their product fused with the gate phase; "
+                      + fact_layout("masked", 64, cfg, dev)}
 
 
 def check_k3_factored(cfg, comp, fact, fq, dev, smi):
@@ -3231,9 +3235,10 @@ def check_k3_factored(cfg, comp, fact, fq, dev, smi):
             "composed_kernel_ms_same_inputs": r["comp_kernel"],
             "b256_1x160": {k: res[256][k] for k in ("ms", "kernel_ms", "comp",
                                                      "comp_kernel", "plain", "bound")},
-            "design": "masked_loop_kernel<FORM_Q8, NT, KIND_TF> with the factored "
-                      "operands: the rows g gathered a step ahead, their product "
-                      "beside GRU-A's; " + fact_layout("tf", 64, cfg, dev, 3)}
+            "design": "masked_loop_kernel<FORM_Q8, NT, KIND_TF, true>: the rows g "
+                      "gathered a step ahead in the cluster barrier's window, their "
+                      "product there too into an array (S <= 16) or fused with the gate "
+                      "phase (S >= 32); " + fact_layout("tf", 64, cfg, dev, 3)}
 
 
 def drive_factored_paths(dev, smi, feats, composed_frame_ms):

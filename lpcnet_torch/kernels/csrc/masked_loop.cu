@@ -155,26 +155,43 @@
 // * the KISS99 words, which nothing in the loop reads, advance after it by
 //   twice the stream's total count, in the tail's owner only.
 //
-// The factored q8 embedding (p.fact; replaces the LPCNET_EMB=factored
-// operand form of _ar_kernel and _tf_kernel, sample_loop.py:265 and :775,
-// whose _gru_ab, :291-303, gathers three rows of the shared 128-wide int8
-// embedding and multiplies them by GRU-A's input kernel with the
-// embedding's scales folded in): in every kind, a step's gate input is
-// cond + (g . W_in) * t, g [S, 384] the three gathered int8 rows of a
-// stream, W_in the rank's [384, 3U] int8 slice of the input kernel, t its
-// column scales. The product is m16n8k32 s8 on the tensor cores into int32,
-// exact, as GRU-A's own, over the same (column tile, stream tile) tasks,
-// into its own sums (eacc); the slice sits in shared memory beside GRU-A's
-// (55.3 KB at Na = 384, packed by masked_loop.py::pack_embf) where it fits,
-// and the 32 KB table is read from L2 in 16-byte rows. What it changes on
-// the chain: K1 and K2 learn a step's codes only at its start (from the
-// previous step's tail), so they gather g and run its product between the
-// codes' barrier and the gate phase, two block barriers more a step, in
-// place of the gate phase's nine scattered reads of the composed [768, 3Na]
-// table (884 KB in int8); K3 knows its codes before the launch, so it
-// gathers g a step ahead in the cluster barrier's window (a block barrier
-// after the wait makes the rows visible) and runs the product beside
-// GRU-A's on the same nine warps.
+// The factored q8 embedding (FACT, instantiations of their own, so that
+// the composed forms keep their code and registers; replaces the
+// LPCNET_EMB=factored operand form of _ar_kernel and _tf_kernel,
+// sample_loop.py:265 and :775, whose _gru_ab, :291-303, gathers three rows
+// of the shared 128-wide int8 embedding and multiplies them by GRU-A's
+// input kernel with the embedding's scales folded in): in every kind, a
+// step's gate input is cond + (g . W_in) * t, g [S, 384] the three gathered
+// int8 rows of a stream, W_in the rank's [384, 3U] int8 slice of the input
+// kernel (55.3 KB at Na = 384, packed by masked_loop.py::pack_embf,
+// resident where it fits), t its column scales. The product is m16n8k32 s8
+// on the tensor cores into int32, exact in any order. A warp task is (unit
+// tile, stream tiles), the three gates' column tiles of 16 units, so that
+// each B fragment of g serves three MMAs and a lane ends holding all three
+// gates of its (stream, unit) pairs. Where these tasks fill the block's
+// warps (S >= 32) the product runs fused with the gate phase (fact_gate):
+// the lane then updates those pairs, with no array of sums and no barrier
+// between. Below (3 or 6 such tasks at Na = 384), where so few warps would
+// carry the whole gate phase, the product takes GRU-A's tasks of one
+// gate's 16 columns and writes its sums to eacc for the gate phase's
+// per-pair threads (fact_array). The product is bound by shared
+// memory's port (a 16-byte A fragment a lane a load), not the tensor
+// cores. The 32 KB table is read from L2 in 16-byte words, where the
+// chain of dependent phases waits on it least:
+// * K1 and K2 learn a step's codes only at its start, from the previous
+//   step's tail, but in K1 warp 0 has them long before GRU-A's product
+//   ends (1.7 k against 5.6 k cycles at S = 40). So warps 0, 4 and 8,
+//   which take no GRU-A tile, load the rows of the tail's streams as soon
+//   as warp 0 has their codes and store them into every block's g; the
+//   codes barrier orders them. K2 does the same into its own g at S >= 32;
+//   at S <= 16, where its warp 0 is the step's laggard already, every
+//   thread gathers the rows after the codes barrier. At S = 40 every
+//   weight set stays resident (223,280 bytes a block).
+// * K3 knows its codes before the launch: the nine product warps load step
+//   j+1's rows in the cluster barrier's window of step j, while warps 0, 4
+//   and 8 run GRU-B's update, and at S <= 16 run their product there too,
+//   into eacc, behind a barrier of the nine; the next block barrier orders
+//   both.
 
 #include <cooperative_groups.h>
 
@@ -196,7 +213,7 @@ enum { KIND_MASKED = 0, KIND_FREE = 1, KIND_TF = 2 };
 struct K2Args {
   int batch, na, nb, n_samples, sampled, cluster;
   int res_a, res_b;         // GRU-A's slice, GRU-B's weights in shared memory
-  int fact, res_f;          // q8: the factored embedding; its input kernel's slice in shared memory
+  int res_f;                // the factored q8 embedding: its input kernel's slice in shared memory
   int n_blocks, blk;        // K3: conditioning blocks, steps a block
   const int* counts;        // K3: [B, n_blocks] steps to run
   const uint8_t* codes;     // K3: [B, n_blocks * blk, 3] sig_u, pred_u, exc
@@ -266,8 +283,9 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // does, has no node logits, threshold table or codes, and keeps the counts
 // of its S streams for each of n_blocks blocks and each block's largest.
 // The factored q8 embedding adds its rank's slice of the input kernel
-// (where res_f), the gathered rows g [S][FACT_LD] and their products
-// [S][ldz] int32.
+// (where res_f), the gathered rows g [S][FACT_LD] and, at S <= 16, where
+// the gate phase reads g's product from shared memory, its sums [S][ldz]
+// int32.
 struct K2Layout {
   int u, nbp, ksa, ksbr, ldx, ldb, ldz, ldg, hrows, hbufs, kq, ncolp, nb3p;
   size_t wa, wb, hop, hbop, zacc, gacc, haown, hbf, logits, code, table, wf, gop, eacc, gbin,
@@ -314,7 +332,7 @@ __host__ __device__ inline K2Layout k2_layout(int form, int na, int nb, int clus
   L.table = off; off += tf ? 0 : 256 * 4;
   L.wf = off; off += fact && res_f ? align16((size_t)3 * L.u * FACT_K) : 0;
   L.gop = off; off += fact ? align16((size_t)s * FACT_LD) : 0;
-  L.eacc = off; off += fact ? align16((size_t)s * L.ldz * 4) : 0;
+  L.eacc = off; off += fact && s <= 16 ? align16((size_t)s * L.ldz * 4) : 0;
   L.gbin = off;
   off += k1_f32 ? align16((size_t)cluster * ((s + cluster - 1) / cluster) * L.nb3p * 4) : 0;
   L.brow = off; off += k1_f32 ? align16((size_t)L.u * L.nb3p * 4) : 0;
@@ -481,7 +499,7 @@ template <int FORM> struct GateRaw {
   float ca[3];
 };
 
-template <int FORM, int NT, int KIND>
+template <int FORM, int NT, int KIND, bool FACT>
 __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   typedef typename FormT<FORM>::W W;
   typedef typename FormT<FORM>::Acc Acc;
@@ -494,8 +512,11 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   const int C = p.cluster;
   const int rank = (int)cluster.block_rank();
   const int na = p.na, nb = p.nb, na3 = 3 * na, nb3 = 3 * nb;
-  const bool fact = FORM == FORM_Q8 && p.fact;   // the factored q8 embedding
-  const K2Layout L = k2_layout(FORM, na, nb, C, S, p.res_a, p.res_b, KIND, p.n_blocks, fact,
+  // the factored q8 embedding: instantiations of its own, so that the
+  // composed forms' code and registers are those of a kernel without it
+  static_assert(!FACT || FORM == FORM_Q8, "the factored embedding is a q8 form");
+  constexpr bool fact = FACT;
+  const K2Layout L = k2_layout(FORM, na, nb, C, S, p.res_a, p.res_b, KIND, p.n_blocks, FACT,
                                p.res_f);
   const int U = L.u, u0 = rank * U, n = p.n_samples, nbp = L.nbp;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -547,7 +568,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
   const uint4* wf_g = reinterpret_cast<const uint4*>(p.f_w) + (size_t)rank * nf_words;
   uint4* wf_s = reinterpret_cast<uint4*>(smem + L.wf);
   int8_t* gop = reinterpret_cast<int8_t*>(smem + L.gop);  // [S][FACT_LD]
-  int* eacc = reinterpret_cast<int*>(smem + L.eacc);       // [S][ldz]
+  int* eacc = reinterpret_cast<int*>(smem + L.eacc);       // [S][ldz] g's products (S <= 16)
 
   // K3: the steps the cluster runs (0 when no stream of it has any)
   const int nbk = p.n_blocks;
@@ -627,24 +648,135 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       }
     }
   };
-  // the factored embedding: the rows g [S, 384] of the shared embedding at
-  // each live stream's three codes (code(s, r), r = 0 sig_u, 1 pred_u, 2
-  // exc; zero for the others), 16 bytes a load and a store
-  auto gather_g = [&](auto code, auto live) {
-    const int8_t* tab = (const int8_t*)p.emb;
-    constexpr int WPS = FACT_K / 16, WPR = FACT_E / 16;   // words a stream, a row
-    for (int i = tid; i < S * WPS; i += K2_THREADS) {
-      const int s = i / WPS, w = i % WPS;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (live(s))
-        v = __ldg(reinterpret_cast<const uint4*>(tab + (size_t)code(s, w / WPR) * FACT_E) + w % WPR);
-      *reinterpret_cast<uint4*>(gop + s * FACT_LD + w * 16) = v;
+  // the factored embedding's rows g [S, 384]: word w (16 bytes) is stream
+  // w / WPS's row (w % WPS) / WPR (0 sig_u, 1 pred_u, 2 exc) of the shared
+  // embedding at that row's code c, part w % WPR; c < 0 (a stream that
+  // does not run) gives zeros
+  constexpr int WPS = FACT_K / 16, WPR = FACT_E / 16;     // words a stream, a row
+  auto row_word = [&](int c, int w) {
+    return c < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                 : __ldg(reinterpret_cast<const uint4*>((const int8_t*)p.emb + (size_t)c * FACT_E) +
+                         w % WPR);
+  };
+  auto g_word = [&](int8_t* g, int w) {
+    return reinterpret_cast<uint4*>(g + (w / WPS) * FACT_LD + (w % WPS) * 16);
+  };
+  // stream tiles a task of g's fused product: two only where one a task
+  // would leave more tasks than warps (S = 40 at Na = 384)
+  constexpr int TPW = NT > 4 ? 2 : 1;
+  constexpr int NGS = (NT + TPW - 1) / TPW;               // stream groups
+  // g's product with this rank's input-kernel slice wf for one warp task:
+  // unit tile ut (local columns q U + 16 ut + [0, 16) of the three gates
+  // q) and the TPW stream tiles from nt0 (one at an odd NT's last), k in
+  // order, exact int32 sums. acc[i][q] is the D fragment of stream tile
+  // nt0 + i and gate q: lane (g, t) holds units 16 ut + g (c0, c1) and
+  // + 8 (c2, c3) of streams 8 (nt0 + i) + 2t (c0, c2) and + 1 (c1, c3).
+  // Each A fragment serves TPW stream tiles and each B fragment three
+  // gates, from registers: shared memory's port, not the tensor cores,
+  // bounds this product (16 bytes a lane an A load).
+  auto fact_product = [&](const uint4* wf, int ut, int nt0, int (&acc)[TPW][3][4]) {
+    const int ntu = U / 16;
+    const int8_t* xr = gop + (nt0 * 8 + (lane >> 2)) * FACT_LD + (lane & 3) * 4;
+#pragma unroll
+    for (int i = 0; i < TPW; ++i)
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][q][c] = 0;
+    const bool two = TPW > 1 && nt0 + 1 < NT;
+#pragma unroll 2
+    for (int ks = 0; ks < KSF; ++ks) {
+      uint4 a[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) a[q] = wf[((size_t)(q * ntu + ut) * KSF + ks) * 32 + lane];
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) {
+        if (i > 0 && !two) continue;
+        const int8_t* x = xr + i * 8 * FACT_LD + ks * 32;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(x);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(x + 16);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) mma16832(acc[i][q], a[q], b0, b1);
+      }
     }
   };
-  // g's product with this rank's 3U columns of the input kernel, into eacc:
-  // the (column tile, stream tile) tasks of GRU-A's product, k in order,
-  // int32 sums
-  auto emb_product = [&](int pt, int npt) {
+  // Where g's product runs: fused with the gate phase (fact_gate) where its
+  // tasks fill the block's warps (S >= 32: 12 tasks at S = 32, 9 of two
+  // stream tiles at S = 40, Na = 384); below (3 or 6 such tasks), into
+  // eacc behind a barrier (fact_array) for the gate phase's per-pair
+  // threads.
+  constexpr bool FUSED = NT >= 4;
+  // K1 and K2 get g's rows from warps 0, 4 and 8 before the codes barrier
+  // where warp 0 waits on GRU-A's product anyway (K1; K2 at S >= 32); K2
+  // below, where warp 0's tree is already the step's longest path, gathers
+  // them after the barrier with every thread
+  constexpr bool DELIVER = FREE || FUSED;
+  // g's product fused with the gate phase. Warp task (unit tile, stream
+  // tiles): the lane's fragments hold all three gates of the 4 TPW
+  // (stream, unit) pairs it then updates, so the sums need no array and
+  // no barrier between the product and the gates. The loads of the gate
+  // inputs that do not depend on g go first. is_live(s): stream s runs
+  // this step; cond(s): its conditioning row [3Na].
+  auto fact_gate = [&](OT* nxt, auto is_live, auto cond) {
+    if constexpr (FORM == FORM_Q8) {
+      const int ntu = U / 16, g = lane >> 2, tq = lane & 3;
+      for (int task = warp; task < ntu * NGS; task += K2_WARPS) {
+        const int ut = task % ntu, nt0 = (task / ntu) * TPW;
+        const int ntt = min(TPW, NT - nt0);
+        float ca[TPW][4][3], sc[2][3], dg[2][3], bs[2][3];
+#pragma unroll
+        for (int i = 0; i < TPW; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int s = 8 * (nt0 + i) + 2 * tq + (c & 1), u = u0 + 16 * ut + g + 8 * (c >> 1);
+            const bool ld = i < ntt && u < na && is_live(s);
+#pragma unroll
+            for (int q = 0; q < 3; ++q) ca[i][c][q] = ld ? __ldg(cond(s) + q * na + u) : 0.f;
+          }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int u = u0 + 16 * ut + g + 8 * jj;
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const int col = q * na + u;
+            sc[jj][q] = u < na ? __ldg(p.emb_scale + col) : 0.f;
+            dg[jj][q] = u < na ? __ldg(p.a_diag + col) : 0.f;
+            bs[jj][q] = u < na ? __ldg(p.a_bias1 + col) : 0.f;
+          }
+        }
+        int acc[TPW][3][4];
+        if (p.res_f) fact_product(wf_s, ut, nt0, acc); else fact_product(wf_g, ut, nt0, acc);
+#pragma unroll
+        for (int i = 0; i < TPW; ++i) {
+          if (i >= ntt) continue;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int s = 8 * (nt0 + i) + 2 * tq + (c & 1), jj = c >> 1;
+            const int j = 16 * ut + g + 8 * jj, u = u0 + j;
+            float h = haown[s * U + j];
+            if (is_live(s) && u < na) {
+              float gi[3], zr[3];
+#pragma unroll
+              for (int q = 0; q < 3; ++q) {
+                gi[q] = __fadd_rn(ca[i][c][q], __fmul_rn((float)acc[i][q][c], sc[jj][q]));
+                zr[q] = __fadd_rn(__fadd_rn(__fmul_rn((float)zacc[s * L.ldz + q * U + j], Q8_SCALE),
+                                            __fmul_rn(dg[jj][q], h)),
+                                  bs[jj][q]);
+              }
+              h = gru_out(gi[0], zr[0], gi[1], zr[1], gi[2], zr[2], h);
+              haown[s * U + j] = h;
+            }
+            nxt[s * L.ldx + u] = OpT<FORM>::of(h);
+          }
+        }
+      }
+    }
+  };
+  // g's product into eacc [S][ldz] (S <= 16): GRU-A's (column tile,
+  // stream tile) tasks from warp pt >> 5 in steps of npt >> 5, one gate's
+  // 16 columns a task (9 tasks at S = 8, Na = 384, where the fused tasks
+  // would be 3), k in order, int32 sums
+  auto fact_array = [&](int pt, int npt) {
     if constexpr (FORM == FORM_Q8) {
       const int mta = 3 * U / 16;
       for (int task = pt >> 5; task < mta * NT; task += npt >> 5) {
@@ -747,7 +879,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         }
       };
       // the raw gate inputs of a pair at step (k, t) on codes c (factored:
-      // the conditioning only; the embedding's part is the product eacc)
+      // the conditioning only; the embedding's part is g's product, eacc)
       auto gather = [&](GateRaw<FORM>& g, int s, int u, int k, const int* c) {
         const float* ca = p.cond_a + ((size_t)(b0 + s) * nbk + k) * na3;
 #pragma unroll
@@ -759,22 +891,45 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
           for (int r = 0; r < 3; ++r) g.e[r][q] = __ldg(emb + (size_t)(256 * r + c[r]) * na3 + col);
         }
       };
-      // the codes of step (k, t) for gather_g, and its live streams
-      auto tf_code = [&](int k, int t) {
-        return [=, &p](int s, int r) {
-          return (int)__ldg(p.codes + ((size_t)(b0 + s) * nstep + (size_t)k * p.blk + t) * 3 + r);
-        };
+      // the factored embedding's code of word w of g at step (k, t); -1
+      // where its stream does not run
+      auto g_code = [&](int w, int k, int t) {
+        const int s = w / WPS;
+        return live_at(s, k, t) ? (int)__ldg(p.codes + ((size_t)(b0 + s) * nstep +
+                                                        (size_t)k * p.blk + t) * 3 + (w % WPS) / WPR)
+                                : -1;
       };
-      auto tf_live = [&](int k, int t) { return [=, &live_at](int s) { return live_at(s, k, t); }; };
+      // the factored embedding: the rows g of step (k, t) into g by the
+      // nine warps of GRU-A's product (index pt9 of 288), their codes' loads
+      // all in flight, then the rows'
+      const int pt9 = (warp - 1 - warp / 4) * 32 + lane;
+      auto gather_rows = [&](int k, int t) {
+        constexpr int GWT = (S * WPS + 287) / 288;        // words a thread
+        int c[GWT];
+        uint4 v[GWT];
+#pragma unroll
+        for (int i = 0; i < GWT; ++i) {
+          const int w = pt9 + 288 * i;
+          c[i] = w < S * WPS ? g_code(w, k, t) : -1;
+        }
+#pragma unroll
+        for (int i = 0; i < GWT; ++i) v[i] = row_word(c[i], pt9 + 288 * i);
+#pragma unroll
+        for (int i = 0; i < GWT; ++i)
+          if (pt9 + 288 * i < S * WPS) *g_word(gop, pt9 + 288 * i) = v[i];
+      };
+      // the gate inputs of step (k, t) loaded ahead (the fused factored
+      // form loads its conditioning in fact_gate)
       auto gather_all = [&](int k, int t) {
+        if (fact && FUSED) return;
 #pragma unroll
         for (int pp = 0; pp < NT; ++pp) {
           const int i = tid + pp * K2_THREADS, s = i / U;
           if (pair_on(pp) && live_at(s, k, t)) gather(raw[pp], s, u0 + i % U, k, cd[pp]);
         }
       };
-      // gate q's input: the embedding rows (factored: the product e of
-      // stream s, column q U + j) and the conditioning summed in K2's order
+      // gate q's input: the embedding rows (factored: g's product of stream
+      // s, column q U + j) and the conditioning summed in K2's order
       auto gate_in = [&](const GateRaw<FORM>& g, int q, float sc, int s, int j) {
         if constexpr (FORM == FORM_Q8) {
           const int e = fact ? eacc[s * L.ldz + q * U + j]
@@ -872,7 +1027,13 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
       load_codes(k, t);
       gather_all(k, t);
       load_codes(k1, t1);
-      if (fact) gather_g(tf_code(k, t), tf_live(k, t));
+      if (fact) {   // step 0's rows g (and, unfused, their product)
+        for (int w = tid; w < S * WPS; w += K2_THREADS) *g_word(gop, w) = row_word(g_code(w, k, t), w);
+        if (!FUSED) {
+          __syncthreads();
+          fact_array(tid, K2_THREADS);
+        }
+      }
       const bool gru_b_warp = (warp & 3) == 0;
       cluster.sync();   // every block runs and is set up before remote stores
 
@@ -880,10 +1041,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         const OT* cur = hop + (j & 1) * hstride;
         // ---- GRU-A's product of step j beside GRU-B's products of step j-1
         if (!gru_b_warp) {
-          if (j < total) {
-            gru_a_product(cur, (warp - 1 - warp / 4) * 32 + lane, 288);
-            if (fact) emb_product((warp - 1 - warp / 4) * 32 + lane, 288);
-          }
+          if (j < total) gru_a_product(cur, pt9, 288);
         } else if (j > 0) {
           gru_b_products(cur, warp >> 2);
         }
@@ -891,41 +1049,48 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         __syncthreads();
 
         // ---- gate phase: thread (stream, unit) forms its new h_a from the
-        // gate inputs loaded a step ahead
+        // gate inputs loaded a step ahead (factored: fused with g's product
+        // on the rows gathered in the window before, or reading that
+        // product, run there, from eacc)
         OT* nxt = hop + ((j + 1) & 1) * hstride;
+        if (fact && FUSED) {
+          fact_gate(nxt, [&](int s) { return live_at(s, k, t); },
+                    [&](int s) { return p.cond_a + ((size_t)(b0 + s) * nbk + k) * na3; });
+        } else {
 #pragma unroll
-        for (int pp = 0; pp < NT; ++pp) {
-          const int i = tid + pp * K2_THREADS;
-          if (i >= S * U) break;
-          const int s = i / U, jj = i % U, u = u0 + jj;
-          float h = haown[i];
-          if (u < na && live_at(s, k, t)) {
-            h = gate(raw[pp], s, jj, h, bias[pp], diag[pp], scale[pp]);
-            haown[i] = h;
-          }
-          nxt[s * L.ldx + u] = OpT<FORM>::of(h);
-        }
-        // pairs past the first NT (ranks of more than 48 units): gathered here
-        for (int i = tid + NT * K2_THREADS; i < S * U; i += K2_THREADS) {
-          const int s = i / U, jj = i % U, u = u0 + jj;
-          float h = haown[i];
-          if (u < na && live_at(s, k, t)) {
-            const uint8_t* c3 = p.codes + ((size_t)(b0 + s) * nstep + (size_t)k * p.blk + t) * 3;
-            const int c[3] = {fact ? 0 : __ldg(c3), fact ? 0 : __ldg(c3 + 1),
-                              fact ? 0 : __ldg(c3 + 2)};
-            GateRaw<FORM> g;
-            gather(g, s, u, k, c);
-            float bs[3], dg[3], sc[3];
-#pragma unroll
-            for (int q = 0; q < 3; ++q) {
-              bs[q] = __ldg(p.a_bias1 + q * na + u);
-              dg[q] = FORM == FORM_Q8 ? __ldg(p.a_diag + q * na + u) : 0.f;
-              sc[q] = FORM == FORM_Q8 ? __ldg(p.emb_scale + q * na + u) : 0.f;
+          for (int pp = 0; pp < NT; ++pp) {
+            const int i = tid + pp * K2_THREADS;
+            if (i >= S * U) break;
+            const int s = i / U, jj = i % U, u = u0 + jj;
+            float h = haown[i];
+            if (u < na && live_at(s, k, t)) {
+              h = gate(raw[pp], s, jj, h, bias[pp], diag[pp], scale[pp]);
+              haown[i] = h;
             }
-            h = gate(g, s, jj, h, bs, dg, sc);
-            haown[i] = h;
+            nxt[s * L.ldx + u] = OpT<FORM>::of(h);
           }
-          nxt[s * L.ldx + u] = OpT<FORM>::of(h);
+          // pairs past the first NT (ranks of more than 48 units): gathered here
+          for (int i = tid + NT * K2_THREADS; i < S * U; i += K2_THREADS) {
+            const int s = i / U, jj = i % U, u = u0 + jj;
+            float h = haown[i];
+            if (u < na && live_at(s, k, t)) {
+              const uint8_t* c3 = p.codes + ((size_t)(b0 + s) * nstep + (size_t)k * p.blk + t) * 3;
+              const int c[3] = {fact ? 0 : __ldg(c3), fact ? 0 : __ldg(c3 + 1),
+                                fact ? 0 : __ldg(c3 + 2)};
+              GateRaw<FORM> g;
+              gather(g, s, u, k, c);
+              float bs[3], dg[3], sc[3];
+#pragma unroll
+              for (int q = 0; q < 3; ++q) {
+                bs[q] = __ldg(p.a_bias1 + q * na + u);
+                dg[q] = FORM == FORM_Q8 ? __ldg(p.a_diag + q * na + u) : 0.f;
+                sc[q] = FORM == FORM_Q8 ? __ldg(p.emb_scale + q * na + u) : 0.f;
+              }
+              h = gate(g, s, jj, h, bs, dg, sc);
+              haown[i] = h;
+            }
+            nxt[s * L.ldx + u] = OpT<FORM>::of(h);
+          }
         }
         __syncthreads();
         send_slice(nxt);
@@ -933,11 +1098,20 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         // the buffer the next step writes no longer read. Between its arrive
         // and its wait, GRU-B's update of step j-1 (warps 0, 4, 8) and the
         // loads of step j+1's gate inputs and step j+2's codes (factored:
-        // step j+1's rows g, which step j's product no longer reads).
+        // the other nine load step j+1's rows g, which step j's gate phase
+        // no longer reads, and, unfused, run their product into eacc behind
+        // a barrier of the nine; the next step's block barrier orders both).
         asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
         if (gru_b_warp && j > 0) {
           gru_b_update(kb, tb, (warp >> 2) * 32 + lane, 96);
           asm volatile("bar.sync 1, 96;\n" ::: "memory");
+        }
+        if (fact && !gru_b_warp) {
+          gather_rows(k1, t1);
+          if (!FUSED) {
+            asm volatile("bar.sync 2, 288;\n" ::: "memory");
+            fact_array(pt9, 288);
+          }
         }
         kb = k; tb = t;
         k = k1; t = t1;
@@ -945,11 +1119,7 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         step_after(k2, t2);
         gather_all(k, t);
         load_codes(k1, t1);
-        if (fact) gather_g(tf_code(k, t), tf_live(k, t));
         asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-        // the wait orders what was written before the arrive only: the rows
-        // g written in the window need a block barrier of their own
-        if (fact) __syncthreads();
       }
       // GRU-B's update of the last step
       __syncthreads();
@@ -1063,7 +1233,8 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
           // gathers the embedding rows of all S streams
           const int4 c4 = make_int4(lin2ulaw(sig[0]), lin2ulaw(-acc), exc, 0);
           for (int c = 0; c < C; ++c)
-            *reinterpret_cast<int4*>(cluster.map_shared_rank(code, c) + CW * s_own) = c4;
+            *reinterpret_cast<int4*>((c == rank ? code : cluster.map_shared_rank(code, c)) +
+                                     CW * s_own) = c4;
         } else {
           code[CW * s_own] = lin2ulaw(sig[0]);
           code[CW * s_own + 1] = lin2ulaw(-acc);
@@ -1095,74 +1266,111 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
         gru_a_product(cur, tid - 32, K2_THREADS - 32);
       }
     }
+    // ---- the factored embedding: once warp 0 has this rank's codes of
+    // step t, warps 0, 4 and 8 (which take no GRU-A tile) load the rows g
+    // of its tail streams (all S in the masked form) and store them into
+    // every block's g (masked: its own) while the other nine run GRU-A's
+    // product; the codes barrier orders them. A block reads g only between
+    // that barrier and the next operand barrier, which no rank passes
+    // before every block's gate phase of step t is done.
+    if (fact && DELIVER && t < n && (warp & 3) == 0) {
+      asm volatile("bar.sync 1, 96;\n" ::: "memory");
+      constexpr int GW = ((SPLIT ? 8 : S) * WPS + 95) / 96;   // words a thread
+      const int d = (warp >> 2) * 32 + lane;
+      const unsigned lv = FREE ? 0u : flags[0];
+      uint4 v[GW];
+#pragma unroll
+      for (int i = 0; i < GW; ++i) {
+        const int w = d + 96 * i, s = s0 + w / WPS;
+        const bool on = w < so * WPS && s < nact && (FREE || ((lv >> s) & 1u));
+        v[i] = row_word(on ? code[CW * s + (w % WPS) / WPR] : -1, w);
+      }
+#pragma unroll
+      for (int i = 0; i < GW; ++i) {
+        const int w = d + 96 * i;
+        if (w >= so * WPS) continue;
+        uint4* dst = g_word(gop, s0 * WPS + w);
+        if constexpr (FREE) {
+          for (int c = 0; c < C; ++c) *(c == rank ? dst : cluster.map_shared_rank(dst, c)) = v[i];
+        } else {
+          *dst = v[i];
+        }
+      }
+    }
     if (t == n) break;
     // free-running: every block's codes of step t have arrived
     if constexpr (FREE) cluster.sync(); else __syncthreads();
     const unsigned live = FREE ? 0u : flags[0];
     const unsigned need = FREE ? 0u : flags[1];
     auto is_live = [&](int s) { return FREE ? s < nact : ((live >> s) & 1u) != 0u; };
-
-    // ---- the factored embedding: the step's codes are here; the live
-    // streams' rows g, then their product with the rank's input kernel
-    if (fact) {
-      gather_g([&](int s, int r) { return code[CW * s + r]; }, is_live);
-      __syncthreads();
-      emb_product(tid, K2_THREADS);
+    if (fact && !DELIVER) {
+      // K2 at S <= 16: the live streams' rows g, every thread a word
+      for (int w = tid; w < S * WPS; w += K2_THREADS)
+        *g_word(gop, w) = row_word(is_live(w / WPS) ? code[CW * (w / WPS) + (w % WPS) / WPR] : -1, w);
       __syncthreads();
     }
 
     // ---- gate phase: thread (stream, unit) forms its new h_a and its operand
-    // copy, then the block sends its slice to every block of the cluster
+    // copy (factored: with g's product, fused or from eacc), then the block
+    // sends its slice to every block of the cluster
     OT* nxt = hop + ((t + 1) & 1) * hnext;
-    for (int i0 = tid; i0 < S * U; i0 += NT * K2_THREADS) {
-      // this thread's pairs' reads from L2 first, all in flight together
-      float g[NT][3], bias[NT][3], diag[NT][3];
-#pragma unroll
-      for (int pp = 0; pp < NT; ++pp) {
-        const int i = i0 + pp * K2_THREADS;
-        const int s = i / U, u = u0 + i % U;
-        if (i >= S * U || !is_live(s) || u >= na) continue;
-        const float* ca = p.cond_a + (size_t)(b0 + s) * na3;
-        const size_t r0 = (size_t)code[CW * s] * na3, r1 = (size_t)(256 + code[CW * s + 1]) * na3,
-                     r2 = (size_t)(512 + code[CW * s + 2]) * na3;
-        const W* emb = (const W*)p.emb;
-#pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          const int col = q * na + u;
-          if (FORM == FORM_Q8) {
-            const int e = fact ? eacc[s * L.ldz + q * U + i % U]
-                               : ldw(emb, r0 + col) + ldw(emb, r1 + col) + ldw(emb, r2 + col);
-            g[pp][q] = __fadd_rn(__ldg(ca + col), __fmul_rn((float)e, __ldg(p.emb_scale + col)));
-            diag[pp][q] = __ldg(p.a_diag + col);
-          } else {
-            const float e = __fadd_rn(__fadd_rn((float)ldw(emb, r0 + col), (float)ldw(emb, r1 + col)),
-                                      (float)ldw(emb, r2 + col));
-            g[pp][q] = __fadd_rn(__ldg(ca + col), e);
-          }
-          bias[pp][q] = __ldg(p.a_bias1 + col);
-        }
+    if (fact && FUSED) {
+      fact_gate(nxt, is_live, [&](int s) { return p.cond_a + (size_t)(b0 + s) * na3; });
+    } else {
+      if (fact) {
+        fact_array(tid, K2_THREADS);
+        __syncthreads();
       }
+      for (int i0 = tid; i0 < S * U; i0 += NT * K2_THREADS) {
+        // this thread's pairs' reads from L2 first, all in flight together
+        float g[NT][3], bias[NT][3], diag[NT][3];
 #pragma unroll
-      for (int pp = 0; pp < NT; ++pp) {
-        const int i = i0 + pp * K2_THREADS;
-        if (i >= S * U) break;
-        const int s = i / U, j = i % U, u = u0 + j;
-        float h = haown[i];
-        if (is_live(s) && u < na) {
-          float zr[3];
+        for (int pp = 0; pp < NT; ++pp) {
+          const int i = i0 + pp * K2_THREADS;
+          const int s = i / U, u = u0 + i % U;
+          if (i >= S * U || !is_live(s) || u >= na) continue;
+          const float* ca = p.cond_a + (size_t)(b0 + s) * na3;
+          const size_t r0 = (size_t)code[CW * s] * na3, r1 = (size_t)(256 + code[CW * s + 1]) * na3,
+                       r2 = (size_t)(512 + code[CW * s + 2]) * na3;
+          const W* emb = (const W*)p.emb;
 #pragma unroll
           for (int q = 0; q < 3; ++q) {
-            const Acc acc = zacc[s * L.ldz + q * U + j];
-            if (FORM == FORM_Q8)
-              zr[q] = __fadd_rn(__fadd_rn(__fmul_rn((float)acc, Q8_SCALE), __fmul_rn(diag[pp][q], h)),
-                                bias[pp][q]);
-            else
-              zr[q] = __fadd_rn((float)acc, bias[pp][q]);
+            const int col = q * na + u;
+            if (FORM == FORM_Q8) {
+              const int e = fact ? eacc[s * L.ldz + q * U + i % U]
+                                 : ldw(emb, r0 + col) + ldw(emb, r1 + col) + ldw(emb, r2 + col);
+              g[pp][q] = __fadd_rn(__ldg(ca + col), __fmul_rn((float)e, __ldg(p.emb_scale + col)));
+              diag[pp][q] = __ldg(p.a_diag + col);
+            } else {
+              const float e = __fadd_rn(__fadd_rn((float)ldw(emb, r0 + col), (float)ldw(emb, r1 + col)),
+                                        (float)ldw(emb, r2 + col));
+              g[pp][q] = __fadd_rn(__ldg(ca + col), e);
+            }
+            bias[pp][q] = __ldg(p.a_bias1 + col);
           }
-          h = gru_out(g[pp][0], zr[0], g[pp][1], zr[1], g[pp][2], zr[2], h);
-          haown[i] = h;
         }
-        nxt[s * L.ldx + u] = OpT<FORM>::of(h);
+#pragma unroll
+        for (int pp = 0; pp < NT; ++pp) {
+          const int i = i0 + pp * K2_THREADS;
+          if (i >= S * U) break;
+          const int s = i / U, j = i % U, u = u0 + j;
+          float h = haown[i];
+          if (is_live(s) && u < na) {
+            float zr[3];
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+              const Acc acc = zacc[s * L.ldz + q * U + j];
+              if (FORM == FORM_Q8)
+                zr[q] = __fadd_rn(__fadd_rn(__fmul_rn((float)acc, Q8_SCALE), __fmul_rn(diag[pp][q], h)),
+                                  bias[pp][q]);
+              else
+                zr[q] = __fadd_rn((float)acc, bias[pp][q]);
+            }
+            h = gru_out(g[pp][0], zr[0], g[pp][1], zr[1], g[pp][2], zr[2], h);
+            haown[i] = h;
+          }
+          nxt[s * L.ldx + u] = OpT<FORM>::of(h);
+        }
       }
     }
     __syncthreads();
@@ -1303,13 +1511,15 @@ __global__ void __launch_bounds__(K2_THREADS, 1) masked_loop_kernel(K2Args p) {
 
 typedef void (*K2Kernel)(K2Args);
 
-// the kernel of a form, a stream tiling (S = 8 nt) and a kind, null if
-// there is none: K2 and K3 at S = 8, 16 and 32, K1 (free-running) at 8, 16,
-// 32 and 40, each in all three forms.
-K2Kernel kernel_for(int form, int nt, int kind) {
-  switch (kind * 64 + form * 8 + nt) {
+// the kernel of a form, a stream tiling (S = 8 nt), a kind and the factored
+// embedding (q8 only), null if there is none: K2 and K3 at S = 8, 16 and
+// 32, K1 (free-running) at 8, 16, 32 and 40, each in all three forms.
+K2Kernel kernel_for(int form, int nt, int kind, int fact) {
+  switch ((fact ? 256 : 0) + kind * 64 + form * 8 + nt) {
 #define K2_CASE(KIND, FORM, NT) \
-    case KIND * 64 + FORM * 8 + NT: return masked_loop_kernel<FORM, NT, KIND>;
+    case KIND * 64 + FORM * 8 + NT: return masked_loop_kernel<FORM, NT, KIND, false>;
+#define K2_FACT(KIND, NT) \
+    case 256 + KIND * 64 + FORM_Q8 * 8 + NT: return masked_loop_kernel<FORM_Q8, NT, KIND, true>;
     K2_CASE(KIND_MASKED, FORM_F32, 1) K2_CASE(KIND_MASKED, FORM_F32, 2)
     K2_CASE(KIND_MASKED, FORM_F32, 4) K2_CASE(KIND_MASKED, FORM_BF16, 1)
     K2_CASE(KIND_MASKED, FORM_BF16, 2) K2_CASE(KIND_MASKED, FORM_BF16, 4)
@@ -1326,7 +1536,11 @@ K2Kernel kernel_for(int form, int nt, int kind) {
     K2_CASE(KIND_TF, FORM_BF16, 2) K2_CASE(KIND_TF, FORM_BF16, 4)
     K2_CASE(KIND_TF, FORM_Q8, 1) K2_CASE(KIND_TF, FORM_Q8, 2)
     K2_CASE(KIND_TF, FORM_Q8, 4)
+    K2_FACT(KIND_MASKED, 1) K2_FACT(KIND_MASKED, 2) K2_FACT(KIND_MASKED, 4)
+    K2_FACT(KIND_FREE, 1) K2_FACT(KIND_FREE, 2) K2_FACT(KIND_FREE, 4) K2_FACT(KIND_FREE, 5)
+    K2_FACT(KIND_TF, 1) K2_FACT(KIND_TF, 2) K2_FACT(KIND_TF, 4)
 #undef K2_CASE
+#undef K2_FACT
     default: return nullptr;
   }
 }
@@ -1379,10 +1593,12 @@ bool fact_ok(int form, int fact, int res_f, const void* f_w) {
 // The most clusters of `cluster` blocks with `smem` bytes each that the card
 // holds at once for form `form` (0 f32, 1 bf16, 2 q8), nt stream tiles
 // (S = 8 nt) and kind (0 masked, 1 free-running, 2 teacher-forced); a
-// negative CUDA error code on failure.
+// negative CUDA error code on failure. The factored q8 kernels of a shape
+// have the same threads, shared memory and register bound as the composed
+// ones that answer here.
 extern "C" int lpcnet_masked_loop_max_clusters(int form, int nt, int kind, int cluster,
                                                int smem) {
-  const K2Kernel k = kernel_for(form, nt, kind);
+  const K2Kernel k = kernel_for(form, nt, kind, 0);
   if (!k) return -(int)cudaErrorInvalidValue;
   cudaError_t e = k2_attributes(k, cluster, smem);
   if (e != cudaSuccess) return -(int)e;
@@ -1420,7 +1636,7 @@ extern "C" int lpcnet_masked_loop(
     void* sig_out, void* exc_out, void* de_out, void* rng_out, void* pcm, const void* preload,
     const void* mode, void* stream) {
   const int kind = free_ ? KIND_FREE : KIND_MASKED;
-  const K2Kernel k = kernel_for(form, nt, kind);
+  const K2Kernel k = kernel_for(form, nt, kind, fact);
   if (!k || batch <= 0 || n_samples <= 0 || (!free_ && (!preload || !mode)) || cluster < 1 ||
       cluster > (form == FORM_F32 ? 16 : 8) || na <= 0 || nb <= 0 ||
       (form == FORM_F32 && res_b) ||
@@ -1432,7 +1648,7 @@ extern "C" int lpcnet_masked_loop(
     return (int)cudaErrorInvalidValue;
   K2Args a = {};
   a.batch = batch; a.na = na; a.nb = nb; a.n_samples = n_samples; a.sampled = sampled;
-  a.cluster = cluster; a.res_a = res_a; a.res_b = res_b; a.fact = fact; a.res_f = res_f;
+  a.cluster = cluster; a.res_a = res_a; a.res_b = res_b; a.res_f = res_f;
   a.emb = emb; a.emb_scale = (const float*)emb_scale;
   a.a_w = a_w; a.a_diag = (const float*)a_diag; a.a_bias1 = (const float*)a_bias1;
   a.b_w = b_w; a.b_in = (const float*)b_in; a.b_rec = (const float*)b_rec;
@@ -1462,7 +1678,7 @@ extern "C" int lpcnet_teacher_force(
     const void* b_rec, const void* b_bias1, const void* f_w, const void* cond_a, const void* cond_b,
     const void* counts, const void* codes, const void* ha_in, const void* hb_in,
     const void* rng_in, void* ha_out, void* hb_out, void* rng_out, void* stream) {
-  const K2Kernel k = kernel_for(form, nt, KIND_TF);
+  const K2Kernel k = kernel_for(form, nt, KIND_TF, fact);
   if (!k || batch <= 0 || n_blocks <= 0 || blk_samples <= 0 || cluster < 1 ||
       cluster > (form == FORM_F32 ? 16 : 8) || na <= 0 || nb <= 0 ||
       (form == FORM_F32 && res_b) ||
@@ -1473,7 +1689,7 @@ extern "C" int lpcnet_teacher_force(
     return (int)cudaErrorInvalidValue;
   K2Args a = {};
   a.batch = batch; a.na = na; a.nb = nb; a.cluster = cluster; a.res_a = res_a; a.res_b = res_b;
-  a.fact = fact; a.res_f = res_f; a.f_w = f_w;
+  a.res_f = res_f; a.f_w = f_w;
   a.n_blocks = n_blocks; a.blk = blk_samples;
   a.counts = (const int*)counts; a.codes = (const uint8_t*)codes;
   a.emb = emb; a.emb_scale = (const float*)emb_scale;

@@ -34,11 +34,12 @@ its tail streams (`masked_smem_bytes`).
   bundle by `sample_loop.masked_kernel_weights`; `pack_embf` the factored
   q8 embedding's input kernel, each rank's 3U columns as `pack_gru_a`'s.
 
-The factored q8 embedding (`fact`) adds three regions to a block: its rank's
-[384, 3U] slice of GRU-A's input kernel (resident where it fits, `res_f`),
-the gathered rows g [S, 384] of its streams as the product's operand, and
-that product's int32 sums [S, 3U]. The tiers of `_layout` then drop GRU-B's
-weights first, the input kernel's slice next, GRU-A's slice last.
+The factored q8 embedding (`fact`) adds to a block its rank's [384, 3U]
+slice of GRU-A's input kernel (resident where it fits, `res_f`) and the
+gathered rows g [S, 384] of its streams as the product's operand, which the
+kernel fuses with the gate phase at S >= 32; at S <= 16 the product's int32
+sums [S, 3U]. The tiers of `_layout` then drop GRU-B's weights first, the
+input kernel's slice next, GRU-A's slice last.
 """
 
 from __future__ import annotations
@@ -105,7 +106,9 @@ def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
     form), no node logits, codes or threshold table, and the counts of the
     S streams for each block with each block's largest.
     `fact` adds the factored q8 embedding's regions, `res_f` its input
-    kernel's slice in shared memory."""
+    kernel's slice in shared memory: the slice, the rows g [S, 400] and, at
+    S <= 16, where the gate phase reads g's product from shared memory, its
+    sums [S, 3U + 4] int32."""
     s = 8 * nt
     tf = tf_blocks > 0
     k1_f32 = free and not tf and form == FORMS["f32"]
@@ -141,7 +144,7 @@ def masked_smem_bytes(form: int, na: int, nb: int, nt: int,
         regions += [
             3 * u * FACT_K if res_f else 0,              # input kernel's slice
             s * (FACT_K + 16),                           # gathered rows g
-            s * ldz * 4,                                 # g's products
+            s * ldz * 4 if s <= 16 else 0,               # g's products (S <= 16)
         ]
     return sum(_up(r, 16) for r in regions)
 

@@ -372,9 +372,11 @@ def test_pack_embf_fragments_read_back(na):
 def test_factored_layouts_at_na384(kind):
     """At Na=384 every launch of the factored form keeps GRU-A's slice and
     the input kernel's slice in shared memory; the factored regions (the
-    slice 3U x 384 bytes, the rows g S x 400, their sums S x ldz x 4) are
-    what the layout adds to the composed one; K1 at 1024 streams keeps its
-    S = 40 in two waves, GRU-B then read from L2."""
+    slice 3U x 384 bytes, the rows g S x 400 and, at S <= 16, the
+    product's sums S x ldz x 4) are what the layout adds to the composed
+    one; K1 at 1024 streams keeps its S = 40 in two waves with GRU-B's
+    weights resident too (the product's sums live in the gate phase's
+    registers)."""
     c, u = ML.cluster_shape(384, ML.FORMS["q8"])
     for b in (64, 128, 256, 1024):
         if kind == "free":
@@ -395,10 +397,11 @@ def test_factored_layouts_at_na384(kind):
         s = cfg["streams"]
         base = ML.masked_smem_bytes(2, 384, 16, cfg["nt"], cfg["res_a"], cfg["res_b"],
                                     **extra)
-        added = 3 * u * 384 + s * 400 + s * (3 * u + 4) * 4
+        added = 3 * u * 384 + s * 400 + (s * (3 * u + 4) * 4 if s <= 16 else 0)
         assert cfg["smem"] == base + added
         if kind == "free" and b == 1024:
-            assert s == 40 and cfg["waves"] == 2 and not cfg["res_b"]
+            assert s == 40 and cfg["waves"] == 2 and cfg["res_b"]
+            assert cfg["smem"] == 223280
     with pytest.raises(ValueError):
         ML.free_launch_config(64, 384, 16, 1, _stub(15), fact=True)
 

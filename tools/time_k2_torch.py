@@ -6,7 +6,9 @@ can be compared within one run:
 
 It builds that checkout's kernels, then times one K2 launch (CUDA events,
 20 launches after 2 of warm-up) on the demo vocoder's f32, bf16 and q8
-bundles at the training path's shape (128 streams, one 160-sample frame,
+bundles, and the int8-loaded vocoder's q8 bundles in the factored
+embedding (`sample_loop.set_emb("factored")`) and the composed one, at the
+training path's shape (128 streams, one 160-sample frame,
 every stream advancing, three quarters of the samples teacher-forced in
 runs of 16), at a PLC half-frame (64 streams, 80 samples) and at 256
 streams, and prints one JSON line {"label", "card", "ms": {...}}. Run the
@@ -51,6 +53,15 @@ def main(argv=None):
     bundles = {"bf16": pack(K.kernel_weights(fused, cfg)),
                "q8": pack(K.kernel_weights(quantize_fused(fused), cfg)),
                "f32": pack(K.kernel_weights(fused, cfg, dtype=torch.float32))}
+    # the factored q8 embedding on the int8-loaded vocoder, and that model's
+    # composed q8 bundle
+    fq, _ = api.load_model(api.DEMO_MODEL_PATH, int8=True, device=dev)
+    prev = K.set_emb("factored")
+    try:
+        bundles["q8 factored"] = pack(K.kernel_weights(fq, cfg))
+    finally:
+        K.set_emb(prev)
+    bundles["q8 composed, int8 model"] = pack(K.kernel_weights(fq, cfg))
     ms = {}
     for b, n in ((128, 160), (64, 80), (256, 160)):
         rs = np.random.RandomState(1)

@@ -7,7 +7,10 @@ two versions can be compared within one run:
 It builds that checkout's kernels, then times, with CUDA events after two
 warm-up calls: K3 (`sample_loop.teacher_force_blocks_kernel`, 10 calls) on
 the demo vocoder's f32, bf16 and q8 bundles (with K2's packs where the
-checkout has them) at the PLC path's compacted drain, 64 streams over 3
+checkout has them), and the int8-loaded vocoder's q8 bundles in the
+factored embedding (`sample_loop.set_emb("factored")`) and the composed one
+(these two also at 256 streams over one block of 160), at the PLC path's
+compacted drain, 64 streams over 3
 conditioning blocks of 160 steps, one stream in each 8 draining all 480
 steps, the others 400, 240, 80 or none, from seeded frame-network
 conditioning and targets; and K4 (`plc_chain.plc_chain_kernel`, 20 calls) on
@@ -62,9 +65,9 @@ PROBES = [
     ("        __syncthreads();\n        send_slice(nxt);\n        // the cluster barrier:",
      "        TR(2) __syncthreads(); TR(3)\n        send_slice(nxt);\n        TR(4)\n"
      "        // the cluster barrier:"),
-    ("        if (fact) gather_g(tf_code(k, t), tf_live(k, t));\n"
+    ("        load_codes(k1, t1);\n"
      "        asm volatile(\"barrier.cluster.wait.acquire.aligned;\\n\" ::: \"memory\");\n",
-     "        if (fact) gather_g(tf_code(k, t), tf_live(k, t));\n        TR(5)\n"
+     "        load_codes(k1, t1);\n        TR(5)\n"
      "        asm volatile(\"barrier.cluster.wait.acquire.aligned;\\n\" ::: \"memory\");\n"
      "        TR(6)\n"),
 ]
@@ -127,7 +130,7 @@ def drain_case(fused, cfg, dev, b=64, n=160, nblk=3, seed=53):
     s0 = M.init_sample_state(b, cfg, dev)._replace(last_sig=r(b, 16) * 500,
                                                    deemph=r(b) * 200)
     rows = np.array([[n, n, n], [n, n, n // 2], [n, n // 2, 0], [n // 2, 0, 0],
-                     [0, 0, 0], [0, 0, 0], [0, 0, 0], [0, 0, 0]], np.int32)
+                     [0, 0, 0], [0, 0, 0], [0, 0, 0], [0, 0, 0]], np.int32)[:, :nblk]
     counts = torch.from_numpy(rows[np.arange(b) % 8]).to(dev)
     stack = lambda xs: torch.stack(xs[-nblk:], dim=1).contiguous()
     return s0, stack(cas), stack(cbs), stack(lpcs), r(b, nblk * n) * 900, counts
@@ -166,11 +169,25 @@ def main(argv=None):
     bundles = {"f32": K.kernel_weights(fused, cfg, dtype=torch.float32),
                "bf16": K.kernel_weights(fused, cfg),
                "q8": K.kernel_weights(quantize_fused(fused), cfg)}
+    # the factored q8 embedding on the int8-loaded vocoder, and that model's
+    # composed q8 bundle; these two also at 256 streams, one block of 160
+    fq, _ = api.load_model(api.DEMO_MODEL_PATH, int8=True, device=dev)
+    prev = K.set_emb("factored")
+    try:
+        bundles["q8 factored"] = K.kernel_weights(fq, cfg)
+    finally:
+        K.set_emb(prev)
+    bundles["q8 composed, int8 model"] = K.kernel_weights(fq, cfg)
+    wide = drain_case(fused, cfg, dev, b=256, nblk=1)
     for form, kw in bundles.items():
         kw = pack(kw)
         call = lambda: K.teacher_force_blocks_kernel(kw, s0, ca, cb, lpc, tg, counts, 160)
         ms[f"k3[{form}] B=64 3x160 call"] = _time(call, 10, torch)
         ms[f"k3[{form}] B=64 3x160 kernel"] = _kernel_ms(call, k3_names)
+        if "int8" in form or "factored" in form:
+            call = lambda: K.teacher_force_blocks_kernel(kw, *wide, 160)
+            ms[f"k3[{form}] B=256 1x160 call"] = _time(call, 10, torch)
+            ms[f"k3[{form}] B=256 1x160 kernel"] = _kernel_ms(call, k3_names)
 
     plc_params = api.load_plc_model(api.DEMO_PLC_MODEL_PATH, device=dev)
     cw = PC.plc_chain_weights(plc_params)

@@ -14,8 +14,10 @@ launches) at B=1024, n=160 on the demo vocoder's bf16, q8 and f32 bundles
 (as the decoder builds them), and at B=4 on the f32 bundle (the held-out
 validator's shape, 20 launches), and one K6 launch
 (`sample_loop.synthesize_frame_merged_kernel`, 10 launches) on the bf16
-and f32 bundles' merged operands, from a fresh state on seeded
-conditioning. It prints one JSON line {"label", "card", "ms": {...}}. Run
+and f32 bundles' merged operands, and K1 on the int8-loaded vocoder's q8
+bundles in the factored embedding (`sample_loop.set_emb("factored")`) and
+the composed one, from a fresh state on seeded conditioning. It prints
+one JSON line {"label", "card", "ms": {...}}. Run
 the parent and the change alternately (parent, change, change, parent) in
 one call; every process reads the same seeded inputs.
 """
@@ -108,6 +110,19 @@ def main(argv=None):
             mw = K.merged_kernel_weights(kw)
             ms[f"k6[{form}] B=1024 n=160"] = _time(
                 lambda: K.synthesize_frame_merged_kernel(mw, s0, ca, cb, lpc), 10, torch)
+    # the factored q8 embedding (LPCNET_EMB=factored) on the int8-loaded
+    # vocoder, beside that model's composed q8 bundle, same inputs
+    fq, _ = api.load_model(api.DEMO_MODEL_PATH, int8=True, device=dev)
+    prev = K.set_emb("factored")
+    try:
+        kwf = pack(K.kernel_weights(fq, cfg))
+    finally:
+        K.set_emb(prev)
+    kwc = pack(K.kernel_weights(fq, cfg))
+    for form, kw in (("q8 factored", kwf), ("q8 composed, int8 model", kwc)):
+        ms[f"k1[{form}] B=1024 n=160"] = _time(
+            lambda: K.synthesize_frame_kernel(kw, s0, ca, cb, lpc), 10, torch)
+    kw = pack(K.kernel_weights(fused, cfg, dtype=torch.float32))
     ca4, cb4, lpc4, s4 = inputs(4)
     ms["k1[f32] B=4 n=160"] = _time(
         lambda: K.synthesize_frame_kernel(kw, s4, ca4, cb4, lpc4), 20, torch)
