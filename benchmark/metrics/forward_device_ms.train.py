@@ -1,0 +1,11 @@
+"""forward_device_ms.train: device ms a training step spends in the
+training graph's forward and its loss (`loss_fn`): the time between the
+`lpcnet.train.forward` span's two events on the trainer's stream, mean a
+step over the traced stretch."""
+
+from benchmark.yardstick.spans import span_means
+
+
+def read(ctx):
+    m = span_means(ctx)
+    return None if m is None else m.device_ms.get("lpcnet.train.forward")

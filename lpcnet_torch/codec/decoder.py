@@ -15,6 +15,7 @@ from ..dsp.constants import MULTI_MASK, NB_BANDS, NB_TOTAL_FEATURES
 from ..kernels import sample_loop as K
 from ..models import lpcnet as M
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..weights.convert import tree_to
 from . import packet as P
 from . import quantize as Q
@@ -83,27 +84,31 @@ def _synthesize_one_frame(fused, cfg, fstate, sstate, feats, preload=None,
     teacher-forced and the sampler off. Without `kernel_weights` the plain
     model runs, which a CUDA tensor refuses.
     """
-    fstate, _, ca, cb, lpc = M.frame_network(fused, fstate, feats, cfg)
+    with span("lpcnet.model.frame_network"):
+        fstate, _, ca, cb, lpc = M.frame_network(fused, fstate, feats, cfg)
     if kernel_weights is None and ca.is_cuda:
         raise ValueError("on CUDA the sample loop runs only as the kernel")
-    if kernel_weights is not None and preload is not None:
-        if preload.shape[-1] != cfg.frame_size:
-            raise ValueError(f"preload must hold {cfg.frame_size} samples, "
-                             f"got {preload.shape[-1]}")
-        on = torch.ones(preload.shape, dtype=torch.bool, device=ca.device)
-        new_sstate, pcm = K.synthesize_frame_masked_kernel(
-            kernel_weights, sstate, ca.contiguous(), cb.contiguous(),
-            lpc.contiguous(), preload, on, on, cfg.frame_size, sampled=False)
-    elif kernel_weights is not None:
-        new_sstate, pcm = K.synthesize_frame_auto(
-            kernel_weights, sstate, ca.contiguous(), cb.contiguous(),
-            lpc.contiguous(), cfg.frame_size, merged=merged_weights)
-    else:
-        new_sstate, pcm = M.synthesize_frame(fused, sstate, ca, cb, lpc,
-                                             preload=preload)
-    live = fstate.frame_count > cfg.lookahead            # [B] bool
-    sstate = _select(live, new_sstate, sstate)
-    return fstate, sstate, torch.where(live[:, None], pcm, 0.0)
+    with span("lpcnet.kernels.sample_loop"):
+        if kernel_weights is not None and preload is not None:
+            if preload.shape[-1] != cfg.frame_size:
+                raise ValueError(f"preload must hold {cfg.frame_size} samples, "
+                                 f"got {preload.shape[-1]}")
+            on = torch.ones(preload.shape, dtype=torch.bool, device=ca.device)
+            new_sstate, pcm = K.synthesize_frame_masked_kernel(
+                kernel_weights, sstate, ca.contiguous(), cb.contiguous(),
+                lpc.contiguous(), preload, on, on, cfg.frame_size, sampled=False)
+        elif kernel_weights is not None:
+            new_sstate, pcm = K.synthesize_frame_auto(
+                kernel_weights, sstate, ca.contiguous(), cb.contiguous(),
+                lpc.contiguous(), cfg.frame_size, merged=merged_weights)
+        else:
+            new_sstate, pcm = M.synthesize_frame(fused, sstate, ca, cb, lpc,
+                                                 preload=preload)
+    with span("lpcnet.codec.warmup_mask"):
+        live = fstate.frame_count > cfg.lookahead        # [B] bool
+        sstate = _select(live, new_sstate, sstate)
+        pcm = torch.where(live[:, None], pcm, 0.0)
+    return fstate, sstate, pcm
 
 
 class LPCNetDecoder:
@@ -179,7 +184,8 @@ class LPCNetDecoder:
                                       device=self.device)
         with torch.no_grad():
             pcm = self._frame(feats, preload)
-        return pcm.cpu().numpy().astype(np.int16)
+        with span("lpcnet.codec.readback"):
+            return pcm.cpu().numpy().astype(np.int16)
 
     def decode(self, packets: np.ndarray) -> np.ndarray:
         """packets [B, 8] uint8 -> pcm [B, 640] int16: each packet's four
@@ -187,11 +193,15 @@ class LPCNetDecoder:
         sample loop."""
         if self.cbs is None:
             raise ValueError("packet decoding needs with_codebooks=True")
-        fields = {k: torch.as_tensor(v, device=self.device)
-                  for k, v in P.unpack_fields(packets).items()}
-        with torch.no_grad():
-            feats, self.vq_mem = decode_packet_features(fields, self.vq_mem,
-                                                        self.cbs)
-            pcm = torch.cat([self._frame(feats[:, k]) for k in range(4)],
-                            dim=-1)
-        return pcm.cpu().numpy().astype(np.int16)
+        with span("lpcnet.codec.decode"):
+            with span("lpcnet.codec.unpack"):
+                fields = {k: torch.as_tensor(v, device=self.device)
+                          for k, v in P.unpack_fields(packets).items()}
+            with torch.no_grad():
+                with span("lpcnet.codec.features"):
+                    feats, self.vq_mem = decode_packet_features(
+                        fields, self.vq_mem, self.cbs)
+                pcm = torch.cat([self._frame(feats[:, k]) for k in range(4)],
+                                dim=-1)
+            with span("lpcnet.codec.readback"):
+                return pcm.cpu().numpy().astype(np.int16)

@@ -18,6 +18,7 @@ from ..codec.decoder import LPCNetDecoder
 from ..dsp.constants import LPCNET_COMPRESSED_SIZE, NB_TOTAL_FEATURES
 from ..models import lpcnet as M
 from ..plc.batched import BatchedPLC, tree_map
+from ..utils.profiling import span
 
 
 class StreamPool:
@@ -77,21 +78,23 @@ class StreamPool:
         """One 10 ms tick: {stream_id: [>=20] features} -> {stream_id: [160]
         int16}. An attached stream without a frame this tick repeats its
         last one (concealment belongs to `PLCStreamPool`)."""
-        for sid, feat in features.items():
-            slot = self.attach(sid)
-            self._feat_buf[slot, :len(feat)] = feat
-        pcm = self.dec.synthesize(self._feat_buf)
-        return {sid: pcm[slot] for sid, slot in self.slot_of.items()}
+        with span("lpcnet.serving.step_features"):
+            for sid, feat in features.items():
+                slot = self.attach(sid)
+                self._feat_buf[slot, :len(feat)] = feat
+            pcm = self.dec.synthesize(self._feat_buf)
+            return {sid: pcm[slot] for sid, slot in self.slot_of.items()}
 
     def step_packets(self, packets: Dict[str, np.ndarray]
                      ) -> Dict[str, np.ndarray]:
         """One 40 ms tick: {stream_id: [8] uint8} -> {stream_id: [640]
         int16}. An attached stream without a packet decodes zero bytes."""
-        buf = np.zeros((self.capacity, LPCNET_COMPRESSED_SIZE), np.uint8)
-        for sid, pkt in packets.items():
-            buf[self.attach(sid)] = pkt
-        pcm = self.dec.decode(buf)
-        return {sid: pcm[slot] for sid, slot in self.slot_of.items()}
+        with span("lpcnet.serving.step_packets"):
+            buf = np.zeros((self.capacity, LPCNET_COMPRESSED_SIZE), np.uint8)
+            for sid, pkt in packets.items():
+                buf[self.attach(sid)] = pkt
+            pcm = self.dec.decode(buf)
+            return {sid: pcm[slot] for sid, slot in self.slot_of.items()}
 
     @property
     def n_active(self) -> int:

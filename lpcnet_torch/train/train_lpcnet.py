@@ -40,6 +40,7 @@ from ..models import lpcnet as M
 from ..parallel.mesh import (all_reduce_mean, rank_slice, replicated,
                              shard_batch)
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.rng import ShardDraws, draw, fold_seed
 from ..weights.convert import array_to_torch
 from . import losses as LL
@@ -344,15 +345,25 @@ class Trainer:
 
     def _update(self, batch, rng) -> Dict[str, torch.Tensor]:
         """The update of one batch on the device (this rank's share)."""
-        if self._gru_states is None:
-            self._gru_states = self._zero_states(batch["sig_in"].shape[0])
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, (metrics, new_states) = loss_fn(
-            self.params, self.cfg, self.tc, batch,
-            _shared_rng(rng, self.mesh), self._gru_states, self.gru_impl)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        _mean_over_ranks(self.mesh, self.params, metrics)
+        with span("lpcnet.train.step"):
+            if self._gru_states is None:
+                self._gru_states = self._zero_states(batch["sig_in"].shape[0])
+            self.optimizer.zero_grad(set_to_none=True)
+            with span("lpcnet.train.forward", device=self.device):
+                loss, (metrics, new_states) = loss_fn(
+                    self.params, self.cfg, self.tc, batch,
+                    _shared_rng(rng, self.mesh), self._gru_states, self.gru_impl)
+            with span("lpcnet.train.backward", device=self.device):
+                loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            _mean_over_ranks(self.mesh, self.params, metrics)
+            with span("lpcnet.train.update", device=self.device):
+                self._apply_update(new_states)
+        return metrics
+
+    def _apply_update(self, new_states) -> None:
+        """The optimizer's step and learning rate, the constraints, the
+        sparsity schedules, the EMA, and the GRU states carried detached."""
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
@@ -370,7 +381,6 @@ class Trainer:
                 for e, p in zip(_leaves(self._ema), _leaves(self.params)):
                     e.mul_(d).add_(p, alpha=1.0 - d)
         self._gru_states = tuple(h.detach() for h in new_states)
-        return metrics
 
     def eval_loss(self, batches, params=None) -> Dict[str, float]:
         """Mean teacher-forced loss over held-out batches (e.g.

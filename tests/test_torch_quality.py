@@ -114,10 +114,3 @@ def test_metrics_logger_records_match_jax(tmp_path):
         w.pop("ts")
         assert g == w
 
-
-def test_time_fn_and_memory_stats():
-    calls = []
-    r = PF.time_fn(lambda: calls.append(1), warmup=2, iters=5)
-    assert len(calls) == 7 and r["iters"] == 5 and r["min_s"] <= r["median_s"]
-    if not torch.cuda.is_available():
-        assert PF.device_memory_stats() is None
