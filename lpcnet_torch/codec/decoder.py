@@ -67,7 +67,8 @@ def _select(mask, new, old):
 
 
 def _synthesize_one_frame(fused, cfg, fstate, sstate, feats, preload=None,
-                          kernel_weights=None, merged_weights=None):
+                          kernel_weights=None, merged_weights=None,
+                          frame_net=M.frame_network):
     """Frame net + sample loop with the reference's warmup semantics.
 
     Until the conv pipeline is primed (frame_count <= lookahead after the
@@ -82,10 +83,12 @@ def _synthesize_one_frame(fused, cfg, fstate, sstate, feats, preload=None,
     bundle is float, and K1 otherwise; or, with `preload` [B, 160], a whole
     teacher-forced frame, the masked kernel (K2) with every step
     teacher-forced and the sampler off. Without `kernel_weights` the plain
-    model runs, which a CUDA tensor refuses.
+    model runs, which a CUDA tensor refuses. `frame_net` is
+    `M.frame_network` or a callable of its form (the decoder's
+    `M.FrameNetworkGraph`).
     """
     with span("lpcnet.model.frame_network"):
-        fstate, _, ca, cb, lpc = M.frame_network(fused, fstate, feats, cfg)
+        fstate, _, ca, cb, lpc = frame_net(fused, fstate, feats, cfg)
     if kernel_weights is None and ca.is_cuda:
         raise ValueError("on CUDA the sample loop runs only as the kernel")
     with span("lpcnet.kernels.sample_loop"):
@@ -113,7 +116,24 @@ def _synthesize_one_frame(fused, cfg, fstate, sstate, feats, preload=None,
 
 class LPCNetDecoder:
     """Stateful batched decoder, cf. LPCNetDecState: feature frames
-    (`synthesize`) or packets (`decode`, with codebooks) in, PCM out."""
+    (`synthesize`) or packets (`decode`, with codebooks) in, PCM out.
+
+    Every frame's frame network runs through `frame_graph`
+    (`M.FrameNetworkGraph`): on the CPU the plain `M.frame_network`; on
+    CUDA one graph replay, captured at the first frame and again when the
+    activation implementation or the frame network's weight tensors
+    change (the graph is keyed on them). Its counters say how each CUDA
+    frame ran.
+
+    `frame_state` may be assigned from outside (a slot reset, a restored
+    snapshot): the next frame copies it into the graph's inputs and leaves
+    the assigned tensors as they were. Aliasing on CUDA: after a frame,
+    `frame_state` is the graph's own buffers, which the next frame writes
+    in place, so a reference to `frame_state` taken before a frame holds
+    the state after it, unless it was assigned from outside since the last
+    frame (then it keeps its values). Clone it to keep a state. On the CPU
+    every frame makes new tensors, and a reference keeps its values.
+    """
 
     @classmethod
     def from_fused(cls, fused, cfg: M.LPCNetConfig, batch: int = 1,
@@ -145,6 +165,7 @@ class LPCNetDecoder:
         self._kw = (K.masked_kernel_weights(K.kernel_weights(self.fused, cfg))
                     if use_kernel else None)
         self._kw_merged = None
+        self.frame_graph = M.FrameNetworkGraph()
         self.cbs = None
         if with_codebooks:
             self.cbs = load_codebooks(device=dev)
@@ -170,7 +191,8 @@ class LPCNetDecoder:
         self.frame_state, self.sample_state, pcm = _synthesize_one_frame(
             self.fused, self.cfg, self.frame_state, self.sample_state, feats,
             preload=preload, kernel_weights=self._kw,
-            merged_weights=None if preload is not None else self._merged())
+            merged_weights=None if preload is not None else self._merged(),
+            frame_net=self.frame_graph)
         return pcm
 
     def synthesize(self, features: np.ndarray, preload=None) -> np.ndarray:

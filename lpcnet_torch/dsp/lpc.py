@@ -67,11 +67,22 @@ def lpc_from_cepstrum(ceps: torch.Tensor) -> torch.Tensor:
     return lpc
 
 
+_WEIGHTS = {}
+
+
 def lpc_weighting(lpc: torch.Tensor, gamma: float) -> torch.Tensor:
-    """Bandwidth expansion: lpc[i] *= gamma^(i+1) (src/freq.c:299-308)."""
-    k = torch.arange(1, LPC_ORDER + 1, dtype=torch.float32, device=lpc.device)
-    return lpc * torch.pow(torch.tensor(gamma, dtype=torch.float32,
-                                        device=lpc.device), k)
+    """Bandwidth expansion: lpc[i] *= gamma^(i+1) (src/freq.c:299-308). The
+    factors gamma^(i+1) are computed on `lpc`'s device once a (gamma,
+    device) and kept, so a call uploads nothing and a CUDA graph may hold
+    it."""
+    key = (float(gamma), lpc.device)
+    w = _WEIGHTS.get(key)
+    if w is None:
+        k = torch.arange(1, LPC_ORDER + 1, dtype=torch.float32,
+                         device=lpc.device)
+        w = _WEIGHTS[key] = torch.pow(torch.tensor(gamma, dtype=torch.float32,
+                                                   device=lpc.device), k)
+    return lpc * w
 
 
 def rc2lpc(rc: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,19 @@ from .constants import (BAND_ENERGY_MATRIX, BAND_INTERP, COMPENSATION,
                         DCT_MATRIX, FULL_WINDOW, NB_BANDS, WINDOW_SIZE)
 
 
+_CONSTS = {}
+
+
 def _const(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=torch.float32, device=like.device)
+    """The constant array `a` as float32 on `like`'s device, made there
+    once and kept: no upload a call, so a CUDA graph may read it. The cache
+    holds `a` too, so its id stays unique."""
+    key = (id(a), like.device)
+    hit = _CONSTS.get(key)
+    if hit is None:
+        hit = _CONSTS[key] = (a, torch.as_tensor(a, dtype=torch.float32,
+                                                 device=like.device))
+    return hit[1]
 
 
 def forward_transform(x: torch.Tensor) -> torch.Tensor:

@@ -225,6 +225,103 @@ def frame_network(fused, state: FrameState, features: torch.Tensor,
     return new_state, cond, cond_a, cond_b, lpc
 
 
+_FRAME_NET_PARAMS = ("embed_pitch", "feature_conv1", "feature_conv2",
+                     "feature_dense1", "feature_dense2", "cond_to_a",
+                     "cond_to_b")
+
+
+class FrameNetworkGraph:
+    """`frame_network` as one CUDA graph, for a caller that runs it at one
+    batch every frame (`codec.decoder.LPCNetDecoder`): a call takes and
+    returns what `frame_network` does, and on CUDA it copies the features
+    (and a state that is not the graph's own) into the graph's inputs and
+    replays the graph, in place of ~670 launches from the host.
+
+    On CPU tensors a call is the plain `frame_network`. On CUDA the first
+    call captures: a few eager calls on a throwaway copy of the state, on a
+    side stream (cuBLAS handles, the cuFFT plan of `irfft`, the device
+    constants), then one captured call. A call captures again when what
+    the graph holds would differ from what an eager call reads now: the
+    config, the features' shape and dtype, the frame network's weight
+    tensors (by identity; writes into them reach the graph), the
+    activation implementation and its table (`nn.layers.activation_key`),
+    the TF32 flag. Inside a CUDA stream capture of the caller's a call runs
+    eagerly, so it is captured with the rest.
+
+    The graph reads and writes its own state buffers: a call returns them
+    as the new state, written in place, and the cond, cond_a, cond_b and
+    lpc it returns are the graph's outputs; all of them are valid until the
+    next call. The graph holds the weight tensors it read; the cuFFT plan
+    it replays lives in PyTorch's plan cache (cleared or overfull, the
+    graph would read a freed plan).
+
+    Counters (CUDA calls only): `captures`, `replays`, and `eager` (calls
+    run eagerly inside a caller's capture). Every CUDA call outside one
+    replays, the first included.
+    """
+
+    WARMUP = 3
+
+    def __init__(self):
+        self.captures = self.replays = self.eager = 0
+        self._key = None
+        self._held = None
+        self._graph = None
+
+    def __call__(self, fused, state: FrameState, features: torch.Tensor,
+                 cfg: LPCNetConfig):
+        if not features.is_cuda:
+            return frame_network(fused, state, features, cfg)
+        if torch.cuda.is_current_stream_capturing():
+            self.eager += 1
+            return frame_network(fused, state, features, cfg)
+        impl, table = nn.activation_key(features.device)
+        held = [t for k in _FRAME_NET_PARAMS for t in fused[k].values()]
+        held.append(table)
+        key = (cfg, features.shape, features.dtype, impl,
+               torch.backends.cuda.matmul.allow_tf32, tuple(map(id, held)))
+        if key != self._key:
+            self._capture(fused, state, features, cfg)
+            self._key, self._held = key, held
+        st_in, feats_in, out = self._graph[1:]
+        for buf, given in zip(st_in, state):
+            if given is not buf:
+                buf.copy_(given)
+        feats_in.copy_(features)
+        self._graph[0].replay()
+        self.replays += 1
+        return (st_in,) + out
+
+    @staticmethod
+    def _body(fused, state, features, cfg):
+        """frame_network with its new state written into `state`; lpc (a
+        view of the FIFO when lookahead > 0) copied out first."""
+        new, cond, ca, cb, lpc = frame_network(fused, state, features, cfg)
+        lpc = lpc.clone()
+        for buf, val in zip(state, new):
+            buf.copy_(val)
+        return cond, ca, cb, lpc
+
+    def _capture(self, fused, state, features, cfg):
+        self._graph = None                   # the old graph's pool goes
+        dev = features.device
+        dense = torch.contiguous_format
+        st_in = FrameState(*(t.clone(memory_format=dense) for t in state))
+        feats_in = features.clone(memory_format=dense)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.stream(side):
+            scratch = FrameState(*(t.clone() for t in st_in))
+            for _ in range(self.WARMUP):
+                self._body(fused, scratch, feats_in, cfg)
+            with torch.cuda.graph(graph, stream=side):
+                out = self._body(fused, st_in, feats_in, cfg)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._graph = (graph, st_in, feats_in, out)
+        self.captures += 1
+
+
 def frame_network_flush(fused, state: FrameState, ring: torch.Tensor,
                         count: torch.Tensor, cfg: LPCNetConfig):
     """`count[i]` consecutive frame_network steps of stream i over known

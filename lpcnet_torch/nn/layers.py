@@ -28,15 +28,23 @@ Params = Dict[str, Any]
 
 _ACT_IMPL = "exact"
 _TANSIG_TABLE = None
+_TANSIG_ON = {}         # device -> (the host table it copies, the copy)
 
 
 def _tansig_table(device) -> torch.Tensor:
+    """The table on `device`, copied there once for each host table (no
+    upload a call, so a CUDA graph may read it)."""
     # tansig_table.h holds tanh(.04*i) printed with 6 decimals
     global _TANSIG_TABLE
     if _TANSIG_TABLE is None:
         t = np.round(np.tanh(0.04 * np.arange(201, dtype=np.float64)), 6)
         _TANSIG_TABLE = torch.from_numpy(t.astype(np.float32))
-    return _TANSIG_TABLE.to(device)
+    device = torch.device(device)
+    host, table = _TANSIG_ON.get(device, (None, None))
+    if host is not _TANSIG_TABLE:
+        table = _TANSIG_TABLE.to(device)
+        _TANSIG_ON[device] = (_TANSIG_TABLE, table)
+    return table
 
 
 def set_cref_tansig_table(tab) -> None:
@@ -85,6 +93,14 @@ class activation_impl:
 
     def __exit__(self, *exc):
         set_activation_impl(self.prev)
+
+
+def activation_key(device) -> tuple:
+    """What an activation on `device` reads besides its input: the
+    implementation in force and, under "cref", the table there (the same
+    object while the table is unchanged). A CUDA graph of activations
+    stays valid while this does."""
+    return (_ACT_IMPL, _tansig_table(device) if _ACT_IMPL == "cref" else None)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,10 @@
 K6, the teacher-forced run K3, the PLC-net chain K4, the GRU training
 recurrence K5; K1, K2 and K3 also in the factored q8 embedding's form) vs
 their plain PyTorch versions, on a card, `cli synthesis --sampling pdf` on
-the card, the packet
-decode pool's launches, the non-causal PLC pool's and the host PLC's; and, without a card, that the trainer and the PLC
-entry points refuse to start rather than run on the host.
+the card, the packet decode pool's launches, its frame network's CUDA
+graph against the eager call (bit for bit), the non-causal PLC pool's and
+the host PLC's; and, without a card, that the trainer and the PLC entry
+points refuse to start rather than run on the host.
 
 Imports neither JAX nor the JAX package, so it runs on the GPU machine:
 
@@ -12,6 +13,8 @@ Imports neither JAX nor the JAX package, so it runs on the GPU machine:
 
 Without a card every test marked `cuda` skips.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from lpcnet_torch.kernels import plc_chain as PC
 from lpcnet_torch.kernels import sample_loop as K
 from lpcnet_torch.models import lpcnet as M
 from lpcnet_torch.models import plc as PM
+from lpcnet_torch.nn import layers as NL
 from lpcnet_torch.nn import quantized as Q
 from lpcnet_torch.plc.batched import BatchedPLC
 from lpcnet_torch.runtime.serving import PLCStreamPool, StreamPool
@@ -1000,3 +1004,142 @@ def test_cuda_cli_synthesis_pdf_runs_on_the_card(cuda, tmp_path):
     cli.main(["synthesis", str(fin), str(fout), "--sampling", "pdf"])
     out = np.fromfile(fout, np.int16)
     assert out.shape == (640,) and not out[:320].any() and out[320:].any()
+
+
+def _recording(net, log):
+    """`net` (a frame network callable) that also logs clones of each
+    call's new state, cond_a, cond_b and lpc."""
+    def call(fused, st, feats, cfg):
+        out = net(fused, st, feats, cfg)
+        log.append([t.clone() for t in (*out[0], *out[2:])])
+        return out
+    return call
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_frame_graph_decode_pool_equals_eager(cuda):
+    """The decode pool at 1024 streams with the q8 demo vocoder, its frame
+    network replayed as one CUDA graph, against the same pool running it
+    eagerly, over 8 ticks of packets with a slot reset (detach and attach)
+    before tick 3 and the frame state snapshotted before tick 2 and
+    restored before tick 5: every frame's cond_a, cond_b, lpc and frame
+    state, the PCM and the end state bit for bit; one capture, and every
+    CUDA frame a replay (the first included)."""
+    path = str(Path(api.DEMO_MODEL_PATH).parent / "demo_model_q.npz")
+    fused, cfg = api.load_model(path, int8=True, device=cuda)
+    b, ticks = 1024, 8
+    pkts = np.random.RandomState(7).randint(0, 256, (ticks, b, 8)
+                                            ).astype(np.uint8)
+    sids = [f"s{i}" for i in range(b)]
+    pools = {"graph": StreamPool(fused, cfg, capacity=b),
+             "eager": StreamPool(fused, cfg, capacity=b)}
+    graph = pools["graph"].dec.frame_graph
+    logs = {"graph": [], "eager": []}
+    pools["graph"].dec.frame_graph = _recording(graph, logs["graph"])
+    pools["eager"].dec.frame_graph = _recording(M.frame_network, logs["eager"])
+    snaps = {}
+    for t in range(ticks):
+        pcm = {}
+        for name, pool in pools.items():
+            dec = pool.dec
+            if t == 2:
+                snaps[name] = [x.clone() for x in dec.frame_state]
+            if t == 3:
+                pool.detach("s5")
+                pool.attach("s5")
+            if t == 5:
+                dec.frame_state = M.FrameState(*(x.clone()
+                                                 for x in snaps[name]))
+            out = pool.step_packets(dict(zip(sids, pkts[t])))
+            pcm[name] = np.stack([out[s] for s in sids])
+        assert np.array_equal(pcm["graph"], pcm["eager"]), t
+        for k, (g, e) in enumerate(zip(logs["graph"], logs["eager"])):
+            assert _same(g, e), (t, k)
+        assert len(logs["graph"]) == len(logs["eager"]) == 4
+        logs["graph"].clear()
+        logs["eager"].clear()
+    assert _same(pools["graph"].dec.frame_state, pools["eager"].dec.frame_state)
+    assert _same(pools["graph"].dec.sample_state[:5],
+                 pools["eager"].dec.sample_state[:5])
+    assert (graph.captures, graph.replays, graph.eager) == (1, 4 * ticks, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_frame_graph_follows_what_it_read(cuda):
+    """A `FrameNetworkGraph` on the card against `frame_network`, frame
+    after frame, bit for bit: a write into a weight tensor reaches the
+    graph without a capture; a weight tensor replaced, the "cref"
+    activations and the return to "exact" each capture anew; inside a
+    caller's CUDA graph capture a call runs eagerly (counted), and the
+    caller's graph replays to the same values."""
+    cfg = M.LPCNetConfig(**SMALL, lpc_gamma=0.9)
+    fused = M.fuse_inference_params(M.init_params(cfg, seed=1, device=cuda),
+                                    cfg)
+    b = 37
+    rs = np.random.RandomState(8)
+    g = M.FrameNetworkGraph()
+    st_e = st_g = M.init_frame_state(b, cfg, cuda)
+
+    def frame():
+        nonlocal st_e, st_g
+        f = torch.from_numpy((rs.normal(size=(b, 36)) * 0.3
+                              ).astype(np.float32)).to(cuda)
+        want = M.frame_network(fused, st_e, f, cfg)
+        got = g(fused, st_g, f, cfg)
+        assert _same(got[0], want[0]) and _same(got[1:], want[1:])
+        st_e, st_g = want[0], got[0]
+
+    frame()
+    frame()
+    assert (g.captures, g.replays) == (1, 2)
+    fused["feature_dense1"]["bias"].add_(0.01)
+    frame()
+    assert g.captures == 1
+    fused["feature_dense2"] = {k: v * 0.5
+                               for k, v in fused["feature_dense2"].items()}
+    frame()
+    assert g.captures == 2
+    with NL.activation_impl("cref"):
+        frame()
+        frame()
+        assert g.captures == 3
+    frame()
+    assert (g.captures, g.replays, g.eager) == (4, 7, 0)
+    f = torch.from_numpy((rs.normal(size=(b, 36)) * 0.3).astype(np.float32)
+                         ).to(cuda)
+    st = M.FrameState(*(x.clone() for x in st_e))
+    want = M.frame_network(fused, st, f, cfg)
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer):
+        got = g(fused, st, f, cfg)
+    outer.replay()
+    torch.cuda.synchronize()
+    assert _same(got[0], want[0]) and _same(got[1:], want[1:])
+    assert (g.captures, g.replays, g.eager) == (4, 7, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_decoder_preload_frames_replay_the_graph(cuda):
+    """Teacher-forced (`preload`) and free frames alternate through a
+    decoder on the card: the frame network replays the graph for both, and
+    the PCM and the frame state equal a twin decoder's that runs the frame
+    network eagerly."""
+    fused, cfg = api.load_model(None, seed=3, int8=True, device=cuda)
+    b = 5
+    dec = LPCNetDecoder.from_fused(fused, cfg, b, device=cuda)
+    twin = LPCNetDecoder.from_fused(fused, cfg, b, device=cuda)
+    twin.frame_graph = M.frame_network
+    rs = np.random.RandomState(9)
+    for k in range(6):
+        feats = (rs.normal(size=(b, 36)) * 0.3).astype(np.float32)
+        target = ((rs.normal(size=(b, 160)) * 2000).astype(np.float32)
+                  if k % 2 else None)
+        assert np.array_equal(dec.synthesize(feats, preload=target),
+                              twin.synthesize(feats, preload=target)), k
+        assert _same(dec.frame_state, twin.frame_state), k
+    g = dec.frame_graph
+    assert (g.captures, g.replays, g.eager) == (1, 6, 0)
