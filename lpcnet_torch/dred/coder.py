@@ -10,11 +10,15 @@ the oldest); the decoder gives 4 feature frames a latent, newest first.
 The stream state, the latents and the init states stay on the device: a
 dframe makes no host sync. `DREDEncoder.latents` / `.init_states` copy the
 window to the host as the JAX surface gives it (lists of [B, ...] arrays).
-Both drivers run on CUDA unless the caller passes `device="cpu"`.
+A payload of every stream is made with no Python loop over the streams:
+the symbols and the PVQ search on the device, one readback, one native
+call that frames every payload (`entropy.encode_payloads`). Both drivers
+run on CUDA unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import List, Optional
 
 import numpy as np
@@ -22,6 +26,7 @@ import torch
 
 from ..models import rdovae as RV
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..weights.convert import tree_to
 from . import entropy as EC
 
@@ -32,7 +37,10 @@ def _host(window) -> List[np.ndarray]:
 
 class DREDEncoder:
     """Streaming DRED encoder (cf. RDOVAEEncState, src/dred_rdovae_enc.h:35-40)
-    over `batch` streams."""
+    over `batch` streams. `stats` counts the payloads made (`payloads`,
+    one a stream), the latents coded, the payload bytes, the native
+    framing calls and the payloads coded a stream at a time in Python
+    (`python_payloads`: the path without the native library)."""
 
     def __init__(self, params, cfg: Optional[RV.RDOVAEConfig] = None,
                  batch: int = 1, max_latents: int = 100, device=None):
@@ -42,6 +50,8 @@ class DREDEncoder:
         self.batch = batch
         self.max_latents = max_latents
         self.fixed_stats = EC.stats_fixed_point(self.params, self.cfg)
+        self.stats = collections.Counter()
+        self._q_ids = {}
         self.reset()
 
     def reset(self):
@@ -71,47 +81,64 @@ class DREDEncoder:
             return
         pair = torch.cat([self._frame_buf, f], dim=-1)
         self._frame_buf = None
-        self.state, z, st = RV.encode_dframe(self.params, self.state, pair,
-                                             self.cfg)
+        with span("lpcnet.dred.encode", device=self.device):
+            self.state, z, st = RV.encode_dframe(self.params, self.state,
+                                                 pair, self.cfg)
         self.z_window.append(z)
         self.state_window.append(st)
         if len(self.z_window) > self.max_latents:
             self.z_window.pop(0)
             self.state_window.pop(0)
 
+    @torch.no_grad()
     def produce_payload(self, num_redundancy_frames: int = 52,
                         q0: int = 9, q1: int = 15):
-        """One redundancy payload from the newest latents.
+        """One redundancy payload a stream from the newest latents.
 
-        Returns a dict: zq [B, L, latent] int-valued symbols (newest last;
-        decoding reverses them), q_ids [L], state [B, state_dim] (the
-        PVQ-quantized unit-norm decoder init), bits [B] estimated payload
-        size, and payloads: B entropy-coded byte strings
-        (`entropy.encode_payload`'s framing). None while fewer than
+        Returns a dict: zq [B, L, latent] int16 symbols (newest last;
+        decoding reverses them), q_ids [L], pulses [B, state_dim] int16
+        (the PVQ search's), state [B, state_dim] (the PVQ-quantized
+        unit-norm decoder init), bits [B] estimated payload size, and
+        payloads: B entropy-coded byte strings (`entropy.encode_payload`'s
+        framing, an `entropy.Payloads`). None while fewer than
         num_redundancy_frames / 2 latents were encoded.
         """
         n_lat = num_redundancy_frames // 2
         if len(self.z_window) < n_lat:
             return None
-        z = torch.stack(self.z_window[-n_lat:], dim=1)            # [B, L, latent]
+        k = self.cfg.pvq_num_pulses
         # oldest latent (index 0) -> coarsest level q1, newest -> q0
         # (torch/rdovae/fec_encoder.py:125-127)
         q_ids = EC.payload_q_ids(n_lat, q0, q1)
-        zq, rates = quantize_latents(self.params, z,
-                                     torch.as_tensor(q_ids, device=self.device),
-                                     self.cfg)
-        bits = 8 * torch.ceil((rates.sum(-1) + 7 + RV.pvq_state_bits(self.cfg)) / 8)
-        zq = zq.cpu().numpy()
-        raw_state = self.state_window[-1].cpu().numpy()
-        k = self.cfg.pvq_num_pulses
-        pulses = np.stack([EC.pvq_search(s, k) for s in raw_state])
-        state = np.stack([EC.pvq_normalize(p) for p in pulses])
-        payloads = [EC.encode_payload(zq[b].astype(np.int32), pulses[b],
-                                      q0, q1, self.fixed_stats, k)
-                    for b in range(zq.shape[0])]
-        return {"zq": zq, "q_ids": q_ids, "state": state,
-                "bits": bits.cpu().numpy(), "payloads": payloads,
-                "pulses": pulses}
+        with span("lpcnet.dred.quantize", device=self.device):
+            key = (n_lat, q0, q1)
+            if key not in self._q_ids:
+                self._q_ids[key] = torch.as_tensor(q_ids, device=self.device)
+            z = torch.stack(self.z_window[-n_lat:], dim=1)        # [B, L, latent]
+            zq, rates = quantize_latents(self.params, z, self._q_ids[key],
+                                         self.cfg)
+            bits = 8 * torch.ceil((rates.sum(-1) + 7 + RV.pvq_state_bits(self.cfg))
+                                  / 8)
+        with span("lpcnet.dred.pvq"):
+            pulses = EC.pvq_search_batch(self.state_window[-1], k)
+        with span("lpcnet.dred.readback"):
+            # |symbol| <= MAX_MAG and |pulse| <= k: int16 holds both, and
+            # one copy brings them over
+            host = torch.cat([zq.reshape(zq.shape[0], -1), pulses.to(zq.dtype)],
+                             dim=1).to(torch.int16).cpu().numpy()
+            bits = bits.cpu().numpy()
+        zq = host[:, :-self.cfg.state_dim].reshape(z.shape)
+        pulses = host[:, -self.cfg.state_dim:]
+        with span("lpcnet.dred.entropy"):
+            payloads = EC.encode_payloads(zq, pulses, q0, q1, self.fixed_stats,
+                                          k, self.stats)
+        p = pulses.astype(np.float64)
+        state = (p / (np.sqrt((p * p).sum(-1, keepdims=True)) + 1e-15)
+                 ).astype(np.float32)          # pvq_normalize, row by row
+        self.stats.update(payloads=len(payloads), latents=n_lat * len(payloads),
+                          bytes=len(payloads.data))
+        return {"zq": zq, "q_ids": q_ids, "state": state, "bits": bits,
+                "payloads": payloads, "pulses": pulses}
 
 
 @torch.no_grad()

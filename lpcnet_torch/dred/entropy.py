@@ -23,12 +23,16 @@ computes the symbols and probabilities in batch, the host packs bits.
 `encode_payload` / `decode_payload` code the latents through the native
 runtime's range coder (`runtime.bindings`) where it loads and through the
 Python coder here otherwise; both give the same bytes, which are those of
-the JAX package's coder.
+the JAX package's coder. For a batch of streams, `pvq_search_batch` runs
+the PVQ search on the device and `encode_payloads` frames every stream's
+payload in one native call (`encode_payload` a stream without the
+library), again with the same bytes.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import collections.abc
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -203,6 +207,66 @@ def pvq_search(x: np.ndarray, k: int) -> np.ndarray:
     return (np.sign(x).astype(np.int64) * y).astype(np.int64)
 
 
+def _pairwise_sum(a: torch.Tensor) -> torch.Tensor:
+    """Row sums of a [B, n] float64 tensor in the order of numpy's
+    `add.reduce` over a contiguous row (pairwise: eight running sums, a
+    tree of them, then the remainder; halves above 128 elements), so
+    they equal numpy's bit for bit."""
+    n = a.shape[-1]
+    if n > 128:
+        half = n // 2
+        half -= half % 8
+        return _pairwise_sum(a[:, :half]) + _pairwise_sum(a[:, half:])
+    if n < 8:
+        res = a[:, 0]
+        for i in range(1, n):
+            res = res + a[:, i]
+        return res
+    r = a[:, :8]
+    for i in range(8, n - n % 8, 8):
+        r = r + a[:, i:i + 8]
+    res = (r[:, 0] + r[:, 1] + (r[:, 2] + r[:, 3])) + (
+        r[:, 4] + r[:, 5] + (r[:, 6] + r[:, 7]))
+    for i in range(n - n % 8, n):
+        res = res + a[:, i]
+    return res
+
+
+@torch.no_grad()
+def pvq_search_batch(x: torch.Tensor, k: int) -> torch.Tensor:
+    """`pvq_search` of every row of x [B, N] at once, on x's device: pulses
+    [B, N] int64, equal to `pvq_search`'s row by row. The same float64
+    operations in the same order (numpy's sums replayed by
+    `_pairwise_sum`), ties to the lowest index as `np.argmax` takes them.
+
+    The greedy pass runs a fixed number of rounds, each masked to the rows
+    with pulses left: the projection leaves fewer than N + 1 + k // 10000
+    to place (each floor loses less than one, the 0.9999 factor less than
+    k / 10000), and a row of zeros ends as zeros however many run."""
+    x = x.to(torch.float64)
+    n = x.shape[-1]
+    ax = x.abs()
+    l1 = _pairwise_sum(ax)[:, None]
+    pos = l1 > 0
+    y = torch.where(pos, torch.floor(k * ax / torch.where(pos, l1, 1.0)
+                                     * 0.9999), 0.0)
+    corr = _pairwise_sum(y * ax)
+    energy = (y * y).sum(-1)                # integers: exact in any order
+    left = k - y.sum(-1)
+    cols = torch.arange(n, device=x.device)
+    for it in range(min(k, n + 1 + k // 10000)):
+        c = corr[:, None] + ax
+        v = (c * c) / (energy[:, None] + 2.0 * y + 1.0)
+        best = torch.where(v == v.amax(-1, keepdim=True), cols, n).amin(
+            -1, keepdim=True)
+        live = left > it
+        corr = torch.where(live, corr + ax.gather(1, best)[:, 0], corr)
+        energy = torch.where(live, energy + (2.0 * y.gather(1, best)[:, 0]
+                                             + 1.0), energy)
+        y = y + ((cols == best) & live[:, None])
+    return (torch.sign(x) * y).to(torch.int64)
+
+
 def pvq_normalize(y: np.ndarray) -> np.ndarray:
     n = np.linalg.norm(y.astype(np.float64))
     return (y / (n + 1e-15)).astype(np.float32)
@@ -329,6 +393,60 @@ def encode_payload(zq: np.ndarray, state_pulses: np.ndarray, q0: int, q1: int,
         encode_latents(enc, zq, p0, r)
         coded = enc.finish()
     return header + sbytes + coded
+
+
+class Payloads(collections.abc.Sequence):
+    """B framed payloads held in one byte string: payload b is
+    `data[starts[b]:starts[b] + lengths[b]]`. Indexing a stream gives its
+    bytes; the sequence equals any sequence of the same byte strings."""
+
+    def __init__(self, data: bytes, lengths):
+        self.data = data
+        self.lengths = np.asarray(lengths, np.int64)
+        self.starts = np.cumsum(self.lengths) - self.lengths
+
+    @classmethod
+    def of(cls, payloads) -> "Payloads":
+        return cls(b"".join(payloads), [len(p) for p in payloads])
+
+    def __len__(self) -> int:
+        return len(self.lengths)
+
+    def __getitem__(self, i: int) -> bytes:
+        s = int(self.starts[i])
+        return self.data[s:s + int(self.lengths[i])]
+
+    def __eq__(self, other):
+        if not isinstance(other, collections.abc.Sequence):
+            return NotImplemented
+        return list(self) == list(other)
+
+    __hash__ = None
+
+
+def encode_payloads(zq: np.ndarray, pulses: np.ndarray, q0: int, q1: int,
+                    stats: dict, state_k: int,
+                    counts: Optional[collections.Counter] = None) -> Payloads:
+    """Every stream's framed payload (`encode_payload`'s framing): zq
+    [B, L, D] int symbols (oldest latent first), pulses [B, S]. One native
+    call frames them all; without the native library, `encode_payload`
+    codes a stream at a time. Both give the same bytes. `counts` gets the
+    native calls made (`native_calls`) or the payloads coded a stream at a
+    time (`python_payloads`)."""
+    from ..runtime.bindings import runtime
+    q_ids = payload_q_ids(zq.shape[1], q0, q1)
+    framed = runtime.dred_frame_payloads(
+        zq, pulses, q0, q1, stats["p0_q15"][q_ids], stats["r_q15"][q_ids],
+        state_k)
+    if framed is not None:
+        data, lengths, calls = framed
+        if counts is not None:
+            counts["native_calls"] += calls
+        return Payloads(data, lengths)
+    if counts is not None:
+        counts["python_payloads"] += len(zq)
+    return Payloads.of([encode_payload(z, p, q0, q1, stats, state_k)
+                        for z, p in zip(zq, pulses)])
 
 
 def decode_payload(payload: bytes, stats: dict, state_dim: int, state_k: int

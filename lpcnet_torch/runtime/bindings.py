@@ -81,6 +81,11 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.dred_decode_latents.argtypes = [
         ptr(ctypes.c_uint8), i64, ptr(ctypes.c_uint16), ptr(ctypes.c_uint16),
         i64, ptr(ctypes.c_int32)]
+    lib.dred_frame_payloads.argtypes = [
+        ptr(ctypes.c_int16), ptr(ctypes.c_int16), i64, i64, i64, i64, i64,
+        ptr(ctypes.c_uint16), ptr(ctypes.c_uint16), i64, i64,
+        ptr(ctypes.c_uint8), i64, ptr(i64)]
+    lib.dred_frame_payloads.restype = i64
     _lib = lib
     return lib
 
@@ -335,6 +340,48 @@ class _Runtime:
         if n < 0:
             return None
         return out[:n].tobytes()
+
+    def dred_frame_payloads(self, zq: np.ndarray, pulses: np.ndarray,
+                            q0: int, q1: int, p0_q15: np.ndarray,
+                            r_q15: np.ndarray, state_k: int):
+        """Frame B DRED payloads in one call (`dred/entropy.py::
+        encode_payload`'s framing): zq [B, L, D] symbols, pulses [B, S],
+        p0/r [L, D] Q15. Returns (the payloads back to back as bytes,
+        lengths [B], native calls made: a second only where the first
+        buffer was too small), or None -> the caller codes a stream at a
+        time."""
+        lib = self._lib()
+        if lib is None:
+            return None
+        zq = np.ascontiguousarray(zq, np.int16)
+        pulses = np.ascontiguousarray(pulses, np.int16)
+        b, n_lat, dim = zq.shape
+        p0 = np.ascontiguousarray(p0_q15, np.uint16).reshape(-1)
+        r = np.ascontiguousarray(r_q15, np.uint16).reshape(-1)
+        if (p0.size != n_lat * dim or r.size != n_lat * dim
+                or pulses.ndim != 2 or pulses.shape[0] != b):
+            raise ValueError("dred_frame_payloads: zq [B, L, D], pulses "
+                             "[B, S] and p0, r [L, D] disagree")
+        lengths = np.empty(b, np.int64)
+        room, calls = b * (64 + 2 * n_lat * dim), 0
+        while True:
+            out = np.empty(room, np.uint8)
+            n = lib.dred_frame_payloads(
+                _cp(zq, ctypes.c_int16), _cp(pulses, ctypes.c_int16), b,
+                n_lat, dim, pulses.shape[1], state_k, _cp(p0, ctypes.c_uint16),
+                _cp(r, ctypes.c_uint16), q0, q1, _cp(out, ctypes.c_uint8),
+                room, _cp(lengths, ctypes.c_int64))
+            calls += 1
+            if n != -1:
+                break
+            room *= 4
+        if n == -2:
+            raise ValueError(f"dred_frame_payloads: a stream's pulses do not "
+                             f"sum to {state_k}")
+        if n < 0:
+            raise ValueError("dred_frame_payloads: q0, q1 or the latent "
+                             "count out of the header's range")
+        return out[:n].tobytes(), lengths, calls
 
     def dred_decode_latents(self, data: bytes, p0_q15: np.ndarray,
                             r_q15: np.ndarray) -> Optional[np.ndarray]:

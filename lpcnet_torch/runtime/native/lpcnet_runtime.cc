@@ -9,7 +9,8 @@
 //     and the noisy-excitation teacher loop (cf. src/dump_data.c:46-56,84-108)
 //   * a multi-stream batching assembler for serving (gather per-stream
 //     frames into device-batch order and scatter results back)
-//   * DRED's latent range coder, byte-compatible with dred/entropy.py
+//   * DRED's latent range coder, byte-compatible with dred/entropy.py, and
+//     the framing of a whole batch of DRED payloads in one call
 //
 // Built by runtime/bindings.py with g++ -O3 -shared -fPIC into
 // lpcnet_torch/runtime/build/ at first use, loaded with ctypes. The same
@@ -19,6 +20,7 @@
 #include <cstdint>
 #include <cstring>
 #include <algorithm>
+#include <vector>
 
 extern "C" {
 
@@ -378,6 +380,94 @@ void dred_decode_latents(const uint8_t* data, int64_t len,
     while (mag < kDredMaxMag && rd_decode_bit(&rd, p_stop) == 1) mag++;
     out[i] = sign * mag;
   }
+}
+
+// ---------------------------------------------------------------------------
+// DRED payload framing, every stream of a batch in one call (mirror of
+// dred/entropy.py::encode_payload): a 3-byte header (version | q0, q1 |
+// n_latents), the PVQ state index big-endian in ceil(bits / 8) bytes, then
+// the range-coded latents. The index runs in 128-bit arithmetic: DRED's
+// 24-dim, 82-pulse codebook needs 96 bits.
+// ---------------------------------------------------------------------------
+
+typedef unsigned __int128 u128;
+
+// zq [B, L, D] symbols, pulses [B, S] with sum |.| == state_k, p0/r [L, D]
+// Q15 of the payload's levels. Payloads are written back to back into out
+// (cap bytes), their lengths into lengths [B]. Returns the bytes written;
+// -1: out of room; -2: a stream's pulses do not sum to state_k; -3: a
+// header field out of range or a codebook past 127 bits.
+int64_t dred_frame_payloads(const int16_t* zq, const int16_t* pulses,
+                            int64_t n_streams, int64_t n_latents,
+                            int64_t latent_dim, int64_t state_dim,
+                            int64_t state_k, const uint16_t* p0,
+                            const uint16_t* r, int64_t q0, int64_t q1,
+                            uint8_t* out, int64_t cap, int64_t* lengths) {
+  if (n_latents < 1 || n_latents >= 4096 || q0 < 0 || q0 > 15 || q1 < 0 ||
+      q1 > 15 || state_dim < 1 || state_k < 0)
+    return -3;
+  // V(n, k): the number of n-dim vectors of k pulses (models/rdovae.py's
+  // pvq_codebook_size), for n <= state_dim, k <= state_k
+  const int64_t kk = state_k + 1;
+  const u128 limit = (u128)1 << 127;
+  std::vector<u128> v((state_dim + 1) * kk);
+  for (int64_t n = 0; n <= state_dim; n++) {
+    for (int64_t k = 0; k <= state_k; k++) {
+      u128 s = k == 0 ? 1 : 0;
+      if (n > 0 && k > 0) {
+        s = v[(n - 1) * kk + k] + v[n * kk + k - 1];
+        if (s >= limit) return -3;
+        s += v[(n - 1) * kk + k - 1];
+        if (s >= limit) return -3;
+      }
+      v[n * kk + k] = s;
+    }
+  }
+  int sbits = 0;
+  for (u128 x = v[state_dim * kk + state_k] - 1; x; x >>= 1) sbits++;
+  const int64_t nsb = (std::max(sbits, 1) + 7) / 8;
+  const int64_t n_sym = n_latents * latent_dim;
+  std::vector<int32_t> row(n_sym);
+  int64_t pos = 0;
+  for (int64_t b = 0; b < n_streams; b++) {
+    const int16_t* y = pulses + b * state_dim;
+    int64_t total = 0;
+    for (int64_t j = 0; j < state_dim; j++) total += y[j] < 0 ? -y[j] : y[j];
+    if (total != state_k) {
+      lengths[b] = -2;
+      return -2;
+    }
+    // the enumerative index: per position, magnitude 0 first, then +1, -1,
+    // +2, -2, ... (dred/entropy.py::pvq_encode_index)
+    u128 idx = 0;
+    int64_t k = state_k;
+    for (int64_t j = 0; j < state_dim; j++) {
+      const int64_t a = y[j] < 0 ? -y[j] : y[j];
+      const u128* vr = &v[(state_dim - j - 1) * kk];
+      if (a != 0) {
+        idx += vr[k];
+        for (int64_t m = 1; m < a; m++) idx += 2 * vr[k - m];
+        if (y[j] < 0) idx += vr[k - a];
+      }
+      k -= a;
+    }
+    const int64_t head = 3 + nsb;
+    if (pos + head > cap) return -1;
+    uint8_t* o = out + pos;
+    o[0] = (uint8_t)((1 << 4) | q0);
+    o[1] = (uint8_t)((q1 << 4) | (n_latents >> 8));
+    o[2] = (uint8_t)(n_latents & 0xFF);
+    for (int64_t i = 0; i < nsb; i++)
+      o[3 + i] = (uint8_t)(idx >> (8 * (nsb - 1 - i)));
+    const int16_t* z = zq + b * n_sym;
+    for (int64_t i = 0; i < n_sym; i++) row[i] = z[i];
+    const int64_t len = dred_encode_latents(row.data(), p0, r, n_sym, o + head,
+                                            cap - pos - head);
+    if (len < 0) return -1;
+    lengths[b] = head + len;
+    pos += head + len;
+  }
+  return pos;
 }
 
 }  // extern "C"

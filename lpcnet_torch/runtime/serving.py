@@ -6,6 +6,10 @@ slots; every tick the pool gathers each stream's input (a feature frame, a
 packet, or a frame or its loss) into batch order, runs one step for all
 slots and hands the audio back per stream. Idle slots step too and their
 output is dropped; a slot's state is reset when a stream attaches.
+
+A `DREDEncoderPool` is the sender's side of DRED over a fixed set of
+streams: every 20 ms tick it takes each stream's PCM in slot order and
+hands back one redundancy payload a stream.
 """
 
 from __future__ import annotations
@@ -13,10 +17,14 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from ..codec.decoder import LPCNetDecoder
-from ..dsp.constants import LPCNET_COMPRESSED_SIZE, NB_TOTAL_FEATURES
+from ..codec.features import compute_single_frame_features, init_encoder_state
+from ..dred.coder import DREDEncoder
+from ..dsp.constants import FRAME_SIZE, LPCNET_COMPRESSED_SIZE, NB_TOTAL_FEATURES
 from ..models import lpcnet as M
+from ..models import rdovae as RV
 from ..plc.batched import BatchedPLC, tree_map
 from ..utils.profiling import span
 
@@ -198,3 +206,46 @@ class PLCStreamPool:
     @property
     def n_active(self) -> int:
         return len(self.slot_of)
+
+
+class DREDEncoderPool:
+    """DRED encoding for `streams` streams, attached for the pool's life
+    (slot k is row k). Each `step_pcm` is one 20 ms tick: two 10 ms frames
+    of each stream through the encoder-side analysis
+    (`compute_single_frame_features`, its state batched on the device),
+    their 20 features twice into `DREDEncoder.add_feature_frame`, then
+    `produce_payload`: one payload a stream over the newest
+    `num_redundancy_frames / 2` latents, quantised from q0 (newest) to q1
+    (oldest). `stats` is the encoder's counters. Runs on CUDA unless
+    `device="cpu"` is passed."""
+
+    def __init__(self, params, cfg: Optional[RV.RDOVAEConfig] = None,
+                 streams: int = 1024, num_redundancy_frames: int = 52,
+                 q0: int = 9, q1: int = 15, device=None):
+        self.streams = streams
+        self.num_redundancy_frames, self.q0, self.q1 = num_redundancy_frames, q0, q1
+        self.enc = DREDEncoder(params, cfg, batch=streams,
+                               max_latents=num_redundancy_frames // 2,
+                               device=device)
+        self.device = self.enc.device
+        self.features = init_encoder_state(streams, self.device)
+        self.stats = self.enc.stats
+
+    def step_pcm(self, pcm) -> Optional[dict]:
+        """pcm [streams, 320] int16 or float (slot order) -> the dict of
+        `DREDEncoder.produce_payload` (its `payloads` one a stream), or
+        None while the window holds fewer latents than a payload covers."""
+        with span("lpcnet.serving.step_pcm"):
+            x = torch.as_tensor(pcm).to(self.device).to(torch.float32)
+            if x.shape != (self.streams, 2 * FRAME_SIZE):
+                raise ValueError(f"step_pcm: pcm must be [{self.streams}, "
+                                 f"{2 * FRAME_SIZE}], got {tuple(x.shape)}")
+            with span("lpcnet.dred.features", device=self.device):
+                st, f0 = compute_single_frame_features(self.features,
+                                                       x[:, :FRAME_SIZE])
+                self.features, f1 = compute_single_frame_features(
+                    st, x[:, FRAME_SIZE:])
+            self.enc.add_feature_frame(f0)
+            self.enc.add_feature_frame(f1)
+            return self.enc.produce_payload(self.num_redundancy_frames,
+                                            self.q0, self.q1)

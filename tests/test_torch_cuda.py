@@ -1143,3 +1143,63 @@ def test_cuda_decoder_preload_frames_replay_the_graph(cuda):
         assert _same(dec.frame_state, twin.frame_state), k
     g = dec.frame_graph
     assert (g.captures, g.replays, g.eager) == (1, 6, 0)
+
+
+def _dred_speech(b, ticks, seed):
+    """[ticks, b, 320] int16: a harmonic voice a stream with noise."""
+    rs = np.random.RandomState(seed)
+    t = np.arange(ticks * 320) / 16000.0
+    f0 = rs.uniform(90, 220, (b, 1))
+    sig = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 6))
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * rs.uniform(2, 5, (b, 1)) * t)
+    pcm = np.round(4000 * env * sig + 60 * rs.randn(b, len(t)))
+    return pcm.astype(np.int16).reshape(b, ticks, 320).transpose(1, 0, 2).copy()
+
+
+@pytest.mark.cuda
+def test_cuda_pvq_search_batch_equals_pvq_search(cuda):
+    """The device PVQ search at 4096 rows (random scales, exact ties,
+    zeros) equals numpy's `pvq_search` row by row."""
+    from lpcnet_torch.dred import entropy as EC
+    rs = np.random.RandomState(21)
+    x = rs.randn(4096, 24) * np.exp(rs.uniform(-6, 3, (4096, 1)))
+    x[:64] = np.sign(rs.randn(64, 24))
+    x[64:72] = 0.0
+    got = EC.pvq_search_batch(torch.from_numpy(x).to(cuda), 82).cpu().numpy()
+    assert np.array_equal(got, np.stack([EC.pvq_search(r, 82) for r in x]))
+
+
+@pytest.mark.cuda
+def test_cuda_dred_pool_at_1024_streams(cuda):
+    """`DREDEncoderPool` on the card at 1024 streams with the demo RDO-VAE,
+    30 ticks of speech: a payload a stream from the 26th tick, one native
+    framing call and no payload coded in Python a tick; the pulses equal
+    `pvq_search` of the card's own initial states; 16 streams' payloads
+    equal `encode_payload`'s of the tick's symbols and decode back to them;
+    the first 8 streams' latents within 1e-4 of a CPU pool's."""
+    from lpcnet_torch.dred import entropy as EC
+    params, rcfg = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device=cuda)
+    cpu_params, _ = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device="cpu")
+    b, ticks = 1024, 30
+    audio = _dred_speech(b, ticks, seed=5)
+    pool = api.DREDEncoderPool(params, rcfg, streams=b, device=cuda)
+    host = api.DREDEncoderPool(cpu_params, rcfg, streams=8, device="cpu")
+    for t in range(ticks):
+        calls = pool.stats["native_calls"]
+        out = pool.step_pcm(audio[t])
+        host.step_pcm(audio[t, :8])
+        gap = float((pool.enc.z_window[-1][:8].cpu() - host.enc.z_window[-1]).abs().max())
+        assert gap <= 1e-4, (t, gap)
+        if t < 25:
+            assert out is None
+            continue
+        assert len(out["payloads"]) == b and pool.stats["native_calls"] == calls + 1
+        st = pool.enc.state_window[-1].double().cpu().numpy()
+        assert np.array_equal(out["pulses"], np.stack([EC.pvq_search(s, 82) for s in st]))
+    assert pool.stats["python_payloads"] == 0 and pool.stats["payloads"] == 5 * b
+    for i in range(0, b, b // 16):
+        want = EC.encode_payload(out["zq"][i].astype(np.int32), out["pulses"][i],
+                                 9, 15, pool.enc.fixed_stats, 82)
+        assert out["payloads"][i] == want
+        zq, pulses, _ = EC.decode_payload(want, pool.enc.fixed_stats, 24, 82)
+        assert np.array_equal(zq, out["zq"][i]) and np.array_equal(pulses, out["pulses"][i])
