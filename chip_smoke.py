@@ -115,10 +115,15 @@ Needs one CUDA card, nvcc and g++. Phases:
      the seeded signal, 200 frames; the served step (one encode_dframe and
      one decode_qframe a stream a 20 ms dframe) at 1024 streams for 100
      dframes, held against the same functions on the CPU for 8 streams,
-     timed and profiled; payloads of 16 streams entropy-coded and decoded
-     back exactly, through the native runtime's range coder (its bytes
-     equal to the Python coder's on the same latents, both timed);
-     decode_all at 1024 streams; PLCStreamPool at 256 streams
+     timed and profiled; payloads of 16 streams framed on the card (D1,
+     `kernels/dred_payload.py`) and decoded back exactly, their bytes equal
+     to the native runtime's range coder's and the Python coder's (both
+     timed); D1 on the served 1024-stream encoder's produce_payload: one
+     launch, no relaunch, one device framing and no native call, its bytes
+     equal to the native call's on the same symbols, then D1 timed (CUDA
+     events, at 1024, 32 and 1 streams) against its bound and the native
+     call, and the encoder's whole framing on the card (host clock), on the
+     kernels line; decode_all at 1024 streams; PLCStreamPool at 256 streams
      for 100 frames, 64 of its streams fed their DRED-decoded redundancy
      through fec_add (K2 twice and K3 once a frame asserted); `cli
      fec-encode` of the C fixture's speech through the host PLC (K2 at one
@@ -210,7 +215,7 @@ from lpcnet_torch.train import train_lpcnet as T
 from lpcnet_torch.train.data import DeviceLPCNetLoader, LPCNetLoader
 
 SEED = 0
-KERNEL_SOURCES = ["sample_loop", "masked_loop", "gru_train", "plc_chain"]
+KERNEL_SOURCES = ["sample_loop", "masked_loop", "gru_train", "plc_chain", "dred_payload"]
 # H100 SXM data-sheet peaks (dense): bytes/s and operations/s by type
 HBM_BPS = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -235,6 +240,11 @@ DRED_FRAMES = 200
 DRED_CPU_STREAMS = 8
 DRED_PAYLOAD_STREAMS = 16
 DRED_PLC_STREAMS = 256
+# D1's bound: cycles of one dependent binary decision on the coder's state
+# (the 32x32-bit product, the shift, two clamps, the update and the
+# renormalisation test, ~4 cycles each) at an H100 SXM's top SM clock
+D1_CYCLES_A_DECISION = 24
+D1_TOP_SM_HZ = 1.98e9
 DRED_PLC_FRAMES = 100
 PIPE_SECONDS = 1500.0
 PIPE_STREAMS = 32
@@ -2722,7 +2732,8 @@ def drive_dred(dev, smi):
     """DRED at full width on the card (the demo RDO-VAE, cond 256/256,
     latent 80, state 24): the served step at 1024 streams against the CPU,
     payloads, decode_all, the redundancy into a PLC pool's FEC queues and
-    `cli fec-encode` into the host PLC. Returns the {"dred": ...} numbers."""
+    `cli fec-encode` into the host PLC. Returns (the {"dred": ...} numbers,
+    D1's kernels-line entry)."""
     from lpcnet_torch.dred import entropy as DE
     from lpcnet_torch.dred.coder import (DREDDecoder, DREDEncoder,
                                          quantize_latents)
@@ -2821,6 +2832,7 @@ def drive_dred(dev, smi):
         f"{pay_dec_ms:.3f} ms to decode, "
         f"host clock; card: {smi}")
     coder = payload_coders(out, penc.fixed_stats, rcfg, smi)
+    d1 = time_d1(enc, rcfg, dev, smi)
 
     # decode_all at 1024 streams on the newest 26 latents
     q_ids = DE.payload_q_ids(26, 9, 15)
@@ -2854,7 +2866,94 @@ def drive_dred(dev, smi):
             "payload_roundtrip_exact": True, "payload_encode_ms": pay_enc_ms,
             "payload_decode_ms": pay_dec_ms, "payload_coder": coder,
             "decode_all_ms": decode_all_ms,
-            "decode_all_device_ms": lat_ms, "plc": plc, "host_plc": host}
+            "decode_all_device_ms": lat_ms, "plc": plc, "host_plc": host}, d1
+
+
+def d1_bound_ms(zq):
+    """D1's bound on symbols zq [B, L, D]: the longest stream's chain of
+    dependent binary decisions (one a symbol, and for a nonzero one of
+    magnitude m, at most MAX_MAG, its sign, m - 1 continue flags and below
+    MAX_MAG a stop flag) at D1_CYCLES_A_DECISION cycles each at the top SM
+    clock. Returns (ms, how, the decisions' max and mean over streams)."""
+    from lpcnet_torch.dred import entropy as DE
+    mag = np.minimum(np.abs(zq.reshape(len(zq), -1).astype(np.int64)), DE.MAX_MAG)
+    d = mag.shape[1] + np.where(mag > 0, mag + (mag < DE.MAX_MAG), 0).sum(1)
+    top = int(d.max())
+    return (1e3 * top * D1_CYCLES_A_DECISION / D1_TOP_SM_HZ,
+            f"the longest stream's {top} dependent decisions x {D1_CYCLES_A_DECISION} "
+            f"cycles at {D1_TOP_SM_HZ / 1e9:.2f} GHz", top, float(d.mean()))
+
+
+def time_d1(enc, rcfg, dev, smi):
+    """D1 on the main DRED path: the served encoder's (1024 streams)
+    produce_payload makes one launch, no relaunch, one device framing and no
+    native call, with the native call's bytes on the same symbols; then, on
+    that tick's stage, the launch (coder and packer) in CUDA events at 1024
+    streams, at the first 32 (one warp's worth) and at the first alone; the
+    encoder's whole framing on the card (stage, launch, two copies) and the
+    native call, host clock. Returns D1's kernels-line entry."""
+    from lpcnet_torch.dred import entropy as DE
+    from lpcnet_torch.kernels import dred_payload as DP
+    from lpcnet_torch.runtime.bindings import runtime
+    b, k = enc.batch, rcfg.pvq_num_pulses
+    names = ("device_framings", "device_retries", "native_calls", "python_payloads")
+    before = {n: enc.stats[n] for n in names}
+    DP.Framing.launches = 0
+    out = enc.produce_payload(52, q0=9, q1=15)
+    launches = DP.Framing.launches
+    counted = {n: enc.stats[n] - before[n] for n in names}
+    assert launches == 1 and counted == {"device_framings": 1, "device_retries": 0,
+                                         "native_calls": 0, "python_payloads": 0}, \
+        (launches, counted)
+    q = DE.payload_q_ids(26, 9, 15)
+    p0, r = enc.fixed_stats["p0_q15"][q], enc.fixed_stats["r_q15"][q]
+    native = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        want, want_lengths, _ = runtime.dred_frame_payloads(out["zq"], out["pulses"],
+                                                            9, 15, p0, r, k)
+        native.append(1e3 * (time.perf_counter() - t0))
+    assert out["payloads"].data == want, "D1 bytes"
+    assert np.array_equal(out["payloads"].lengths, want_lengths)
+
+    f = enc._framing
+    k_ms = time_cuda(lambda: f.launch(9, 15, q), reps=50, warmup=3)
+    few = {}
+    for n in (32, 1):
+        g = DP.Framing(enc.fixed_stats, n, 26, rcfg.latent_dim, rcfg.state_dim, k, dev)
+        g.stage(f.sym[:n, :f.n_sym].reshape(n, 26, -1), f.sym[:n, f.n_sym:],
+                torch.zeros(n, device=dev))
+        few[n] = time_cuda(lambda: g.launch(9, 15, q), reps=20)
+    zq_dev = torch.from_numpy(out["zq"].astype(np.float32)).to(dev)
+    pulses_dev = torch.from_numpy(out["pulses"].astype(np.int64)).to(dev)
+    bits_dev = torch.zeros(b, device=dev)
+    path = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, payloads = enc._frame_on_card(zq_dev, pulses_dev, bits_dev, 9, 15)
+        path.append(1e3 * (time.perf_counter() - t0))
+    assert payloads.data == want
+    bound, by, top, mean = d1_bound_ms(out["zq"])
+    native_ms, path_ms = float(np.median(native)), float(np.median(path))
+    log(f"D1 B={b}, 26 latents x {rcfg.latent_dim}: produce_payload 1 launch, 1 "
+        f"device framing, no relaunch, no native call, {len(want)} bytes equal to "
+        f"the native call's; kernel {k_ms:.4f} ms/launch (CUDA events; 32 streams "
+        f"{few[32]:.4f}, 1 stream {few[1]:.4f}), bound {bound:.4f} ms ({by}; mean "
+        f"{mean:.1f} decisions); the encoder's card framing {path_ms:.3f} ms, the "
+        f"native call {native_ms:.3f} ms (host clock, medians); card: {smi}")
+    return {"name": "dred_payload", "route": "cuda",
+            "source": "lpcnet_torch/kernels/csrc/dred_payload.cu", "replaces": None,
+            "launches": launches, "max_abs_err": 0, "bytes_equal_native": True,
+            "streams": b, "payload_bytes": len(want), "ms": k_ms,
+            "ms_32_streams": few[32], "ms_1_stream": few[1], "ms_tick_path": path_ms,
+            "plain_ms": None, "native_ms": native_ms, "bound_ms": bound,
+            "bound_by": by, "decisions_max": top, "decisions_mean": mean,
+            "library_ms": None, "pass": True,
+            "design": "frame_kernel: one thread, a block of its own, a stream, the "
+                      "native coder's bytes, a carry's bytes held in registers; "
+                      "pack_kernel: the slots back to back by the lengths' "
+                      "exclusive sum"}
 
 
 def payload_coders(out, stats, rcfg, smi):
@@ -4249,7 +4348,8 @@ def main():
 
     # 15. DRED, its redundancy into the PLC pool's FEC queues and the host PLC
     t0 = time.perf_counter()
-    dred = drive_dred(dev, smi)
+    dred, d1_entry = drive_dred(dev, smi)
+    entries.append(d1_entry)
     log(f"DRED phase: {time.perf_counter() - t0:.1f} s")
 
     # 16-19. the factored q8 embedding: K1, K2 and K3 vs their plain
@@ -4266,7 +4366,7 @@ def main():
     fact_entries[0]["ms_frame_synthesis"] = syn_ms
     fact_entries[1]["ms_frame_plc"] = fact_entries[2]["ms_frame_plc"] = plc_ms
     entries.extend(fact_entries)
-    assert len(entries) == 13 and all(e["launches"] > 0 for e in entries), entries
+    assert len(entries) == 14 and all(e["launches"] > 0 for e in entries), entries
     pdf_secs, pdf_frame_ms = cli_pdf_on_card(dev, smi)
     log(f"factored and pdf phases: {time.perf_counter() - t0:.1f} s")
 
@@ -4277,7 +4377,7 @@ def main():
         pipeline, k1_keys, paths = drive_training_pipeline(dev, smi, workdir)
         pipeline["native_build_s"] = native_s
         entries[0].update(k1_keys)
-        assert len(entries) == 13 and all(e["launches"] > 0 for e in entries), entries
+        assert len(entries) == 14 and all(e["launches"] > 0 for e in entries), entries
         log(f"training pipeline phase: {time.perf_counter() - t0:.1f} s")
 
         # 21. the last modules: codebook training, train_block, the mesh,

@@ -11,9 +11,11 @@ The stream state, the latents and the init states stay on the device: a
 dframe makes no host sync. `DREDEncoder.latents` / `.init_states` copy the
 window to the host as the JAX surface gives it (lists of [B, ...] arrays).
 A payload of every stream is made with no Python loop over the streams:
-the symbols and the PVQ search on the device, one readback, one native
-call that frames every payload (`entropy.encode_payloads`). Both drivers
-run on CUDA unless the caller passes `device="cpu"`.
+the symbols and the PVQ search on the device; on CUDA one kernel frames
+every payload on the card (`kernels.dred_payload`), and two copies bring
+the symbols and the payloads' bytes over; on the CPU one readback and one
+native call that frames every payload (`entropy.encode_payloads`). Both
+drivers run on CUDA unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..kernels import dred_payload as DP
 from ..models import rdovae as RV
 from ..utils.device import resolve_device
 from ..utils.profiling import span
@@ -38,9 +41,11 @@ def _host(window) -> List[np.ndarray]:
 class DREDEncoder:
     """Streaming DRED encoder (cf. RDOVAEEncState, src/dred_rdovae_enc.h:35-40)
     over `batch` streams. `stats` counts the payloads made (`payloads`,
-    one a stream), the latents coded, the payload bytes, the native
-    framing calls and the payloads coded a stream at a time in Python
-    (`python_payloads`: the path without the native library)."""
+    one a stream), the latents coded, the payload bytes, and how they were
+    framed: on the card (`device_framings`, one a call, and
+    `device_retries`, the kernel's relaunches at a larger slot), by the
+    native call (`native_calls`) or a stream at a time in Python
+    (`python_payloads`: the CPU path without the native library)."""
 
     def __init__(self, params, cfg: Optional[RV.RDOVAEConfig] = None,
                  batch: int = 1, max_latents: int = 100, device=None):
@@ -52,6 +57,7 @@ class DREDEncoder:
         self.fixed_stats = EC.stats_fixed_point(self.params, self.cfg)
         self.stats = collections.Counter()
         self._q_ids = {}
+        self._framing = None    # the card's `DP.Framing` at the last shape framed
         self.reset()
 
     def reset(self):
@@ -121,17 +127,10 @@ class DREDEncoder:
                                   / 8)
         with span("lpcnet.dred.pvq"):
             pulses = EC.pvq_search_batch(self.state_window[-1], k)
-        with span("lpcnet.dred.readback"):
-            # |symbol| <= MAX_MAG and |pulse| <= k: int16 holds both, and
-            # one copy brings them over
-            host = torch.cat([zq.reshape(zq.shape[0], -1), pulses.to(zq.dtype)],
-                             dim=1).to(torch.int16).cpu().numpy()
-            bits = bits.cpu().numpy()
+        frame = self._frame_on_card if self.device.type == "cuda" else self._frame_on_host
+        host, bits, payloads = frame(zq, pulses, bits, q0, q1)
         zq = host[:, :-self.cfg.state_dim].reshape(z.shape)
         pulses = host[:, -self.cfg.state_dim:]
-        with span("lpcnet.dred.entropy"):
-            payloads = EC.encode_payloads(zq, pulses, q0, q1, self.fixed_stats,
-                                          k, self.stats)
         p = pulses.astype(np.float64)
         state = (p / (np.sqrt((p * p).sum(-1, keepdims=True)) + 1e-15)
                  ).astype(np.float32)          # pvq_normalize, row by row
@@ -139,6 +138,47 @@ class DREDEncoder:
                           bytes=len(payloads.data))
         return {"zq": zq, "q_ids": q_ids, "state": state, "bits": bits,
                 "payloads": payloads, "pulses": pulses}
+
+    def _frame_on_host(self, zq: torch.Tensor, pulses: torch.Tensor,
+                       bits: torch.Tensor, q0: int, q1: int):
+        """`produce_payload`'s framing off the card: one readback, then one
+        native call (`entropy.encode_payloads`; without the native library
+        the Python coder a stream). Returns as `_frame_on_card`."""
+        with span("lpcnet.dred.readback"):
+            # |symbol| <= MAX_MAG and |pulse| <= k: int16 holds both, and
+            # one copy brings them over
+            host = torch.cat([zq.reshape(zq.shape[0], -1), pulses.to(zq.dtype)],
+                             dim=1).to(torch.int16).cpu().numpy()
+            bits = bits.cpu().numpy()
+        s = self.cfg.state_dim
+        with span("lpcnet.dred.entropy"):
+            payloads = EC.encode_payloads(host[:, :-s].reshape(zq.shape), host[:, -s:],
+                                          q0, q1, self.fixed_stats,
+                                          self.cfg.pvq_num_pulses, self.stats)
+        return host, bits, payloads
+
+    def _frame_on_card(self, zq: torch.Tensor, pulses: torch.Tensor,
+                       bits: torch.Tensor, q0: int, q1: int):
+        """`produce_payload`'s framing on the card (`kernels.dred_payload`):
+        the symbols, pulses and bit estimates staged in one buffer, every
+        payload framed and packed there, then one copy of the stage and one
+        of the payloads' bytes. Returns (the stage's symbols and pulses
+        [B, L * latent + state_dim] int16, bits [B], payloads)."""
+        b, n_lat, dim = zq.shape
+        f = self._framing
+        if f is None or (f.batch, f.n_lat) != (b, n_lat):
+            f = self._framing = DP.Framing(self.fixed_stats, b, n_lat, dim,
+                                           self.cfg.state_dim, self.cfg.pvq_num_pulses,
+                                           self.device)
+        with span("lpcnet.dred.entropy"):
+            f.stage(zq, pulses, bits)
+            f.launch(q0, q1, EC.payload_q_ids(n_lat, q0, q1))
+        with span("lpcnet.dred.readback"):
+            host, lengths, bits = f.fetch()
+        with span("lpcnet.dred.entropy"):
+            payloads = EC.Payloads(*f.payloads(lengths))
+        self.stats.update(device_framings=1, device_retries=f.retries)
+        return host, bits, payloads
 
 
 @torch.no_grad()

@@ -1172,8 +1172,9 @@ def test_cuda_pvq_search_batch_equals_pvq_search(cuda):
 @pytest.mark.cuda
 def test_cuda_dred_pool_at_1024_streams(cuda):
     """`DREDEncoderPool` on the card at 1024 streams with the demo RDO-VAE,
-    30 ticks of speech: a payload a stream from the 26th tick, one native
-    framing call and no payload coded in Python a tick; the pulses equal
+    30 ticks of speech: a payload a stream from the 26th tick, framed on
+    the card once a tick (no relaunch), with no native call and no payload
+    coded in Python; the pulses equal
     `pvq_search` of the card's own initial states; 16 streams' payloads
     equal `encode_payload`'s of the tick's symbols and decode back to them;
     the first 8 streams' latents within 1e-4 of a CPU pool's."""
@@ -1185,7 +1186,7 @@ def test_cuda_dred_pool_at_1024_streams(cuda):
     pool = api.DREDEncoderPool(params, rcfg, streams=b, device=cuda)
     host = api.DREDEncoderPool(cpu_params, rcfg, streams=8, device="cpu")
     for t in range(ticks):
-        calls = pool.stats["native_calls"]
+        framings = pool.stats["device_framings"]
         out = pool.step_pcm(audio[t])
         host.step_pcm(audio[t, :8])
         gap = float((pool.enc.z_window[-1][:8].cpu() - host.enc.z_window[-1]).abs().max())
@@ -1193,13 +1194,146 @@ def test_cuda_dred_pool_at_1024_streams(cuda):
         if t < 25:
             assert out is None
             continue
-        assert len(out["payloads"]) == b and pool.stats["native_calls"] == calls + 1
+        assert len(out["payloads"]) == b and pool.stats["device_framings"] == framings + 1
         st = pool.enc.state_window[-1].double().cpu().numpy()
         assert np.array_equal(out["pulses"], np.stack([EC.pvq_search(s, 82) for s in st]))
     assert pool.stats["python_payloads"] == 0 and pool.stats["payloads"] == 5 * b
+    assert pool.stats["native_calls"] == 0 and pool.stats["device_retries"] == 0
     for i in range(0, b, b // 16):
         want = EC.encode_payload(out["zq"][i].astype(np.int32), out["pulses"][i],
                                  9, 15, pool.enc.fixed_stats, 82)
         assert out["payloads"][i] == want
         zq, pulses, _ = EC.decode_payload(want, pool.enc.fixed_stats, 24, 82)
         assert np.array_equal(zq, out["zq"][i]) and np.array_equal(pulses, out["pulses"][i])
+
+
+def _frame_on_card(zq, pulses, p0, r, k, dev, q0=9, q1=15):
+    """`kernels.dred_payload` on numpy symbols [B, L, D], pulses [B, S] and
+    p0/r [L, D]: (the payloads' bytes, lengths, relaunches), the launches
+    held to one plus the relaunches."""
+    from lpcnet_torch.kernels import dred_payload as DP
+    b, n_lat, dim = zq.shape
+    stats = {"p0_q15": np.asarray(p0, np.uint16), "r_q15": np.asarray(r, np.uint16)}
+    f = DP.Framing(stats, b, n_lat, dim, pulses.shape[1], k, dev)
+    f.stage(torch.from_numpy(zq.astype(np.float32)).to(dev),
+            torch.from_numpy(pulses.astype(np.int64)).to(dev), torch.zeros(b, device=dev))
+    launches = DP.Framing.launches
+    f.launch(q0, q1, np.arange(n_lat))
+    _, lengths, _ = f.fetch()
+    data, lengths = f.payloads(lengths)
+    assert DP.Framing.launches == launches + 1 + f.retries
+    return data, lengths, f.retries
+
+
+def _pulses(rs, b, k=82, n=24):
+    from lpcnet_torch.dred import entropy as EC
+    return np.stack([EC.pvq_search(v, k) for v in rs.randn(b, n)]).astype(np.int16)
+
+
+def _laplace(rs, b, scale=1.5):
+    return np.round(rs.laplace(0, scale, (b, 26, 80))).astype(np.int16)
+
+
+def _q15(rs, lo=1000, hi=32000):
+    return rs.randint(lo, hi, (26, 80))
+
+
+# (symbols, pulses, p0, r) of each case; "carry" makes the backward carry
+# ripple through 0xFF bytes (~280 times in its 64 streams), "pm255"
+# passes the first slot (every symbol at MAX_MAG) and "clamps" too, holding
+# p0 and r at 0, 32768 and 65535 (read as 1 and 32767)
+PAYLOAD_CASES = {
+    "b1": lambda rs: (_laplace(rs, 1), _pulses(rs, 1), _q15(rs), _q15(rs)),
+    "b33": lambda rs: (_laplace(rs, 33), _pulses(rs, 33), _q15(rs), _q15(rs)),
+    "b1000": lambda rs: (_laplace(rs, 1000), _pulses(rs, 1000), _q15(rs), _q15(rs)),
+    "zeros": lambda rs: (np.zeros((64, 26, 80), np.int16), _pulses(rs, 64),
+                         _q15(rs), _q15(rs)),
+    "pm255": lambda rs: ((rs.choice([-1, 1], (8, 26, 80)) * 255).astype(np.int16),
+                         _pulses(rs, 8), _q15(rs), _q15(rs)),
+    "carry": lambda rs: (rs.choice([-1, 1], (64, 26, 80)).astype(np.int16),
+                         _pulses(rs, 64), np.ones((26, 80)), np.full((26, 80), 32767)),
+    "clamps": lambda rs: (_laplace(rs, 64, 3.0), _pulses(rs, 64),
+                          rs.choice([0, 32768, 65535], (26, 80)),
+                          rs.choice([0, 32768, 65535], (26, 80))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PAYLOAD_CASES))
+def test_cuda_dred_payload_kernel_equals_the_native_call(cuda, case):
+    """The card's payloads are byte for byte `runtime.dred_frame_payloads`'
+    (ragged stream counts, zeros, MAX_MAG's relaunch, carries, clamps)."""
+    from lpcnet_torch.runtime.bindings import runtime
+    zq, pulses, p0, r = PAYLOAD_CASES[case](np.random.RandomState(len(case)))
+    data, lengths, retries = _frame_on_card(zq, pulses, p0, r, 82, cuda)
+    want, want_lengths, calls = runtime.dred_frame_payloads(
+        zq, pulses, 9, 15, np.asarray(p0, np.uint16), np.asarray(r, np.uint16), 82)
+    assert data == want and np.array_equal(lengths, want_lengths)
+    if case in ("pm255", "clamps"):
+        assert retries > 0 and calls > 1
+
+
+@pytest.mark.cuda
+def test_cuda_dred_payload_kernel_refuses_pulses_off_k(cuda):
+    rs = np.random.RandomState(12)
+    pulses = _pulses(rs, 33)
+    pulses[20, 3] += 1
+    with pytest.raises(ValueError):
+        _frame_on_card(_laplace(rs, 33), pulses, _q15(rs), _q15(rs), 82, cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_dred_payload_kernel_on_the_demo_rdovae_at_1024(cuda):
+    """The demo RDO-VAE's own symbols at 1024 streams, 26 latents of 80:
+    the pool's payloads (one device framing) and the kernel's alone equal
+    the native call's on the same symbols and pulses."""
+    from lpcnet_torch.dred import entropy as EC
+    from lpcnet_torch.runtime.bindings import runtime
+    params, rcfg = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device=cuda)
+    b = 1024
+    audio = _dred_speech(b, 26, seed=8)
+    pool = api.DREDEncoderPool(params, rcfg, streams=b, device=cuda)
+    for t in range(26):
+        out = pool.step_pcm(audio[t])
+    assert pool.stats["device_framings"] == 1 and pool.stats["native_calls"] == 0
+    q = EC.payload_q_ids(26, 9, 15)
+    st = pool.enc.fixed_stats
+    p0, r = st["p0_q15"][q], st["r_q15"][q]
+    want, lengths, _ = runtime.dred_frame_payloads(out["zq"], out["pulses"], 9, 15,
+                                                   p0, r, 82)
+    assert out["payloads"].data == want and np.array_equal(out["payloads"].lengths,
+                                                           lengths)
+    data, alone, retries = _frame_on_card(out["zq"], out["pulses"], p0, r, 82, cuda)
+    assert data == want and np.array_equal(alone, lengths) and retries == 0
+
+
+@pytest.mark.cuda
+def test_cuda_dred_encoder_counts_relaunches(cuda, monkeypatch):
+    """An encoder whose symbols all sit at MAX_MAG: the payloads need a
+    larger slot, the encoder counts the relaunches in `device_retries`,
+    and the bytes are the native call's."""
+    from lpcnet_torch.dred import coder as DC
+    from lpcnet_torch.dred import entropy as EC
+    from lpcnet_torch.runtime.bindings import runtime
+    params, rcfg = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device=cuda)
+    enc = DC.DREDEncoder(params, rcfg, batch=5, device=cuda)
+    feats = np.random.RandomState(3).randn(4, 5, 20).astype(np.float32) * 0.3
+    for f in feats:
+        enc.add_feature_frame(f)
+    quantize = DC.quantize_latents
+
+    def at_max(params, z, q_ids, cfg):
+        zq, rates = quantize(params, z, q_ids, cfg)
+        sign = torch.where(torch.arange(zq.numel(), device=zq.device) % 3 == 0, -1.0, 1.0)
+        return sign.reshape(zq.shape) * EC.MAX_MAG, rates
+
+    monkeypatch.setattr(DC, "quantize_latents", at_max)
+    out = enc.produce_payload(4)
+    assert np.abs(out["zq"]).min() == EC.MAX_MAG
+    assert enc.stats["device_framings"] == 1 and enc.stats["device_retries"] >= 1
+    q = EC.payload_q_ids(2, 9, 15)
+    st = enc.fixed_stats
+    want, lengths, calls = runtime.dred_frame_payloads(
+        out["zq"], out["pulses"], 9, 15, st["p0_q15"][q], st["r_q15"][q], 82)
+    assert calls > 1 and out["payloads"].data == want
+    assert np.array_equal(out["payloads"].lengths, lengths)
