@@ -104,11 +104,11 @@ Needs one CUDA card, nvcc and g++. Phases:
      speech-like signal for 10 superframes, the card's decode of its packets
      against its quantized features, then runtime.serving.StreamPool at 1024
      streams decoding those packets for 10 ticks of 40 ms on the demo
-     vocoder, the merged flag off (K1) and on (K6): 4 launches a tick of the
-     selected kernel, none of the other; K6 and K1 vs the plain version at
-     the main shapes from the K6 pool's state (one step, and the share of
-     exact PCM over the 160-step frame), their timings, bounds and the
-     tick's split; the C fixture's speech encoded on the card (packets
+     vocoder: 4 launches of K1 a tick, none of K6; K6 (called directly: no
+     path of the package selects it) and K1 vs the plain version at the
+     main shapes from the pool's state (one step, and the share of exact
+     PCM over the 160-step frame), their timings, bounds and the tick's
+     split; the C fixture's speech encoded on the card (packets
      bit-exact against C counted) and one `cli encode` -> `cli decode`;
  15. DRED (no TPU kernel of its own: its products are float32 matmuls):
      the demo RDO-VAE on features computed on the card from 1024 streams of
@@ -1676,7 +1676,8 @@ def drive_plc(dev, smi):
         return np.stack(outs, axis=1), 1e3 * (time.perf_counter() - t0) / len(frames)
 
     pool = PLCStreamPool(fused, cfg, plc_params, capacity=PLC_STREAMS, device=dev)
-    assert pool.plc.flags == (True, True, False, "auto") and pool.plc.use_kernel
+    assert pool.plc._cw is None and pool.plc.use_kernel
+    assert pool.plc.compact_cap == BP._compact_capacity(PLC_STREAMS) == 64
     assert pool.plc.kw["emb_cat"].dtype == torch.bfloat16
     for sid in sids:
         pool.attach(sid)
@@ -1718,11 +1719,8 @@ def drive_plc(dev, smi):
     # analysis history and features differ too. So the chain pool takes each
     # frame from the state the default pool had before that frame (states
     # are never written in place), and the two are compared after one frame.
-    prev = BP.set_plc_flags(fastchain=True)
-    try:
-        chain = PLCStreamPool(fused, cfg, plc_params, capacity=PLC_STREAMS, device=dev)
-    finally:
-        BP.set_plc_flags(*prev)
+    chain = PLCStreamPool(fused, cfg, plc_params, capacity=PLC_STREAMS, device=dev,
+                          chain=True)
     for sid in sids:
         chain.attach(sid)
     more = range(PLC_FRAMES, total)
@@ -1773,11 +1771,8 @@ def drive_plc(dev, smi):
 
     # the read of the active count that compaction needs: the same frames
     # with compaction off, from the same state
-    prev = BP.set_plc_flags(compact="0")
-    try:
-        full = PLCStreamPool(fused, cfg, plc_params, capacity=PLC_STREAMS, device=dev)
-    finally:
-        BP.set_plc_flags(*prev)
+    full = PLCStreamPool(fused, cfg, plc_params, capacity=PLC_STREAMS, device=dev)
+    full.plc.compact_cap = 0
     for sid in sids:
         full.attach(sid)
     full.plc.state = pool.plc.state
@@ -2025,9 +2020,9 @@ def time_plc_kernels(calls, models, counts, chain_counts, frame_ms, smi):
         f"K3; launch {k3_launch_shape(b3, cfg, 'bf16', nblk, cnt.device)}; card: {smi}")
     log(f"K4 B={h1.shape[0]} K={k_steps}: kernel {k4_ms:.4f} ms/launch, plain "
         f"{k4_plain:.3f} ms, bound {k4_bound:.5f} ms ({k4_by}), 1 launch per "
-        f"frame with fastchain, else 0; the unchained path's {k_steps} masked "
-        f"compute_plc_pred calls {un_ms:.4f} ms; library: no single PyTorch "
-        f"call computes K4; launch {k4_launch_shape(h1.shape[0], cw)}; card: {smi}")
+        f"frame with the chain (chain=True), else 0; the unchained path's "
+        f"{k_steps} masked compute_plc_pred calls {un_ms:.4f} ms; library: no "
+        f"single PyTorch call computes K4; launch {k4_launch_shape(h1.shape[0], cw)}; card: {smi}")
     kernels = k3_call + sum(k2_ms)
     log(f"PLC frame {frame_ms:.3f} ms = K3's call {k3_call:.3f} ms (kernel {k3_ms:.3f} "
         f"ms, closed forms in PyTorch {k3_call - k3_ms:.3f} ms) + K2 head "
@@ -2096,7 +2091,7 @@ def drive_nc_plc(dev, smi):
     pool = PLCStreamPool(fused, cfg0, plc_params, capacity=NC_STREAMS,
                          non_causal=True, device=dev)
     st = pool.plc.state
-    assert pool.plc.use_kernel and pool.plc.flags.fasttf
+    assert pool.plc.use_kernel
     assert pool.plc.plc_buf_size == 80 and st.plc_ring.gru1.shape[0] == 1
     for sid in sids:
         pool.attach(sid)
@@ -2460,10 +2455,10 @@ def codec_pcm(streams, superframes):
 
 def drive_codec(dev, smi):
     """The codec path at full width: LPCNetEncoder on 1024 streams of the
-    seeded signal for 10 superframes, then the packets through two
-    StreamPool(capacity=1024).step_packets on the demo vocoder, 10 ticks with
-    the merged flag off (K1) and 10 with it on (K6), taken in turn. Returns ({"K1"|"K6":
-    the run's pcm, ms per tick, pool and launches}, the timed parts)."""
+    seeded signal for 10 superframes, then the packets through
+    StreamPool(capacity=1024).step_packets on the demo vocoder for 10
+    ticks, K1 on every frame. Returns (the run's pcm, ms per tick, pool and
+    launches; the timed parts)."""
     from lpcnet_torch.codec import decoder as CD
     b, n_sf = CODEC_STREAMS, CODEC_SUPERFRAMES
     pcm = codec_pcm(b, n_sf)
@@ -2497,68 +2492,43 @@ def drive_codec(dev, smi):
 
     fused, cfg = api.load_model(api.DEMO_MODEL_PATH, device=dev)
     sids = [f"call-{i}" for i in range(b)]
-    # two pools, the merged flag off (K1) and on (K6), their ticks taken in
-    # turn (off, on, off, on, ...) so that the host's drift over the run
-    # falls on both alike; the flag is read at each frame's launch
-    pools, attach_ms, out, ticks, counts = {}, {}, {}, {}, {}
-    for flag in (False, True):
-        pools[flag] = api.StreamPool(fused, cfg, capacity=b)
-        torch.cuda.synchronize()
+    pool = api.StreamPool(fused, cfg, capacity=b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for sid in sids:                         # a call's set-up, not a tick
+        pool.attach(sid)
+    torch.cuda.synchronize()
+    attach_ms = 1e3 * (time.perf_counter() - t0)
+    out, tk, counts = [], [], np.zeros(3, int)
+    for t in range(n_sf):
+        K.synthesize_frame_kernel.launches = 0
+        K.synthesize_frame_merged_kernel.launches = 0
+        K.synthesize_frame_masked_kernel.launches = 0
         t0 = time.perf_counter()
-        for sid in sids:                     # a call's set-up, not a tick
-            pools[flag].attach(sid)
-        torch.cuda.synchronize()
-        attach_ms[flag] = 1e3 * (time.perf_counter() - t0)
-        out[flag], ticks[flag], counts[flag] = [], [], np.zeros(3, int)
-    prev = K.set_merged(False)
-    try:
-        for t in range(n_sf):
-            for flag in (False, True):
-                K.set_merged(flag)
-                K.synthesize_frame_kernel.launches = 0
-                K.synthesize_frame_merged_kernel.launches = 0
-                K.synthesize_frame_masked_kernel.launches = 0
-                t0 = time.perf_counter()
-                got = pools[flag].step_packets(
-                    {sid: packets[t][i] for i, sid in enumerate(sids)})
-                out[flag].append(np.stack([got[sid] for sid in sids]))
-                ticks[flag].append(1e3 * (time.perf_counter() - t0))
-                counts[flag] += (K.synthesize_frame_kernel.launches,
-                                 K.synthesize_frame_merged_kernel.launches,
-                                 K.synthesize_frame_masked_kernel.launches)
-    finally:
-        K.set_merged(prev)
-    runs = {}
-    for flag in (False, True):
-        name = "K6" if flag else "K1"
-        pool, k1, k6, k2 = pools[flag], *(int(c) for c in counts[flag])
-        assert (k1, k6, k2) == ((0, 4 * n_sf, 0) if flag else (4 * n_sf, 0, 0)), (k1, k6, k2)
-        pcm_out = np.stack(out[flag])                 # [ticks, B, 640]
-        assert pcm_out.dtype == np.int16 and pcm_out.shape == (n_sf, b, 640)
-        la = cfg.lookahead
-        assert not pcm_out[0, :, :la * 160].any(), f"{name}: warmup not silent"
-        assert pcm_out[1:].any(axis=(0, 2)).all(), f"{name}: a stream stayed silent"
-        # the tick's own time: the mean of ticks 2-10 (the first also sets
-        # up the frame network's and the decode's first calls on this pool)
-        tk = ticks[flag]
-        tick_ms = float(np.mean(tk[1:]))
-        runs[name] = dict(pcm=pcm_out, tick_ms=tick_ms, pool=pool, launches=k1 + k6)
-        log(f"codec decode [{name}, flag {'on' if flag else 'off'}]: StreamPool "
-            f"B={b}, {n_sf} ticks of 40 ms, in turn with the other pool's: "
-            f"{tick_ms:.3f} ms/tick (ticks 2-{n_sf}, host clock, PCM on the host; "
-            f"range {min(tk[1:]):.3f}-{max(tk[1:]):.3f}; first tick {tk[0]:.3f}), "
-            f"{40.0 / tick_ms * b:.1f} streams x real time; {b} attaches before "
-            f"the first tick {attach_ms[flag]:.1f} ms; launches K1 {k1}, K6 {k6}, K2 "
-            f"{k2}; warmup silent, int16, non-zero after; card: {smi}")
-    rms = {k: float(np.sqrt(np.mean(v["pcm"][1:].astype(np.float64) ** 2)))
-           for k, v in runs.items()}
-    rel = abs(rms["K6"] - rms["K1"]) / max(rms["K1"], 1.0)
-    log(f"codec decode flag on vs off: rms {rms['K6']:.1f} vs {rms['K1']:.1f} "
-        f"(rel {rel:.4f}, bf16 bar 0.5)")
-    assert rel < 0.5, rms
+        got = pool.step_packets({sid: packets[t][i] for i, sid in enumerate(sids)})
+        out.append(np.stack([got[sid] for sid in sids]))
+        tk.append(1e3 * (time.perf_counter() - t0))
+        counts += (K.synthesize_frame_kernel.launches,
+                   K.synthesize_frame_merged_kernel.launches,
+                   K.synthesize_frame_masked_kernel.launches)
+    k1, k6, k2 = (int(c) for c in counts)
+    assert (k1, k6, k2) == (4 * n_sf, 0, 0), (k1, k6, k2)
+    pcm_out = np.stack(out)                           # [ticks, B, 640]
+    assert pcm_out.dtype == np.int16 and pcm_out.shape == (n_sf, b, 640)
+    assert not pcm_out[0, :, :cfg.lookahead * 160].any(), "warmup not silent"
+    assert pcm_out[1:].any(axis=(0, 2)).all(), "a stream stayed silent"
+    # the tick's own time: the mean of ticks 2-10 (the first also sets up
+    # the frame network's and the decode's first calls on this pool)
+    tick_ms = float(np.mean(tk[1:]))
+    run = dict(pcm=pcm_out, tick_ms=tick_ms, pool=pool, launches=k1)
+    log(f"codec decode [K1]: StreamPool B={b}, {n_sf} ticks of 40 ms: "
+        f"{tick_ms:.3f} ms/tick (ticks 2-{n_sf}, host clock, PCM on the host; "
+        f"range {min(tk[1:]):.3f}-{max(tk[1:]):.3f}; first tick {tk[0]:.3f}), "
+        f"{40.0 / tick_ms * b:.1f} streams x real time; {b} attaches before "
+        f"the first tick {attach_ms:.1f} ms; launches K1 {k1}, K6 {k6}, K2 "
+        f"{k2}; warmup silent, int16, non-zero after; card: {smi}")
 
     # a tick's parts, each alone at the pool's batch (CUDA events)
-    pool = runs["K6"]["pool"]
     dec = pool.dec
     fields = {k: torch.as_tensor(v, device=dev)
               for k, v in P.unpack_fields(packets[-1]).items()}
@@ -2568,8 +2538,8 @@ def drive_codec(dev, smi):
     fn_ms = time_cuda(lambda: M.frame_network(dec.fused, dec.frame_state, f0, cfg),
                       reps=20)
     host_parts = time_host(lambda: P.unpack_fields(packets[-1]), reps=20)
-    return runs, dict(enc_ms=enc_ms, dpf_ms=dpf_ms, fn_ms=fn_ms,
-                      unpack_ms=host_parts, round_trip_err=err)
+    return run, dict(enc_ms=enc_ms, dpf_ms=dpf_ms, fn_ms=fn_ms,
+                     unpack_ms=host_parts, round_trip_err=err)
 
 
 def codec_fixture_on_card(smi):
@@ -2602,13 +2572,14 @@ def codec_fixture_on_card(smi):
     return int(match.sum())
 
 
-def time_k6(runs, parts, dev, smi):
+def time_k6(run, parts, dev, smi):
     """K6 and K1 at the main shapes (B=1024, n=160) from the live state of
-    the K6 pool, f32 and bf16 on the same inputs: held against the plain
-    version, then timed with their bounds; then the decode tick's split.
-    Returns the kernels line's entry for K6 (bf16)."""
-    pool = runs["K6"]["pool"]
-    dec = pool.dec
+    the decode pool, f32 and bf16 on the same inputs: held against the
+    plain version, then timed with their bounds; then the decode tick's
+    split. Returns the kernels line's entry for K6 (bf16), its launches
+    those of these direct calls."""
+    k6_before = K.synthesize_frame_merged_kernel.launches
+    dec = run["pool"].dec
     cfg = dec.cfg
     st = dec.sample_state
     ca, cb, lpc = conditioning(dec.fused, cfg, CODEC_STREAMS, dev)
@@ -2628,21 +2599,16 @@ def time_k6(runs, parts, dev, smi):
                          k1_bound=k1_bound)
         log(f"K6[{form}] B={CODEC_STREAMS} n=160: kernel {k6_ms:.4f} ms/launch, K1 "
             f"on the same inputs {k1_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
-            f"{bound:.4f} ms ({by}; K1's {k1_bound:.4f}), 1 launch per 10 ms frame "
-            f"with the flag on; library: no single PyTorch call computes K6; "
-            f"card: {smi}")
-    for name in ("K1", "K6"):
-        kern = res["bf16"]["k1_ms" if name == "K1" else "ms"]
-        tick = runs[name]["tick_ms"]
-        rest = tick - parts["dpf_ms"] - 4 * (parts["fn_ms"] + kern)
-        log(f"codec tick [{name}] {tick:.3f} ms = decode_packet_features "
-            f"{parts['dpf_ms']:.3f} ms + 4 x frame network {parts['fn_ms']:.3f} ms "
-            f"+ 4 x {name} {kern:.3f} ms (CUDA events, alone, B={CODEC_STREAMS}) + "
-            f"host rest {rest:.3f} ms ({100 * rest / tick:.1f} %; unpack_fields "
-            f"{parts['unpack_ms']:.3f} ms on the host clock); card: {smi}")
-    on_off = runs["K6"]["tick_ms"] / runs["K1"]["tick_ms"]
-    log(f"codec tick with the merged flag on / off: {on_off:.3f} (K6 runs K1's kernel "
-        f"on the merged matrices' blocks); card: {smi}")
+            f"{bound:.4f} ms ({by}; K1's {k1_bound:.4f}); no path of the package "
+            f"selects it; library: no single PyTorch call computes K6; card: {smi}")
+    kern = res["bf16"]["k1_ms"]
+    tick = run["tick_ms"]
+    rest = tick - parts["dpf_ms"] - 4 * (parts["fn_ms"] + kern)
+    log(f"codec tick [K1] {tick:.3f} ms = decode_packet_features "
+        f"{parts['dpf_ms']:.3f} ms + 4 x frame network {parts['fn_ms']:.3f} ms "
+        f"+ 4 x K1 {kern:.3f} ms (CUDA events, alone, B={CODEC_STREAMS}) + "
+        f"host rest {rest:.3f} ms ({100 * rest / tick:.1f} %; unpack_fields "
+        f"{parts['unpack_ms']:.3f} ms on the host clock); card: {smi}")
     r = res["bf16"]
     return {"name": "sample_loop_merged[bf16]", "route": "cuda",
             "source": "lpcnet_torch/kernels/csrc/masked_loop.cu",
@@ -2654,9 +2620,9 @@ def time_k6(runs, parts, dev, smi):
                       "KIND_FREE> on clusters of 16 with GRU-A's f32 slice resident up "
                       "to two waves, ar_kernel<FORM_F32> (csrc/sample_loop.cu) above, "
                       "as at 1024 streams",
-            "tick_on_over_off": on_off,
             "replaces": "lpcnet_tpu/kernels/sample_loop.py:554",
-            "launches": runs["K6"]["launches"], "max_abs_err": r["err"],
+            "launches": K.synthesize_frame_merged_kernel.launches - k6_before,
+            "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"],
             "bound_by": r["by"], "library_ms": None, "pass": True,
             "f32_ms": res["f32"]["ms"], "k1_ms_same_inputs": r["k1_ms"],
@@ -4339,8 +4305,8 @@ def main():
 
     # 13. K6 vs plain, 14. the codec path, then K6's timings on its state
     check_k6(fused, cfg, dev)
-    runs, parts = drive_codec(dev, smi)
-    k6_entry = time_k6(runs, parts, dev, smi)
+    run, parts = drive_codec(dev, smi)
+    k6_entry = time_k6(run, parts, dev, smi)
     k6_entry["codec_fixture_bit_exact"] = codec_fixture_on_card(smi)
     entries.append(k6_entry)
     assert len(entries) == 10 and all(e["launches"] > 0 for e in entries), entries

@@ -14,8 +14,8 @@ form of the sample loop), batched packet-loss concealment, causal and
 non-causal (`runtime.serving.PLCStreamPool`), the reference's host PLC state
 machine (`plc.plc.PLC`, `cli plc`), the reference's DNNw weight blobs
 (`weights.lpcnet_arrays`, `weights.aux_arrays`), the 1.6 kb/s codec (`codec.encoder`,
-packet decode through `runtime.serving.StreamPool`, whose sample loop can be
-the merged-product kernel) and DRED (`models.rdovae`, the RDO-VAE;
+packet decode through `runtime.serving.StreamPool`, whose sample loop is
+K1) and DRED (`models.rdovae`, the RDO-VAE;
 `dred.coder`, its streaming encoder and decoder; `dred.entropy`, the
 redundancy payloads), the training pipeline (`train.*`: the vocoder, PLC and
 RDO-VAE trainers, one step at a time or in device-gathered blocks

@@ -27,8 +27,7 @@ PyTorch, as in the JAX package). The model
 vocoder (lpcnet_tpu/data/demo_model.npz, read as a file); the non-causal
 plc modes need a lookahead-0 model and default to a seeded random one. The
 plc modes run the shipped demo PLC network. Every mode runs on the GPU
-unless `--device cpu` is passed; LPCNET_KERNEL_MERGED=1 selects the merged
-sample-loop kernel for float models.
+unless `--device cpu` is passed.
 
 The DRED modes run DRED's RDO-VAE (`--model` an RDO-VAE `.npz` or DNNw
 blob, e.g. lpcnet_tpu/data/demo_rdovae_model.npz; without it a seeded

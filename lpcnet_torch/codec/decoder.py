@@ -67,8 +67,7 @@ def _select(mask, new, old):
 
 
 def _synthesize_one_frame(fused, cfg, fstate, sstate, feats, preload=None,
-                          kernel_weights=None, merged_weights=None,
-                          frame_net=M.frame_network):
+                          kernel_weights=None, frame_net=M.frame_network):
     """Frame net + sample loop with the reference's warmup semantics.
 
     Until the conv pipeline is primed (frame_count <= lookahead after the
@@ -77,15 +76,13 @@ def _synthesize_one_frame(fused, cfg, fstate, sstate, feats, preload=None,
     sample loop still runs every frame, so kernel launches equal frames.
 
     With `kernel_weights` the loop is a sample-loop kernel (its plain
-    version for CPU tensors): free-running, through
-    `kernels.sample_loop.synthesize_frame_auto`, which runs K6 on
-    `merged_weights` (built if None) when the merged flag is on and the
-    bundle is float, and K1 otherwise; or, with `preload` [B, 160], a whole
-    teacher-forced frame, the masked kernel (K2) with every step
-    teacher-forced and the sampler off. Without `kernel_weights` the plain
-    model runs, which a CUDA tensor refuses. `frame_net` is
-    `M.frame_network` or a callable of its form (the decoder's
-    `M.FrameNetworkGraph`).
+    version for CPU tensors): free-running, K1
+    (`kernels.sample_loop.synthesize_frame_kernel`); or, with `preload`
+    [B, 160], a whole teacher-forced frame, the masked kernel (K2) with
+    every step teacher-forced and the sampler off. Without
+    `kernel_weights` the plain model runs, which a CUDA tensor refuses.
+    `frame_net` is `M.frame_network` or a callable of its form (the
+    decoder's `M.FrameNetworkGraph`).
     """
     with span("lpcnet.model.frame_network"):
         fstate, _, ca, cb, lpc = frame_net(fused, fstate, feats, cfg)
@@ -101,9 +98,9 @@ def _synthesize_one_frame(fused, cfg, fstate, sstate, feats, preload=None,
                 kernel_weights, sstate, ca.contiguous(), cb.contiguous(),
                 lpc.contiguous(), preload, on, on, cfg.frame_size, sampled=False)
         elif kernel_weights is not None:
-            new_sstate, pcm = K.synthesize_frame_auto(
+            new_sstate, pcm = K.synthesize_frame_kernel(
                 kernel_weights, sstate, ca.contiguous(), cb.contiguous(),
-                lpc.contiguous(), cfg.frame_size, merged=merged_weights)
+                lpc.contiguous(), cfg.frame_size)
         else:
             new_sstate, pcm = M.synthesize_frame(fused, sstate, ca, cb, lpc,
                                                  preload=preload)
@@ -143,9 +140,8 @@ class LPCNetDecoder:
 
         On CUDA the sample loop is always a kernel, at any batch (the JAX
         package runs its scan below batch 64; on the card that scan would
-        be the plain version, so this deviation is deliberate): K1, or K6
-        for a float bundle with the merged flag on
-        (`kernels.sample_loop.set_merged`). On the CPU the plain model runs
+        be the plain version, so this deviation is deliberate): K1 for a
+        free-running frame. On the CPU the plain model runs
         unless `use_kernel=True`, which takes the kernel wrappers' plain
         versions. Float params give the bfloat16 kernel bundle (the JAX
         package's default); q8 params give the q8 bundle.
@@ -164,7 +160,6 @@ class LPCNetDecoder:
         self.fused = tree_to(fused, dev)
         self._kw = (K.masked_kernel_weights(K.kernel_weights(self.fused, cfg))
                     if use_kernel else None)
-        self._kw_merged = None
         self.frame_graph = M.FrameNetworkGraph()
         self.cbs = None
         if with_codebooks:
@@ -179,19 +174,10 @@ class LPCNetDecoder:
         self.vq_mem = torch.zeros((self.batch, NB_BANDS), dtype=torch.float32,
                                   device=self.device)
 
-    def _merged(self):
-        """K6's operands, built the first time a frame runs K6, then kept."""
-        if self._kw is None or not K.uses_merged(self._kw):
-            return None
-        if self._kw_merged is None:
-            self._kw_merged = K.merged_kernel_weights(self._kw)
-        return self._kw_merged
-
     def _frame(self, feats, preload=None):
         self.frame_state, self.sample_state, pcm = _synthesize_one_frame(
             self.fused, self.cfg, self.frame_state, self.sample_state, feats,
             preload=preload, kernel_weights=self._kw,
-            merged_weights=None if preload is not None else self._merged(),
             frame_net=self.frame_graph)
         return pcm
 

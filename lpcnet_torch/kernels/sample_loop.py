@@ -55,10 +55,10 @@ h_b, last_sig, last_exc, deemph, rng).
   runs K1's kernel (the cluster kernel's free-running form; f32 routed as
   K1's) on the merged matrices' non-zero blocks,
   the padding checked to be zero (`merged_packs`), with the conditioning's
-  4N layout converted once a launch into K1's. `synthesize_frame_auto`
-  picks K6 when
-  `LPCNET_KERNEL_MERGED` is set (read at import, `set_merged` at run time)
-  and the bundle is float, K1 otherwise.
+  4N layout converted once a launch into K1's. No path of the package
+  selects it: on the card it is K1's kernel after two layout conversions
+  and no faster, so every free-running frame runs K1. The tests hold it
+  against the JAX package and `chip_smoke.py` times it, by direct calls.
 """
 
 from __future__ import annotations
@@ -873,26 +873,8 @@ def teacher_force_prefix_kernel(kw, state: SampleState, cond_a, cond_b, lpc,
 
 
 # --------------------------------------------------------------------------
-# K6: the merged-product form of K1, and the dispatch between the two
+# K6: the merged-product form of K1 (no path of the package selects it)
 # --------------------------------------------------------------------------
-
-_MERGED = os.environ.get("LPCNET_KERNEL_MERGED", "0") != "0"
-
-
-def set_merged(on: bool) -> bool:
-    """Select K6 (True) or K1 (False) for float bundles in
-    `synthesize_frame_auto`; returns the previous setting. The default comes
-    from LPCNET_KERNEL_MERGED at import (off unless set to other than 0)."""
-    global _MERGED
-    prev, _MERGED = _MERGED, bool(on)
-    return prev
-
-
-def uses_merged(kw) -> bool:
-    """Whether `synthesize_frame_auto` runs K6 on the bundle `kw`: the flag
-    is on and the bundle is float (the merged layout has no q8 form)."""
-    return _MERGED and not is_q8_bundle(kw)
-
 
 def _merge(w_in, w_rec, n):
     """[k_in+k_rec, 4n]: columns [z | r | h input side | h recurrent side],
@@ -910,8 +892,8 @@ def merged_kernel_weights(kw):
     rows, then its recurrent rows), in the bundle's operand type; the biases
     (for `cond4`) and the sampler's tensors are shared with `kw`; and the
     kernel's launch operands built from the merged matrices
-    (`merged_packs`). Built only where K6 runs, so K1's bundle stays as it
-    is."""
+    (`merged_packs`). Built only by K6's own callers (its tests and
+    timings), so K1's bundle stays as it is."""
     if is_q8_bundle(kw):
         raise TypeError("K6 takes float bundles only (f32 or bf16 operands)")
     na = kw["a_bias1"].shape[-1] // 3
@@ -1066,18 +1048,3 @@ def synthesize_frame_merged_kernel(mw, state: SampleState, cond_a, cond_b,
 
 
 synthesize_frame_merged_kernel.launches = 0
-
-
-def synthesize_frame_auto(kw, state: SampleState, cond_a, cond_b, lpc,
-                          n_samples: int = 160, merged=None):
-    """One free-running frame through K6 when `uses_merged(kw)`, else K1:
-    the counterpart of the JAX package's `synthesize_frame_auto` /
-    `_synth_pallas`. `merged` is K6's operand set for `kw` when the caller
-    keeps one (`merged_kernel_weights`); otherwise it is built for this call.
-    The TPU wrapper's batch-tile probe and its padding of streams to a
-    multiple of 256 have no counterpart: both kernels take any batch."""
-    if uses_merged(kw):
-        mw = merged if merged is not None else merged_kernel_weights(kw)
-        return synthesize_frame_merged_kernel(mw, state, cond_a, cond_b, lpc,
-                                              n_samples)
-    return synthesize_frame_kernel(kw, state, cond_a, cond_b, lpc, n_samples)

@@ -21,8 +21,8 @@ reference the fused steps are held to.
 On a card the sample-rate work of a causal frame is three kernel launches:
 the teacher-forced drain (K3, `kernels.sample_loop.teacher_force_blocks_kernel`)
 and two masked half-frames (K2, `synthesize_frame_masked_kernel`); with
-`fastchain` the frame's PLC-net calls are one more (K4,
-`kernels.plc_chain.plc_chain_kernel`). A non-causal frame is five: K3 for
+the chain (`BatchedPLC(chain=True)`) the frame's PLC-net calls are one more
+(K4, `kernels.plc_chain.plc_chain_kernel`). A non-causal frame is five: K3 for
 the deferred resync of the streams that recovered a frame before, K2 for
 the first half-frame of the lost and recovering streams, K3 for the
 recovering streams' reverse-time resynthesis, K2 for the second half-frame,
@@ -45,7 +45,6 @@ unchanged.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -166,57 +165,10 @@ def _launch(wrapper, *args):
     return wrapper(*args)
 
 
-# --------------------------------------------------------------------------
-# Flags: which of the ported paths the step takes. They are read when a
-# BatchedPLC is built, so set them and build a fresh one.
-# --------------------------------------------------------------------------
-
-_FASTTF = os.environ.get("LPCNET_PLC_FASTTF", "1") != "0"
-_FASTFNET = os.environ.get("LPCNET_PLC_FASTFNET", "1") != "0"
-# off by default, as in the JAX package; whether the chain kernel pays on a
-# given card is a measurement to make there
-_FASTCHAIN = os.environ.get("LPCNET_PLC_FASTCHAIN", "0") != "0"
-# "auto": compact the sample-rate section to a capacity-C sub-batch of the
-# active streams whenever their number fits; "0" disables; an integer pins C
-_COMPACT_ENV = os.environ.get("LPCNET_PLC_COMPACT", "auto")
-
-
-class PLCFlags(NamedTuple):
-    fasttf: bool      # drain through K3 and the sectioned sample-rate program
-    fastfnet: bool    # deferred frame nets as one frame_network_flush
-    fastchain: bool   # the frame's PLC-net calls as one chain kernel (K4)
-    compact: str      # the sample-rate section on the active streams only
-
-
-def set_plc_flags(fasttf=None, fastfnet=None, fastchain=None, compact=None):
-    """Override the flags at run time; returns the previous values.
-    Instances built afterwards take the new values."""
-    global _FASTTF, _FASTFNET, _FASTCHAIN, _COMPACT_ENV
-    prev = (_FASTTF, _FASTFNET, _FASTCHAIN, _COMPACT_ENV)
-    if fasttf is not None:
-        _FASTTF = bool(fasttf)
-    if fastfnet is not None:
-        _FASTFNET = bool(fastfnet)
-    if fastchain is not None:
-        _FASTCHAIN = bool(fastchain)
-    if compact is not None:
-        _COMPACT_ENV = str(compact)
-    return prev
-
-
-def current_flags() -> PLCFlags:
-    return PLCFlags(_FASTTF, _FASTFNET, _FASTCHAIN, _COMPACT_ENV)
-
-
-def _compact_capacity(b: int, compact: Optional[str] = None) -> int:
+def _compact_capacity(b: int) -> int:
     """The sub-batch size of the compacted sample-rate section: b/4 rounded
     up to a multiple of 32 (64 at 256 streams, above the share of a pool
     that is lost or blending at 10 % loss), none below 128 streams."""
-    compact = _COMPACT_ENV if compact is None else compact
-    if compact in ("0", "off"):
-        return 0
-    if compact not in ("auto", ""):
-        return int(compact)
     return (b // 4 + 31) // 32 * 32 if b >= 128 else 0
 
 
@@ -233,13 +185,16 @@ class BatchedPLC:
                  plc_cfg: Optional[PM.PLCConfig] = None,
                  use_kernel: Optional[bool] = None,
                  fused_step: bool = True, fec_q: int = 100,
-                 remove_dc: bool = False, device=None):
+                 remove_dc: bool = False, chain: bool = False, device=None):
         """On CUDA the sample-rate work always runs through the kernels, at
         any batch. On the CPU `use_kernel=True` takes the same program with
         the kernels' plain versions; the default there is the step-by-step
         float32 model (`models.lpcnet.synthesize_frame_masked`).
         fused_step=False takes the two-path step, the reference of the fused
-        one."""
+        one. `chain=True` runs the causal fused step's PLC-net calls as one
+        chain kernel (K4) a frame; it is off by default, as in the JAX
+        package, since whether it pays on a given card is a measurement to
+        make there."""
         if non_causal and cfg.lookahead != 0:
             raise ValueError("non-causal PLC needs a lookahead-0 model")
         if remove_dc and not fused_step:
@@ -250,6 +205,9 @@ class BatchedPLC:
         if dev.type == "cuda" and not use_kernel:
             raise ValueError("on CUDA the sample-rate work runs only through "
                              "the kernels")
+        if chain and (non_causal or not fused_step or not use_kernel):
+            raise ValueError("the chain kernel runs in the causal fused step "
+                             "on the kernels only")
         self.device = dev
         self.fused = tree_to(fused, dev)
         self.cfg = cfg
@@ -266,11 +224,11 @@ class BatchedPLC:
         self.kw = (K.masked_kernel_weights(K.kernel_weights(self.fused, cfg))
                    if use_kernel else None)
         self.remove_dc = remove_dc
-        self.flags = current_flags()
         # the causal fused step's PLC-net chain (K4)
-        self._cw = (PC.plc_chain_weights(self.plc_params)
-                    if use_kernel and self.flags.fastchain and fused_step
-                    and not non_causal else None)
+        self._cw = PC.plc_chain_weights(self.plc_params) if chain else None
+        # the capacity of the compacted sample-rate section (0: the full
+        # batch); tests and tools may set it after construction
+        self.compact_cap = _compact_capacity(batch)
         # frames whose sample-rate section ran compacted / fell through to
         # the full batch because the active streams exceeded the capacity /
         # ran at the full batch because compaction is off (the fused steps;
@@ -342,18 +300,19 @@ class BatchedPLC:
                 self.state, out = step(
                     self.state, self.fused, self.plc_params, pcm, lost,
                     self.cfg, self.enable_blending, self.delay,
-                    self.plc_buf_size, self.kw, flags=self.flags)
+                    self.plc_buf_size, self.kw)
             elif self.non_causal:
                 self.state, out = _plc_frame_step_nc_fused(
                     self.state, self.fused, self.plc_params, pcm, lost,
                     self.cfg, self.kw, remove_dc=self.remove_dc,
-                    flags=self.flags, stats=self.stats)
+                    compact_cap=self.compact_cap, stats=self.stats)
             else:
                 self.state, out = _plc_frame_step_fused(
                     self.state, self.fused, self.plc_params, pcm, lost,
                     self.cfg, self.enable_blending, self.delay,
                     self.plc_buf_size, self.kw, remove_dc=self.remove_dc,
-                    flags=self.flags, cw=self._cw, stats=self.stats)
+                    cw=self._cw, compact_cap=self.compact_cap,
+                    stats=self.stats)
         return out
 
     def step(self, pcm: np.ndarray, lost: np.ndarray) -> np.ndarray:
@@ -436,26 +395,21 @@ def _tail_masked(fused, s: BatchedPLCState, preload, preload_mask,
 
 
 def _tf_prefix(fused, sstate: M.SampleState, ca, cb, lpc, targets, count,
-               kw, fasttf):
+               kw):
     """`count[i]` teacher-forced steps of stream i on explicit conditioning
     (count 0 freezes it); the warmup gate is already folded into `count`.
-    With `kw` and `fasttf` one block of K3, else the masked tail with the
-    sampler off (K2 with `kw`, the float32 model without). Returns the new
-    sample state."""
+    With `kw` one block of K3, else the float32 model's masked tail with the
+    sampler off. Returns the new sample state."""
     if _abl("tf"):
         return sstate._replace(
             gru_a=sstate.gru_a + _consume(ca, cb, lpc, targets, count))
     n = targets.shape[-1]
-    if kw is not None and fasttf:
+    if kw is not None:
         return _launch(K.teacher_force_blocks_kernel, kw, sstate, ca[:, None],
                        cb[:, None], lpc[:, None], targets, count[:, None], n)
     adv = torch.arange(n, device=targets.device)[None, :] < count[:, None]
-    if kw is None:
-        return M.synthesize_frame_masked(fused, sstate, ca, cb, lpc, targets,
-                                         adv, adv)[0]
-    return _launch(K.synthesize_frame_masked_kernel, kw, sstate,
-                   ca.contiguous(), cb.contiguous(), lpc.contiguous(), targets,
-                   adv, adv, n, False)[0]
+    return M.synthesize_frame_masked(fused, sstate, ca, cb, lpc, targets,
+                                     adv, adv)[0]
 
 
 def _fec_row(s: BatchedPLCState, read):
@@ -671,9 +625,9 @@ def _section_body(kw, sec, enable_blending, remove_dc):
     return ss, head, tail, pcm80
 
 
-def _compacted(body, sec, mask, into, compact, stats=None):
+def _compacted(body, sec, mask, into, cap, stats=None):
     """`body(sec)` at the full batch, or on the sub-batch of `mask`'s
-    streams when their number fits the capacity (`_compact_capacity`).
+    streams when their number fits the capacity `cap` (0: never).
 
     `sec` holds the body's per-stream inputs ([B, ...] tensors in nested
     tuples and dicts). `into` is shaped like the body's outputs: the
@@ -685,7 +639,6 @@ def _compacted(body, sec, mask, into, compact, stats=None):
     needs the number of `mask`'s streams on the host: one read of a device
     scalar. `stats` counts the branch taken."""
     b = mask.shape[0]
-    cap = _compact_capacity(b, compact)
 
     def tally(branch):
         if stats is not None:
@@ -712,14 +665,14 @@ def _compacted(body, sec, mask, into, compact, stats=None):
     return tree_map(scatter, into, body(tree_map(gather, sec)))
 
 
-def _run_sample_section(kw, sec, enable_blending, remove_dc, compact, stats):
+def _run_sample_section(kw, sec, enable_blending, remove_dc, cap, stats):
     """The causal `_section_body`, compacted to the streams that are lost or
     blending when their number fits the capacity."""
     zeros = torch.zeros_like(sec["pcm80"])
     return _compacted(
         lambda c: _section_body(kw, c, enable_blending, remove_dc), sec,
         sec["L"] | sec["bl"], (sec["sstate"], zeros, zeros, sec["pcm80"]),
-        compact, stats)
+        cap, stats)
 
 
 def _push_plc_ring(s: BatchedPLCState, active):
@@ -828,9 +781,8 @@ def _att_of(lc):
 
 def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
                           lost, cfg, enable_blending, delay, plc_buf_size,
-                          kw=None, remove_dc=False,
-                          flags: Optional[PLCFlags] = None, cw=None,
-                          stats: Optional[dict] = None):
+                          kw=None, remove_dc=False, cw=None,
+                          compact_cap: int = 0, stats: Optional[dict] = None):
     """The causal PLC step as one interleaved program over a single state.
 
     Lost and good streams are disjoint, so the per-stream masks that drive
@@ -847,16 +799,14 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
         its frame net after the restore into the conceal path's;
       * feature extraction runs once, on the output selected per stream.
 
+    With `kw` the sample-rate work runs as one section, compacted to the
+    lost and blending streams at capacity `compact_cap` (0: the full batch);
+    with `cw` (`kernels.plc_chain.plc_chain_weights`, built once by the
+    owner) one chain-kernel launch takes the place of the frame's up to five
+    dependent PLC-net calls (`_chain_causal`).
+
     Returns (new state, output [B, 160] float, clipped to int16 range).
     """
-    flags = flags or current_flags()
-    # with `fastchain` one chain-kernel launch takes the place of the
-    # frame's up to five dependent PLC-net calls (see _chain_causal), on the
-    # bundle the owner built once
-    use_chain = kw is not None and flags.fastchain
-    if use_chain and cw is None:
-        raise ValueError("fastchain needs the chain kernel's weights: pass "
-                         "cw=plc_chain_weights(plc_params)")
     stats = stats if stats is not None else {"compacted": 0, "overflowed": 0,
                                               "full": 0}
     b = pcm.shape[0]
@@ -884,15 +834,10 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
     #                          as it was before it is cleared
 
     # ---- conceal: flush the deferred frame nets (lost streams) ------------
-    if flags.fastfnet:
-        s = _fnet_flush_masked(
-            fused, s, s.feat_ring,
-            torch.where(L, torch.clamp(s.feat_count, max=MAX_DEFER),
-                        torch.zeros_like(s.feat_count)), cfg)
-    else:
-        for i in range(MAX_DEFER):
-            s = _fnet_masked(fused, s, s.feat_ring[:, i],
-                             L & (i < s.feat_count), cfg)
+    s = _fnet_flush_masked(
+        fused, s, s.feat_ring,
+        torch.where(L, torch.clamp(s.feat_count, max=MAX_DEFER),
+                    torch.zeros_like(s.feat_count)), cfg)
     s = s._replace(feat_count=torch.where(L, torch.zeros_like(s.feat_count),
                                           s.feat_count))
 
@@ -901,7 +846,7 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
     if enable_blending:
         # update path: restore the PLC net of before the loss, predict the gap
         s = s._replace(plc_net=_bwhere(bl, ring_at(delay), s.plc_net))
-        if use_chain:
+        if cw is not None:
             ch = _chain_causal(cw, s, L, bl, burg_feats, delay, True)
             s = s._replace(features=torch.where(bl[:, None], ch["outs"][:, 0],
                                                 s.features))
@@ -918,7 +863,7 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
         fresh = M.init_sample_state(b, cfg, pcm.device)._replace(
             rng=s.sstate.rng)
         s = s._replace(sstate=_bwhere(bl, fresh, s.sstate))
-        if use_chain:
+        if cw is not None:
             # after the rewind: the pointer replay starts from these values
             ch = _chain_causal(cw, s, L, bl, burg_feats, delay, False)
 
@@ -984,7 +929,7 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
             loss_count=torch.where(L, lc, s.loss_count))
 
     blv = bl if enable_blending else torch.zeros_like(bl)
-    if kw is not None and flags.fasttf:
+    if kw is not None:
         # ---- the sample-rate section (the drain's pass 2 and both tails),
         # with all the frame-rate work that used to interleave with it
         # hoisted ahead, so the section can run on the active streams only
@@ -1019,18 +964,19 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
             pcm80=pcm[:, :_N1], delta=delta if remove_dc else None,
             L=L, bl=blv)
         new_ss, head, tail, pcm80 = _run_sample_section(
-            kw, sec, enable_blending, remove_dc, flags.compact, stats)
+            kw, sec, enable_blending, remove_dc, compact_cap, stats)
         s = s._replace(sstate=new_ss)
         pcm = torch.cat([pcm80, pcm[:, _N1:]], dim=1)
         pcm_c = torch.cat([head, tail], dim=1)
     else:
+        # ---- the float32 model: the drain's pass 2 and both tails in the
+        # reference's order
         for k, (ca_k, cb_k, lpc_k, output, count) in enumerate(drain):
             if k == MAX_DRAIN - 1 and enable_blending:
                 saved = (saved_f[0], s.sstate, saved_f[1], saved_f[2],
                          saved_f[3])
             s = s._replace(sstate=_tf_prefix(fused, s.sstate, ca_k, cb_k,
-                                             lpc_k, output, count, kw,
-                                             flags.fasttf))
+                                             lpc_k, output, count, None))
 
         # ---- shared sampled call 1: conceal head (lost) | update tmp ------
         # (codec mode has no tmp and resync synthesis: only lost streams
@@ -1039,7 +985,7 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
         zp = torch.zeros((b, _N1), dtype=torch.float32, device=pcm.device)
         zm = torch.zeros((b, _N1), dtype=torch.bool, device=pcm.device)
         adv1 = (L | blv)[:, None].expand(b, _N1)
-        s, k2 = _tail_masked(fused, s, zp, zm, adv1, cfg, kw)
+        s, k2 = _tail_masked(fused, s, zp, zm, adv1, cfg)
         head = k2                           # lost streams' first half-frame
 
         if enable_blending:
@@ -1070,8 +1016,7 @@ def _plc_frame_step_fused(state: BatchedPLCState, fused, plc_params, pcm,
         # (teacher-forced)
         tf2 = blv[:, None].expand(b, _TO)
         adv2 = L[:, None].expand(b, _TO) | tf2
-        s, tail = _tail_masked(fused, s, pcm[:, :_TO] * tf2, tf2, adv2, cfg,
-                               kw, sampled=True)
+        s, tail = _tail_masked(fused, s, pcm[:, :_TO] * tf2, tf2, adv2, cfg)
         pcm_c = torch.cat([head, tail], dim=1)
 
     # ---- pcm queue management ---------------------------------------------
@@ -1143,7 +1088,7 @@ def _enc_step_masked(s: BatchedPLCState, pcm, active):
     return s._replace(enc=_bwhere(active, new_enc, s.enc)), feats
 
 
-def _queued_body(fused, cfg, kw, fasttf, sec):
+def _queued_body(fused, cfg, kw, sec):
     """The deferred resync queued by a recovery frame (src/lpcnet_plc.c:
     277-281) on explicit per-stream inputs: the frame net on the current
     features, then the queued samples teacher-forced, for the streams of
@@ -1158,24 +1103,21 @@ def _queued_body(fused, cfg, kw, fasttf, sec):
     n = sec["queued_samples"].shape[-1]
     count = torch.where(q & live, n, 0).to(torch.int32)
     sst = _tf_prefix(fused, sec["sstate"], ca, cb, lp, sec["queued_samples"],
-                     count, kw, fasttf)
+                     count, kw)
     return dict(fstate=fst, sstate=sst, ca=ca, cb=cb, lpc=lp)
 
 
-def _process_queued_update(fused, s: BatchedPLCState, cfg, kw, flags,
-                           compact=False):
-    """`_queued_body` for the queued streams, at the full batch, or with
-    `compact` on the kernels' program compacted to them (a small share of a
+def _process_queued_update(fused, s: BatchedPLCState, cfg, kw, cap=0):
+    """`_queued_body` for the queued streams, at the full batch, or on the
+    kernels' program compacted to them at capacity `cap` (a small share of a
     steady pool: the last frame's recoveries). Clears the queued flags."""
-    fast = compact and kw is not None and flags.fasttf
     sec = dict(q=s.queued, fstate=s.fstate, sstate=s.sstate,
                features=s.features, ca=s.cond_a, cb=s.cond_b, lpc=s.lpc,
                queued_samples=s.queued_samples)
     into = dict(fstate=s.fstate, sstate=s.sstate, ca=s.cond_a, cb=s.cond_b,
                 lpc=s.lpc)
-    out = _compacted(lambda c: _queued_body(fused, cfg, kw,
-                                            flags.fasttf, c),
-                     sec, s.queued, into, flags.compact if fast else "0")
+    out = _compacted(lambda c: _queued_body(fused, cfg, kw, c), sec,
+                     s.queued, into, cap if kw is not None else 0)
     return s._replace(fstate=out["fstate"], sstate=out["sstate"],
                       cond_a=out["ca"], cond_b=out["cb"], lpc=out["lpc"],
                       queued=torch.zeros_like(s.queued))
@@ -1212,7 +1154,7 @@ def _nc_section_body(fused, cfg, kw, sec):
                      ((caf, ca), (cbf, cb), (lpf, lp)))
     live = fst.frame_count > cfg.lookahead
     count = torch.where(rec & live, FRAME_SIZE, 0).to(torch.int32)
-    sst = _tf_prefix(fused, sst, ca2, cb2, lp2, sec["rev"], count, kw, True)
+    sst = _tf_prefix(fused, sst, ca2, cb2, lp2, sec["rev"], count, kw)
     adv80 = (act & live)[:, None].expand(b, _N1)
     sst, t2 = _launch(
         K.synthesize_frame_masked_kernel, kw, sst, ca2.contiguous(),
@@ -1223,7 +1165,7 @@ def _nc_section_body(fused, cfg, kw, sec):
 
 
 def _run_nc_section(fused, cfg, kw, s: BatchedPLCState, L, rec, first, pcm,
-                    compact, stats):
+                    cap, stats):
     """`_nc_section_body`, compacted to the L | rec streams when their
     number fits the capacity. Returns (state, t1, t2)."""
     b = L.shape[0]
@@ -1235,7 +1177,7 @@ def _run_nc_section(fused, cfg, kw, s: BatchedPLCState, L, rec, first, pcm,
     into = dict(sstate=s.sstate, fstate=s.fstate, ca=s.cond_a, cb=s.cond_b,
                 lpc=s.lpc, t1=zeros, t2=zeros)
     out = _compacted(lambda c: _nc_section_body(fused, cfg, kw, c), sec,
-                     L | rec, into, compact, stats)
+                     L | rec, into, cap, stats)
     s = s._replace(sstate=out["sstate"], fstate=out["fstate"],
                    cond_a=out["ca"], cond_b=out["cb"], lpc=out["lpc"])
     return s, out["t1"], out["t2"]
@@ -1250,7 +1192,7 @@ def _set_head(buf, head):
 
 def _plc_frame_step_nc_fused(state: BatchedPLCState, fused, plc_params, pcm,
                              lost, cfg, kw=None, remove_dc=False,
-                             flags: Optional[PLCFlags] = None,
+                             compact_cap: int = 0,
                              stats: Optional[dict] = None):
     """The non-causal PLC step as one interleaved program over a single
     state (the twin of `_plc_frame_step_fused`).
@@ -1260,10 +1202,11 @@ def _plc_frame_step_nc_fused(state: BatchedPLCState, fused, plc_params, pcm,
     runs once instead of twice, the conceal head and the recovery's forward
     tail share one sampled call, the conceal tail and the recovery's
     reverse tail another, and the buffer re-analysis (continued loss,
-    recovery) is one feature step. With the kernels and `fasttf` (and
-    without the DC filter, which interleaves full-batch DC passes between
-    the calls) the lost and recovering streams' sample-rate chain runs as
-    one section, compacted to them (`_run_nc_section`).
+    recovery) is one feature step. With the kernels (and without the DC
+    filter, which interleaves full-batch DC passes between the calls) the
+    lost and recovering streams' sample-rate chain runs as one section,
+    compacted to them at capacity `compact_cap` (`_run_nc_section`), as is
+    the deferred resync.
 
     remove_dc adds the reference's non-causal DC variant (src/lpcnet_plc.c:
     383-393, 404-426, 437-441): the processing runs DC-free; on recovery the
@@ -1272,7 +1215,6 @@ def _plc_frame_step_nc_fused(state: BatchedPLCState, fused, plc_params, pcm,
 
     Returns (new state, output [B, 160] float, clipped to int16 range).
     """
-    flags = flags or current_flags()
     stats = stats if stats is not None else {"compacted": 0, "overflowed": 0,
                                               "full": 0}
     b = pcm.shape[0]
@@ -1284,7 +1226,7 @@ def _plc_frame_step_nc_fused(state: BatchedPLCState, fused, plc_params, pcm,
     pcm_in = pcm
 
     # ---- shared: the deferred resync queued by a previous recovery -------
-    s = _process_queued_update(fused, s, cfg, kw, flags, compact=True)
+    s = _process_queued_update(fused, s, cfg, kw, compact_cap)
 
     # ---- DC removal, pass 1, on the incoming audio (good streams,
     # src/lpcnet_plc.c:404-412): the pending synthesis DC folds into the
@@ -1325,9 +1267,9 @@ def _plc_frame_step_nc_fused(state: BatchedPLCState, fused, plc_params, pcm,
     # recovery keeps its forward tail in the buffer head; a continued loss
     # refreshes the head with its own continuation
     keeps_t1 = (rec | (L & ~first))[:, None]
-    if kw is not None and flags.fasttf and not remove_dc:
+    if kw is not None and not remove_dc:
         s, t1, t2 = _run_nc_section(fused, cfg, kw, s, L, rec, first, pcm,
-                                    flags.compact, stats)
+                                    compact_cap, stats)
         head = torch.where(first[:, None], buf_head, t1)
         s = s._replace(pcm_buf=torch.where(keeps_t1, _set_head(s.pcm_buf, t1),
                                            s.pcm_buf))
@@ -1358,8 +1300,7 @@ def _plc_frame_step_nc_fused(state: BatchedPLCState, fused, plc_params, pcm,
         live = s.fstate.frame_count > cfg.lookahead
         s = s._replace(sstate=_tf_prefix(
             fused, s.sstate, s.cond_a, s.cond_b, s.lpc, torch.flip(pcm, (1,)),
-            torch.where(rec & live, FRAME_SIZE, 0).to(torch.int32), kw,
-            flags.fasttf))
+            torch.where(rec & live, FRAME_SIZE, 0).to(torch.int32), kw))
 
         # ---- shared call 2 (80): conceal tail | recovery reverse tail ----
         adv80 = (L | rec)[:, None].expand(b, _N1)
@@ -1407,8 +1348,7 @@ def _plc_frame_step_nc_fused(state: BatchedPLCState, fused, plc_params, pcm,
     live = s.fstate.frame_count > cfg.lookahead
     s = s._replace(sstate=_tf_prefix(
         fused, s.sstate, s.cond_a, s.cond_b, s.lpc, tf_target,
-        torch.where(gd & live, FRAME_SIZE, 0).to(torch.int32), kw,
-        flags.fasttf))
+        torch.where(gd & live, FRAME_SIZE, 0).to(torch.int32), kw))
 
     # ---- outputs, buffer and counters -------------------------------------
     out_u = torch.cat([s.pcm_buf[:, _TO:FRAME_SIZE], pcm[:, :_TO]], dim=1)
@@ -1558,14 +1498,13 @@ def _update_path(fused, plc_params, s: BatchedPLCState, pcm, cfg,
     return s, torch.clamp(pcm, -32768, 32767)
 
 
-def _conceal_path_nc(fused, plc_params, s: BatchedPLCState, cfg, kw=None,
-                     flags: Optional[PLCFlags] = None):
+def _conceal_path_nc(fused, plc_params, s: BatchedPLCState, cfg, kw=None):
     """lpcnet_plc_conceal_non_causal (src/lpcnet_plc.c:452-492) for every
     stream."""
     b = s.features.shape[0]
     dev = s.features.device
     ones = torch.ones(b, dtype=torch.bool, device=dev)
-    s = _process_queued_update(fused, s, cfg, kw, flags or current_flags())
+    s = _process_queued_update(fused, s, cfg, kw)
     s = _plc_pred_masked(plc_params, s,
                          torch.zeros((b, PM.PLC_INPUT_SIZE), device=dev), ones)
     # the non-causal mode attenuates with the count before its increment
@@ -1597,14 +1536,12 @@ def _conceal_path_nc(fused, plc_params, s: BatchedPLCState, cfg, kw=None,
     return s, torch.clamp(pcm, -32768, 32767)
 
 
-def _update_path_nc(fused, plc_params, s: BatchedPLCState, pcm, cfg, kw=None,
-                    flags: Optional[PLCFlags] = None):
+def _update_path_nc(fused, plc_params, s: BatchedPLCState, pcm, cfg, kw=None):
     """lpcnet_plc_update_non_causal (src/lpcnet_plc.c:349-450) for every
     stream, without the DC filter."""
-    flags = flags or current_flags()
     b = pcm.shape[0]
     dev = pcm.device
-    s = _process_queued_update(fused, s, cfg, kw, flags)
+    s = _process_queued_update(fused, s, cfg, kw)
     pcm_save = pcm
     burg_feats = _burg(pcm)
     rec = s.loss_count > 0          # the first good frame after a loss
@@ -1677,8 +1614,7 @@ def _merge_paths(lost, s_c, out_c, s_u, out_u):
 
 
 def _plc_frame_step(state: BatchedPLCState, fused, plc_params, pcm, lost,
-                    cfg, enable_blending, delay, plc_buf_size, kw=None,
-                    flags: Optional[PLCFlags] = None):
+                    cfg, enable_blending, delay, plc_buf_size, kw=None):
     """The causal step as two paths on copies of the state, merged."""
     pcm = pcm.to(torch.float32)
     s_c, out_c = _conceal_path(fused, plc_params, state, cfg, kw)
@@ -1688,10 +1624,9 @@ def _plc_frame_step(state: BatchedPLCState, fused, plc_params, pcm, lost,
 
 
 def _plc_frame_step_nc(state: BatchedPLCState, fused, plc_params, pcm, lost,
-                       cfg, enable_blending, delay, plc_buf_size, kw=None,
-                       flags: Optional[PLCFlags] = None):
+                       cfg, enable_blending, delay, plc_buf_size, kw=None):
     """The non-causal step as two paths on copies of the state, merged."""
     pcm = pcm.to(torch.float32)
-    s_c, out_c = _conceal_path_nc(fused, plc_params, state, cfg, kw, flags)
-    s_u, out_u = _update_path_nc(fused, plc_params, state, pcm, cfg, kw, flags)
+    s_c, out_c = _conceal_path_nc(fused, plc_params, state, cfg, kw)
+    s_u, out_u = _update_path_nc(fused, plc_params, state, pcm, cfg, kw)
     return _merge_paths(lost, s_c, out_c, s_u, out_u)

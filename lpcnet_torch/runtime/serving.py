@@ -116,18 +116,21 @@ class PLCStreamPool:
     concealed audio for every attached stream; each stream follows its own
     loss pattern inside the one batched frame step. The non-causal mode
     (a lookahead-0 vocoder) hands back audio 80 samples late and has no FEC
-    queue; `remove_dc` runs the reference's DC filter in either mode.
+    queue; `remove_dc` runs the reference's DC filter in either mode;
+    `chain` runs the causal step's PLC-net calls as one chain kernel (K4).
     """
 
     def __init__(self, fused, cfg: M.LPCNetConfig, plc_params,
                  capacity: int = 256, enable_blending: bool = True,
                  non_causal: bool = False, device=None,
-                 use_kernel: Optional[bool] = None, remove_dc: bool = False):
+                 use_kernel: Optional[bool] = None, remove_dc: bool = False,
+                 chain: bool = False):
         self.capacity = capacity
         self.plc = BatchedPLC(fused, cfg, plc_params, batch=capacity,
                               enable_blending=enable_blending,
                               non_causal=non_causal, device=device,
-                              use_kernel=use_kernel, remove_dc=remove_dc)
+                              use_kernel=use_kernel, remove_dc=remove_dc,
+                              chain=chain)
         self.free = list(range(capacity))[::-1]
         self.slot_of: Dict[str, int] = {}
         self._init_slot_state = None

@@ -13,8 +13,8 @@ comparable from step to step.
 Synthesis is frame by frame: the frame network, then one frame of the
 sample loop. On the CPU the loop is the plain `models.lpcnet.
 synthesize_frame`, the counterpart of the JAX package's scan; on CUDA it is
-one launch of the sample-loop kernel a frame (`kernels.sample_loop.
-synthesize_frame_auto`) on a float32 bundle rebuilt from the params at each
+one launch of the sample-loop kernel a frame (K1, `kernels.sample_loop.
+synthesize_frame_kernel`) on a float32 bundle rebuilt from the params at each
 call with its kernel packs (`masked_kernel_weights`, once a call, not once
 a frame), float32 so that it stays the counterpart of that float32 scan.
 """
@@ -93,7 +93,7 @@ class HeldOutValidator:
                 if kw is None:
                     sst, pcm = M.synthesize_frame(fused, sst, ca, cb, lpc)
                 else:
-                    sst, pcm = K.synthesize_frame_auto(
+                    sst, pcm = K.synthesize_frame_kernel(
                         kw, sst, ca.contiguous(), cb.contiguous(),
                         lpc.contiguous())
                 out.append(pcm)

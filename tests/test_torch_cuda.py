@@ -170,26 +170,21 @@ def test_cuda_merged_kernel_at_the_decode_batch(cuda, form):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["float-off", "float-on", "int8-on"])
+@pytest.mark.parametrize("case", ["float", "int8"])
 def test_cuda_stream_pool_decodes_through_the_selected_kernel(cuda, case):
     """StreamPool.step_packets on the card: 4 sample-loop launches a 40 ms
-    tick, all K1 with the merged flag off or a q8 model, all K6 with it on
-    and a float model; warmup silent, then int16 audio; vq_mem carried."""
-    int8, flag = case.startswith("int8"), case.endswith("on")
-    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, int8=int8, device=cuda)
+    tick, all K1, a float model or a q8 one, none of K6; warmup silent, then
+    int16 audio; vq_mem carried."""
+    fused, cfg = api.load_model(api.DEMO_MODEL_PATH, int8=case == "int8",
+                                device=cuda)
     pkts = np.random.RandomState(5).randint(0, 256, (3, 6, 8)).astype(np.uint8)
-    prev = K.set_merged(flag)
-    try:
-        pool = StreamPool(fused, cfg, capacity=6)
-        K.synthesize_frame_kernel.launches = 0
-        K.synthesize_frame_merged_kernel.launches = 0
-        out = [pool.step_packets({f"s{i}": pkts[t, i] for i in range(5)})
-               for t in range(3)]
-    finally:
-        K.set_merged(prev)
-    k6 = flag and not int8
-    assert K.synthesize_frame_merged_kernel.launches == (12 if k6 else 0)
-    assert K.synthesize_frame_kernel.launches == (0 if k6 else 12)
+    pool = StreamPool(fused, cfg, capacity=6)
+    K.synthesize_frame_kernel.launches = 0
+    K.synthesize_frame_merged_kernel.launches = 0
+    out = [pool.step_packets({f"s{i}": pkts[t, i] for i in range(5)})
+           for t in range(3)]
+    assert K.synthesize_frame_merged_kernel.launches == 0
+    assert K.synthesize_frame_kernel.launches == 12
     pcm = np.stack([np.stack([o[f"s{i}"] for i in range(5)]) for o in out])
     assert pcm.dtype == np.int16 and pcm.shape == (3, 5, 640)
     assert not pcm[0, :, :2 * 160].any() and pcm[1:].any(axis=(0, 2)).all()
@@ -458,20 +453,16 @@ def test_cuda_decoder_preload_runs_the_masked_kernel(cuda, int8):
 @pytest.mark.cuda
 def test_cuda_plc_pool_counts_its_launches(cuda):
     """A small pool on the card, blending on: K2 twice and K3 once a frame,
-    K4 once a frame with `fastchain` and never without; good streams pass
-    through; a slot reset leaves the other slots' state alone."""
-    from lpcnet_torch.plc import batched as BP
+    K4 once a frame with the chain (`chain=True`) and never without; good
+    streams pass through; a slot reset leaves the other slots' state
+    alone."""
     cfg = M.LPCNetConfig(**SMALL)
     fused = M.fuse_inference_params(M.init_params(cfg, seed=1, device=cuda), cfg)
     plc_params = api.load_plc_model(None, seed=2, device=cuda)
     rs = np.random.RandomState(3)
     frames = (rs.normal(size=(8, 5, 160)) * 2000).round().astype(np.float32)
     for chain in (False, True):
-        prev = BP.set_plc_flags(fastchain=chain)
-        try:
-            pool = PLCStreamPool(fused, cfg, plc_params, capacity=5)
-        finally:
-            BP.set_plc_flags(*prev)
+        pool = PLCStreamPool(fused, cfg, plc_params, capacity=5, chain=chain)
         K.synthesize_frame_masked_kernel.launches = 0
         K.teacher_force_blocks_kernel.launches = 0
         PC.plc_chain_kernel.launches = 0

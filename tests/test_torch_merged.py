@@ -3,8 +3,8 @@ and its plain version against the JAX package's `_merged_weights`, `_cond4`
 and the TPU kernel `_sample_kernel_merged` run by the Pallas interpreter;
 its launch operands (`merged_packs`: the merged matrices' non-zero blocks in
 K1's layout and fragment packs, the padding checked) and the conversion of
-its conditioning that the CUDA wrapper launches (`merged_as_k1`); the flag
-and the dispatch between K1 and K6, alone and under the decoder. The CUDA
+its conditioning that the CUDA wrapper launches (`merged_as_k1`); and the
+decoder, which runs K1 on every free-running frame, never K6. The CUDA
 kernel itself is held against its plain version in test_torch_cuda.py."""
 
 import os
@@ -273,20 +273,10 @@ def test_plain_k6_agrees_with_plain_k1(fused):
     assert float((s6.gru_a - s1.gru_a).abs().max()) <= 1e-4
 
 
-def test_set_merged_returns_previous():
-    start = K._MERGED
-    try:
-        assert K.set_merged(True) == start
-        assert K.set_merged(False) is True
-        assert K.set_merged(start) is False
-    finally:
-        K.set_merged(start)
-
-
 @pytest.fixture
 def spies(monkeypatch):
-    """Counts each kernel wrapper's calls through the dispatch (on the CPU
-    the wrappers run their plain versions and count no launches)."""
+    """Counts each kernel wrapper's calls (on the CPU the wrappers run their
+    plain versions and count no launches)."""
     calls = {"k1": 0, "k6": 0}
 
     def spy(name, fn):
@@ -302,40 +292,16 @@ def spies(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("flag", [False, True], ids=["off", "on"])
 @pytest.mark.parametrize("form", ["bf16", "q8"])
-def test_dispatch_picks_k6_for_float_bundles_under_the_flag(
-        fused, spies, monkeypatch, flag, form):
-    """Flag on: a float bundle runs K6 (with the caller's operands or its
-    own), a q8 bundle K1; flag off: both run K1. The K6 frame equals the
-    plain K6 frame."""
+def test_decoder_frames_dispatch_through_the_flag(fused, spies, form):
+    """`LPCNetDecoder.synthesize` on the kernel path, a float (bf16) or a
+    q8 model: one K1 call a frame and none of K6, with the bundle of the
+    model's form."""
     _, tf = fused
-    monkeypatch.setattr(K, "_MERGED", flag)
-    kw = (K.kernel_weights(Q.quantize_fused(tf), TCFG) if form == "q8"
-          else K.kernel_weights(tf, TCFG))
-    ca, cb, lpc, s0 = _inputs(tf, 4)
-    st, pcm = K.synthesize_frame_auto(kw, s0, ca, cb, lpc, 8)
-    k6 = flag and form != "q8"
-    assert spies == {"k1": 0 if k6 else 1, "k6": 1 if k6 else 0}
-    assert K.uses_merged(kw) == k6
-    if k6:
-        _, want = K.sample_loop_merged_plain(K.merged_kernel_weights(kw), s0,
-                                             ca, cb, lpc, 8)
-        assert torch.equal(pcm, want)
-
-
-@pytest.mark.parametrize("flag", [False, True], ids=["off", "on"])
-def test_decoder_frames_dispatch_through_the_flag(fused, spies, monkeypatch,
-                                                  flag):
-    """`LPCNetDecoder.synthesize` on the kernel path: one sample-loop call a
-    frame, K6 with the flag on (its operands built once and kept), K1 with
-    it off; the K6 decoder's audio is the plain K6 loop's."""
-    _, tf = fused
-    monkeypatch.setattr(K, "_MERGED", flag)
-    dec = D.LPCNetDecoder.from_fused(tf, TCFG, 3, device="cpu",
-                                     use_kernel=True)
+    dec = D.LPCNetDecoder.from_fused(Q.quantize_fused(tf) if form == "q8" else tf,
+                                     TCFG, 3, device="cpu", use_kernel=True)
+    assert K.is_q8_bundle(dec._kw) == (form == "q8")
     rs = np.random.RandomState(15)
     for _ in range(4):
         dec.synthesize((rs.normal(size=(3, 36)) * 0.3).astype(np.float32))
-    assert spies == ({"k1": 0, "k6": 4} if flag else {"k1": 4, "k6": 0})
-    assert (dec._kw_merged is not None) == flag
+    assert spies == {"k1": 4, "k6": 0}

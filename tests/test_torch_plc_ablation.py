@@ -40,17 +40,15 @@ def traffic():
     return pcm, lost
 
 
-def _run(models, traffic, ablate=frozenset(), **flags):
-    prev_flags = B.set_plc_flags(**flags)
+def _run(models, traffic, ablate=frozenset(), **options):
     prev = B._ABLATE
     B._ABLATE = frozenset(ablate)
     try:
         plc = B.BatchedPLC(*models[:1], TCFG, models[1], batch=STREAMS,
-                           device="cpu", use_kernel=True)
+                           device="cpu", use_kernel=True, **options)
         out = plc.run(*traffic)
     finally:
         B._ABLATE = prev
-        B.set_plc_flags(*prev_flags)
     return out, plc.state
 
 
@@ -85,17 +83,16 @@ def test_stand_in_takes_effect_and_clears(models, traffic, plain):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("name,flags", [
+@pytest.mark.parametrize("name,options", [
     ("burg", {}), ("enc", {}), ("fnet", {}),
-    ("plcnet", {}), ("plcnet", {"fastchain": True}), ("tf", {}),
-    ("tf", {"fasttf": False}), ("tails", {}), ("tails", {"fasttf": False}),
+    ("plcnet", {}), ("plcnet", {"chain": True}), ("tf", {}), ("tails", {}),
     ("ALL", {})])
 def test_each_name_runs_with_the_state_unchanged_in_form(
-        models, short, plain_short, name, flags):
+        models, short, plain_short, name, options):
     names = B.ABLATION_NAMES if name == "ALL" else (name,)
-    out, state = _run(models, short, names, **flags)
-    want_out, want_state = (plain_short if not flags
-                            else _run(models, short, **flags))
+    out, state = _run(models, short, names, **options)
+    want_out, want_state = (plain_short if not options
+                            else _run(models, short, **options))
     assert out.shape == want_out.shape and out.dtype == want_out.dtype
     assert np.isfinite(out).all()
     got, want = _leaves(state), _leaves(want_state)

@@ -12,6 +12,7 @@ from lpcnet_tpu.kernels import plc_chain as JPC
 from lpcnet_tpu.models import plc as JPM
 
 from lpcnet_torch.kernels import plc_chain as PC
+from lpcnet_torch.models import lpcnet as M
 from lpcnet_torch.models import plc as PM
 from lpcnet_torch.plc import batched as BP
 from lpcnet_torch.weights.convert import params_to_torch
@@ -220,13 +221,17 @@ def test_chain_launch_config(batch):
 
 
 def test_plc_step_refuses_fastchain_without_chain_weights():
-    """With `fastchain` the PLC step runs K4 on the bundle its owner built
-    once; without one it raises before any work, and packs nothing."""
-    flags = BP.PLCFlags(fasttf=True, fastfnet=True, fastchain=True, compact="0")
-    with pytest.raises(ValueError):
-        BP._plc_frame_step_fused(None, None, None, torch.zeros(1, 160),
-                                 torch.zeros(1, dtype=torch.bool), None, True, 0, 0,
-                                 kw={}, flags=flags, cw=None)
+    """The chain (K4) runs only in the causal fused step on the kernels,
+    where the pool packs its bundle once: a pool asked for the chain on the
+    plain model, the two-path step or the non-causal mode raises before any
+    work, and packs nothing."""
+    cfg = M.LPCNetConfig(lookahead=0)
+    for options in (dict(use_kernel=False),
+                    dict(use_kernel=True, fused_step=False),
+                    dict(use_kernel=True, non_causal=True)):
+        with pytest.raises(ValueError, match="chain kernel"):
+            BP.BatchedPLC(None, cfg, None, 1, chain=True, device="cpu",
+                          **options)
 
 
 def test_chain_launch_config_refuses_widths_it_cannot_split():

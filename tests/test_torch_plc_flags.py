@@ -1,7 +1,8 @@
-"""The flags of the port's batched PLC (which of the ported paths a frame
-takes), on the kernel program with the kernels' plain versions, and the
+"""The options of the port's batched PLC (the chain kernel, the compaction's
+capacity), on the kernel program with the kernels' plain versions, and the
 serving pool and entry points, on the CPU at a small size."""
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -40,20 +41,21 @@ def _speech(batch, frames):
                     ).reshape(batch, frames, 160)
 
 
-def _flag_run(models, b, frames, seed, enable_blending=True, fec=True, **flags):
+def _flag_run(models, b, frames, seed, enable_blending=True, fec=True,
+              chain=False, compact_cap=None, cfg=TCFG, non_causal=False,
+              loss=0.2, dense=0.9):
     tf, tpp = models
     rs = np.random.RandomState(seed)
     pcm = (rs.randn(b, frames, 160) * 2000).astype(np.float32)
-    lost = rs.rand(b, frames) < 0.2
-    lost[:, 4] = rs.rand(b) < 0.9           # a dense frame
+    lost = rs.rand(b, frames) < loss
+    lost[:, 4] = rs.rand(b) < dense         # a dense frame
     lost[0] = False
     rows = (rs.randn(3, 20) * 0.2).astype(np.float32)
-    prev = B.set_plc_flags(**flags)
-    try:
-        plc = B.BatchedPLC(tf, TCFG, tpp, batch=b, device="cpu",
-                           use_kernel=True, enable_blending=enable_blending)
-    finally:
-        B.set_plc_flags(*prev)
+    plc = B.BatchedPLC(tf, cfg, tpp, batch=b, device="cpu", use_kernel=True,
+                       enable_blending=enable_blending, chain=chain,
+                       non_causal=non_causal)
+    if compact_cap is not None:
+        plc.compact_cap = compact_cap
     if fec:
         for row in rows:
             plc.fec_add(np.tile(row, (b, 1)), have=np.arange(b) % 3 == 0)
@@ -63,7 +65,8 @@ def _flag_run(models, b, frames, seed, enable_blending=True, fec=True, **flags):
     assert before == (K.synthesize_frame_masked_kernel.launches,
                       K.teacher_force_blocks_kernel.launches,
                       PC.plc_chain_kernel.launches)        # CPU: plain versions
-    assert np.array_equal(out[0], np.clip(pcm[0], -32768, 32767))
+    if not non_causal:
+        assert np.array_equal(out[0], np.clip(pcm[0], -32768, 32767))
     return out, state_to_numpy(plc.state), plc
 
 
@@ -80,37 +83,21 @@ def _same_tolerance_class(a, b_):
     assert (d > 2).mean() < 0.02, (d > 2).mean()
 
 
-def test_default_flags_are_the_jax_defaults(monkeypatch):
-    """Fast TF on, fast frame net on, chain kernel off, compaction auto with
-    capacity b/4 rounded up to 32 and none below 128 streams; the module
-    reads only the four environment variables the JAX package reads."""
-    for v in ("LPCNET_PLC_FASTTF", "LPCNET_PLC_FASTFNET", "LPCNET_PLC_FASTCHAIN",
-              "LPCNET_PLC_COMPACT"):
-        monkeypatch.delenv(v, raising=False)
-    import importlib
-    fresh = importlib.reload(B)
-    try:
-        assert fresh.current_flags() == (True, True, False, "auto")
-        assert fresh.current_flags() == (JB._FASTTF, JB._FASTFNET, JB._FASTCHAIN,
-                                         JB._COMPACT_ENV)
-        for b in (256, 1024, 129, 128, 64):
-            assert fresh._compact_capacity(b) == JB._compact_capacity(b)
-        assert fresh._compact_capacity(256) == 64 and fresh._compact_capacity(64) == 0
-        src = (ROOT / "lpcnet_torch" / "plc" / "batched.py").read_text()
-        assert src.count("os.environ") == 4
-        prev = fresh.set_plc_flags(fastchain=True, compact=8)
-        assert fresh.current_flags() == (True, True, True, "8")
-        assert fresh._compact_capacity(256) == 8
-        assert fresh.set_plc_flags(*prev) == (True, True, True, "8")
-        assert fresh.current_flags() == (True, True, False, "auto")
-    finally:
-        importlib.reload(B)
-
-
-def test_fast_frame_net_on_equals_off(models):
-    """The deferred frame nets as one flush or as four masked steps."""
-    _same_tolerance_class(_flag_run(models, 6, 10, 2, fastfnet=True),
-                          _flag_run(models, 6, 10, 2, fastfnet=False))
+def test_default_flags_are_the_jax_defaults(models):
+    """The port's one program is the JAX package's default one (its
+    `fasttf` and `fastfnet` on): the chain kernel off unless a pool asks
+    for it, and compaction at the JAX package's capacity, b/4 rounded up to
+    32 and none below 128 streams, taken once when a pool is built. No
+    environment variable changes it."""
+    tf, tpp = models
+    assert JB._FASTTF and JB._FASTFNET
+    for b in (64, 128, 129, 256, 1024):
+        plc = B.BatchedPLC(tf, TCFG, tpp, batch=b, device="cpu", use_kernel=True)
+        assert plc.compact_cap == JB._compact_capacity(b) == B._compact_capacity(b)
+        assert plc._cw is None
+    assert B._compact_capacity(256) == 64 and B._compact_capacity(64) == 0
+    src = (ROOT / "lpcnet_torch" / "plc" / "batched.py").read_text()
+    assert src.count("os.environ") == 0 and "getenv" not in src
 
 
 @pytest.mark.parametrize("enable_blending", [True, False])
@@ -119,25 +106,17 @@ def test_chain_on_equals_off(models, enable_blending):
     row: features within 2e-4, PLC-net state within 2e-5, FEC pointers and
     loss counts exact, audio in the same tolerance class (the JAX package's
     bars for its own flag)."""
-    on = _flag_run(models, 8, 12, 3, enable_blending=enable_blending, fastchain=True)
-    off = _flag_run(models, 8, 12, 3, enable_blending=enable_blending, fastchain=False)
-    assert on[2].flags.fastchain and on[2]._cw is not None and off[2]._cw is None
+    on = _flag_run(models, 8, 12, 3, enable_blending=enable_blending, chain=True)
+    off = _flag_run(models, 8, 12, 3, enable_blending=enable_blending)
+    assert on[2]._cw is not None and off[2]._cw is None
     _same_tolerance_class(on, off)
 
 
-@pytest.mark.parametrize("enable_blending", [True, False])
-def test_compaction_on_equals_off(models, enable_blending):
-    """The sample-rate section on a capacity-8 sub-batch of 16 streams
-    against the full batch. Sparse-loss frames compact, the dense one
-    overflows and falls through. A stream that is never active is bit-equal;
-    float leaves of the sample state agree to 1e-5 of their scale (a
-    sub-batch's matrix products may block their sums differently)."""
-    on = _flag_run(models, 16, 10, 5, enable_blending=enable_blending, compact="8")
-    off = _flag_run(models, 16, 10, 5, enable_blending=enable_blending, compact="0")
-    assert on[2].stats["compacted"] > 0 and on[2].stats["overflowed"] > 0
-    assert on[2].stats["full"] == 0 and off[2].stats == {
-        "compacted": 0, "overflowed": 0, "full": 10}
-    _same_tolerance_class(on, off)
+def _compaction_equal(on, off):
+    """Compacted against the full batch: a stream that is never active is
+    bit-equal; float leaves of the sample state agree to 1e-5 of their
+    scale (a sub-batch's matrix products may block their sums
+    differently)."""
     sa, sb = on[1]["sstate"], off[1]["sstate"]
     for f in ("gru_a", "gru_b", "last_sig", "deemph"):
         assert np.array_equal(sa[f][0], sb[f][0]), f
@@ -147,31 +126,59 @@ def test_compaction_on_equals_off(models, enable_blending):
     assert all(np.array_equal(sa["rng"][f], sb["rng"][f]) for f in sa["rng"])
 
 
-def test_slow_tf_path_matches_the_section(models):
-    """`fasttf` off runs the interleaved program, its drain through K2 with
-    the sampler off: integer state equal, audio in the same class."""
-    _same_tolerance_class(_flag_run(models, 6, 10, 6, fasttf=True),
-                          _flag_run(models, 6, 10, 6, fasttf=False))
+@pytest.mark.parametrize("enable_blending", [True, False])
+def test_compaction_on_equals_off(models, enable_blending):
+    """The sample-rate section on a capacity-8 sub-batch of 16 streams
+    against the full batch. Sparse-loss frames compact, the dense one
+    overflows and falls through."""
+    on = _flag_run(models, 16, 10, 5, enable_blending=enable_blending,
+                   compact_cap=8)
+    off = _flag_run(models, 16, 10, 5, enable_blending=enable_blending,
+                    compact_cap=0)
+    assert on[2].stats["compacted"] > 0 and on[2].stats["overflowed"] > 0
+    assert on[2].stats["full"] == 0 and off[2].stats == {
+        "compacted": 0, "overflowed": 0, "full": 10}
+    _same_tolerance_class(on, off)
+    _compaction_equal(on, off)
 
 
-@pytest.mark.parametrize("flags, per_frame", [
-    (dict(fastchain=True), {"teacher_force_blocks_kernel": 1,
-                            "synthesize_frame_masked_kernel": 2,
-                            "plc_chain_kernel": 1}),
-    (dict(fasttf=False), {"synthesize_frame_masked_kernel": 5}),
-])
-def test_kernel_tap_sees_every_call_and_changes_nothing(models, monkeypatch,
-                                                        flags, per_frame):
+@pytest.mark.parametrize("non_causal", [False, True], ids=["causal", "nc"])
+def test_compaction_at_the_rules_capacity(models, non_causal):
+    """128 streams take the rule's own capacity, 32: every frame's section
+    runs on the sub-batch (10 % of the streams lost, a dense frame of 15 %),
+    against the same frames with `compact_cap = 0`. Integer state and RNG
+    words equal, features within 2e-4, audio within the tolerance class;
+    the non-causal mode (a lookahead-0 model, 80 samples late) the same."""
+    cfg = dataclasses.replace(TCFG, lookahead=0) if non_causal else TCFG
+    run = dict(enable_blending=True, fec=not non_causal, cfg=cfg,
+               non_causal=non_causal, loss=0.1, dense=0.15)
+    on = _flag_run(models, 128, 6, 9, **run)
+    off = _flag_run(models, 128, 6, 9, compact_cap=0, **run)
+    assert on[2].compact_cap == 32
+    assert on[2].stats == {"compacted": 6, "overflowed": 0, "full": 0}
+    assert off[2].stats == {"compacted": 0, "overflowed": 0, "full": 6}
+    fields = ("loss_count", "queued") if non_causal else INT_FIELDS
+    for f in fields:
+        assert np.array_equal(on[1][f], off[1][f]), f
+    np.testing.assert_allclose(on[1]["features"], off[1]["features"], atol=2e-4)
+    assert np.array_equal(on[0][0], off[0][0])
+    d = np.abs(on[0].astype(np.float64) - off[0])
+    assert (d > 2).mean() < 0.02, (d > 2).mean()
+    _compaction_equal(on, off)
+
+
+def test_kernel_tap_sees_every_call_and_changes_nothing(models, monkeypatch):
     """`kernel_tap` is handed each kernel call of a frame with its
-    arguments (the section: K3 once, K2 twice, K4 once with the chain on;
-    without `fasttf`: three drain prefixes, the head and the tail through
-    K2), and the run's output is bit-equal with and without it."""
+    arguments (the section: K3 once, K2 twice, K4 once with the chain on),
+    and the run's output is bit-equal with and without it."""
     frames = 6
-    want = _flag_run(models, 6, frames, 7, **flags)[0]
+    per_frame = {"teacher_force_blocks_kernel": 1,
+                 "synthesize_frame_masked_kernel": 2, "plc_chain_kernel": 1}
+    want = _flag_run(models, 6, frames, 7, chain=True)[0]
     seen = {}
     monkeypatch.setattr(B, "kernel_tap",
                         lambda name, args: seen.setdefault(name, []).append(args))
-    got = _flag_run(models, 6, frames, 7, **flags)[0]
+    got = _flag_run(models, 6, frames, 7, chain=True)[0]
     assert np.array_equal(got, want)
     assert {k: len(v) for k, v in seen.items()} == {
         k: n * frames for k, n in per_frame.items()}

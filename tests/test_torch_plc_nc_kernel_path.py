@@ -73,16 +73,13 @@ def test_section_compaction_matches_full(models):
     a flipped sampler bit moves a few rows)."""
     pcm, lost = _traffic(16, 10, 7, dense_frame=5)
 
-    def run(compact):
-        prev = B.set_plc_flags(compact=compact)
-        try:
-            plc = _make(models, 16)
-        finally:
-            B.set_plc_flags(*prev)
+    def run(cap):
+        plc = _make(models, 16)
+        plc.compact_cap = cap
         return plc.run(pcm, lost), state_to_numpy(plc.state), plc.stats
 
-    out_c, st_c, stats_c = run("8")
-    out_r, st_r, stats_r = run("0")
+    out_c, st_c, stats_c = run(8)
+    out_r, st_r, stats_r = run(0)
     assert stats_c["compacted"] > 0 and stats_c["overflowed"] > 0
     assert stats_r == {"compacted": 0, "overflowed": 0, "full": 10}
     assert np.array_equal(out_c[0], out_r[0])
@@ -146,7 +143,7 @@ def test_kernel_calls_a_frame(models, monkeypatch, remove_dc):
     plc = _make(models, b, remove_dc=remove_dc)
     plc.run(pcm, lost)
     k2, k3 = "synthesize_frame_masked_kernel", "teacher_force_blocks_kernel"
-    cap = B._compact_capacity(b)
+    cap = plc.compact_cap
     assert cap == 32
     sub = b if remove_dc else cap
     assert seen == [(k3, cap), (k2, sub), (k3, sub), (k2, sub), (k3, b)] * frames
@@ -171,9 +168,9 @@ def test_compaction_sentinel_rows():
 
     stats = {"compacted": 0, "overflowed": 0, "full": 0}
     count = torch.full((b,), 160, dtype=torch.int32) * mask
-    out = B._compacted(body, {"x": x, "count": count}, mask,
-                       {"y": torch.full((b, 1), -5.0)}, "auto", stats)
     cap = B._compact_capacity(b)
+    out = B._compacted(body, {"x": x, "count": count}, mask,
+                       {"y": torch.full((b, 1), -5.0)}, cap, stats)
     assert stats["compacted"] == 1 and got["x"].shape == (cap, 1)
     assert got["x"][:3, 0].tolist() == [4.0, 101.0, 256.0]
     assert not got["x"][3:].any() and not got["count"][3:].any()
@@ -181,7 +178,7 @@ def test_compaction_sentinel_rows():
     want[mask] = x[mask] * 10.0 + 1.0
     assert torch.equal(out["y"], want)
     many = torch.ones(b, dtype=torch.bool)
-    B._compacted(body, {"x": x, "count": count}, many, {"y": x}, "auto", stats)
+    B._compacted(body, {"x": x, "count": count}, many, {"y": x}, cap, stats)
     assert stats["overflowed"] == 1 and got["x"].shape == (b, 1)
 
 
@@ -203,12 +200,10 @@ def test_recovery_rows_restored_bit_for_bit(models):
     lost = np.zeros((128, 6), bool)
     lost[1:6, 2:4] = True         # recovered at frame 4: queued at frame 5
     lost[10:16, 3:5] = True       # recovering at frame 5
-    for compact in ("auto", "0"):
-        prev = B.set_plc_flags(compact=compact)
-        try:
-            plc = _make(models, 128)
-        finally:
-            B.set_plc_flags(*prev)
+    for compact in (True, False):
+        plc = _make(models, 128)
+        if not compact:
+            plc.compact_cap = 0
         for k in range(5):
             plc.step(pcm[:, k], lost[:, k])
         before = plc.state
@@ -216,7 +211,7 @@ def test_recovery_rows_restored_bit_for_bit(models):
         assert rec.sum() == 6 and before.queued.numpy()[1:6].all()
         plc.step(pcm[:, 5], lost[:, 5])
         after = plc.state
-        assert plc.stats["compacted" if compact == "auto" else "full"] == 6
+        assert plc.stats["compacted" if compact else "full"] == 6
         rows = torch.from_numpy(rec)
         for name in ("fstate", "sstate", "cond_a", "cond_b", "lpc"):
             for x, y in zip(_leaves(getattr(before, name)),
@@ -249,7 +244,7 @@ def full_run(request):
                        use_kernel=True, non_causal=True)
     tp = B.BatchedPLC(tf, tcfg, params_to_torch(pp), batch=BATCH, device="cpu",
                       use_kernel=True, non_causal=True)
-    assert JB._FASTTF and tp.flags.fasttf
+    assert JB._FASTTF
     jp.kw = JK.kernel_weights(jf, jcfg, dtype=jnp.float32)
     tp.kw = K.kernel_weights(tf, tcfg, dtype=torch.float32)
     rs = np.random.RandomState(0)

@@ -122,14 +122,14 @@ def test_validator_packs_the_kernel_bundle_once_a_call(monkeypatch):
     tv = HeldOutValidator(TCFG, [_clip(1)], seg_seconds=0.25, device="cpu")
     tv.use_kernel = True
     built, seen = [], []
-    real_pack, real_auto = K.masked_kernel_weights, K.synthesize_frame_auto
+    real_pack, real_k1 = K.masked_kernel_weights, K.synthesize_frame_kernel
     monkeypatch.setattr(K, "masked_kernel_weights",
                         lambda kw: built.append(1) or real_pack(kw))
 
-    def auto(kw, *args, **kwargs):
+    def k1(kw, *args, **kwargs):
         seen.append(kw)
-        return real_auto(kw, *args, **kwargs)
-    monkeypatch.setattr(K, "synthesize_frame_auto", auto)
+        return real_k1(kw, *args, **kwargs)
+    monkeypatch.setattr(K, "synthesize_frame_kernel", k1)
     params = M.init_params(TCFG, seed=3)
     syn = tv.synthesize(params)
     tv.synthesize(params)
