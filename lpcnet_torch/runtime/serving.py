@@ -9,7 +9,8 @@ output is dropped; a slot's state is reset when a stream attaches.
 
 A `DREDEncoderPool` is the sender's side of DRED over a fixed set of
 streams: every 20 ms tick it takes each stream's PCM in slot order and
-hands back one redundancy payload a stream.
+hands back one redundancy payload a stream; on CUDA the tick's two-frame
+analysis is one CUDA graph replay (`codec.features.AnalysisGraph`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ..codec.decoder import LPCNetDecoder
-from ..codec.features import compute_single_frame_features, init_encoder_state
+from ..codec.features import AnalysisGraph, init_encoder_state
 from ..dred.coder import DREDEncoder
 from ..dsp.constants import FRAME_SIZE, LPCNET_COMPRESSED_SIZE, NB_TOTAL_FEATURES
 from ..models import lpcnet as M
@@ -215,12 +216,17 @@ class DREDEncoderPool:
     """DRED encoding for `streams` streams, attached for the pool's life
     (slot k is row k). Each `step_pcm` is one 20 ms tick: two 10 ms frames
     of each stream through the encoder-side analysis
-    (`compute_single_frame_features`, its state batched on the device),
-    their 20 features twice into `DREDEncoder.add_feature_frame`, then
-    `produce_payload`: one payload a stream over the newest
-    `num_redundancy_frames / 2` latents, quantised from q0 (newest) to q1
-    (oldest). `stats` is the encoder's counters. Runs on CUDA unless
-    `device="cpu"` is passed."""
+    (`compute_single_frame_features` twice, its state batched on the
+    device; on CUDA one replay of `analysis`, an `AnalysisGraph` captured
+    at the first tick), their 20 features twice into
+    `DREDEncoder.add_feature_frame`, then `produce_payload`: one payload a
+    stream over the newest `num_redundancy_frames / 2` latents, quantised
+    from q0 (newest) to q1 (oldest). `stats` is the encoder's counters,
+    the analysis graph's (`analysis_captures`, `analysis_replays`,
+    `analysis_eager`) among them. `features`, the analysis state, is the
+    graph's own buffers after a CUDA tick; a state assigned to it is
+    copied in at the next. Runs on CUDA unless `device="cpu"` is
+    passed."""
 
     def __init__(self, params, cfg: Optional[RV.RDOVAEConfig] = None,
                  streams: int = 1024, num_redundancy_frames: int = 52,
@@ -233,6 +239,7 @@ class DREDEncoderPool:
         self.device = self.enc.device
         self.features = init_encoder_state(streams, self.device)
         self.stats = self.enc.stats
+        self.analysis = AnalysisGraph(self.stats)
 
     def step_pcm(self, pcm) -> Optional[dict]:
         """pcm [streams, 320] int16 or float (slot order) -> the dict of
@@ -244,10 +251,7 @@ class DREDEncoderPool:
                 raise ValueError(f"step_pcm: pcm must be [{self.streams}, "
                                  f"{2 * FRAME_SIZE}], got {tuple(x.shape)}")
             with span("lpcnet.dred.features", device=self.device):
-                st, f0 = compute_single_frame_features(self.features,
-                                                       x[:, :FRAME_SIZE])
-                self.features, f1 = compute_single_frame_features(
-                    st, x[:, FRAME_SIZE:])
+                self.features, f0, f1 = self.analysis(self.features, x)
             self.enc.add_feature_frame(f0)
             self.enc.add_feature_frame(f1)
             return self.enc.produce_payload(self.num_redundancy_frames,

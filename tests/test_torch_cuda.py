@@ -3,7 +3,8 @@ K6, the teacher-forced run K3, the PLC-net chain K4, the GRU training
 recurrence K5; K1, K2 and K3 also in the factored q8 embedding's form) vs
 their plain PyTorch versions, on a card, `cli synthesis --sampling pdf` on
 the card, the packet decode pool's launches, its frame network's CUDA
-graph against the eager call (bit for bit), the non-causal PLC pool's and
+graph against the eager call (bit for bit), DRED's analysis graph against
+the eager analysis (bit for bit), the non-causal PLC pool's and
 the host PLC's; and, without a card, that the trainer and the PLC entry
 points refuse to start rather than run on the host.
 
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from lpcnet_torch import api
+from lpcnet_torch.codec import features as F
 from lpcnet_torch.codec.decoder import LPCNetDecoder
 from lpcnet_torch.kernels import gru_train as G
 from lpcnet_torch.kernels import plc_chain as PC
@@ -1328,3 +1330,106 @@ def test_cuda_dred_encoder_counts_relaunches(cuda, monkeypatch):
         out["zq"], out["pulses"], 9, 15, st["p0_q15"][q], st["r_q15"][q], 82)
     assert calls > 1 and out["payloads"].data == want
     assert np.array_equal(out["payloads"].lengths, lengths)
+
+
+def _analysis_same(a, b):
+    la, lb = F._leaves(a), F._leaves(b)
+    return len(la) == len(lb) == 11 and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+def test_cuda_analysis_graph_equals_eager_at_1024(cuda):
+    """`AnalysisGraph` on the card at 1024 streams against the two eager
+    `compute_single_frame_features` calls, 36 ticks of speech, bit for
+    bit (f0, f1 and every state leaf, the ViterbiCarry's included): a
+    snapshot of tick 10's state restored before tick 20 and a fresh state
+    before tick 30 are taken up; one capture, a replay every tick."""
+    b, ticks = 1024, 36
+    audio = torch.from_numpy(_dred_speech(b, ticks, seed=12)).to(cuda).float()
+    g = F.AnalysisGraph()
+    es = gs = F.init_encoder_state(b, cuda)
+    snap = None
+    for t in range(ticks):
+        if t == 10:
+            snap = F._clone_state(es)
+        if t == 20:
+            es, gs = F._clone_state(snap), F._clone_state(snap)
+        if t == 30:
+            es, gs = F.init_encoder_state(b, cuda), F.init_encoder_state(b, cuda)
+        want = F.AnalysisGraph._plain(es, audio[t])
+        got = g(gs, audio[t])
+        assert _analysis_same(got[0], want[0]), t
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), t
+        es, gs = want[0], got[0]
+    assert int(gs.viterbi.best_i.abs().sum()) > 0
+    assert dict(g.stats) == {"analysis_captures": 1, "analysis_replays": ticks}
+
+
+@pytest.mark.cuda
+def test_cuda_analysis_graph_recaptures_on_a_new_key(cuda):
+    """A batch change captures anew (and the return to the old batch
+    again), every call bit for bit the eager pair's; inside a caller's
+    CUDA graph capture a call runs eagerly (counted) and the caller's
+    graph replays to the eager values."""
+    audio = torch.from_numpy(_dred_speech(64, 8, seed=13)).to(cuda).float()
+    g = F.AnalysisGraph()
+    states = {64: F.init_encoder_state(64, cuda), 37: F.init_encoder_state(37, cuda)}
+    for t, b in enumerate([64, 64, 37, 37, 64]):
+        st = F._clone_state(states[b])
+        want = F.AnalysisGraph._plain(st, audio[t, :b])
+        got = g(st, audio[t, :b])
+        assert _analysis_same(got[0], want[0]), t
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), t
+        states[b] = want[0]
+    assert dict(g.stats) == {"analysis_captures": 3, "analysis_replays": 5}
+    st = F._clone_state(states[64])
+    want = F.AnalysisGraph._plain(st, audio[5])
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer):
+        got = g(st, audio[5])
+    outer.replay()
+    torch.cuda.synchronize()
+    assert _analysis_same(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert dict(g.stats) == {"analysis_captures": 3, "analysis_replays": 5,
+                             "analysis_eager": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_dred_pool_analysis_graph_equals_eager_pool(cuda):
+    """`DREDEncoderPool` at 1024 streams with the demo RDO-VAE, its
+    analysis one graph replay a tick, against the same pool running the
+    analysis eagerly, over 32 ticks with the analysis state snapshotted
+    before tick 12 and restored before tick 20: every payload's bytes,
+    symbols and pulses, and the end state, equal; one capture and a replay
+    a tick."""
+    params, rcfg = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device=cuda)
+    b, ticks = 1024, 32
+    audio = _dred_speech(b, ticks, seed=14)
+    pools = {"graph": api.DREDEncoderPool(params, rcfg, streams=b, device=cuda),
+             "eager": api.DREDEncoderPool(params, rcfg, streams=b, device=cuda)}
+    pools["eager"].analysis = F.AnalysisGraph._plain
+    snaps = {}
+    for t in range(ticks):
+        out = {}
+        for name, pool in pools.items():
+            if t == 12:
+                snaps[name] = F._clone_state(pool.features)
+            if t == 20:
+                pool.features = F._clone_state(snaps[name])
+            out[name] = pool.step_pcm(audio[t])
+        if out["graph"] is None:
+            assert out["eager"] is None, t
+            continue
+        g, e = out["graph"], out["eager"]
+        assert g["payloads"].data == e["payloads"].data, t
+        assert np.array_equal(g["payloads"].lengths, e["payloads"].lengths), t
+        assert np.array_equal(g["zq"], e["zq"]) and np.array_equal(g["pulses"], e["pulses"]), t
+    assert t >= 26 and out["graph"] is not None
+    assert _analysis_same(pools["graph"].features, pools["eager"].features)
+    assert torch.equal(pools["graph"].enc.z_window[-1], pools["eager"].enc.z_window[-1])
+    stats = pools["graph"].stats
+    assert (stats["analysis_captures"], stats["analysis_replays"],
+            stats["analysis_eager"]) == (1, ticks, 0)
+    assert not any(k.startswith("analysis_") for k in pools["eager"].stats)
