@@ -21,6 +21,8 @@ the serving pools, with the C API's shape where the reference has one
     feats = DREDDecoder(rdovae, rcfg).decode_payload(red[0])
     pool = DREDEncoderPool(rdovae, rcfg, streams=1024)   # DRED's sender side
     out = pool.step_pcm(pcm320)         # [1024, 320] -> a payload a stream
+    rx = DREDDecoderPool(rdovae, rcfg, streams=1024)     # its receiving side
+    feats = rx.step_payloads(out["payloads"])   # [1024, 104, 20] on the card
 
 Everything runs on CUDA unless `device="cpu"` is passed.
 """
@@ -43,8 +45,8 @@ from .dsp.lpc import lpc_from_cepstrum
 from .models import lpcnet as M
 from .models import rdovae as RV
 from .nn.quantized import quantize_fused
-from .runtime.serving import (DREDEncoderPool, PLCStreamPool,  # noqa: F401
-                              StreamPool)                       # (public)
+from .runtime.serving import (DREDDecoderPool, DREDEncoderPool,  # noqa: F401
+                              PLCStreamPool, StreamPool)        # (public)
 from .utils.device import resolve_device
 from .weights.aux_arrays import load_plc_blob, load_rdovae_blob
 from .weights.checkpoint import load_checkpoint

@@ -14,7 +14,10 @@ A payload of every stream is made with no Python loop over the streams:
 the symbols and the PVQ search on the device; on CUDA one kernel frames
 every payload on the card (`kernels.dred_payload`), and two copies bring
 the symbols and the payloads' bytes over; on the CPU one readback and one
-native call that frames every payload (`entropy.encode_payloads`). Both
+native call that frames every payload (`entropy.encode_payloads`). A
+batch of payloads is decoded the other way round: one native call parses
+every payload (`entropy.decode_payloads`), one copy takes the symbols to
+the device, and the decoder steps there over every stream at once. Both
 drivers run on CUDA unless the caller passes `device="cpu"`.
 """
 
@@ -201,14 +204,28 @@ def unquantize_latents(params, zq: torch.Tensor, q_ids: torch.Tensor,
 
 
 class DREDDecoder:
-    """Redundancy decoder (DRED_rdovae_decode_all, src/dred_rdovae.c:38-52)."""
+    """Redundancy decoder (DRED_rdovae_decode_all, src/dred_rdovae.c:38-52).
+
+    `decode_payloads` decodes a batch of payloads with no Python loop over
+    the streams: one native call parses them all (`entropy.decode_payloads`;
+    without the library, the Python parse a payload at a time), one copy
+    takes every stream's symbols, pulses and levels to the device (`parsed`,
+    kept until the next batch), and the decoder runs there over every
+    stream at once. `stats` counts the payloads parsed (`payloads_parsed`),
+    the latents decoded (`latents_decoded`) and the parses: `native_parses`
+    (one a batch) or `python_parses` (one a payload)."""
 
     def __init__(self, params, cfg: Optional[RV.RDOVAEConfig] = None,
                  device=None):
         self.device = resolve_device(device)
         self.params = tree_to(params, self.device)
         self.cfg = cfg or RV.RDOVAEConfig()
-        self._fixed_stats = None
+        self.fixed_stats = EC.stats_fixed_point(self.params, self.cfg)
+        self.stats = collections.Counter()
+        self._rows: Optional[torch.Tensor] = None   # the last batch's parse
+        self._n_lat = 0
+        self._stage: Optional[torch.Tensor] = None   # pinned host rows (CUDA)
+        self._staged = None     # the event that ends the stage's last copy
 
     @torch.no_grad()
     def decode_latents(self, z_rev: torch.Tensor, state: torch.Tensor
@@ -234,13 +251,63 @@ class DREDDecoder:
         state = torch.as_tensor(state, dtype=torch.float32, device=dev)
         return self.decode_latents(torch.flip(z, dims=(1,)), state).cpu().numpy()
 
+    def _host_rows(self, shape) -> Optional[np.ndarray]:
+        """Where the parse writes: on CUDA a pinned stage, kept while the
+        shape holds, once its last copy to the card has ended."""
+        if self.device.type != "cuda":
+            return None
+        if self._stage is None or tuple(self._stage.shape) != shape:
+            self._stage = torch.empty(shape, dtype=torch.int16, pin_memory=True)
+            self._staged = None
+        if self._staged is not None:
+            self._staged.synchronize()
+        return self._stage.numpy()
+
+    @property
+    def parsed(self):
+        """The last batch's parse on the device: (symbols [B, L, latent]
+        oldest latent first, pulses [B, state_dim], the latents' levels
+        [B, L]), int16; None before the first batch."""
+        if self._rows is None:
+            return None
+        return EC.split_rows(self._rows, self._n_lat, self.cfg.latent_dim,
+                             self.cfg.state_dim)
+
+    @torch.no_grad()
+    def decode_payloads(self, payloads) -> torch.Tensor:
+        """B entropy-coded payloads (an `entropy.Payloads`, or byte strings),
+        each of the first's latent count L -> features [B, L * 4, 20] on the
+        device, newest latent first (`decode_all`'s order)."""
+        if not isinstance(payloads, EC.Payloads):
+            payloads = EC.Payloads.of(payloads)
+        cfg = self.cfg
+        with span("lpcnet.dred.parse"):
+            n_lat = EC.payload_latent_count(payloads[0]) if len(payloads) else 0
+            shape = (len(payloads), n_lat * (cfg.latent_dim + 1) + cfg.state_dim)
+            host = EC.decode_payloads(payloads, self.fixed_stats, cfg.state_dim,
+                                      cfg.pvq_num_pulses, self.stats,
+                                      out=self._host_rows(shape))
+            if self.device.type == "cuda":
+                self._rows = self._stage.to(self.device, non_blocking=True)
+                self._staged = torch.cuda.Event()
+                self._staged.record()
+            else:
+                self._rows = torch.from_numpy(host)
+        self._n_lat = n_lat
+        self.stats.update(payloads_parsed=len(payloads),
+                          latents_decoded=n_lat * len(payloads))
+        with span("lpcnet.dred.decode", device=self.device):
+            # the symbols unquantised at their levels; the decoder's initial
+            # state the pulses' unit vector in float64, as
+            # `entropy.pvq_normalize`
+            zq, pulses, q_ids = self.parsed
+            z = unquantize_latents(self.params, zq.float(), q_ids.long(), cfg)
+            p = pulses.double()
+            state = (p / (torch.sqrt((p * p).sum(-1, keepdim=True)) + 1e-15)).float()
+            return self.decode_latents(torch.flip(z, dims=(1,)), state)
+
     def decode_payload(self, payload: bytes) -> np.ndarray:
         """An entropy-coded payload (`entropy.encode_payload`'s framing) ->
-        features [1, L * 4, 20], newest latent first."""
-        if self._fixed_stats is None:
-            self._fixed_stats = EC.stats_fixed_point(self.params, self.cfg)
-        zq, pulses, q_ids = EC.decode_payload(
-            payload, self._fixed_stats, self.cfg.state_dim,
-            self.cfg.pvq_num_pulses)
-        state = EC.pvq_normalize(pulses)[None]
-        return self.decode_all(zq[None], q_ids, state)
+        features [1, L * 4, 20], newest latent first: `decode_payloads` of
+        a batch of one."""
+        return self.decode_payloads([payload]).cpu().numpy()

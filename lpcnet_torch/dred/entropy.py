@@ -20,13 +20,15 @@ pipeline:
 
 Host-side by design: entropy coding is bit-serial and branchy; the card
 computes the symbols and probabilities in batch, the host packs bits.
-`encode_payload` / `decode_payload` code the latents through the native
-runtime's range coder (`runtime.bindings`) where it loads and through the
-Python coder here otherwise; both give the same bytes, which are those of
-the JAX package's coder. For a batch of streams, `pvq_search_batch` runs
-the PVQ search on the device and `encode_payloads` frames every stream's
-payload in one native call (`encode_payload` a stream without the
-library), again with the same bytes.
+`encode_payload` codes the latents through the native runtime's range
+coder (`runtime.bindings`) where it loads and through the Python coder
+here otherwise; both give the same bytes, which are those of the JAX
+package's coder. `decode_payload` parses one payload in Python. For a
+batch of streams, `pvq_search_batch` runs the PVQ search on the device
+and `encode_payloads` frames every stream's payload in one native call
+(`encode_payload` a stream without the library), again with the same
+bytes; `decode_payloads` parses every stream's payload in one native call
+too (`decode_payload` a stream without it).
 """
 
 from __future__ import annotations
@@ -449,23 +451,77 @@ def encode_payloads(zq: np.ndarray, pulses: np.ndarray, q0: int, q1: int,
                         for z, p in zip(zq, pulses)])
 
 
+def payload_latent_count(payload: bytes) -> int:
+    """The latent count of a payload's header."""
+    return ((payload[1] & 0xF) << 8) | payload[2]
+
+
 def decode_payload(payload: bytes, stats: dict, state_dim: int, state_k: int
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Returns (zq [L, D] oldest-first, state_pulses [S], q_ids [L])."""
+    """One payload parsed in Python: (zq [L, D] oldest-first, state_pulses
+    [S], q_ids [L]). A batch takes one native call (`decode_payloads`)."""
+    sbits = pvq_index_bits(state_dim, state_k)
+    nsb = (sbits + 7) // 8
+    if len(payload) < 3 + nsb:
+        raise ValueError("DRED payload shorter than its header and state index")
     version = payload[0] >> 4
     if version != _VERSION:
         raise ValueError(f"unknown DRED payload version {version}")
     q0 = payload[0] & 0xF
     q1 = payload[1] >> 4
-    n_latents = ((payload[1] & 0xF) << 8) | payload[2]
-    sbits = pvq_index_bits(state_dim, state_k)
-    nsb = (sbits + 7) // 8
+    n_latents = payload_latent_count(payload)
     sidx = int.from_bytes(payload[3:3 + nsb], "big")
+    if sidx >= pvq_codebook_size(state_dim, state_k):
+        raise ValueError("DRED payload's state index is past the PVQ codebook")
     state = pvq_decode_index(sidx, state_dim, state_k)
     q_ids = payload_q_ids(n_latents, q0, q1)
     p0, r = stats["p0_q15"][q_ids], stats["r_q15"][q_ids]
-    from ..runtime.bindings import runtime
-    zq = runtime.dred_decode_latents(payload[3 + nsb:], p0, r)
-    if zq is None:                            # no native library: Python path
-        zq = decode_latents(RangeDecoder(payload[3 + nsb:]), p0, r)
+    zq = decode_latents(RangeDecoder(payload[3 + nsb:]), p0, r)
     return zq, state, q_ids
+
+
+def split_rows(rows, n_latents: int, latent_dim: int, state_dim: int):
+    """Views of `decode_payloads`' rows [B, L * D + S + L] (an array or a
+    tensor): (symbols [B, L, D] oldest latent first, pulses [B, S], the
+    latents' levels [B, L])."""
+    n_sym = n_latents * latent_dim
+    return (rows[:, :n_sym].reshape(rows.shape[0], n_latents, latent_dim),
+            rows[:, n_sym:n_sym + state_dim], rows[:, n_sym + state_dim:])
+
+
+def decode_payloads(payloads: Payloads, stats: dict, state_dim: int,
+                    state_k: int, counts: Optional[collections.Counter] = None,
+                    out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Every payload parsed (`decode_payload`'s fields), all of the first
+    payload's latent count L: int16 rows [B, L * D + S + L] (into `out`
+    where given), each a stream's symbols, pulses and latents' levels
+    (`split_rows`). One native call parses them all; without the native
+    library, `decode_payload` parses a payload at a time. Both give the
+    same rows and refuse the same payloads (ValueError). `counts` gets the
+    native calls made (`native_parses`) or the payloads parsed a stream at
+    a time (`python_parses`)."""
+    from ..runtime.bindings import runtime
+    if len(payloads) == 0 or len(payloads[0]) < 3:
+        raise ValueError("decode_payloads: no payload, or a first payload "
+                         "without a header")
+    n_lat, dim = payload_latent_count(payloads[0]), stats["p0_q15"].shape[1]
+    if n_lat < 1:
+        raise ValueError("decode_payloads: a first payload of no latent")
+    rows = runtime.dred_parse_payloads(
+        payloads.data, payloads.lengths, n_lat, dim, state_dim, state_k,
+        stats["p0_q15"], stats["r_q15"], out)
+    if rows is not None:
+        if counts is not None:
+            counts["native_parses"] += 1
+        return rows
+    if counts is not None:
+        counts["python_parses"] += len(payloads)
+    rows = np.empty((len(payloads), n_lat * dim + state_dim + n_lat), np.int16
+                    ) if out is None else out
+    for b, payload in enumerate(payloads):
+        zq, pulses, q_ids = decode_payload(payload, stats, state_dim, state_k)
+        if zq.shape[0] != n_lat:
+            raise ValueError(f"decode_payloads: payload {b} is of another "
+                             f"latent count than the batch's first")
+        rows[b] = np.concatenate([zq.reshape(-1), pulses, q_ids])
+    return rows

@@ -6,7 +6,8 @@ edited source is rebuilt) and loaded with ctypes. Every entry point has a
 NumPy fallback that follows the C arithmetic step by step, so the package
 works without a compiler; the fallbacks are slow Python loops. The DRED
 range coder's fallback is the Python coder of `dred/entropy.py` (the entry
-points return None and the caller takes it).
+points return None and the caller takes it), the batched parse's is
+`entropy.decode_payload` a payload at a time.
 """
 
 from __future__ import annotations
@@ -78,14 +79,16 @@ def _load() -> Optional[ctypes.CDLL]:
         ptr(ctypes.c_int32), ptr(ctypes.c_uint16), ptr(ctypes.c_uint16), i64,
         ptr(ctypes.c_uint8), i64]
     lib.dred_encode_latents.restype = i64
-    lib.dred_decode_latents.argtypes = [
-        ptr(ctypes.c_uint8), i64, ptr(ctypes.c_uint16), ptr(ctypes.c_uint16),
-        i64, ptr(ctypes.c_int32)]
     lib.dred_frame_payloads.argtypes = [
         ptr(ctypes.c_int16), ptr(ctypes.c_int16), i64, i64, i64, i64, i64,
         ptr(ctypes.c_uint16), ptr(ctypes.c_uint16), i64, i64,
         ptr(ctypes.c_uint8), i64, ptr(i64)]
     lib.dred_frame_payloads.restype = i64
+    lib.dred_parse_payloads.argtypes = [
+        ptr(ctypes.c_uint8), ptr(i64), i64, i64, i64, i64, i64,
+        ptr(ctypes.c_uint16), ptr(ctypes.c_uint16), i64, ptr(ctypes.c_int16),
+        ptr(i64)]
+    lib.dred_parse_payloads.restype = i64
     _lib = lib
     return lib
 
@@ -383,22 +386,57 @@ class _Runtime:
                              "count out of the header's range")
         return out[:n].tobytes(), lengths, calls
 
-    def dred_decode_latents(self, data: bytes, p0_q15: np.ndarray,
-                            r_q15: np.ndarray) -> Optional[np.ndarray]:
+    _PARSE_FAULTS = {-1: "shorter than its header and state index",
+                     -2: "of an unknown version",
+                     -3: "of another latent count than the batch's first",
+                     -4: "at a level past the statistical tables",
+                     -5: "with a state index past the PVQ codebook"}
+
+    def dred_parse_payloads(self, data: bytes, lengths: np.ndarray,
+                            n_latents: int, latent_dim: int, state_dim: int,
+                            state_k: int, p0_q15: np.ndarray,
+                            r_q15: np.ndarray,
+                            out: Optional[np.ndarray] = None
+                            ) -> Optional[np.ndarray]:
+        """Parse B DRED payloads in one call (the inverse of
+        `dred_frame_payloads`): `data` the payloads back to back, lengths
+        [B], p0/r [levels, D] Q15 tables of every level. Returns the int16
+        rows [B, L * D + S + L] (`out` where given): each stream's symbols
+        (oldest latent first), pulses and its latents' levels. None -> the
+        caller parses a payload at a time. Raises ValueError on a payload
+        the parse refuses."""
         lib = self._lib()
         if lib is None:
             return None
-        p0 = np.ascontiguousarray(p0_q15, np.uint16).reshape(-1)
-        r = np.ascontiguousarray(r_q15, np.uint16).reshape(-1)
-        buf = np.frombuffer(data, np.uint8).copy()
-        if buf.size == 0:
-            buf = np.zeros(1, np.uint8)
-        out = np.empty(p0.size, np.int32)
-        lib.dred_decode_latents(_cp(buf, ctypes.c_uint8), len(data),
-                                _cp(p0, ctypes.c_uint16),
-                                _cp(r, ctypes.c_uint16), p0.size,
-                                _cp(out, ctypes.c_int32))
-        return out.reshape(np.asarray(p0_q15).shape)
+        lengths = np.ascontiguousarray(lengths, np.int64)
+        b = lengths.shape[0]
+        p0 = np.ascontiguousarray(p0_q15, np.uint16)
+        r = np.ascontiguousarray(r_q15, np.uint16)
+        if (p0.ndim != 2 or p0.shape != r.shape or p0.shape[1] != latent_dim
+                or int(lengths.sum()) != len(data) or (lengths < 0).any()):
+            raise ValueError("dred_parse_payloads: lengths, data and the "
+                             "[levels, D] tables disagree")
+        shape = (b, n_latents * latent_dim + state_dim + n_latents)
+        if out is None:
+            out = np.empty(shape, np.int16)
+        if (not isinstance(out, np.ndarray) or out.dtype != np.int16
+                or out.shape != shape or not out.flags.c_contiguous):
+            raise ValueError(f"dred_parse_payloads: out must be a contiguous "
+                             f"int16 array of shape {shape}")
+        buf = np.frombuffer(data, np.uint8) if len(data) else np.zeros(1, np.uint8)
+        bad = np.zeros(1, np.int64)
+        rc = lib.dred_parse_payloads(
+            _cp(buf, ctypes.c_uint8), _cp(lengths, ctypes.c_int64), b,
+            n_latents, latent_dim, state_dim, state_k, _cp(p0, ctypes.c_uint16),
+            _cp(r, ctypes.c_uint16), p0.shape[0], _cp(out, ctypes.c_int16),
+            _cp(bad, ctypes.c_int64))
+        if rc == -6:
+            raise ValueError("dred_parse_payloads: the PVQ codebook needs "
+                             "more than 127 bits")
+        if rc != 0:
+            raise ValueError(f"dred_parse_payloads: payload {int(bad[0])} is "
+                             f"{self._PARSE_FAULTS[int(rc)]}")
+        return out
 
 
 runtime = _Runtime()

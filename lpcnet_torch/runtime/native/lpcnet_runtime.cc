@@ -9,8 +9,9 @@
 //     and the noisy-excitation teacher loop (cf. src/dump_data.c:46-56,84-108)
 //   * a multi-stream batching assembler for serving (gather per-stream
 //     frames into device-batch order and scatter results back)
-//   * DRED's latent range coder, byte-compatible with dred/entropy.py, and
-//     the framing of a whole batch of DRED payloads in one call
+//   * DRED's latent range coder, byte-compatible with dred/entropy.py, the
+//     framing of a whole batch of DRED payloads in one call and its inverse,
+//     the parse of a whole batch
 //
 // Built by runtime/bindings.py with g++ -O3 -shared -fPIC into
 // lpcnet_torch/runtime/build/ at first use, loaded with ctypes. The same
@@ -392,6 +393,28 @@ void dred_decode_latents(const uint8_t* data, int64_t len,
 
 typedef unsigned __int128 u128;
 
+// V(n, k), the number of n-dim vectors of k pulses (models/rdovae.py's
+// pvq_codebook_size), for n <= state_dim, k <= state_k into v
+// [(state_dim + 1) * (state_k + 1)]; false where a count passes 127 bits.
+static bool pvq_counts(int64_t state_dim, int64_t state_k, std::vector<u128>& v) {
+  const int64_t kk = state_k + 1;
+  const u128 limit = (u128)1 << 127;
+  v.assign((state_dim + 1) * kk, 0);
+  for (int64_t n = 0; n <= state_dim; n++) {
+    for (int64_t k = 0; k <= state_k; k++) {
+      u128 s = k == 0 ? 1 : 0;
+      if (n > 0 && k > 0) {
+        s = v[(n - 1) * kk + k] + v[n * kk + k - 1];
+        if (s >= limit) return false;
+        s += v[(n - 1) * kk + k - 1];
+        if (s >= limit) return false;
+      }
+      v[n * kk + k] = s;
+    }
+  }
+  return true;
+}
+
 // zq [B, L, D] symbols, pulses [B, S] with sum |.| == state_k, p0/r [L, D]
 // Q15 of the payload's levels. Payloads are written back to back into out
 // (cap bytes), their lengths into lengths [B]. Returns the bytes written;
@@ -406,23 +429,9 @@ int64_t dred_frame_payloads(const int16_t* zq, const int16_t* pulses,
   if (n_latents < 1 || n_latents >= 4096 || q0 < 0 || q0 > 15 || q1 < 0 ||
       q1 > 15 || state_dim < 1 || state_k < 0)
     return -3;
-  // V(n, k): the number of n-dim vectors of k pulses (models/rdovae.py's
-  // pvq_codebook_size), for n <= state_dim, k <= state_k
   const int64_t kk = state_k + 1;
-  const u128 limit = (u128)1 << 127;
-  std::vector<u128> v((state_dim + 1) * kk);
-  for (int64_t n = 0; n <= state_dim; n++) {
-    for (int64_t k = 0; k <= state_k; k++) {
-      u128 s = k == 0 ? 1 : 0;
-      if (n > 0 && k > 0) {
-        s = v[(n - 1) * kk + k] + v[n * kk + k - 1];
-        if (s >= limit) return -3;
-        s += v[(n - 1) * kk + k - 1];
-        if (s >= limit) return -3;
-      }
-      v[n * kk + k] = s;
-    }
-  }
+  std::vector<u128> v;
+  if (!pvq_counts(state_dim, state_k, v)) return -3;
   int sbits = 0;
   for (u128 x = v[state_dim * kk + state_k] - 1; x; x >>= 1) sbits++;
   const int64_t nsb = (std::max(sbits, 1) + 7) / 8;
@@ -468,6 +477,98 @@ int64_t dred_frame_payloads(const int16_t* zq, const int16_t* pulses,
     pos += head + len;
   }
   return pos;
+}
+
+// ---------------------------------------------------------------------------
+// DRED payload parsing, every stream of a batch in one call: the inverse of
+// dred_frame_payloads (mirror of dred/entropy.py::decode_payload). Per
+// payload: the header, the PVQ index read big-endian and decoded to pulses
+// in 128-bit arithmetic, the levels of its latents (payload_q_ids: q1 for
+// the oldest to q0 for the newest, rounded half to even as numpy rounds),
+// and the latents range-decoded with the tables' rows of those levels.
+// ---------------------------------------------------------------------------
+
+// data: n_streams payloads back to back, lengths [B]; p0/r [levels, D] Q15
+// tables of every level. Row b of out [B, L * D + S + L] int16: stream b's
+// symbols (oldest latent first, dims ascending), its pulses, its latents'
+// levels. Returns 0; or, with the stream at fault in *bad: -1 shorter than
+// its header and index; -2 an unknown version; -3 a latent count other than
+// n_latents; -4 a level past the tables; -5 an index past the codebook; -6
+// a codebook past 127 bits (bad = -1).
+int64_t dred_parse_payloads(const uint8_t* data, const int64_t* lengths,
+                            int64_t n_streams, int64_t n_latents,
+                            int64_t latent_dim, int64_t state_dim,
+                            int64_t state_k, const uint16_t* p0,
+                            const uint16_t* r, int64_t levels, int16_t* out,
+                            int64_t* bad) {
+  *bad = -1;
+  std::vector<u128> v;
+  if (n_latents < 1 || state_dim < 1 || state_k < 0 ||
+      !pvq_counts(state_dim, state_k, v))
+    return -6;
+  const int64_t kk = state_k + 1;
+  const u128 total = v[state_dim * kk + state_k];
+  int sbits = 0;
+  for (u128 x = total - 1; x; x >>= 1) sbits++;
+  const int64_t nsb = (std::max(sbits, 1) + 7) / 8;
+  const int64_t head = 3 + nsb;
+  const int64_t n_sym = n_latents * latent_dim;
+  const int64_t row_len = n_sym + state_dim + n_latents;
+  std::vector<int32_t> sym(n_sym);
+  std::vector<uint16_t> p0_row(n_sym), r_row(n_sym);
+  std::vector<int64_t> q(n_latents);
+  int64_t q_pair = -1;  // the (q0, q1) whose rows p0_row and r_row hold
+  const uint8_t* d = data;
+  for (int64_t b = 0; b < n_streams; d += lengths[b], b++) {
+    *bad = b;
+    const int64_t len = lengths[b];
+    if (len < head) return -1;
+    if (d[0] >> 4 != 1) return -2;
+    if ((((int64_t)d[1] & 0xF) << 8 | d[2]) != n_latents) return -3;
+    const int64_t q0 = d[0] & 0xF, q1 = d[1] >> 4;
+    if (q0 >= levels || q1 >= levels) return -4;
+    u128 idx = 0;
+    for (int64_t i = 0; i < nsb; i++) idx = idx << 8 | d[3 + i];
+    if (idx >= total) return -5;
+    int16_t* o = out + b * row_len;
+    // pulses (dred/entropy.py::pvq_decode_index): per position the zero
+    // block, then +1, -1, +2, -2, ...
+    int16_t* y = o + n_sym;
+    int64_t k = state_k;
+    for (int64_t j = 0; j < state_dim; j++) {
+      const u128* vr = &v[(state_dim - j - 1) * kk];
+      int64_t val = 0;
+      if (idx >= vr[k]) {
+        idx -= vr[k];
+        for (int64_t m = 1; m <= k; m++) {
+          const u128 block = vr[k - m];
+          if (idx < block) { val = m; break; }
+          idx -= block;
+          if (idx < block) { val = -m; break; }
+          idx -= block;
+        }
+      }
+      y[j] = (int16_t)val;
+      k -= val < 0 ? -val : val;
+    }
+    if ((q1 << 4 | q0) != q_pair) {
+      q_pair = q1 << 4 | q0;
+      for (int64_t l = 0; l < n_latents; l++) {
+        q[l] = n_latents == 1 ? q0 : (int64_t)std::nearbyint(
+            (double)q1 + (double)((q0 - q1) * l) / (double)(n_latents - 1));
+        std::memcpy(&p0_row[l * latent_dim], p0 + q[l] * latent_dim,
+                    latent_dim * sizeof(uint16_t));
+        std::memcpy(&r_row[l * latent_dim], r + q[l] * latent_dim,
+                    latent_dim * sizeof(uint16_t));
+      }
+    }
+    dred_decode_latents(d + head, len - head, p0_row.data(), r_row.data(),
+                        n_sym, sym.data());
+    for (int64_t i = 0; i < n_sym; i++) o[i] = (int16_t)sym[i];
+    for (int64_t l = 0; l < n_latents; l++) o[n_sym + state_dim + l] = (int16_t)q[l];
+  }
+  *bad = -1;
+  return 0;
 }
 
 }  // extern "C"

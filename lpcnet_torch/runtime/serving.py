@@ -10,7 +10,10 @@ output is dropped; a slot's state is reset when a stream attaches.
 A `DREDEncoderPool` is the sender's side of DRED over a fixed set of
 streams: every 20 ms tick it takes each stream's PCM in slot order and
 hands back one redundancy payload a stream; on CUDA the tick's two-frame
-analysis is one CUDA graph replay (`codec.features.AnalysisGraph`).
+analysis is one CUDA graph replay (`codec.features.AnalysisGraph`). A
+`DREDDecoderPool` is the receiver's side: every tick it takes one payload
+a stream and decodes each whole redundancy window into feature frames on
+the device, where the concealment's FEC queue reads them.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 
 from ..codec.decoder import LPCNetDecoder
 from ..codec.features import AnalysisGraph, init_encoder_state
-from ..dred.coder import DREDEncoder
+from ..dred import entropy as EC
+from ..dred.coder import DREDDecoder, DREDEncoder
 from ..dsp.constants import FRAME_SIZE, LPCNET_COMPRESSED_SIZE, NB_TOTAL_FEATURES
 from ..models import lpcnet as M
 from ..models import rdovae as RV
@@ -256,3 +260,32 @@ class DREDEncoderPool:
             self.enc.add_feature_frame(f1)
             return self.enc.produce_payload(self.num_redundancy_frames,
                                             self.q0, self.q1)
+
+
+class DREDDecoderPool:
+    """DRED decoding for `streams` streams, attached for the pool's life
+    (slot k is row k). Each `step_payloads` takes one redundancy payload a
+    stream and decodes them all at once (`DREDDecoder.decode_payloads`):
+    one native call parses every payload, one copy takes the symbols,
+    pulses and levels to the device, and the RDO-VAE decoder steps there
+    over every stream's latents, newest first. `stats` is the decoder's
+    counters (`payloads_parsed`, `latents_decoded`, `native_parses`,
+    `python_parses`). Runs on CUDA unless `device="cpu"` is passed."""
+
+    def __init__(self, params, cfg: Optional[RV.RDOVAEConfig] = None,
+                 streams: int = 1024, device=None):
+        self.streams = streams
+        self.dec = DREDDecoder(params, cfg, device=device)
+        self.device = self.dec.device
+        self.stats = self.dec.stats
+
+    def step_payloads(self, payloads: EC.Payloads) -> torch.Tensor:
+        """One payload a stream in slot order (an `entropy.Payloads`, each
+        of one latent count L) -> features [streams, L * 4, 20] on the
+        device, newest latent first (`DREDDecoder.decode_all`'s order); the
+        call returns once the work is queued."""
+        with span("lpcnet.serving.step_payloads"):
+            if len(payloads) != self.streams:
+                raise ValueError(f"step_payloads: {self.streams} payloads a "
+                                 f"tick, got {len(payloads)}")
+            return self.dec.decode_payloads(payloads)

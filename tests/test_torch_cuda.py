@@ -1200,6 +1200,41 @@ def test_cuda_dred_pool_at_1024_streams(cuda):
         assert np.array_equal(zq, out["zq"][i]) and np.array_equal(pulses, out["pulses"][i])
 
 
+@pytest.mark.cuda
+def test_cuda_dred_decoder_pool_at_1024_streams(cuda):
+    """DRED's receiving side on the card: a 1024-stream encoder pool's
+    payloads through `DREDDecoderPool` twice (the pinned stage reused), one
+    native parse a tick and none in Python; the parse on the card equals
+    the encoder's symbols and pulses and, for 16 streams,
+    `entropy.decode_payload`'s levels; 8 streams' features within 1e-4 of
+    their scale of a CPU decoder's."""
+    from lpcnet_torch.dred import entropy as EC
+    params, rcfg = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device=cuda)
+    cpu_params, _ = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device="cpu")
+    b = 1024
+    audio = _dred_speech(b, 27, seed=6)
+    enc = api.DREDEncoderPool(params, rcfg, streams=b, device=cuda)
+    for t in range(27):
+        out = enc.step_pcm(audio[t])
+    pool = api.DREDDecoderPool(params, rcfg, streams=b, device=cuda)
+    first = pool.step_payloads(out["payloads"]).clone()
+    feats = pool.step_payloads(out["payloads"])
+    torch.cuda.synchronize()
+    assert feats.device.type == "cuda" and feats.shape == (b, 104, 20)
+    assert torch.equal(first, feats)
+    assert pool.stats == {"native_parses": 2, "payloads_parsed": 2 * b,
+                          "latents_decoded": 2 * 26 * b}
+    zq, pulses, q_ids = (t.cpu().numpy() for t in pool.dec.parsed)
+    assert np.array_equal(zq, out["zq"]) and np.array_equal(pulses, out["pulses"])
+    for i in range(0, b, b // 16):
+        _, _, q = EC.decode_payload(out["payloads"][i], pool.dec.fixed_stats, 24, 82)
+        assert np.array_equal(q_ids[i], q)
+    want = api.DREDDecoder(cpu_params, rcfg, device="cpu").decode_payloads(
+        [out["payloads"][i] for i in range(8)])
+    gap = float((feats[:8].cpu() - want).abs().max()) / float(want.abs().max())
+    assert gap <= 1e-4, gap
+
+
 def _frame_on_card(zq, pulses, p0, r, k, dev, q0=9, q1=15):
     """`kernels.dred_payload` on numpy symbols [B, L, D], pulses [B, S] and
     p0/r [L, D]: (the payloads' bytes, lengths, relaunches), the launches
