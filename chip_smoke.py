@@ -123,7 +123,12 @@ Needs one CUDA card, nvcc and g++. Phases:
      equal to the native call's on the same symbols, then D1 timed (CUDA
      events, at 1024, 32 and 1 streams) against its bound and the native
      call, and the encoder's whole framing on the card (host clock), on the
-     kernels line; decode_all at 1024 streams; PLCStreamPool at 256 streams
+     kernels line; D2 (`kernels/dred_parse.py`) on that encoder's next
+     payloads through a DREDDecoder: one launch, one device parse and no
+     native call, its rows equal to the native call's, then D2 timed
+     (CUDA events, at 1024, 32 and 1 streams) against its bound (D1's, the
+     same decisions) and the native call, and the decoder's whole parse
+     (host clock), on the kernels line; decode_all at 1024 streams; PLCStreamPool at 256 streams
      for 100 frames, 64 of its streams fed their DRED-decoded redundancy
      through fec_add (K2 twice and K3 once a frame asserted); `cli
      fec-encode` of the C fixture's speech through the host PLC (K2 at one
@@ -215,7 +220,8 @@ from lpcnet_torch.train import train_lpcnet as T
 from lpcnet_torch.train.data import DeviceLPCNetLoader, LPCNetLoader
 
 SEED = 0
-KERNEL_SOURCES = ["sample_loop", "masked_loop", "gru_train", "plc_chain", "dred_payload"]
+KERNEL_SOURCES = ["sample_loop", "masked_loop", "gru_train", "plc_chain", "dred_payload",
+                  "dred_parse"]
 # H100 SXM data-sheet peaks (dense): bytes/s and operations/s by type
 HBM_BPS = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -2699,7 +2705,7 @@ def drive_dred(dev, smi):
     latent 80, state 24): the served step at 1024 streams against the CPU,
     payloads, decode_all, the redundancy into a PLC pool's FEC queues and
     `cli fec-encode` into the host PLC. Returns (the {"dred": ...} numbers,
-    D1's kernels-line entry)."""
+    [D1's and D2's kernels-line entries])."""
     from lpcnet_torch.dred import entropy as DE
     from lpcnet_torch.dred.coder import (DREDDecoder, DREDEncoder,
                                          quantize_latents)
@@ -2799,6 +2805,7 @@ def drive_dred(dev, smi):
         f"host clock; card: {smi}")
     coder = payload_coders(out, penc.fixed_stats, rcfg, smi)
     d1 = time_d1(enc, rcfg, dev, smi)
+    d2 = time_d2(enc, rcfg, dev, smi)
 
     # decode_all at 1024 streams on the newest 26 latents
     q_ids = DE.payload_q_ids(26, 9, 15)
@@ -2832,7 +2839,7 @@ def drive_dred(dev, smi):
             "payload_roundtrip_exact": True, "payload_encode_ms": pay_enc_ms,
             "payload_decode_ms": pay_dec_ms, "payload_coder": coder,
             "decode_all_ms": decode_all_ms,
-            "decode_all_device_ms": lat_ms, "plc": plc, "host_plc": host}, d1
+            "decode_all_device_ms": lat_ms, "plc": plc, "host_plc": host}, [d1, d2]
 
 
 def d1_bound_ms(zq):
@@ -2920,6 +2927,83 @@ def time_d1(enc, rcfg, dev, smi):
                       "native coder's bytes, a carry's bytes held in registers; "
                       "pack_kernel: the slots back to back by the lengths' "
                       "exclusive sum"}
+
+
+def time_d2(enc, rcfg, dev, smi):
+    """D2 on the main DRED decoding path: the served encoder's (1024
+    streams) next payloads through a DREDDecoder make one launch, one
+    device parse and no native call, with the native call's rows; then, on
+    that batch's uploaded bytes, the launch in CUDA events at 1024 streams,
+    at the first 32 and at the first alone; the decoder's whole parse
+    (stage and checks, the copy, the launch: the host's time, and to the
+    card's end) and the native call, host clock. Returns D2's kernels-line
+    entry."""
+    from lpcnet_torch.dred import entropy as DE
+    from lpcnet_torch.dred.coder import DREDDecoder
+    from lpcnet_torch.kernels import dred_parse as DX
+    from lpcnet_torch.runtime.bindings import runtime
+    out = enc.produce_payload(52, q0=9, q1=15)
+    payloads = out["payloads"]
+    b, k, n_lat = len(payloads), rcfg.pvq_num_pulses, out["zq"].shape[1]
+    dec = DREDDecoder(enc.params, rcfg, device=dev)
+    DX.Parsing.launches = 0
+    dec.decode_payloads(payloads)
+    torch.cuda.synchronize()
+    launches = DX.Parsing.launches
+    counted = {n: dec.stats[n] for n in ("device_parses", "native_parses", "python_parses")}
+    assert launches == 1 and counted == {"device_parses": 1, "native_parses": 0,
+                                         "python_parses": 0}, (launches, counted)
+    stats = dec.fixed_stats
+    native = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        want = runtime.dred_parse_payloads(payloads.data, payloads.lengths, n_lat,
+                                           rcfg.latent_dim, rcfg.state_dim, k,
+                                           stats["p0_q15"], stats["r_q15"])
+        native.append(1e3 * (time.perf_counter() - t0))
+    assert np.array_equal(dec._rows.cpu().numpy(), want), "D2 rows"
+    zq, pulses, _ = DE.split_rows(want, n_lat, rcfg.latent_dim, rcfg.state_dim)
+    assert np.array_equal(zq, out["zq"]) and np.array_equal(pulses, out["pulses"])
+
+    p = dec._parsing
+    k_ms = time_cuda(p.launch, reps=50, warmup=3)
+    few = {}
+    for n in (32, 1):
+        g = DX.Parsing(stats, n, n_lat, rcfg.latent_dim, rcfg.state_dim, k, dev)
+        rows = g(DE.Payloads(payloads.data[:int(payloads.lengths[:n].sum())],
+                             payloads.lengths[:n]))
+        assert np.array_equal(rows.cpu().numpy(), want[:n]), f"D2 rows, {n} streams"
+        few[n] = time_cuda(g.launch, reps=20)
+    host, path = [], []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec._parse_on_card(payloads, n_lat)
+        host.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        path.append(1e3 * (time.perf_counter() - t0))
+    assert np.array_equal(dec._rows.cpu().numpy(), want), "D2 rows, again"
+    bound, by, top, mean = d1_bound_ms(out["zq"])
+    native_ms, host_ms, path_ms = (float(np.median(x)) for x in (native, host, path))
+    log(f"D2 B={b}, {n_lat} latents x {rcfg.latent_dim}, {len(payloads.data)} bytes: "
+        f"decode_payloads 1 launch, 1 device parse, no native call, rows equal to "
+        f"the native call's; kernel {k_ms:.4f} ms/launch (CUDA events; 32 streams "
+        f"{few[32]:.4f}, 1 stream {few[1]:.4f}), bound {bound:.4f} ms ({by}; mean "
+        f"{mean:.1f} decisions); the decoder's card parse {host_ms:.3f} ms of host, "
+        f"{path_ms:.3f} ms to the card's end; the native call {native_ms:.3f} ms "
+        f"(host clock, medians); card: {smi}")
+    return {"name": "dred_parse", "route": "cuda",
+            "source": "lpcnet_torch/kernels/csrc/dred_parse.cu", "replaces": None,
+            "launches": launches, "max_abs_err": 0, "rows_equal_native": True,
+            "streams": b, "payload_bytes": len(payloads.data), "ms": k_ms,
+            "ms_32_streams": few[32], "ms_1_stream": few[1], "host_ms": host_ms,
+            "ms_tick_path": path_ms, "plain_ms": None, "native_ms": native_ms,
+            "bound_ms": bound, "bound_by": by, "decisions_max": top,
+            "decisions_mean": mean, "library_ms": None, "pass": True,
+            "design": "parse_kernel: one thread, and so one warp, a stream, 8 a "
+                      "block; V(n, k) and the clamped probabilities in shared "
+                      "memory; the native decoder's decisions, a byte read a "
+                      "renormalisation ahead"}
 
 
 def payload_coders(out, stats, rcfg, smi):
@@ -4314,8 +4398,8 @@ def main():
 
     # 15. DRED, its redundancy into the PLC pool's FEC queues and the host PLC
     t0 = time.perf_counter()
-    dred, d1_entry = drive_dred(dev, smi)
-    entries.append(d1_entry)
+    dred, d_entries = drive_dred(dev, smi)
+    entries.extend(d_entries)
     log(f"DRED phase: {time.perf_counter() - t0:.1f} s")
 
     # 16-19. the factored q8 embedding: K1, K2 and K3 vs their plain
@@ -4332,7 +4416,7 @@ def main():
     fact_entries[0]["ms_frame_synthesis"] = syn_ms
     fact_entries[1]["ms_frame_plc"] = fact_entries[2]["ms_frame_plc"] = plc_ms
     entries.extend(fact_entries)
-    assert len(entries) == 14 and all(e["launches"] > 0 for e in entries), entries
+    assert len(entries) == 15 and all(e["launches"] > 0 for e in entries), entries
     pdf_secs, pdf_frame_ms = cli_pdf_on_card(dev, smi)
     log(f"factored and pdf phases: {time.perf_counter() - t0:.1f} s")
 
@@ -4343,7 +4427,7 @@ def main():
         pipeline, k1_keys, paths = drive_training_pipeline(dev, smi, workdir)
         pipeline["native_build_s"] = native_s
         entries[0].update(k1_keys)
-        assert len(entries) == 14 and all(e["launches"] > 0 for e in entries), entries
+        assert len(entries) == 15 and all(e["launches"] > 0 for e in entries), entries
         log(f"training pipeline phase: {time.perf_counter() - t0:.1f} s")
 
         # 21. the last modules: codebook training, train_block, the mesh,

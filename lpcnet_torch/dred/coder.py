@@ -15,10 +15,12 @@ the symbols and the PVQ search on the device; on CUDA one kernel frames
 every payload on the card (`kernels.dred_payload`), and two copies bring
 the symbols and the payloads' bytes over; on the CPU one readback and one
 native call that frames every payload (`entropy.encode_payloads`). A
-batch of payloads is decoded the other way round: one native call parses
-every payload (`entropy.decode_payloads`), one copy takes the symbols to
-the device, and the decoder steps there over every stream at once. Both
-drivers run on CUDA unless the caller passes `device="cpu"`.
+batch of payloads is decoded the other way round: on CUDA one copy takes
+the payloads' bytes to the card and one kernel parses every payload there
+(`kernels.dred_parse`), on the CPU one native call parses them
+(`entropy.decode_payloads`), and the decoder steps on the device over
+every stream at once. The encoder and the decoder run on CUDA unless the
+caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..kernels import dred_parse as DX
 from ..kernels import dred_payload as DP
 from ..models import rdovae as RV
 from ..utils.device import resolve_device
@@ -207,13 +210,16 @@ class DREDDecoder:
     """Redundancy decoder (DRED_rdovae_decode_all, src/dred_rdovae.c:38-52).
 
     `decode_payloads` decodes a batch of payloads with no Python loop over
-    the streams: one native call parses them all (`entropy.decode_payloads`;
-    without the library, the Python parse a payload at a time), one copy
-    takes every stream's symbols, pulses and levels to the device (`parsed`,
-    kept until the next batch), and the decoder runs there over every
+    the streams. On CUDA one copy takes the payloads' bytes to the card
+    and one kernel parses every payload there (`kernels.dred_parse`); on
+    the CPU one native call parses them all (`entropy.decode_payloads`;
+    without the library, the Python parse a payload at a time). Both give
+    every stream's symbols, pulses and levels (`parsed`, until the next
+    batch overwrites them), and the decoder runs on the device over every
     stream at once. `stats` counts the payloads parsed (`payloads_parsed`),
-    the latents decoded (`latents_decoded`) and the parses: `native_parses`
-    (one a batch) or `python_parses` (one a payload)."""
+    the latents decoded (`latents_decoded`) and the parses:
+    `device_parses` (one a batch on CUDA), `native_parses` (one a batch)
+    or `python_parses` (one a payload)."""
 
     def __init__(self, params, cfg: Optional[RV.RDOVAEConfig] = None,
                  device=None):
@@ -224,8 +230,7 @@ class DREDDecoder:
         self.stats = collections.Counter()
         self._rows: Optional[torch.Tensor] = None   # the last batch's parse
         self._n_lat = 0
-        self._stage: Optional[torch.Tensor] = None   # pinned host rows (CUDA)
-        self._staged = None     # the event that ends the stage's last copy
+        self._parsing = None    # the card's `DX.Parsing` at the last shape parsed
 
     @torch.no_grad()
     def decode_latents(self, z_rev: torch.Tensor, state: torch.Tensor
@@ -251,18 +256,6 @@ class DREDDecoder:
         state = torch.as_tensor(state, dtype=torch.float32, device=dev)
         return self.decode_latents(torch.flip(z, dims=(1,)), state).cpu().numpy()
 
-    def _host_rows(self, shape) -> Optional[np.ndarray]:
-        """Where the parse writes: on CUDA a pinned stage, kept while the
-        shape holds, once its last copy to the card has ended."""
-        if self.device.type != "cuda":
-            return None
-        if self._stage is None or tuple(self._stage.shape) != shape:
-            self._stage = torch.empty(shape, dtype=torch.int16, pin_memory=True)
-            self._staged = None
-        if self._staged is not None:
-            self._staged.synchronize()
-        return self._stage.numpy()
-
     @property
     def parsed(self):
         """The last batch's parse on the device: (symbols [B, L, latent]
@@ -282,29 +275,47 @@ class DREDDecoder:
             payloads = EC.Payloads.of(payloads)
         cfg = self.cfg
         with span("lpcnet.dred.parse"):
-            n_lat = EC.payload_latent_count(payloads[0]) if len(payloads) else 0
-            shape = (len(payloads), n_lat * (cfg.latent_dim + 1) + cfg.state_dim)
-            host = EC.decode_payloads(payloads, self.fixed_stats, cfg.state_dim,
-                                      cfg.pvq_num_pulses, self.stats,
-                                      out=self._host_rows(shape))
+            n_lat = EC.batch_latent_count(payloads)
             if self.device.type == "cuda":
-                self._rows = self._stage.to(self.device, non_blocking=True)
-                self._staged = torch.cuda.Event()
-                self._staged.record()
+                self._rows = self._parse_on_card(payloads, n_lat)
             else:
-                self._rows = torch.from_numpy(host)
+                self._rows = torch.from_numpy(EC.decode_payloads(
+                    payloads, self.fixed_stats, cfg.state_dim, cfg.pvq_num_pulses,
+                    self.stats))
         self._n_lat = n_lat
         self.stats.update(payloads_parsed=len(payloads),
                           latents_decoded=n_lat * len(payloads))
         with span("lpcnet.dred.decode", device=self.device):
-            # the symbols unquantised at their levels; the decoder's initial
-            # state the pulses' unit vector in float64, as
-            # `entropy.pvq_normalize`
-            zq, pulses, q_ids = self.parsed
-            z = unquantize_latents(self.params, zq.float(), q_ids.long(), cfg)
-            p = pulses.double()
-            state = (p / (torch.sqrt((p * p).sum(-1, keepdim=True)) + 1e-15)).float()
-            return self.decode_latents(torch.flip(z, dims=(1,)), state)
+            return self.decode_rows(self._rows)
+
+    def _parse_on_card(self, payloads: EC.Payloads, n_lat: int) -> torch.Tensor:
+        """Every payload parsed on the card (`kernels.dred_parse`): the
+        bytes staged and checked on the host, one copy, one launch; the
+        rows stay on the card."""
+        cfg = self.cfg
+        p = self._parsing
+        if p is None or (p.batch, p.n_lat) != (len(payloads), n_lat):
+            p = self._parsing = DX.Parsing(self.fixed_stats, len(payloads), n_lat,
+                                           cfg.latent_dim, cfg.state_dim,
+                                           cfg.pvq_num_pulses, self.device)
+        rows = p(payloads)
+        self.stats["device_parses"] += 1
+        return rows
+
+    @torch.no_grad()
+    def decode_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """A parse's rows on the device (`entropy.decode_payloads`' layout,
+        int16 [B, L * latent + state_dim + L]) -> features [B, L * 4, 20]
+        there, newest latent first: the symbols unquantised at their
+        levels, the decoder's initial state the pulses' unit vector in
+        float64, as `entropy.pvq_normalize`."""
+        cfg = self.cfg
+        n_lat = (rows.shape[1] - cfg.state_dim) // (cfg.latent_dim + 1)
+        zq, pulses, q_ids = EC.split_rows(rows, n_lat, cfg.latent_dim, cfg.state_dim)
+        z = unquantize_latents(self.params, zq.float(), q_ids.long(), cfg)
+        p = pulses.double()
+        state = (p / (torch.sqrt((p * p).sum(-1, keepdim=True)) + 1e-15)).float()
+        return self.decode_latents(torch.flip(z, dims=(1,)), state)
 
     def decode_payload(self, payload: bytes) -> np.ndarray:
         """An entropy-coded payload (`entropy.encode_payload`'s framing) ->

@@ -28,7 +28,8 @@ batch of streams, `pvq_search_batch` runs the PVQ search on the device
 and `encode_payloads` frames every stream's payload in one native call
 (`encode_payload` a stream without the library), again with the same
 bytes; `decode_payloads` parses every stream's payload in one native call
-too (`decode_payload` a stream without it).
+too (`decode_payload` a stream without it), or on CUDA one kernel
+(`kernels.dred_parse`), with the same rows.
 """
 
 from __future__ import annotations
@@ -489,35 +490,43 @@ def split_rows(rows, n_latents: int, latent_dim: int, state_dim: int):
             rows[:, n_sym:n_sym + state_dim], rows[:, n_sym + state_dim:])
 
 
-def decode_payloads(payloads: Payloads, stats: dict, state_dim: int,
-                    state_k: int, counts: Optional[collections.Counter] = None,
-                    out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Every payload parsed (`decode_payload`'s fields), all of the first
-    payload's latent count L: int16 rows [B, L * D + S + L] (into `out`
-    where given), each a stream's symbols, pulses and latents' levels
-    (`split_rows`). One native call parses them all; without the native
-    library, `decode_payload` parses a payload at a time. Both give the
-    same rows and refuse the same payloads (ValueError). `counts` gets the
-    native calls made (`native_parses`) or the payloads parsed a stream at
-    a time (`python_parses`)."""
-    from ..runtime.bindings import runtime
+def batch_latent_count(payloads: Payloads) -> int:
+    """The latent count L of a batch of payloads: its first payload's.
+    Raises ValueError on an empty batch, or a first payload without a
+    header or of no latent."""
     if len(payloads) == 0 or len(payloads[0]) < 3:
         raise ValueError("decode_payloads: no payload, or a first payload "
                          "without a header")
-    n_lat, dim = payload_latent_count(payloads[0]), stats["p0_q15"].shape[1]
+    n_lat = payload_latent_count(payloads[0])
     if n_lat < 1:
         raise ValueError("decode_payloads: a first payload of no latent")
+    return n_lat
+
+
+def decode_payloads(payloads: Payloads, stats: dict, state_dim: int,
+                    state_k: int, counts: Optional[collections.Counter] = None
+                    ) -> np.ndarray:
+    """Every payload parsed (`decode_payload`'s fields), all of the first
+    payload's latent count L (`batch_latent_count`): int16 rows [B, L * D
+    + S + L], each a stream's symbols, pulses and latents' levels
+    (`split_rows`). One native call parses them all; without the native
+    library, `decode_payload` parses a payload at a time. Both give the
+    same rows and refuse the same payloads (ValueError); so does the
+    card's parse (`kernels.dred_parse`). `counts` gets the native calls
+    made (`native_parses`) or the payloads parsed a stream at a time
+    (`python_parses`)."""
+    from ..runtime.bindings import runtime
+    n_lat, dim = batch_latent_count(payloads), stats["p0_q15"].shape[1]
     rows = runtime.dred_parse_payloads(
         payloads.data, payloads.lengths, n_lat, dim, state_dim, state_k,
-        stats["p0_q15"], stats["r_q15"], out)
+        stats["p0_q15"], stats["r_q15"])
     if rows is not None:
         if counts is not None:
             counts["native_parses"] += 1
         return rows
     if counts is not None:
         counts["python_parses"] += len(payloads)
-    rows = np.empty((len(payloads), n_lat * dim + state_dim + n_lat), np.int16
-                    ) if out is None else out
+    rows = np.empty((len(payloads), n_lat * dim + state_dim + n_lat), np.int16)
     for b, payload in enumerate(payloads):
         zq, pulses, q_ids = decode_payload(payload, stats, state_dim, state_k)
         if zq.shape[0] != n_lat:

@@ -93,6 +93,14 @@ def _load() -> Optional[ctypes.CDLL]:
     return lib
 
 
+# what `dred_parse_payloads` says of the payload it refuses, by its code
+PARSE_FAULTS = {-1: "shorter than its header and state index",
+                -2: "of an unknown version",
+                -3: "of another latent count than the batch's first",
+                -4: "at a level past the statistical tables",
+                -5: "with a state index past the PVQ codebook"}
+
+
 def native_available() -> bool:
     return _load() is not None
 
@@ -386,22 +394,14 @@ class _Runtime:
                              "count out of the header's range")
         return out[:n].tobytes(), lengths, calls
 
-    _PARSE_FAULTS = {-1: "shorter than its header and state index",
-                     -2: "of an unknown version",
-                     -3: "of another latent count than the batch's first",
-                     -4: "at a level past the statistical tables",
-                     -5: "with a state index past the PVQ codebook"}
-
     def dred_parse_payloads(self, data: bytes, lengths: np.ndarray,
                             n_latents: int, latent_dim: int, state_dim: int,
                             state_k: int, p0_q15: np.ndarray,
-                            r_q15: np.ndarray,
-                            out: Optional[np.ndarray] = None
-                            ) -> Optional[np.ndarray]:
+                            r_q15: np.ndarray) -> Optional[np.ndarray]:
         """Parse B DRED payloads in one call (the inverse of
         `dred_frame_payloads`): `data` the payloads back to back, lengths
         [B], p0/r [levels, D] Q15 tables of every level. Returns the int16
-        rows [B, L * D + S + L] (`out` where given): each stream's symbols
+        rows [B, L * D + S + L]: each stream's symbols
         (oldest latent first), pulses and its latents' levels. None -> the
         caller parses a payload at a time. Raises ValueError on a payload
         the parse refuses."""
@@ -416,13 +416,7 @@ class _Runtime:
                 or int(lengths.sum()) != len(data) or (lengths < 0).any()):
             raise ValueError("dred_parse_payloads: lengths, data and the "
                              "[levels, D] tables disagree")
-        shape = (b, n_latents * latent_dim + state_dim + n_latents)
-        if out is None:
-            out = np.empty(shape, np.int16)
-        if (not isinstance(out, np.ndarray) or out.dtype != np.int16
-                or out.shape != shape or not out.flags.c_contiguous):
-            raise ValueError(f"dred_parse_payloads: out must be a contiguous "
-                             f"int16 array of shape {shape}")
+        out = np.empty((b, n_latents * latent_dim + state_dim + n_latents), np.int16)
         buf = np.frombuffer(data, np.uint8) if len(data) else np.zeros(1, np.uint8)
         bad = np.zeros(1, np.int64)
         rc = lib.dred_parse_payloads(
@@ -435,7 +429,7 @@ class _Runtime:
                              "more than 127 bits")
         if rc != 0:
             raise ValueError(f"dred_parse_payloads: payload {int(bad[0])} is "
-                             f"{self._PARSE_FAULTS[int(rc)]}")
+                             f"{PARSE_FAULTS[int(rc)]}")
         return out
 
 

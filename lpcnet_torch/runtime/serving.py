@@ -265,12 +265,16 @@ class DREDEncoderPool:
 class DREDDecoderPool:
     """DRED decoding for `streams` streams, attached for the pool's life
     (slot k is row k). Each `step_payloads` takes one redundancy payload a
-    stream and decodes them all at once (`DREDDecoder.decode_payloads`):
-    one native call parses every payload, one copy takes the symbols,
-    pulses and levels to the device, and the RDO-VAE decoder steps there
-    over every stream's latents, newest first. `stats` is the decoder's
-    counters (`payloads_parsed`, `latents_decoded`, `native_parses`,
-    `python_parses`). Runs on CUDA unless `device="cpu"` is passed."""
+    stream and decodes them all at once (`DREDDecoder.decode_payloads`).
+    On CUDA one copy takes the payloads' bytes to the card, one kernel
+    parses every payload there (`kernels.dred_parse`) and nothing comes
+    back; on the CPU one native call parses them. The RDO-VAE decoder then
+    steps on the device over every stream's latents, newest first. `stats`
+    is the decoder's counters (`payloads_parsed`, `latents_decoded`, and
+    the parses: on CUDA `device_parses`, one a tick, the engagement count
+    of the card's parse, with `native_parses` and `python_parses` 0; on
+    the CPU `native_parses`, or `python_parses` without the native
+    library). Runs on CUDA unless `device="cpu"` is passed."""
 
     def __init__(self, params, cfg: Optional[RV.RDOVAEConfig] = None,
                  streams: int = 1024, device=None):

@@ -4,7 +4,9 @@ recurrence K5; K1, K2 and K3 also in the factored q8 embedding's form) vs
 their plain PyTorch versions, on a card, `cli synthesis --sampling pdf` on
 the card, the packet decode pool's launches, its frame network's CUDA
 graph against the eager call (bit for bit), DRED's analysis graph against
-the eager analysis (bit for bit), the non-causal PLC pool's and
+the eager analysis (bit for bit), DRED's payloads framed (D1) and parsed
+(D2) on the card against the native calls (byte and value for value), the
+non-causal PLC pool's and
 the host PLC's; and, without a card, that the trainer and the PLC entry
 points refuse to start rather than run on the host.
 
@@ -1203,12 +1205,16 @@ def test_cuda_dred_pool_at_1024_streams(cuda):
 @pytest.mark.cuda
 def test_cuda_dred_decoder_pool_at_1024_streams(cuda):
     """DRED's receiving side on the card: a 1024-stream encoder pool's
-    payloads through `DREDDecoderPool` twice (the pinned stage reused), one
-    native parse a tick and none in Python; the parse on the card equals
-    the encoder's symbols and pulses and, for 16 streams,
-    `entropy.decode_payload`'s levels; 8 streams' features within 1e-4 of
-    their scale of a CPU decoder's."""
+    payloads through `DREDDecoderPool` twice (the stage reused), one parse
+    on the card (one D2 launch) a tick, none native and none in Python;
+    the card's rows equal the native call's, value for value, and the
+    features equal, bit for bit, those decoded from the native call's
+    rows; the parse equals the encoder's symbols and pulses and, for 16
+    streams, `entropy.decode_payload`'s levels; 8 streams' features within
+    1e-4 of their scale of a CPU decoder's."""
     from lpcnet_torch.dred import entropy as EC
+    from lpcnet_torch.kernels import dred_parse as DX
+    from lpcnet_torch.runtime.bindings import runtime
     params, rcfg = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device=cuda)
     cpu_params, _ = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device="cpu")
     b = 1024
@@ -1217,13 +1223,23 @@ def test_cuda_dred_decoder_pool_at_1024_streams(cuda):
     for t in range(27):
         out = enc.step_pcm(audio[t])
     pool = api.DREDDecoderPool(params, rcfg, streams=b, device=cuda)
+    launches = DX.Parsing.launches
     first = pool.step_payloads(out["payloads"]).clone()
+    assert DX.Parsing.launches == launches + 1
     feats = pool.step_payloads(out["payloads"])
     torch.cuda.synchronize()
     assert feats.device.type == "cuda" and feats.shape == (b, 104, 20)
     assert torch.equal(first, feats)
-    assert pool.stats == {"native_parses": 2, "payloads_parsed": 2 * b,
+    assert pool.stats == {"device_parses": 2, "payloads_parsed": 2 * b,
                           "latents_decoded": 2 * 26 * b}
+    assert DX.Parsing.launches == launches + 2
+    assert pool.stats["native_parses"] == pool.stats["python_parses"] == 0
+    stats = pool.dec.fixed_stats
+    native = runtime.dred_parse_payloads(out["payloads"].data, out["payloads"].lengths,
+                                         26, 80, 24, 82, stats["p0_q15"], stats["r_q15"])
+    assert np.array_equal(pool.dec._rows.cpu().numpy(), native)
+    again = pool.dec.decode_rows(torch.from_numpy(native).to(cuda))
+    assert torch.equal(again, feats)
     zq, pulses, q_ids = (t.cpu().numpy() for t in pool.dec.parsed)
     assert np.array_equal(zq, out["zq"]) and np.array_equal(pulses, out["pulses"])
     for i in range(0, b, b // 16):
@@ -1233,6 +1249,111 @@ def test_cuda_dred_decoder_pool_at_1024_streams(cuda):
         [out["payloads"][i] for i in range(8)])
     gap = float((feats[:8].cpu() - want).abs().max()) / float(want.abs().max())
     assert gap <= 1e-4, gap
+
+
+def _dred_parse_batch(rs, b, n_lat, stats, mags=1.5):
+    """b payloads of n_lat latents, each framed by `encode_payload` at its
+    own (q0, q1) (every fifth with q0 = q1); streams 0 and 1 carry the PVQ
+    indices 0 and V(24, 82) - 1, the rest `pvq_search`'s pulses."""
+    from lpcnet_torch.dred import entropy as EC
+    from lpcnet_torch.models import rdovae as RV
+    v = RV.pvq_codebook_size(24, 82)
+    out = []
+    for i in range(b):
+        q0, q1 = (int(q) for q in rs.randint(0, 16, 2))
+        q1 = q0 if i % 5 == 0 else q1
+        pulses = (EC.pvq_decode_index(0 if i == 0 else v - 1, 24, 82) if i < 2
+                  else EC.pvq_search(rs.randn(24), 82))
+        if mags == "max":
+            zq = rs.choice([-255, 255], (n_lat, 80))
+        else:
+            zq = np.round(rs.laplace(0, mags, (n_lat, 80))).astype(np.int64)
+        out.append(EC.encode_payload(zq, pulses, q0, q1, stats, 82))
+    return EC.Payloads.of(out)
+
+
+def _q15_table(rs, clamps=False):
+    pick = (lambda: rs.choice([0, 1, 32767, 32768, 65535], (16, 80))) if clamps \
+        else (lambda: rs.randint(1000, 32000, (16, 80)))
+    return {"p0_q15": pick().astype(np.uint16), "r_q15": pick().astype(np.uint16)}
+
+
+# (streams, latents, the symbols' Laplace scale or "max", clamping tables)
+PARSE_CASES = {"b1": (1, 26, 1.5, False), "b33": (33, 26, 1.5, False),
+               "l1": (33, 1, 1.5, False), "l2": (33, 2, 3.0, False),
+               "pm255": (4, 26, "max", False), "clamps": (33, 26, 3.0, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PARSE_CASES))
+def test_cuda_dred_parse_kernel_equals_the_native_call(cuda, case):
+    """D2's rows are the native call's, value for value: one stream and 33
+    (mixed (q0, q1), q0 = q1 among them), 1, 2 and 26 latents, the PVQ
+    indices 0 and V - 1, symbols at MAX_MAG (payloads of ~5 KB), p0 and r
+    at the clamps (0, 32768, 65535); one launch a parse; a second batch of
+    other bytes through the same stage."""
+    from lpcnet_torch.kernels import dred_parse as DX
+    from lpcnet_torch.runtime.bindings import runtime
+    b, n_lat, mags, clamps = PARSE_CASES[case]
+    rs = np.random.RandomState(len(case) + 30)
+    stats = _q15_table(rs, clamps)
+    p = DX.Parsing(stats, b, n_lat, 80, 24, 82, cuda)
+    for _ in range(2):
+        payloads = _dred_parse_batch(rs, b, n_lat, stats, mags)
+        launches = DX.Parsing.launches
+        rows = p(payloads).cpu().numpy()
+        assert DX.Parsing.launches == launches + 1
+        want = runtime.dred_parse_payloads(payloads.data, payloads.lengths, n_lat, 80,
+                                           24, 82, stats["p0_q15"], stats["r_q15"])
+        assert np.array_equal(rows, want)
+
+
+@pytest.mark.cuda
+def test_cuda_dred_parse_refuses_before_the_launch(cuda):
+    """A payload at fault raises ValueError naming it, and nothing is
+    launched; the next sound batch parses."""
+    from lpcnet_torch.dred import entropy as EC
+    from lpcnet_torch.kernels import dred_parse as DX
+    rs = np.random.RandomState(41)
+    stats = _q15_table(rs)
+    payloads = list(_dred_parse_batch(rs, 9, 26, stats))
+    p = DX.Parsing(stats, 9, 26, 80, 24, 82, cuda)
+    bad = payloads[:5] + [bytes([0x20]) + payloads[5][1:]] + payloads[6:]
+    launches = DX.Parsing.launches
+    with pytest.raises(ValueError, match="payload 5 is"):
+        p(EC.Payloads.of(bad))
+    assert DX.Parsing.launches == launches
+    assert p(EC.Payloads.of(payloads)).shape == (9, 26 * 81 + 24)
+
+
+@pytest.mark.cuda
+def test_cuda_cli_dred_payload_decode_is_the_native_parses_decode(cuda, tmp_path):
+    """`cli dred-payload-decode` on the card (one D2 launch at B=1): its
+    features are, bit for bit, those the decoder gives from the native
+    parse's row of the same payload."""
+    from lpcnet_torch import cli
+    from lpcnet_torch.dred import coder as DC
+    from lpcnet_torch.kernels import dred_parse as DX
+    from lpcnet_torch.runtime.bindings import runtime
+    params, rcfg = api.load_rdovae_model(api.DEMO_RDOVAE_MODEL_PATH, device=cuda)
+    enc = DC.DREDEncoder(params, rcfg, device=cuda)
+    rs = np.random.RandomState(17)
+    for _ in range(56):
+        enc.add_feature_frame((rs.randn(1, 20) * 2).astype(np.float32))
+    payload = enc.produce_payload(52, 9, 15)["payloads"][0]
+    src, dst = tmp_path / "p.bin", tmp_path / "f.f32"
+    src.write_bytes(payload)
+    launches = DX.Parsing.launches
+    cli.main(["dred-payload-decode", str(src), str(dst), "--model",
+              api.DEMO_RDOVAE_MODEL_PATH])
+    assert DX.Parsing.launches == launches + 1
+    got = np.fromfile(dst, np.float32).reshape(104, 20)
+    dec = DC.DREDDecoder(params, rcfg, device=cuda)
+    stats = dec.fixed_stats
+    row = runtime.dred_parse_payloads(payload, np.array([len(payload)]), 26, 80, 24, 82,
+                                      stats["p0_q15"], stats["r_q15"])
+    want = dec.decode_rows(torch.from_numpy(row).to(cuda))[0].cpu().numpy()
+    assert np.array_equal(got, want)
 
 
 def _frame_on_card(zq, pulses, p0, r, k, dev, q0=9, q1=15):
